@@ -1,0 +1,68 @@
+"""Device selection and CUDA kernel loading for the port.
+
+Entry points run on `cuda` unless the caller asks for the CPU
+(`device="cpu"`, as the tests do). Without a GPU and without that explicit
+request they raise: the port never quietly runs on the CPU.
+
+Kernel libraries are built from `csrc/*.cu` with nvcc at first use
+(utils/native_build.py) and loaded with ctypes; this module imports
+neither nvcc's output nor CUDA at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict
+
+import torch
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` by default, the CPU only
+    when asked for explicitly. Raises when CUDA is wanted but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "yugabyte_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def load_cuda_lib(src_name: str) -> ctypes.CDLL:
+    """Build (if stale) and load the shared library of csrc/<src_name>."""
+    with _libs_lock:
+        lib = _libs.get(src_name)
+        if lib is None:
+            from yugabyte_tpu_torch.utils.native_build import build_cuda_lib
+            lib = ctypes.CDLL(build_cuda_lib(src_name))
+            _libs[src_name] = lib
+        return lib
+
+
+def check_u32_matrix(t: torch.Tensor, what: str, rows: int = -1) -> None:
+    """Kernel-input check: a contiguous int32 tensor (u32 bits) on CUDA."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 (u32 bits), got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if rows >= 0 and (t.dim() != 2 or t.shape[0] != rows):
+        raise ValueError(f"{what}: expected shape [{rows}, n], "
+                         f"got {tuple(t.shape)}")
+
+
+def raise_on_cuda_error(rc: int, what: str) -> None:
+    """The C interface returns cudaGetLastError() after each launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
