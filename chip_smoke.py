@@ -2,27 +2,35 @@
 """Chip smoke for the PyTorch/CUDA port (yugabyte_tpu_torch) on one GPU.
 
 Drives the port's main path — disk-to-disk L0->L1 compaction of a YCSB-A
-tablet through `storage.compaction.run_compaction_job_device_native` —
-and holds every CUDA kernel of that path against its plain PyTorch
-version and the native C++ heap-merge oracle. Imports nothing of JAX.
+tablet through `storage.compaction.run_compaction_job_device_native`,
+on its default device-codec path and on its native-shell path
+(YBTPU_DEVICE_CODEC=0) — and holds every CUDA kernel of those paths
+against its plain PyTorch version and the decisions against the native
+C++ heap-merge oracle. Imports nothing of JAX.
 
 Phases (any failure exits non-zero):
   1. name the card (nvidia-smi name and power limit);
   2. build the CUDA kernels (nvcc, sm_90a) and the native shell (g++),
      one compiler process per source, all started together;
-  3. kernels at the main path's shapes: a 10M-row YCSB-A tablet in 4
-     sorted L0 runs (key space n/2, 5% row tombstones, 19-byte column keys
-     -> w = 8, cutoff above all writes, major compaction): m = 2^22,
-     k_pad = 4, n_pad = 2^24. Kernel A (merge-path level) == its plain
-     version at each level; kernel B (GC + packing) == its plain version
-     (packed buffer, perm, keep, make-tombstone); decisions == the C++
-     oracle compact_cpu_baseline. Times with CUDA events;
-  4. compaction: the 4 runs written as SST files; the port's job and the
-     stock native CompactionJob over the same inputs must write
-     byte-identical files; the kernels' launch counters, zeroed just
-     before the port's job, must have risen; then the job's stages run
-     one after the other for a time breakdown;
-  5. a `kernels` JSON line, the card line, and last
+  3. kernels A and B at the main path's shapes: a 10M-row YCSB-A tablet
+     in 4 sorted L0 runs (key space n/2, 5% row tombstones, 19-byte
+     column keys -> w = 8, cutoff above all writes, major compaction):
+     m = 2^22, k_pad = 4, n_pad = 2^24. Kernel A (merge-path level) ==
+     its plain version at each level; kernel B (GC + packing) == its
+     plain version; decisions == the C++ oracle compact_cpu_baseline.
+     Times with CUDA events;
+  4. compaction: the 4 runs written as SST files; the stock native
+     CompactionJob, the port's shell path and the port's codec path over
+     the same inputs must write byte-identical files. Every launch
+     counter is set to 0 just before each port job and read just after:
+     the shell path must launch A and B, the codec path all of A-F.
+     Then both paths' stages run one after the other for a time
+     breakdown;
+  5. kernels C-F (block decode, survivor scan, span gather, block encode)
+     at the codec job's shapes == their plain versions, timed with CUDA
+     events beside their bounds and, for D and E, a PyTorch call that
+     computes the same function;
+  6. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
@@ -281,17 +289,12 @@ def write_inputs(runs, in_dir):
 
 
 def stage_breakdown(readers, cutoff, device="cuda"):
-    """Seconds of each stage of the device job's path, run one after the
+    """Seconds of each stage of the shell path's device job, run one after the
     other (the job overlaps the shell's ingest with stages 1-3): read the
     inputs' columns, upload them, re-lay them run-major, the merge levels
     (kernel A), GC + packing (kernel B), and the download + host decode of
     the packed decisions. Host clock, each stage ended by a synchronize."""
-    import torch
     from yugabyte_tpu_torch.ops import merge_gc, run_merge
-
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
 
     out = {}
     t0 = time.time()
@@ -322,9 +325,45 @@ def stage_breakdown(readers, cutoff, device="cuda"):
     return out
 
 
-def compaction_phase(runs, workdir, device="cuda"):
+def _wrappers():
+    """Every kernel wrapper of the main path, by its name in the kernels
+    line."""
+    from yugabyte_tpu_torch.ops import (block_codec, merge_gc, merge_path,
+                                       run_merge)
+    return {"merge_path_level": merge_path.merge_level,
+            "gc_pack": merge_gc.gc_pack,
+            "block_decode": block_codec.block_decode,
+            "survivor_scan": run_merge.survivor_scan,
+            "span_gather": run_merge.span_gather,
+            "block_encode": block_codec.block_encode}
+
+
+def sync():
     import torch
-    from yugabyte_tpu_torch.ops import merge_gc, merge_path
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def same_files(a, b, what):
+    if (a.rows_in, a.rows_out) != (b.rows_in, b.rows_out) \
+            or len(a.outputs) != len(b.outputs) or not a.outputs:
+        raise AssertionError(f"{what}: jobs disagree on rows/files")
+    for (_, pa, _), (_, pb, _) in zip(a.outputs, b.outputs):
+        for suffix in ("", ".sblock.0"):
+            with open(pa + suffix, "rb") as f1, open(pb + suffix, "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"{what}: output "
+                                         f"{os.path.basename(pa)}{suffix} "
+                                         f"differs")
+
+
+def compaction_phase(runs, workdir, reps, bandwidth, device="cuda"):
+    """The three jobs over the same input SSTs: the stock native
+    CompactionJob, the port's shell path (YBTPU_DEVICE_CODEC=0, slice 1)
+    and the port's default device-codec path (slice 2). Each port job runs
+    with every launch counter set to 0 just before it and read just
+    after."""
+    import torch
     from yugabyte_tpu_torch.storage import compaction
 
     cutoff = history_cutoff(sum(s.n for s in runs))
@@ -335,57 +374,255 @@ def compaction_phase(runs, workdir, device="cuda"):
     rows = sum(s.n for s in runs)
     log(f"wrote {len(readers)} input SSTs ({rows} rows) in "
         f"{time.time() - t0:.1f}s")
-    out = {}
-    for name in ("device", "native"):
+    wrappers = _wrappers()
+    out, launches, peak = {}, {}, {}
+    for name, codec in (("native", None), ("shell", "0"), ("codec", "1")):
         d = os.path.join(workdir, name)
         os.makedirs(d)
         ids = iter(range(1000, 100000))
-        if name == "device":
-            merge_path.merge_level.launches = 0
-            merge_gc.gc_pack.launches = 0
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            res = compaction.run_compaction_job_device_native(
-                readers, d, lambda: next(ids), cutoff, True, device=device)
-            torch.cuda.synchronize()
-            secs = time.time() - t0
-            launches = {"merge_path_level": merge_path.merge_level.launches,
-                        "gc_pack": merge_gc.gc_pack.launches}
-            peak = torch.cuda.max_memory_allocated()
-        else:
+        if codec is None:
             t0 = time.time()
             res = compaction._run_native_job(readers, d, lambda: next(ids),
                                              cutoff, True, False, None)
             secs = time.time() - t0
+        else:
+            os.environ["YBTPU_DEVICE_CODEC"] = codec
+            for w in wrappers.values():
+                w.launches = 0
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            res = compaction.run_compaction_job_device_native(
+                readers, d, lambda: next(ids), cutoff, True, device=device)
+            sync()
+            secs = time.time() - t0
+            launches[name] = {k: w.launches for k, w in wrappers.items()}
+            peak[name] = (torch.cuda.max_memory_allocated()
+                          if torch.cuda.is_available() else 0)
         out[name] = (res, secs)
         log(f"{name} job: {res.rows_in} -> {res.rows_out} rows, "
             f"{len(res.outputs)} files, {secs:.2f}s "
             f"({res.rows_in / secs:,.0f} rows/s)")
-    dev, nat = out["device"][0], out["native"][0]
-    if (dev.rows_in, dev.rows_out) != (nat.rows_in, nat.rows_out) \
-            or len(dev.outputs) != len(nat.outputs) or not dev.outputs:
-        raise AssertionError("device and native jobs disagree on rows/files")
-    for (_, pd, _), (_, pn, _) in zip(dev.outputs, nat.outputs):
-        for suffix in ("", ".sblock.0"):
-            with open(pd + suffix, "rb") as f1, open(pn + suffix, "rb") as f2:
-                if f1.read() != f2.read():
-                    raise AssertionError(f"output {os.path.basename(pd)}"
-                                         f"{suffix} differs from native")
-    log("output SSTs byte-identical to the native CompactionJob")
-    for k, v in launches.items():
+    os.environ["YBTPU_DEVICE_CODEC"] = "1"
+    same_files(out["shell"][0], out["native"][0], "shell path vs native")
+    same_files(out["codec"][0], out["native"][0], "codec path vs native")
+    same_files(out["codec"][0], out["shell"][0], "codec path vs shell path")
+    log("output SSTs byte-identical: codec path == shell path == native "
+        "CompactionJob")
+    for k, v in launches["codec"].items():
         if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the "
-                                 f"main path")
+            raise AssertionError(f"kernel {k} was not launched by the codec "
+                                 f"job (the main path)")
+    for k in ("merge_path_level", "gc_pack"):
+        if launches["shell"][k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the shell "
+                                 f"path")
+    log(f"launches: codec job {launches['codec']}, shell job "
+        f"{launches['shell']}")
     stages = stage_breakdown(readers, cutoff, device)
-    log("device path stages, one after the other: " + ", ".join(
+    log("shell path stages, one after the other: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
-    return {"rows": rows, "device_s": out["device"][1],
-            "native_s": out["native"][1],
-            "device_rows_per_s": rows / out["device"][1],
-            "native_rows_per_s": rows / out["native"][1],
-            "rows_out": dev.rows_out, "files": len(dev.outputs),
-            "device_peak_bytes": peak, "stages": stages,
-            "launches": launches}
+    codec_stages, tensors = codec_breakdown(
+        readers, cutoff, os.path.join(workdir, "breakdown"), reps, bandwidth,
+        device)
+    log("codec path stages, one after the other: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in codec_stages.items()))
+    summary = {"rows": rows, "rows_out": out["codec"][0].rows_out,
+               "files": len(out["codec"][0].outputs),
+               "shell_stages": stages, "codec_stages": codec_stages}
+    for name in ("native", "shell", "codec"):
+        summary[f"{name}_s"] = out[name][1]
+        summary[f"{name}_rows_per_s"] = rows / out[name][1]
+    for name in ("shell", "codec"):
+        summary[f"{name}_peak_bytes"] = peak[name]
+    return summary, launches, tensors
+
+
+def codec_breakdown(readers, cutoff, out_dir, reps, bandwidth,
+                    device="cuda"):
+    """Seconds of each stage of the codec job's path, run one after the
+    other with the same module functions, each ended by a synchronize:
+    raw read + CRC parse, the host column layout, upload + kernel C, the
+    value concat, restage, kernel A, kernel B, the decision download +
+    decode, kernels D + E, the host value gather, kernel F + the host
+    block assembly, and the file writes. The restage (torch indexing,
+    not a kernel yet) is also timed with CUDA events beside its bound.
+    Returns the stages and the tensors the kernel phase checks kernels
+    C-F on."""
+    from yugabyte_tpu_torch.docdb.value import Value
+    from yugabyte_tpu_torch.ops import block_codec, merge_gc, run_merge
+    from yugabyte_tpu_torch.ops.slabs import ValueArray
+    from yugabyte_tpu_torch.storage.sst import data_file_name, write_base_file
+    from yugabyte_tpu_torch.utils import flags
+
+    os.makedirs(out_dir)
+    out = {}
+    t0 = time.time()
+    rfbs = [block_codec.parse_raw_file(r.read_raw(), r.block_handles)
+            for r in readers]
+    out["raw_read_parse_s"] = time.time() - t0
+    t0 = time.time()
+    raws = [block_codec.raw_cols(rfb) for rfb in rfbs]
+    out["decode_host_layout_s"] = time.time() - t0
+    t0 = time.time()
+    staged = []
+    for rfb, (cols_in, n_pad, w_pad) in zip(rfbs, raws):
+        cols, is_const, first = block_codec.block_decode(
+            merge_gc.u32_to_device(cols_in, device), rfb.n)
+        staged.append(merge_gc.StagedCols(
+            cols, rfb.n, n_pad, w_pad, is_const.cpu().numpy(),
+            first.cpu().numpy().view(np.uint32)))
+    sync()
+    out["upload_decode_s"] = time.time() - t0
+    tensors = {"cols_in": raws[0][0], "n": rfbs[0].n}
+    del raws
+    t0 = time.time()
+    values = ValueArray.concat([p for rfb in rfbs for p in rfb.value_parts])
+    out["values_concat_s"] = time.time() - t0
+    t0 = time.time()
+    runs = run_merge.stage_runs_from_staged(staged)
+    sync()
+    out["restage_s"] = time.time() - t0
+    r = merge_gc._ROW_WORDS + runs.w
+    restage_bytes = r * runs.n_pad * 4 + sum(
+        s.n * (merge_gc._ROW_WORDS + s.w) * 4 for s in staged)
+    out["restage_ms_cuda_events"] = cuda_ms(
+        lambda: run_merge.stage_runs_from_staged(staged), reps)
+    out["restage_bound_ms"] = restage_bytes / bandwidth * 1e3
+    del staged
+    t0 = time.time()
+    p_mat = run_merge.merge_payload(runs)
+    sync()
+    out["merge_levels_s"] = time.time() - t0
+    t0 = time.time()
+    packed, keep, mk = merge_gc.gc_pack(p_mat, r, runs.w,
+                                        merge_gc.GCParams(cutoff, True),
+                                        runs.k_pad, runs.m)
+    sync()
+    out["gc_pack_s"] = time.time() - t0
+    t0 = time.time()
+    handle = run_merge.MergeGCHandle(packed, runs, p_mat, keep, mk)
+    perm, keep_h, mk_h = handle.result()
+    surv, mk_s = perm[keep_h], mk_h[keep_h]
+    out["download_decode_s"] = time.time() - t0
+    del runs
+    max_rows = flags.get_flag("compaction_max_output_entries_per_sst")
+    spans = [(s, min(s + max_rows, len(surv)))
+             for s in range(0, len(surv), max_rows)]
+    t0 = time.time()
+    pos = run_merge.survivor_positions(handle)
+    sts = [run_merge.gather_staged_output_span(handle, pos, s, e)
+           for s, e in spans]
+    sync()
+    out["survivor_gather_s"] = time.time() - t0
+    t0 = time.time()
+    tomb = Value.tombstone().encode()
+    vals = [values.gather(surv[s:e], replace_mask=mk_s[s:e],
+                          replacement=tomb) for s, e in spans]
+    out["value_gather_s"] = time.time() - t0
+    t0 = time.time()
+    w_out = max(rfb.w for rfb in rfbs)
+    block_entries = flags.get_flag("sst_block_entries")
+    enc = [block_codec.encode_span(st, e - s, w_out, v, block_entries,
+                                   compress=False)
+           for st, (s, e), v in zip(sts, spans, vals)]
+    out["encode_s"] = time.time() - t0
+    t0 = time.time()
+    for i, ((s, e), (blocks, index, hashes, fk, lk)) in enumerate(
+            zip(spans, enc)):
+        base = os.path.join(out_dir, f"{i:06d}.sst")
+        with open(data_file_name(base), "wb") as f:
+            for blk in blocks:
+                f.write(blk)
+            f.flush()
+            os.fsync(f.fileno())
+        write_base_file(base, index, e - s, hashes, fk, lk, None,
+                        sum(len(b) for b in blocks))
+    out["write_s"] = time.time() - t0
+    tensors.update(keep=keep, p_mat=p_mat, r=r, pos=pos, mk=mk,
+                   span=spans[0], span_cols=sts[0].cols_dev)
+    return out, tensors
+
+
+def codec_kernel_phase(args, t, launches, bandwidth):
+    """Kernels C-F against their plain versions at the codec job's shapes
+    (max_abs_err must be 0), timed with CUDA events, beside their bounds
+    (bytes over the card's memory rate) and, for D and E, one PyTorch
+    call that computes the same function."""
+    import torch
+    from yugabyte_tpu_torch.ops import block_codec, merge_gc, run_merge
+
+    dev = t["p_mat"].device
+    rows = []
+
+    def check(name, got, want):
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"kernel {name} != its plain version "
+                                 f"(max_abs_err {err})")
+        return err
+
+    def entry(name, source, replaces, err, ms, plain_ms, nbytes, lib_ms):
+        e = {"name": name, "route": "cuda",
+             "source": f"yugabyte_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes / bandwidth * 1e3, "bound_by": "bytes",
+             "library_ms": lib_ms}
+        log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"library {lib_ms}, bound {e['bound_ms']:.4f}), "
+            f"{launches[name]} launches in the codec job")
+        rows.append(e)
+
+    # C: one input file's raw columns
+    ci = merge_gc.u32_to_device(t["cols_in"], dev)
+    n = t["n"]
+    err = check("block_decode", block_codec.block_decode(ci, n),
+                block_codec.block_decode_plain(ci, n))
+    rc, n_pad = ci.shape
+    entry("block_decode", "block_codec.cu",
+          "yugabyte_tpu/ops/block_codec.py:97",
+          err, cuda_ms(lambda: block_codec.block_decode(ci, n), args.reps),
+          cuda_ms(lambda: block_codec.block_decode_plain(ci, n), 2),
+          2 * rc * n_pad * 4 + 8 * rc, None)
+    del ci
+
+    # D: the merge's keep bytes
+    keep = t["keep"]
+    err = check("survivor_scan", [run_merge.survivor_scan(keep)],
+                [run_merge.survivor_scan_plain(keep)])
+    entry("survivor_scan", "write_through.cu",
+          "yugabyte_tpu/ops/run_merge.py:866", err,
+          cuda_ms(lambda: run_merge.survivor_scan(keep), args.reps),
+          cuda_ms(lambda: run_merge.survivor_scan_plain(keep), 2),
+          keep.numel() * 5, cuda_ms(lambda: torch.nonzero(keep), 2))
+
+    # E: the first output file's span
+    p_mat, r, pos, mk = t["p_mat"], t["r"], t["pos"], t["mk"]
+    start, end = t["span"]
+    n_out_pad = merge_gc.bucket_size(end - start)
+    args_e = (p_mat, r, pos, mk, start, end, n_out_pad)
+    err = check("span_gather", [run_merge.span_gather(*args_e)],
+                [run_merge.span_gather_plain(*args_e)])
+    src = pos[start:end]
+    entry("span_gather", "write_through.cu",
+          "yugabyte_tpu/ops/run_merge.py:901", err,
+          cuda_ms(lambda: run_merge.span_gather(*args_e), args.reps),
+          cuda_ms(lambda: run_merge.span_gather_plain(*args_e), 2),
+          (end - start) * (4 + 1 + 4 * r) + n_out_pad * 4 * r,
+          cuda_ms(lambda: torch.index_select(p_mat[:r], 1, src), 2))
+
+    # F: the first output file's gathered cols
+    sc = t["span_cols"]
+    err = check("block_encode", block_codec.block_encode(sc),
+                block_codec.block_encode_plain(sc))
+    w_pad = sc.shape[0] - merge_gc._ROW_WORDS
+    entry("block_encode", "block_codec.cu",
+          "yugabyte_tpu/ops/block_codec.py:161", err,
+          cuda_ms(lambda: block_codec.block_encode(sc), args.reps),
+          cuda_ms(lambda: block_codec.block_encode_plain(sc), 2),
+          sc.shape[1] * ((3 + w_pad) * 4 + w_pad * 4 + 2 + 2 + 1 + 8), None)
+    return rows
 
 
 def main() -> int:
@@ -429,17 +666,20 @@ def main() -> int:
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        comp = compaction_phase(runs, workdir)
+        comp, launches, tensors = compaction_phase(runs, workdir, args.reps,
+                                                   bandwidth)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    a["launches"] = comp["launches"]["merge_path_level"]
-    b["launches"] = comp["launches"]["gc_pack"]
-    summary = {"card": card, "kernel_rows": args.rows,
-               "compaction": {k: v for k, v in comp.items()
-                              if k != "launches"},
+    codec_rows = codec_kernel_phase(args, tensors, launches["codec"],
+                                    bandwidth)
+    del tensors
+    for entry in (a, b):
+        entry["launches"] = launches["codec"][entry["name"]]
+        entry["launches_shell_path"] = launches["shell"][entry["name"]]
+    summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
                "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
-    print(json.dumps({"kernels": [a, b]}), flush=True)
+    print(json.dumps({"kernels": [a, b] + codec_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,8 +3,8 @@
 The port's `run_compaction_job_device_native` runs on the CPU here (the
 plain PyTorch versions of its kernels). Its output SST files, base and
 data, must be byte-identical to the JAX package's
-`run_compaction_job_device_native` with the device codec off
-(YBTPU_DEVICE_CODEC=0) and to the stock native CompactionJob
+`run_compaction_job_device_native`, with the device codec off
+(YBTPU_DEVICE_CODEC=0) and on, and to the stock native CompactionJob
 (`_run_native_job`) over the same input files. Inputs are made from a seed
 with numpy and written once; both packages read the same files.
 """
@@ -33,9 +33,12 @@ torch.set_num_threads(1)
 CUTOFF = (1 << 21) << 12
 
 
-@pytest.fixture(autouse=True)
-def _codec_off(monkeypatch):
-    monkeypatch.setenv("YBTPU_DEVICE_CODEC", "0")
+@pytest.fixture(autouse=True, params=["0", "1"], ids=["shell", "codec"])
+def _codec_off(request, monkeypatch):
+    """Every case runs twice: with the device codec off (the native byte
+    shell, YBTPU_DEVICE_CODEC=0) and on (the default), in both packages."""
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", request.param)
+    return request.param
 
 
 def _mk_run(rng, n, key_space, ttl_frac=0.0, tomb_frac=0.1):

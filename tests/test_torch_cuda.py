@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from yugabyte_tpu_torch.ops import merge_gc, merge_path, run_merge
+from yugabyte_tpu_torch.ops import block_codec, merge_gc, merge_path, run_merge
 from yugabyte_tpu_torch.ops.slabs import (FLAG_HAS_TTL, FLAG_TOMBSTONE,
                                           KVSlab, ValueArray)
 
@@ -130,3 +130,117 @@ def test_launch_merge_gc_cuda_equals_cpu(cuda):
     b = run_merge.launch_merge_gc(_staged(runs, "cpu"), params).result()
     for x, y in zip(a, b):
         assert np.array_equal(x, y)
+
+
+# ------------------------------------------------- kernels C-F (the codec)
+
+
+@pytest.mark.parametrize("rows,n_pad,n", [(12, 256, 1), (12, 4096, 3001),
+                                          (16, 1 << 16, 1 << 16),
+                                          (72, 2048, 2000)])
+def test_block_decode_kernel_matches_plain(cuda, rows, n_pad, n):
+    rng = np.random.default_rng(rows + n)
+    raw = rng.integers(0, 1 << 32, size=(rows, n_pad), dtype=np.uint64
+                       ).astype(np.uint32)
+    raw[2, :] = raw[2, 0]                       # a constant row
+    raw[4, n:] = 0xFFFFFFFF
+    cols_in = torch.from_numpy(raw.view(np.int32)).to(cuda)
+    before = block_codec.block_decode.launches
+    got = block_codec.block_decode(cols_in, n)
+    want = block_codec.block_decode_plain(cols_in, n)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert block_codec.block_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [256, 1 << 16, 1 << 20])
+@pytest.mark.parametrize("density", [0.0, 0.37, 1.0])
+def test_survivor_scan_kernel_matches_plain(cuda, n, density):
+    keep = torch.from_numpy(np.random.default_rng(n).random(n) < density
+                            ).to(cuda)
+    got = run_merge.survivor_scan(keep)
+    want = run_merge.survivor_scan_plain(keep)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_span_gather_kernel_matches_plain(cuda, k):
+    rng = np.random.default_rng(11 + k)
+    runs = [_make_run(rng, 3000, 700, ttl_frac=0.4, tomb_frac=0.2)
+            for _ in range(k)]
+    st = _staged(runs, cuda)
+    h = run_merge.launch_merge_gc(st, merge_gc.GCParams((1 << 22) << 12,
+                                                        False))
+    assert bool(h._mk_dev.any()), "no TTL rewrite to check"
+    pos = run_merge.survivor_positions(h)
+    n_surv = int((pos != st.n_pad - 1).sum())
+    r = merge_gc._ROW_WORDS + st.w
+    third = n_surv // 3
+    for start, end in [(0, n_surv), (0, third), (third, n_surv),
+                       (n_surv, n_surv + 3)]:
+        n_out_pad = merge_gc.bucket_size(end - start)
+        got = run_merge.span_gather(h._p_mat, r, pos, h._mk_dev, start, end,
+                                    n_out_pad)
+        want = run_merge.span_gather_plain(h._p_mat, r, pos, h._mk_dev,
+                                           start, end, n_out_pad)
+        assert torch.equal(got, want), (start, end)
+
+
+@pytest.mark.parametrize("w", [3, 7, 40])
+def test_block_encode_kernel_matches_plain(cuda, w):
+    """w = 40 quantizes to 64 key words: the transpose's two 32-word
+    chunks."""
+    rng = np.random.default_rng(w)
+    slab = _make_run(rng, 3000, 900, w=w, ttl_frac=0.3, tomb_frac=0.2)
+    cols, n, _n_pad, _w = merge_gc.pack_cols(slab)
+    cols[merge_gc._ROW_FLAGS, :n][rng.random(n) < 0.1] |= FLAG_TOMBSTONE
+    x = torch.from_numpy(cols.view(np.int32)).to(cuda)
+    got = block_codec.block_encode(x)
+    want = block_codec.block_encode_plain(x)
+    assert len(got) == len(want) == 10
+    for i, (g, w_) in enumerate(zip(got, want)):
+        assert torch.equal(g, w_), i
+
+
+def test_codec_job_on_the_card_equals_native(cuda, tmp_path, monkeypatch):
+    """The default (codec) job on the card launches kernels A-F and writes
+    the native job's files."""
+    import os
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import (Frontier, SSTReader,
+                                                SSTWriter)
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", "1")
+    rng = np.random.default_rng(5)
+    readers = []
+    for i in range(3):
+        slab = _make_run(rng, 4000, 5000, ttl_frac=0.2)
+        slab.values = ValueArray(
+            rng.integers(0, 256, size=4000 * 8, dtype=np.uint8),
+            np.arange(4001, dtype=np.int64) * 8)
+        p = str(tmp_path / f"in{i}.sst")
+        SSTWriter(p).write(slab, Frontier())
+        readers.append(SSTReader(p))
+    counters = [merge_path.merge_level, merge_gc.gc_pack,
+                block_codec.block_decode, run_merge.survivor_scan,
+                run_merge.span_gather, block_codec.block_encode]
+    before = [c.launches for c in counters]
+    out = {}
+    for name in ("codec", "native"):
+        os.makedirs(tmp_path / name)
+        ids = iter(range(100, 200))
+        if name == "codec":
+            res = compaction.run_compaction_job_device_native(
+                readers, str(tmp_path / name), lambda: next(ids),
+                (1 << 22) << 12, False)
+        else:
+            res = compaction._run_native_job(
+                readers, str(tmp_path / name), lambda: next(ids),
+                (1 << 22) << 12, False, False, None)
+        out[name] = res
+    assert all(c.launches > b for c, b in zip(counters, before))
+    for (_, pa, _), (_, pb, _) in zip(out["codec"].outputs,
+                                      out["native"].outputs):
+        for suffix in ("", ".sblock.0"):
+            with open(pa + suffix, "rb") as fa, open(pb + suffix, "rb") as fb:
+                assert fa.read() == fb.read()
+    assert len(out["codec"].outputs) == len(out["native"].outputs) >= 1

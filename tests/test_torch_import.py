@@ -26,6 +26,8 @@ MODULES = [
     "yugabyte_tpu_torch.ops.merge_gc",
     "yugabyte_tpu_torch.ops.merge_path",
     "yugabyte_tpu_torch.ops.run_merge",
+    "yugabyte_tpu_torch.ops.point_read",
+    "yugabyte_tpu_torch.ops.block_codec",
     "yugabyte_tpu_torch.storage.bloom",
     "yugabyte_tpu_torch.storage.block_format",
     "yugabyte_tpu_torch.storage.sst",
@@ -80,6 +82,11 @@ stage_slab(pack_kvs([(b"k", 1 << 32, b"\\x01")]))
 from yugabyte_tpu_torch.ops.run_merge import stage_runs_from_slabs
 from yugabyte_tpu_torch.ops.slabs import pack_kvs
 stage_runs_from_slabs([pack_kvs([(b"k", 1 << 32, b"\\x01")])])
+""",
+    "decode_file_to_staged": """
+from yugabyte_tpu_torch.ops.block_codec import (RawFileBlocks,
+                                                 decode_file_to_staged)
+decode_file_to_staged(RawFileBlocks(1, 1, None, None, [], []))
 """,
     "run_compaction_job_device_native": """
 from yugabyte_tpu_torch.storage.compaction import (

@@ -19,10 +19,17 @@ the merge consumes each run in order, the host reconstructs the exact
 permutation from the source codes (`_decode_packed`), so only ~0.5 byte
 per row leaves the device. The download rides a CUDA stream into pinned
 host memory, and `MergeGCHandle.result()` waits on its event.
+
+Write-through staging (kernels D and E, csrc/write_through.cu) reads the
+merge products the handle keeps on the device: `survivor_positions` scans
+the keep bytes once per job, and `gather_staged_output_span` gathers one
+output file's survivor span of cols from the merged payload.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -30,10 +37,11 @@ import numpy as np
 import torch
 
 from yugabyte_tpu_torch.ops.merge_gc import (
-    _ROW_HT_HI, _ROW_HT_LO, _ROW_KEY_LEN, _ROW_WID, _ROW_WORDS, GCParams,
-    StagedCols, column_stats, gc_pack, pack_cols, pad_template, u32_to_device)
+    _ROW_FLAGS, _ROW_HT_HI, _ROW_HT_LO, _ROW_KEY_LEN, _ROW_WID, _ROW_WORDS,
+    GCParams, StagedCols, bucket_size, column_stats, gc_pack, pack_cols,
+    pad_template, u32_to_device)
 from yugabyte_tpu_torch.ops.merge_path import merge_level
-from yugabyte_tpu_torch.ops.slabs import KVSlab
+from yugabyte_tpu_torch.ops.slabs import FLAG_TOMBSTONE, KVSlab
 from yugabyte_tpu_torch.utils import torch_setup
 
 
@@ -268,11 +276,25 @@ def stage_runs_from_staged(staged_list: Sequence[StagedCols]) -> StagedRuns:
 
 class MergeGCHandle:
     """In-flight merge+GC launch: the packed decisions ride a non-blocking
-    copy into pinned host memory; result() waits on the copy's event."""
+    copy into pinned host memory; result() waits on the copy's event.
 
-    def __init__(self, packed_dev: torch.Tensor, staged: StagedRuns):
+    The handle also keeps the device-resident merge products that
+    write-through staging reads (survivor_positions,
+    gather_staged_output_span): the merged payload `_p_mat` [r+1, n_pad]
+    (its last row is the merged run-major index, `_perm_dev`), and the
+    keep / make-tombstone bytes `_keep_dev` / `_mk_dev` in merged order.
+    It holds the staged runs' metadata only, not their cols matrix: the
+    span gather reads the merged cols from `_p_mat`."""
+
+    def __init__(self, packed_dev: torch.Tensor, staged: StagedRuns,
+                 p_mat: Optional[torch.Tensor] = None,
+                 keep_dev: Optional[torch.Tensor] = None,
+                 mk_dev: Optional[torch.Tensor] = None):
         self._packed_dev = packed_dev
-        self._staged = staged
+        self._staged = dataclasses.replace(staged, cols_dev=None)
+        self._p_mat = p_mat
+        self._keep_dev = keep_dev
+        self._mk_dev = mk_dev
         self._result = None
         self._host = None
         self._event = None
@@ -303,6 +325,10 @@ class MergeGCHandle:
     def result_iter(self):
         """Streaming form of result(): one item for an unchunked launch."""
         yield self.result()
+
+    @property
+    def _perm_dev(self) -> torch.Tensor:
+        return self._p_mat[-1]
 
 
 def _decode_packed(packed: np.ndarray, staged: StagedRuns
@@ -343,6 +369,166 @@ def _unpack_words(words: np.ndarray, n: int) -> np.ndarray:
                          bitorder="little")[:n].astype(bool)
 
 
+# --------------------------------------------------------------------------
+# Write-through staging: survivor spans gathered on the device (kernels D
+# and E, csrc/write_through.cu). The device-codec job encodes each output
+# span from them without the cols ever leaving the card.
+
+_wt_lib = None
+
+
+def _wt():
+    global _wt_lib
+    if _wt_lib is None:
+        lib = torch_setup.load_cuda_lib("write_through.cu")
+        lib.ybt_survivor_scan_scratch_words.restype = ctypes.c_int64
+        lib.ybt_survivor_scan_scratch_words.argtypes = [ctypes.c_int64]
+        lib.ybt_survivor_scan.restype = ctypes.c_int
+        lib.ybt_survivor_scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.ybt_span_gather.restype = ctypes.c_int
+        lib.ybt_span_gather.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p]
+        _wt_lib = lib
+    return _wt_lib
+
+
+def survivor_scan_plain(keep: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel D (`_survivor_positions_impl`):
+    int32 [n] positions of the kept lanes in increasing order, then n-1 in
+    every remaining slot (a padding row: padding sorts to the tail and is
+    never kept, so n-1 sits beyond every real survivor)."""
+    n = keep.shape[0]
+    k = keep.bool()
+    rank = torch.cumsum(k.long(), 0) - 1
+    out = torch.full((n,), n - 1, dtype=torch.int32, device=keep.device)
+    out[rank[k]] = torch.arange(n, dtype=torch.int32, device=keep.device)[k]
+    return out
+
+
+def survivor_scan(keep: torch.Tensor) -> torch.Tensor:
+    """Kernel D wrapper (see survivor_scan_plain). CPU tensor: the plain
+    version. CUDA tensor: csrc/write_through.cu (three launches, counted
+    as one in `survivor_scan.launches`)."""
+    if not keep.is_cuda:
+        return survivor_scan_plain(keep)
+    n = keep.shape[0]
+    if keep.dtype != torch.bool or keep.dim() != 1 \
+            or not keep.is_contiguous() or n % 16 or keep.data_ptr() % 16:
+        raise ValueError("survivor_scan: expected a contiguous, 16-byte "
+                         "aligned bool vector whose length is a multiple "
+                         f"of 16, got {keep.dtype} {tuple(keep.shape)}")
+    lib = _wt()
+    dev = keep.device
+    scratch = torch.empty(int(lib.ybt_survivor_scan_scratch_words(n)),
+                          dtype=torch.int32, device=dev)
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.ybt_survivor_scan(keep.data_ptr(), n, scratch.data_ptr(),
+                               pos.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "survivor_scan")
+    survivor_scan.launches += 1
+    return pos
+
+
+survivor_scan.launches = 0
+
+
+def span_gather_plain(p_mat: torch.Tensor, r: int, pos: torch.Tensor,
+                      mk: torch.Tensor, start: int, end: int,
+                      n_out_pad: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel E (`_gather_staged_output`).
+
+    p_mat: the merged payload [>= r, n_pad] (int32 u32 bits); pos: the
+    survivor positions (kernel D); mk: make-tombstone bool [n_pad], merged
+    order. Returns int32 [r, n_out_pad]: survivors [start, end) in merged
+    order, FLAG_TOMBSTONE OR'd into the flags row where mk is set (the
+    byte shell's TTL-expiry rewrite), the pad template beyond end.
+    p_mat[:r, pos] is the JAX function's cols[:, perm[pos]]: the merge
+    carried every cols row along with the index row."""
+    n_pad = p_mat.shape[1]
+    dev = p_mat.device
+    idx = start + torch.arange(n_out_pad, device=dev)
+    valid = idx < end
+    p = pos[idx.clamp(0, n_pad - 1)].long()
+    sub = p_mat[:r, p]
+    sub[_ROW_FLAGS] |= (mk[p] & valid).to(torch.int32) * FLAG_TOMBSTONE
+    pad_col = u32_to_device(pad_template(r), dev)
+    return torch.where(valid[None, :], sub, pad_col[:, None])
+
+
+def span_gather(p_mat: torch.Tensor, r: int, pos: torch.Tensor,
+                mk: torch.Tensor, start: int, end: int,
+                n_out_pad: int) -> torch.Tensor:
+    """Kernel E wrapper (see span_gather_plain). CPU tensor: the plain
+    version. CUDA tensor: csrc/write_through.cu, counted in
+    `span_gather.launches`."""
+    if not p_mat.is_cuda:
+        return span_gather_plain(p_mat, r, pos, mk, start, end, n_out_pad)
+    torch_setup.check_u32_matrix(p_mat, "span_gather")
+    n_pad = p_mat.shape[1]
+    if not (_ROW_WORDS < r <= p_mat.shape[0]
+            and pos.dtype == torch.int32 and pos.shape == (n_pad,)
+            and mk.dtype == torch.bool and mk.shape == (n_pad,)
+            and pos.is_contiguous() and mk.is_contiguous()
+            and 0 <= start <= end and n_out_pad > 0):
+        raise ValueError(f"span_gather: bad arguments for p_mat "
+                         f"{tuple(p_mat.shape)}, r={r}, span "
+                         f"[{start}, {end}), n_out_pad={n_out_pad}")
+    dev = p_mat.device
+    out = torch.empty((r, n_out_pad), dtype=torch.int32, device=dev)
+    rc = _wt().ybt_span_gather(
+        p_mat.data_ptr(), n_pad, r, pos.data_ptr(), mk.data_ptr(), start,
+        end, n_out_pad, out.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "span_gather")
+    span_gather.launches += 1
+    return out
+
+
+span_gather.launches = 0
+
+
+def survivor_positions(handle: MergeGCHandle) -> torch.Tensor:
+    """Survivor-position scan (kernel D) over a finished merge's keep
+    bytes: the first half of write-through staging, once per job. The keep
+    bytes have no later reader, so the handle lets go of them."""
+    keep = handle._keep_dev
+    if keep is None:
+        raise RuntimeError("survivor_positions: the keep mask of this "
+                           "merge was already scanned or never kept")
+    pos = survivor_scan(keep)
+    handle._keep_dev = None
+    return pos
+
+
+def gather_staged_output_span(handle: MergeGCHandle, pos_all: torch.Tensor,
+                              start: int, end: int) -> StagedCols:
+    """Stage ONE output file's [start, end) survivor span on the device
+    (kernel E): the span's cols, padded to its power-of-two bucket.
+    Column stats are left absent (every column treated as non-constant),
+    so nothing is read back to the host."""
+    staged = handle._staged
+    r = _ROW_WORDS + staged.w
+    n_out = end - start
+    n_out_pad = bucket_size(n_out)
+    cols_out = span_gather(handle._p_mat, r, pos_all, handle._mk_dev,
+                           start, end, n_out_pad)
+    return StagedCols(cols_out, n_out, n_out_pad, staged.w, None, None)
+
+
+def gather_staged_outputs(handle: MergeGCHandle,
+                          ranges: Sequence[Tuple[int, int]]
+                          ) -> List[StagedCols]:
+    """Stage every output file of a finished merge on the device: ranges
+    are the [start, end) survivor spans the writer wrote. One survivor
+    scan serves every span."""
+    pos_all = survivor_positions(handle)
+    return [gather_staged_output_span(handle, pos_all, start, end)
+            for start, end in ranges]
+
+
 def merge_payload(staged: StagedRuns) -> torch.Tensor:
     """The run-major cols plus the global index row, merged through
     log2(k_pad) levels of kernel A: int32 [8+w+1, n_pad]."""
@@ -363,9 +549,9 @@ def launch_merge_gc(staged: StagedRuns, params: GCParams,
     no merge: the single run is already sorted."""
     p_mat = merge_payload(staged)
     r = _ROW_WORDS + staged.w
-    packed, _keep, _mk = gc_pack(p_mat, r, staged.w, params, staged.k_pad,
-                                 staged.m, snapshot=snapshot)
-    return MergeGCHandle(packed, staged)
+    packed, keep, mk = gc_pack(p_mat, r, staged.w, params, staged.k_pad,
+                               staged.m, snapshot=snapshot)
+    return MergeGCHandle(packed, staged, p_mat, keep, mk)
 
 
 def run_layout_inflation(run_ns: Sequence[int]) -> float:

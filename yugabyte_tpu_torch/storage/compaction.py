@@ -1,27 +1,42 @@
-"""The compaction job: device merge+GC decisions + the native byte shell.
+"""The compaction job: device merge+GC decisions and the byte paths around it.
 
-Counterpart of yugabyte_tpu/storage/compaction.py, slice 1 of the port:
+Counterpart of yugabyte_tpu/storage/compaction.py:
 `run_compaction_job_device_native` (compaction.py:560 there), the
-production L0->L1 path, in the configuration with the device block codec
-off (YBTPU_DEVICE_CODEC=0 there), no HBM slab cache and no run cache:
+production L0->L1 path, with no HBM slab cache and no run cache. It
+routes as the JAX package does (compaction.py:660-695 there):
 
+Device codec on (the default; slice 2 of the port), `_device_codec_attempt`:
+  stage A: each input's raw data file is read and CRC-checked on the host
+          (block_codec.parse_raw_file, values as zero-copy slices), its
+          column regions uploaded and decoded on the card (kernel C);
+  stage B: re-laid run-major on the card (run_merge.stage_runs_from_staged)
+          and merged + GC'd (kernels A and B, run_merge.launch_merge_gc);
+  stage C: per output file, the survivor span is gathered on the card
+          (kernels D and E) and encoded (kernel F); the host splices the
+          values, compresses, stamps headers and CRCs and writes the file
+          (_DeviceCodecWriter).
+
+Device codec off (YBTPU_DEVICE_CODEC=0; slice 1), or BlockCodecUnsupported
+raised, `_device_native_attempt`:
   stage A (host thread): the native shell (native/compaction_engine.cc)
           reads and decodes the input SSTs;
   stage B: the inputs' key columns are decoded on host threads, uploaded
-          (merge_gc.stage_slab), re-laid run-major on the card
-          (run_merge.stage_runs_from_staged) and merged + GC'd by the CUDA
-          kernels (run_merge.launch_merge_gc);
+          (merge_gc.stage_slab), re-laid run-major and merged + GC'd on the
+          card (kernels A and B);
   stage C: the packed decisions stream into the shell, which writes the
           output SSTs (_StreamingNativeWriter).
 
-Outputs are byte-identical to the stock native CompactionJob
-(`_run_native_job`) and to the JAX package's job over the same inputs.
+Both paths write output files byte-identical to the stock native
+CompactionJob (`_run_native_job`) and to the JAX package's job over the
+same inputs.
 
 Not ported yet, each raising NotImplementedError naming its later slice:
-device and run caches, run layouts past 2x inflation (the radix re-sort),
-deep documents, an encrypted Env. The bucket-health routing, the
-device-fault containment that re-runs natively and the sampled shadow
-verifier are later slices too: here a device error propagates.
+the device slab cache and the native run cache (their write-through
+installer and the resident chain), run layouts past 2x inflation (the
+radix re-sort), deep documents, an encrypted Env. The bucket-health
+routing, the device-fault containment that re-runs natively, the sampled
+shadow verifier, cancellation and the compaction rate limiter are later
+slices too: here a device error propagates.
 """
 
 from __future__ import annotations
@@ -189,28 +204,34 @@ def run_compaction_job_device_native(
         retain_deletes: bool = False, device=None,
         block_entries: Optional[int] = None, device_cache=None,
         run_cache=None) -> CompactionResult:
-    """The production hot path: CUDA decisions + the native byte shell.
+    """The production hot path: CUDA decisions, with the device block
+    codec (the default) or the native byte shell (YBTPU_DEVICE_CODEC=0,
+    or a job the codec cannot take) around them.
 
     device: 'cuda' (the default) or 'cpu' (the kernels' plain PyTorch
     versions; the tests). Without a GPU and without device='cpu' it
-    raises. device_cache and run_cache must be None in this slice."""
-    from yugabyte_tpu_torch.ops import run_merge
+    raises. device_cache and run_cache must be None: the caches are the
+    next slice of the port."""
+    from yugabyte_tpu_torch.ops import block_codec, run_merge
     from yugabyte_tpu_torch.utils.env import get_env
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
     dev = resolve_device(device)
     if device_cache is not None or run_cache is not None:
         raise NotImplementedError(
-            "device slab cache / native run cache: a later slice of the "
-            "port (write-through with the survivor-gather kernels)")
+            "device slab cache / native run cache: the next slice of the "
+            "port (storage/device_cache, storage/run_cache and the "
+            "resident-span installer over the survivor-gather kernels)")
     if get_env().encrypted:
         raise NotImplementedError(
-            "compaction under an encrypted Env: a later slice of the port")
+            "compaction under an encrypted Env: a later slice of the port "
+            "(with the radix job)")
     all_inputs = list(inputs)
     if any(r.props.has_deep for r in all_inputs):
         raise NotImplementedError(
             "deep documents (FLAG_DEEP) need the native overwrite-stack "
-            "routing of run_compaction_job: a later slice of the port")
+            "routing of run_compaction_job: a later slice of the port "
+            "(with the radix job)")
     inputs, dropped = filter_expired_inputs(
         all_inputs, history_cutoff_ht, is_major, retain_deletes)
     dropped_rows = sum(r.props.n_entries for r in dropped)
@@ -222,6 +243,14 @@ def run_compaction_job_device_native(
         raise NotImplementedError(
             "run layout inflation > 2: the radix re-sort (sort_and_gc) is "
             "a later slice of the port")
+    if block_codec.codec_enabled():
+        try:
+            return _device_codec_attempt(
+                inputs, all_inputs, dropped_rows, out_dir, new_file_id,
+                history_cutoff_ht, is_major, retain_deletes, dev,
+                block_entries)
+        except block_codec.BlockCodecUnsupported:
+            pass   # the native byte shell takes the job
     return _device_native_attempt(
         inputs, all_inputs, dropped_rows, out_dir, new_file_id,
         history_cutoff_ht, is_major, retain_deletes, dev, block_entries)
@@ -241,16 +270,22 @@ def _device_native_attempt(
             history_cutoff_ht, is_major, retain_deletes, device,
             block_entries, state)
     except BaseException:
-        w = state["writer"]
-        if w is not None:
-            from yugabyte_tpu_torch.storage.sst import data_file_name
-            for _fid, base_path, _props in w.outputs:
-                for p in (base_path, data_file_name(base_path)):
-                    try:
-                        os.remove(p)
-                    except OSError:  # the file may not exist yet
-                        pass
+        _remove_outputs(state["writer"])
         raise
+
+
+def _remove_outputs(writer) -> None:
+    """Unwind of a failed attempt: delete every output file (base and
+    data) its writer wrote."""
+    if writer is None:
+        return
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    for _fid, base_path, _props in writer.outputs:
+        for p in (base_path, data_file_name(base_path)):
+            try:
+                os.remove(p)
+            except OSError:  # the file may not exist yet
+                pass
 
 
 def _device_native_body(
@@ -331,6 +366,149 @@ def _device_native_body(
         outputs, _ranges = writer.finish(rows_out)
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=tombstones_written)
+
+
+class _DeviceCodecWriter:
+    """Stage C of the device-codec job: write output SSTs whose block
+    bytes were assembled from the device encode (block_codec.encode_span),
+    the shell-free twin of _StreamingNativeWriter.
+
+    File splits, tombstone rewrite and base assembly are those of
+    _StreamingNativeWriter, so codec and shell jobs write byte-identical
+    files over identical survivor ranges. Each span's cols are gathered
+    on the card (kernels D and E) and encoded there (kernel F)."""
+
+    def __init__(self, handle, values, w_out: int, out_dir: str,
+                 new_file_id, fr, block_entries: Optional[int],
+                 has_deep: bool = False):
+        self._handle = handle
+        self._values = values          # every input's value rows, in order
+        self._w_out = w_out
+        self._out_dir = out_dir
+        self._new_file_id = new_file_id
+        self._fr = fr
+        self._has_deep = has_deep
+        self._block_entries = (block_entries if block_entries is not None
+                               else flags.get_flag("sst_block_entries"))
+        self._max_rows = flags.get_flag(
+            "compaction_max_output_entries_per_sst")
+        self._tombstone_value = Value.tombstone().encode()
+        self._pos_all = None
+        self.outputs: List[Tuple[int, str, SSTProps]] = []
+
+    def _write_span(self, surv: np.ndarray, mk: np.ndarray,
+                    start: int, end: int) -> None:
+        from yugabyte_tpu_torch.ops import block_codec, run_merge
+        from yugabyte_tpu_torch.storage.sst import (
+            data_file_name, sst_compression_enabled, write_base_file)
+        from yugabyte_tpu_torch.utils.env import get_env
+        if self._pos_all is None:   # one survivor scan serves every span
+            self._pos_all = run_merge.survivor_positions(self._handle)
+        st = run_merge.gather_staged_output_span(
+            self._handle, self._pos_all, start, end)
+        vals = self._values.gather(surv[start:end],
+                                   replace_mask=mk[start:end],
+                                   replacement=self._tombstone_value)
+        blocks, index, hashes, fk, lk = block_codec.encode_span(
+            st, end - start, self._w_out, vals, self._block_entries,
+            compress=sst_compression_enabled())
+        fid = self._new_file_id()
+        base_path = os.path.join(self._out_dir, f"{fid:06d}.sst")
+        data_path = data_file_name(base_path)
+        if os.path.exists(data_path):
+            os.remove(data_path)   # never append to a stale data file
+        df = get_env().open_append(data_path)
+        try:
+            size = 0
+            for blk in blocks:
+                df.append(blk)
+                size += len(blk)
+            df.flush(fsync=True)
+        finally:
+            df.close()
+        props = write_base_file(base_path, index, end - start, hashes,
+                                fk, lk, self._fr, size,
+                                has_deep=self._has_deep)
+        self.outputs.append((fid, base_path, props))
+
+    def write_all(self, surv: np.ndarray, mk: np.ndarray, rows_out: int
+                  ) -> List[Tuple[int, str, SSTProps]]:
+        start = 0
+        while start < rows_out:
+            end = min(start + self._max_rows, rows_out)
+            self._write_span(surv, mk, start, end)
+            start = end
+        return self.outputs
+
+
+def _device_codec_attempt(
+        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
+        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
+        device, block_entries) -> CompactionResult:
+    """One attempt of the shell-free device-codec job (decode, merge and
+    encode on the card; the host CRC-checks raw bytes, splices values and
+    writes files). Unwinds like _device_native_attempt: every output file
+    it wrote is deleted before the exception propagates, so a
+    BlockCodecUnsupported leaves nothing behind for the shell path."""
+    state = {"writer": None}
+    try:
+        return _device_codec_body(
+            inputs, all_inputs, dropped_rows, out_dir, new_file_id,
+            history_cutoff_ht, is_major, retain_deletes, device,
+            block_entries, state)
+    except BaseException:
+        _remove_outputs(state["writer"])
+        raise
+
+
+def _device_codec_body(
+        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
+        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
+        device, block_entries, state: dict) -> CompactionResult:
+    from yugabyte_tpu_torch.ops import block_codec, run_merge
+    from yugabyte_tpu_torch.ops.slabs import ValueArray
+
+    # -- stage A: raw-byte ingest. One file read, per-block CRC check and
+    # zero-copy value slicing per input; key columns decode on the card
+    # (kernel C), so no host block decode runs
+    staged_list = []
+    values_parts = []
+    rows_in = 0
+    w_out = 1
+    for r in inputs:
+        rfb = block_codec.parse_raw_file(r.read_raw(), r.block_handles)
+        values_parts.extend(rfb.value_parts)
+        rows_in += rfb.n
+        w_out = max(w_out, rfb.w)
+        staged_list.append(block_codec.decode_file_to_staged(rfb, device))
+    values = ValueArray.concat(values_parts)
+
+    # -- stage B: the same merge + GC launch as the shell path. The
+    # per-file and run-major matrices are dropped as soon as the next
+    # stage has consumed them: the handle keeps the merged payload
+    staged_runs = run_merge.stage_runs_from_staged(staged_list)
+    del staged_list
+    params = GCParams(history_cutoff_ht, is_major, retain_deletes)
+    handle = run_merge.launch_merge_gc(staged_runs, params)
+    del staged_runs
+
+    # the decisions drain fully before stage C: the survivor indices
+    # drive the host value gather
+    perm, keep, mk_all = handle.result()
+    surv = perm[keep]
+    mk = mk_all[keep]
+    rows_out = int(surv.shape[0])
+
+    # -- stage C: device gather + encode, host value splice, per span
+    fr = _merge_frontiers([r.props.frontier for r in all_inputs],
+                          history_cutoff_ht)
+    writer = _DeviceCodecWriter(
+        handle, values, w_out, out_dir, new_file_id, fr, block_entries,
+        has_deep=any(r.props.has_deep for r in inputs))
+    state["writer"] = writer
+    outputs = writer.write_all(surv, mk, rows_out)
+    return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
+                            tombstones_written=int(np.count_nonzero(mk)))
 
 
 def _merge_frontiers(frontiers: Sequence[Frontier],

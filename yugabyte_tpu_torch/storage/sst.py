@@ -313,6 +313,13 @@ class SSTReader:
         return concat_slabs([self.read_block(i) for i in range(self.n_blocks)]) \
             if self.n_blocks else _empty_slab()
 
+    def read_raw(self) -> bytes:
+        """Whole data-file bytes through the Env, no block decode: the
+        device-codec ingest path (ops/block_codec.parse_raw_file splits
+        them into CRC-checked raw blocks with self.block_handles)."""
+        from yugabyte_tpu_torch.utils.env import get_env
+        return get_env().read_file(self.data_path)
+
     def may_contain_doc(self, doc_key_prefix: bytes) -> bool:
         return self.bloom.may_contain(doc_key_prefix)
 

@@ -80,7 +80,8 @@ def build_cuda_lib(src_name: str) -> str:
 NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                 ("-lz", "-lpthread")),
                ("compaction_baseline.cc", "libcompaction_baseline.so", ()))
-CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu")
+CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
+                "write_through.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
