@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (yugabyte_tpu_torch) on one GPU.
 
-Drives the port's main path — disk-to-disk L0->L1 compaction of a YCSB-A
-tablet through `storage.compaction.run_compaction_job_device_native`,
+Drives the port's main paths over a YCSB-A tablet — disk-to-disk L0->L1
+compaction through `storage.compaction.run_compaction_job_device_native`
 on its default device-codec path and on its native-shell path
-(YBTPU_DEVICE_CODEC=0) — and holds every CUDA kernel of those paths
-against its plain PyTorch version and the decisions against the native
-C++ heap-merge oracle. Imports nothing of JAX.
+(YBTPU_DEVICE_CODEC=0), and the snapshot scan `ops.scan.
+visible_entries_sources` — and holds every CUDA kernel of those paths
+against its plain PyTorch version, the compaction decisions against the
+native C++ heap-merge oracle and the scan against the native host scan.
+Imports nothing of JAX.
 
 Phases (any failure exits non-zero):
   1. name the card (nvidia-smi name and power limit);
@@ -23,14 +25,26 @@ Phases (any failure exits non-zero):
      CompactionJob, the port's shell path and the port's codec path over
      the same inputs must write byte-identical files. Every launch
      counter is set to 0 just before each port job and read just after:
-     the shell path must launch A and B, the codec path all of A-F.
+     the shell path must launch A, B and H, the codec path A-F and H.
      Then both paths' stages run one after the other for a time
      breakdown;
   5. kernels C-F (block decode, survivor scan, span gather, block encode)
      at the codec job's shapes == their plain versions, timed with CUDA
      events beside their bounds and, for D and E, a PyTorch call that
      computes the same function;
-  6. a `kernels` JSON line, the card line, and last
+  6. the snapshot scan over the same 4 input SSTs: the full-tablet
+     seq-scan (`ops.scan.visible_entries_sources` over
+     SlabSource(read_all()), read time above every write, no bounds)
+     drained and timed (rows, key + value bytes, MB/s), beside the native
+     host reference `_visible_entries_host`; both walked in lockstep,
+     entry for entry; a range scan at a read time inside the runs' span
+     with a lower and a truncated upper bound, equal to the host
+     reference. The scan must launch kernels G, H, I.1, B and I.2. Then
+     its stages run one after the other for a time breakdown;
+  7. kernels G-I (radix sort, staged concat, sorted payload, bound pack)
+     at the seq-scan's shapes == their plain versions, timed beside their
+     bounds and a PyTorch call that computes the same function;
+  8. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
@@ -326,16 +340,37 @@ def stage_breakdown(readers, cutoff, device="cuda"):
 
 
 def _wrappers():
-    """Every kernel wrapper of the main path, by its name in the kernels
+    """Every kernel wrapper of the main paths, by its name in the kernels
     line."""
     from yugabyte_tpu_torch.ops import (block_codec, merge_gc, merge_path,
-                                       run_merge)
+                                       radix, run_merge, scan)
     return {"merge_path_level": merge_path.merge_level,
             "gc_pack": merge_gc.gc_pack,
             "block_decode": block_codec.block_decode,
             "survivor_scan": run_merge.survivor_scan,
             "span_gather": run_merge.span_gather,
-            "block_encode": block_codec.block_encode}
+            "block_encode": block_codec.block_encode,
+            "staged_concat": run_merge.staged_concat,
+            "radix_sort": radix.radix_sort,
+            "sorted_payload": radix.sorted_payload,
+            "bound_pack": scan.bound_pack}
+
+
+# the kernels each path must launch
+_PATH_KERNELS = {
+    "shell": ("merge_path_level", "gc_pack", "staged_concat"),
+    "codec": ("merge_path_level", "gc_pack", "block_decode", "survivor_scan",
+              "span_gather", "block_encode", "staged_concat"),
+    "scan": ("staged_concat", "radix_sort", "sorted_payload", "gc_pack",
+             "bound_pack"),
+}
+
+
+def check_launches(launches, path):
+    for k in _PATH_KERNELS[path]:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 f"{path} path")
 
 
 def sync():
@@ -409,14 +444,8 @@ def compaction_phase(runs, workdir, reps, bandwidth, device="cuda"):
     same_files(out["codec"][0], out["shell"][0], "codec path vs shell path")
     log("output SSTs byte-identical: codec path == shell path == native "
         "CompactionJob")
-    for k, v in launches["codec"].items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the codec "
-                                 f"job (the main path)")
-    for k in ("merge_path_level", "gc_pack"):
-        if launches["shell"][k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the shell "
-                                 f"path")
+    check_launches(launches["codec"], "codec")
+    check_launches(launches["shell"], "shell")
     log(f"launches: codec job {launches['codec']}, shell job "
         f"{launches['shell']}")
     stages = stage_breakdown(readers, cutoff, device)
@@ -435,7 +464,7 @@ def compaction_phase(runs, workdir, reps, bandwidth, device="cuda"):
         summary[f"{name}_rows_per_s"] = rows / out[name][1]
     for name in ("shell", "codec"):
         summary[f"{name}_peak_bytes"] = peak[name]
-    return summary, launches, tensors
+    return summary, launches, tensors, readers
 
 
 def codec_breakdown(readers, cutoff, out_dir, reps, bandwidth,
@@ -443,10 +472,10 @@ def codec_breakdown(readers, cutoff, out_dir, reps, bandwidth,
     """Seconds of each stage of the codec job's path, run one after the
     other with the same module functions, each ended by a synchronize:
     raw read + CRC parse, the host column layout, upload + kernel C, the
-    value concat, restage, kernel A, kernel B, the decision download +
-    decode, kernels D + E, the host value gather, kernel F + the host
-    block assembly, and the file writes. The restage (torch indexing,
-    not a kernel yet) is also timed with CUDA events beside its bound.
+    value concat, restage (kernel H), kernel A, kernel B, the decision
+    download + decode, kernels D + E, the host value gather, kernel F +
+    the host block assembly, and the file writes. The restage is also
+    timed with CUDA events beside its bound.
     Returns the stages and the tensors the kernel phase checks kernels
     C-F on."""
     from yugabyte_tpu_torch.docdb.value import Value
@@ -625,6 +654,328 @@ def codec_kernel_phase(args, t, launches, bandwidth):
     return rows
 
 
+# ---------------------------------------------------------------- the scan
+
+
+def scan_bounds(rows: int):
+    """(read time, lower, upper) of the range scan: a read time half way
+    through run 1's writes (runs 2 and 3 and half of run 1 are newer), a
+    lower bound at user id key_space/5 and an upper bound at 3/5 that is
+    longer than the 32-byte key stride (truncated on the device)."""
+    span = max(1_000_000, rows // 4)
+    key_space = max(1, rows // 2)
+    read_ht = (span * 5 // 2) << 12
+    lower = b"Suser%08d" % (key_space // 5)
+    upper = b"Suser%08d\x00\x00!K" % (3 * key_space // 5) + b"\xff" * 20
+    return read_ht, lower, upper
+
+
+def entries_lockstep(got, want, what: str) -> int:
+    """Walk two entry iterators in lockstep; every entry must be equal and
+    both must end together. Returns the entry count."""
+    import itertools
+    n = 0
+    for x, y in itertools.zip_longest(got, want):
+        if x != y:
+            raise AssertionError(f"{what}: entry {n} differs: {x!r} != {y!r}")
+        n += 1
+    return n
+
+
+def drain(it):
+    """(rows, key + value bytes) of an entry iterator."""
+    rows = nbytes = 0
+    for k, v, _ht in it:
+        rows += 1
+        nbytes += len(k) + len(v)
+    return rows, nbytes
+
+
+def counted(make_iter, wrappers, what):
+    """Iterate make_iter() with every launch counter set to 0 just before;
+    once it is drained, require the scan path's kernels to have launched
+    (the device work runs before the first entry is yielded)."""
+    for w in wrappers.values():
+        w.launches = 0
+    yield from make_iter()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check_launches(launches, "scan")
+    log(f"{what}: launches {launches}")
+
+
+def scan_phase(readers, n_rows, device="cuda"):
+    """The snapshot scan path over the tablet's 4 input SSTs:
+
+    1. full-tablet seq-scan: `visible_entries_sources` over
+       SlabSource(read_all()) at a read time above every write, no bounds,
+       drained; seconds from the first read_all to the drained iterator;
+       every launch counter set to 0 just before and read just after;
+    2. the same for the native host reference `_visible_entries_host`;
+    3. both walked in lockstep (entry for entry), with the counters set to
+       0 before that seq-scan too and every scan kernel required to launch;
+    4. a range scan at a read time inside the runs' span, with a lower and
+       a truncated upper bound, in lockstep with the host reference, its
+       counters likewise set to 0 before and checked after (I.2's bounded
+       mask runs on the card within the main run).
+    """
+    import torch
+    from yugabyte_tpu_torch.ops import scan
+
+    read_ht = history_cutoff(n_rows)
+    wrappers = _wrappers()
+    out = {}
+
+    def sources():
+        return [scan.SlabSource(r.read_all()) for r in readers]
+
+    for w in wrappers.values():
+        w.launches = 0
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rows, nbytes = drain(scan.visible_entries_sources(sources(), read_ht,
+                                                      device=device))
+    sync()
+    secs = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.cuda.is_available() else 0)
+    check_launches(launches, "scan")
+    t0 = time.time()
+    h_rows, h_bytes = drain(scan._visible_entries_host(
+        [r.read_all() for r in readers], read_ht, None, None))
+    h_secs = time.time() - t0
+    out.update(rows=rows, bytes=nbytes, seconds=secs,
+               mb_per_s=nbytes / secs / 1e6, rows_per_s=rows / secs,
+               host_rows=h_rows, host_bytes=h_bytes, host_seconds=h_secs,
+               host_mb_per_s=h_bytes / h_secs / 1e6,
+               host_rows_per_s=h_rows / h_secs)
+    log(f"seq-scan: {rows} rows, {nbytes} bytes in {secs:.2f}s "
+        f"({out['mb_per_s']:.1f} MB/s, {out['rows_per_s']:,.0f} rows/s); "
+        f"host reference {h_rows} rows in {h_secs:.2f}s "
+        f"({out['host_mb_per_s']:.1f} MB/s); launches {launches}")
+    if (rows, nbytes) != (h_rows, h_bytes) or rows == 0:
+        raise AssertionError("seq-scan and host reference disagree on rows "
+                             "or bytes")
+    srcs = sources()
+    slabs = [s.slab for s in srcs]
+    n = entries_lockstep(
+        counted(lambda: scan.visible_entries_sources(srcs, read_ht,
+                                                     device=device),
+                wrappers, "seq-scan (lockstep)"),
+        scan._visible_entries_host(slabs, read_ht, None, None), "seq-scan")
+    log(f"seq-scan == host reference, entry for entry ({n} entries)")
+    r_ht, lower, upper = scan_bounds(n_rows)
+    t0 = time.time()
+    n_range = entries_lockstep(
+        counted(lambda: scan.visible_entries_sources(srcs, r_ht, lower,
+                                                     upper, device=device),
+                wrappers, "range scan"),
+        scan._visible_entries_host(slabs, r_ht, lower, upper), "range scan")
+    if n_range == 0:
+        raise AssertionError("the range scan found no entry")
+    out.update(range_rows=n_range, range_read_ht=r_ht,
+               range_check_seconds=time.time() - t0)
+    log(f"range scan at ht {r_ht >> 12} in [{lower!r}, {upper[:16]!r}...) "
+        f"== host reference ({n_range} entries)")
+    del srcs, slabs
+    return out, launches, read_ht
+
+
+def scan_breakdown(readers, read_ht, device="cuda"):
+    """Seconds of each stage of the seq-scan, run one after the other with
+    the same module functions, each ended by a synchronize: read_all, host
+    pack + upload, kernel H (concat), kernel G (radix), kernels I.1 + B +
+    I.2, the decisions down, the host drain. Returns the stages and the
+    tensors the kernel phase checks G, H and I on."""
+    from yugabyte_tpu_torch.ops import merge_gc, radix, scan
+    from yugabyte_tpu_torch.storage.device_cache import concat_staged
+
+    out = {}
+    t0 = time.time()
+    srcs = [scan.SlabSource(r.read_all()) for r in readers]
+    out["read_all_s"] = time.time() - t0
+    t0 = time.time()
+    staged = [merge_gc.stage_slab(s.slab, device) for s in srcs]
+    sync()
+    out["pack_upload_s"] = time.time() - t0
+    t0 = time.time()
+    cat = concat_staged(staged)
+    sync()
+    out["concat_h_s"] = time.time() - t0
+    t0 = time.time()
+    perm = radix.radix_sort(cat.cols_dev, cat.sort_rows, cat.n_sort)
+    sync()
+    out["radix_g_s"] = time.time() - t0
+    t0 = time.time()
+    w = cat.w
+    p_mat = radix.sorted_payload(cat.cols_dev, perm)
+    _packed, keep, _mk = merge_gc.gc_pack(
+        p_mat, merge_gc._ROW_WORDS + w, w, merge_gc.GCParams(read_ht, True),
+        1, cat.n_pad, snapshot=True)
+    zero = np.zeros(w, dtype=np.uint32)
+    keep_p = scan.bound_pack(p_mat, keep, w, zero, 0, zero, 0, False, False)
+    sync()
+    out["gather_gc_mask_s"] = time.time() - t0
+    t0 = time.time()
+    perm_h = perm.cpu().numpy()
+    keep_h = merge_gc._unpack_bits(keep_p.cpu().numpy(), cat.n_pad) \
+        & (perm_h < cat.n)
+    out["decisions_down_s"] = time.time() - t0
+    t0 = time.time()
+    rows, _nbytes = drain(scan.survivor_entries(srcs, perm_h, keep_h))
+    out["host_drain_s"] = time.time() - t0
+    out["rows"] = rows
+    tensors = {"staged": staged, "cat": cat, "perm": perm, "p_mat": p_mat,
+               "keep": keep}
+    return out, tensors
+
+
+def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows):
+    """Kernels G, H, I.1 and I.2 against their plain versions at the
+    seq-scan's shapes (max_abs_err must be 0, perm identical), timed with
+    CUDA events beside their bounds and one PyTorch call that computes the
+    same function (G: stable torch.sort per row on u32 keys; H: torch.cat
+    plus the template fill; I.1: torch.index_select)."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, radix, run_merge, scan
+
+    cat, staged, perm = t["cat"], t["staged"], t["perm"]
+    cols = cat.cols_dev
+    r, n = cols.shape
+    w = cat.w
+    rows = []
+
+    def entry(name, source, replaces, err, ms, plain_ms, nbytes, lib_ms,
+              extra=None):
+        e = {"name": name, "route": "cuda",
+             "source": f"yugabyte_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes / bandwidth * 1e3, "bound_by": "bytes",
+             "library_ms": lib_ms}
+        e.update(extra or {})
+        log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"library {lib_ms}, bound {e['bound_ms']:.4f}), "
+            f"{launches[name]} launches in the seq-scan")
+        rows.append(e)
+
+    def check(name, got, want):
+        err = max_abs_err(got, want)
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"kernel {name} != its plain version "
+                                 f"(max_abs_err {err})")
+        return err
+
+    # G: the seq-scan's pruned schedule over the concatenated matrix
+    sched = [int(x) for x in cat.sort_rows[:cat.n_sort]]
+    err = check("radix_sort", radix.radix_sort(cols, sched, len(sched)),
+                radix.radix_sort_plain(cols, sched, len(sched)))
+    if not torch.equal(radix.radix_sort(cols, sched, len(sched)), perm):
+        raise AssertionError("kernel G's perm differs between two calls")
+
+    def torch_sort_chain():
+        order = torch.arange(n, device=cols.device)
+        for row in sched:
+            inv = -1 if merge_gc._ROW_HT_HI <= row <= merge_gc._ROW_WID else 0
+            # u32 order as int32 order: flip the sign bit
+            key = cols[row][order] ^ inv ^ (-(1 << 31))
+            order = order[torch.sort(key, stable=True).indices]
+        return order
+
+    entry("radix_sort", "radix.cu", "yugabyte_tpu/ops/merge_gc.py:181", err,
+          cuda_ms(lambda: radix.radix_sort(cols, sched, len(sched)),
+                  args.reps),
+          cuda_ms(lambda: radix.radix_sort_plain(cols, sched, len(sched)), 2),
+          (len(sched) + 1) * n * 4, cuda_ms(torch_sort_chain, 2),
+          {"n_sort": len(sched), "rows": sched})
+
+    # H: the 4 staged inputs into the concatenated matrix
+    parts = [s.cols_dev for s in staged]
+    ns = [s.n for s in staged]
+    offs = np.concatenate(([0], np.cumsum(ns)[:-1])).tolist()
+    tmpl = merge_gc.pad_template(r)
+    err = check("staged_concat",
+                run_merge.staged_concat(parts, ns, offs, n, tmpl),
+                run_merge.staged_concat_plain(parts, ns, offs, n, tmpl))
+    tmpl_dev = merge_gc.u32_to_device(tmpl, cols.device)
+    total = sum(ns)
+
+    def cat_fill():
+        out = torch.empty((r, n), dtype=torch.int32, device=cols.device)
+        out[:, :total] = torch.cat([p[:, :k] for p, k in zip(parts, ns)], 1)
+        out[:, total:] = tmpl_dev[:, None]
+        return out
+
+    entry("staged_concat", "concat.cu", "yugabyte_tpu/ops/run_merge.py:672",
+          err, cuda_ms(lambda: run_merge.staged_concat(parts, ns, offs, n,
+                                                        tmpl), args.reps),
+          cuda_ms(lambda: run_merge.staged_concat_plain(parts, ns, offs, n,
+                                                        tmpl), 2),
+          sum(p.shape[0] * k for p, k in zip(parts, ns)) * 4 + r * n * 4,
+          cuda_ms(cat_fill, 2), {"launches_codec_job":
+                                 codec_launches["staged_concat"]})
+    del parts, staged, t["staged"]
+
+    # I.1: the sorted payload
+    err = check("sorted_payload", radix.sorted_payload(cols, perm),
+                radix.sorted_payload_plain(cols, perm))
+    perm_l = perm.long()
+    entry("sorted_payload", "scan.cu", "yugabyte_tpu/ops/scan.py:56", err,
+          cuda_ms(lambda: radix.sorted_payload(cols, perm), args.reps),
+          cuda_ms(lambda: radix.sorted_payload_plain(cols, perm), 2),
+          2 * (r + 1) * n * 4,
+          cuda_ms(lambda: torch.index_select(cols, 1, perm_l), 2))
+    del perm_l
+
+    # I.2: the range scan's bounds over the seq-scan's sorted payload
+    p_mat, keep = t["p_mat"], t["keep"]
+    _r_ht, lower, upper = scan_bounds(n_rows)
+    lo_w, lo_l = scan._pack_bound(lower, w)
+    hi_w, hi_l = scan._pack_bound(upper[:4 * w], w)
+    args_i2 = (p_mat, keep, w, lo_w, lo_l, hi_w, hi_l, True, True, True)
+    err = check("bound_pack", scan.bound_pack(*args_i2),
+                scan.bound_pack_plain(*args_i2))
+    entry("bound_pack", "scan.cu", "yugabyte_tpu/ops/scan.py:59", err,
+          cuda_ms(lambda: scan.bound_pack(*args_i2), args.reps),
+          cuda_ms(lambda: scan.bound_pack_plain(*args_i2), 2),
+          bound_pack_bytes(p_mat, keep, w, lo_w, lo_l, hi_w, hi_l), None)
+    return rows
+
+
+def bound_pack_bytes(p_mat, keep, w, lo_w, lo_l, hi_w, hi_l) -> int:
+    """Bytes kernel I.2 must move on these inputs: the keep bytes, and for
+    each kept lane the key words up to the first that differs from each
+    bound it is tested against (plus key_len where all are equal); the
+    packed words out. The upper bound is tested only where the lower one
+    passed."""
+    import torch
+    from yugabyte_tpu_torch.ops.merge_gc import _ROW_KEY_LEN, _ROW_WORDS, _u
+    n = p_mat.shape[1]
+    words = _u(p_mat[_ROW_WORDS:_ROW_WORDS + w])
+    s_len = p_mat[_ROW_KEY_LEN].long()
+
+    def cost(bw, blen):
+        differs = words != torch.as_tensor(bw.astype(np.int64),
+                                           device=words.device)[:, None]
+        first = torch.where(differs.any(0), differs.int().argmax(0) + 1,
+                            torch.full_like(s_len, w + 1))
+        lt = torch.zeros(n, dtype=torch.bool, device=words.device)
+        eq = torch.ones(n, dtype=torch.bool, device=words.device)
+        for i in range(w):
+            lt |= eq & (words[i] < int(bw[i]))
+            eq &= words[i] == int(bw[i])
+        lt |= eq & (s_len < blen)
+        return first, lt
+
+    k = keep.bool()
+    first_lo, lt_lo = cost(lo_w, lo_l)
+    first_hi, _ = cost(hi_w, hi_l)
+    words_read = int((first_lo * k).sum()) + int((first_hi * (k & ~lt_lo))
+                                                 .sum())
+    return n + 4 * words_read + n // 8
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -666,20 +1017,35 @@ def main() -> int:
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        comp, launches, tensors = compaction_phase(runs, workdir, args.reps,
-                                                   bandwidth)
+        comp, launches, tensors, readers = compaction_phase(
+            runs, workdir, args.reps, bandwidth)
+        del runs
+        codec_rows = codec_kernel_phase(args, tensors, launches["codec"],
+                                        bandwidth)
+        del tensors
+        torch.cuda.empty_cache()
+        scan_out, launches["scan"], read_ht = scan_phase(readers, args.rows)
+        stages, scan_tensors = scan_breakdown(readers, read_ht)
+        log("seq-scan stages, one after the other: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+        if stages["rows"] != scan_out["rows"]:
+            raise AssertionError("the stage breakdown drained another row "
+                                 "count than the seq-scan")
+        scan_out["stages"] = stages
+        scan_rows = scan_kernel_phase(args, scan_tensors, launches["scan"],
+                                      launches["codec"], bandwidth, args.rows)
+        del scan_tensors
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    codec_rows = codec_kernel_phase(args, tensors, launches["codec"],
-                                    bandwidth)
-    del tensors
     for entry in (a, b):
         entry["launches"] = launches["codec"][entry["name"]]
         entry["launches_shell_path"] = launches["shell"][entry["name"]]
+    b["launches_scan"] = launches["scan"]["gc_pack"]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
-               "seconds": time.time() - t_start}
+               "scan": scan_out, "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
-    print(json.dumps({"kernels": [a, b] + codec_rows}), flush=True)
+    print(json.dumps({"kernels": [a, b] + codec_rows + scan_rows}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

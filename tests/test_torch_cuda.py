@@ -244,3 +244,138 @@ def test_codec_job_on_the_card_equals_native(cuda, tmp_path, monkeypatch):
             with open(pa + suffix, "rb") as fa, open(pb + suffix, "rb") as fb:
                 assert fa.read() == fb.read()
     assert len(out["codec"].outputs) == len(out["native"].outputs) >= 1
+
+
+# ---------------------------------------------- kernels G-I (the scan path)
+
+
+def _unsorted_cols(rng, runs):
+    """The runs' cols, concatenated and shuffled, with their pruned
+    schedule: the radix input."""
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    cols, n, _n_pad, w = merge_gc.pack_cols(concat_slabs(runs))
+    cols[:, :n] = cols[:, :n][:, rng.permutation(n)]
+    is_const, _first = merge_gc.column_stats(cols, n)
+    rows, n_sort = merge_gc.build_sort_schedule(w, is_const)
+    return cols, n, w, rows, n_sort
+
+
+@pytest.mark.parametrize("k,n,key_space,w,top_bit", [
+    (1, 1, 5, 3, False), (3, 2500, 300, 3, False), (4, 5000, 9, 3, True),
+    (2, 70000, 100000, 3, True), (4, 2000, 500, 20, False)])
+def test_radix_sort_kernel_matches_plain(cuda, k, n, key_space, w, top_bit):
+    from yugabyte_tpu_torch.ops import radix
+    rng = np.random.default_rng(k + n)
+    runs = [_make_run(rng, n, key_space, w=w) for _ in range(k)]
+    for s in runs:
+        s.write_id[:] = rng.integers(0, 3, size=s.n).astype(np.uint32)
+        if top_bit:
+            s.ht_hi[rng.random(s.n) < 0.4] |= np.uint32(0x80000000)
+    cols, _n, w_pad, rows, n_sort = _unsorted_cols(rng, runs)
+    x = torch.from_numpy(cols.view(np.int32)).to(cuda)
+    for sched, cnt in ((rows, n_sort),
+                       (merge_gc.full_sort_sequence(w_pad), 4 + w_pad)):
+        before = radix.radix_sort.launches
+        got = radix.radix_sort(x, sched, cnt)
+        want = radix.radix_sort_plain(x, sched, cnt)
+        assert torch.equal(got, want)
+        assert radix.radix_sort.launches == before + 1
+
+
+@pytest.mark.parametrize("k,widths", [(1, [4]), (3, [4, 8]), (5, [8, 4, 4])])
+def test_staged_concat_kernel_matches_plain(cuda, k, widths):
+    rng = np.random.default_rng(k)
+    parts, ns = [], []
+    for i in range(k):
+        n_pad = 256 << int(rng.integers(0, 8))
+        parts.append(torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(8 + widths[i % len(widths)], n_pad),
+            dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda))
+        ns.append(int(rng.integers(0, n_pad + 1)))
+    w = max(p.shape[0] for p in parts) - 8
+    tmpl = merge_gc.pad_template(8 + w)
+    m = max(run_merge.run_bucket(max(x, 1)) for x in ns)
+    cum = np.concatenate(([0], np.cumsum(ns)[:-1])).tolist()
+    for offs, n_out in ((cum, merge_gc.bucket_size(max(sum(ns), 1))),
+                        ([i * m for i in range(k)], 8 * m)):
+        for t in (tmpl, np.zeros_like(tmpl)):
+            got = run_merge.staged_concat(parts, ns, offs, n_out, t)
+            want = run_merge.staged_concat_plain(parts, ns, offs, n_out, t)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("snapshot", [True, False])
+def test_scan_gather_and_bound_kernels_match_plain(cuda, snapshot):
+    from yugabyte_tpu_torch.ops import radix, scan
+    rng = np.random.default_rng(17)
+    runs = [_make_run(rng, 3000, 700, ttl_frac=0.3, tomb_frac=0.2)
+            for _ in range(3)]
+    cols, n, w, rows, n_sort = _unsorted_cols(rng, runs)
+    x = torch.from_numpy(cols.view(np.int32)).to(cuda)
+    perm = radix.radix_sort(x, rows, n_sort)
+    p_k = radix.sorted_payload(x, perm)
+    assert torch.equal(p_k, radix.sorted_payload_plain(x, perm))
+    params = merge_gc.GCParams((1 << 19) << 12, True)
+    _packed, keep, _mk = merge_gc.gc_pack(p_k, 8 + w, w, params, 1,
+                                          x.shape[1], snapshot)
+    keys = sorted({s.key_bytes(i) for s in runs for i in range(0, s.n, 97)})
+    lo, hi = keys[len(keys) // 5], keys[(4 * len(keys)) // 5]
+    lo_w, lo_l = scan._pack_bound(lo, w)
+    hi_w, hi_l = scan._pack_bound(hi, w)
+    for has_lo, has_hi, trunc in ((False, False, False), (True, False, False),
+                                  (False, True, False), (True, True, True)):
+        args = (p_k, keep, w, lo_w, lo_l, hi_w, hi_l, has_lo, has_hi, trunc)
+        assert torch.equal(scan.bound_pack(*args),
+                           scan.bound_pack_plain(*args))
+
+
+def test_scan_on_the_card_equals_cpu(cuda, tmp_path):
+    """The seq-scan and a bounded scan over SST files on the card launch
+    G, H, I and B and yield the CPU scan's entries."""
+    from yugabyte_tpu_torch.ops import radix, scan
+    from yugabyte_tpu_torch.storage.sst import (Frontier, SSTReader,
+                                                SSTWriter)
+    rng = np.random.default_rng(23)
+    paths = []
+    for i in range(4):
+        slab = _make_run(rng, 3000 + 500 * i, 4000, ttl_frac=0.1)
+        slab.values = ValueArray(
+            rng.integers(0, 256, size=slab.n * 8, dtype=np.uint8),
+            np.arange(slab.n + 1, dtype=np.int64) * 8)
+        p = str(tmp_path / f"in{i}.sst")
+        SSTWriter(p).write(slab, Frontier())
+        paths.append(p)
+    counters = [radix.radix_sort, run_merge.staged_concat,
+                radix.sorted_payload, merge_gc.gc_pack, scan.bound_pack]
+    lower = b"S\x00\x00\x00\x03"
+    upper = b"S\x00\x00\x00\x0c" + b"\x00" * 40  # truncated on the device
+    for read_ht, lo, hi in (((1 << 21) << 12, None, None),
+                            ((1 << 19) << 12, lower, upper)):
+        before = [c.launches for c in counters]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            srcs = [scan.SlabSource(SSTReader(p).read_all()) for p in paths]
+            out[dev] = list(scan.visible_entries_sources(srcs, read_ht, lo,
+                                                         hi, device=dev))
+        assert all(c.launches > b for c, b in zip(counters, before))
+        assert out["cuda"] == out["cpu"] and out["cpu"]
+
+
+@pytest.mark.parametrize("is_major", [True, False])
+def test_merge_and_gc_device_cuda_equals_cpu(cuda, is_major):
+    """The radix merge + GC of one unsorted slab (kernels G, I.1, B in
+    compaction mode) on the card equals the CPU run."""
+    from yugabyte_tpu_torch.ops import radix
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    rng = np.random.default_rng(31)
+    slab = concat_slabs([_make_run(rng, 4000, 900, ttl_frac=0.3,
+                                   tomb_frac=0.2) for _ in range(3)])
+    params = merge_gc.GCParams((1 << 19) << 12, is_major)
+    before = [radix.radix_sort.launches, radix.sorted_payload.launches]
+    got = merge_gc.merge_and_gc_device(slab, params)
+    want = merge_gc.merge_and_gc_device(slab, params, device="cpu")
+    for g, w_ in zip(got, want):
+        assert np.array_equal(g, w_)
+    assert radix.radix_sort.launches == before[0] + 1
+    assert radix.sorted_payload.launches == before[1] + 1
+    assert want[1].any() and (is_major or want[2].any())

@@ -28,12 +28,15 @@ MODULES = [
     "yugabyte_tpu_torch.ops.run_merge",
     "yugabyte_tpu_torch.ops.point_read",
     "yugabyte_tpu_torch.ops.block_codec",
+    "yugabyte_tpu_torch.ops.radix",
+    "yugabyte_tpu_torch.ops.scan",
     "yugabyte_tpu_torch.storage.bloom",
     "yugabyte_tpu_torch.storage.block_format",
     "yugabyte_tpu_torch.storage.sst",
     "yugabyte_tpu_torch.storage.cpu_baseline",
     "yugabyte_tpu_torch.storage.native_engine",
     "yugabyte_tpu_torch.storage.compaction",
+    "yugabyte_tpu_torch.storage.device_cache",
 ]
 
 _CHECK = """
@@ -93,6 +96,16 @@ from yugabyte_tpu_torch.storage.compaction import (
     run_compaction_job_device_native)
 run_compaction_job_device_native([], ".", lambda: 1, 0, True)
 """,
+    "merge_and_gc_device": """
+from yugabyte_tpu_torch.ops.merge_gc import GCParams, merge_and_gc_device
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+merge_and_gc_device(pack_kvs([(b"k", 1 << 32, b"\\x01")]), GCParams(1, True))
+""",
+    "visible_entries": """
+from yugabyte_tpu_torch.ops.scan import visible_entries
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+list(visible_entries([pack_kvs([(b"k", 1 << 32, b"\\x01")])], 1 << 40))
+""",
 }
 
 
@@ -116,6 +129,13 @@ from yugabyte_tpu_torch.ops.slabs import pack_kvs
 st = stage_runs_from_slabs([pack_kvs([(b"k", 1 << 32, b"\\x01")])],
                            device="cpu")
 assert st.cols_dev.device.type == "cpu"
+""",
+    "visible_entries": """
+from yugabyte_tpu_torch.ops.scan import visible_entries
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+got = list(visible_entries([pack_kvs([(b"k", 5 << 32, b"\\x01")])], 1 << 40,
+                           device="cpu"))
+assert got == [(b"k", b"\\x01", 5)], got
 """,
 }
 

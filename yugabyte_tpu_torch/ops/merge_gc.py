@@ -23,6 +23,10 @@ Fixed row layout of `cols` (rows R = 8 + W):
 `gc_pack` is the wrapper of kernel B (csrc/gc_pack.cu): GC + decision
 packing in one call. On a CPU tensor it runs `gc_pack_plain`; on a CUDA
 tensor it launches the kernel or raises — it never falls back.
+
+`sort_and_gc` / `merge_and_gc_device` are the radix merge + GC over one
+unsorted matrix (skewed picks, the scan): kernel G (ops/radix.py) sorts,
+kernel I.1 (ops/radix.py) gathers the sorted payload, kernel B decides.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from yugabyte_tpu_torch.ops import radix
 from yugabyte_tpu_torch.ops.slabs import (FLAG_HAS_TTL, FLAG_TOMBSTONE,
                                           KVSlab)
 from yugabyte_tpu_torch.utils import torch_setup
@@ -300,15 +305,46 @@ def pack_cols(slab: KVSlab, n_pad_override: Optional[int] = None,
     return cols, n, n_pad, w_pad
 
 
+def full_sort_sequence(w: int) -> list:
+    """The complete LSD radix schedule for key width w (least-sig first):
+    write_id, ht_lo, ht_hi (descending), key_len, key words w-1..0."""
+    return [_ROW_WID, _ROW_HT_LO, _ROW_HT_HI, _ROW_KEY_LEN] + \
+        [_ROW_WORDS + j for j in range(w - 1, -1, -1)]
+
+
+def build_sort_schedule(w: int, is_const: np.ndarray
+                        ) -> Tuple[np.ndarray, int]:
+    """Prune constant columns from the radix schedule (host side): a column
+    identical across all real rows carries no ordering information.
+    Returns (sort_rows padded with 0 to 4+w, n_sort)."""
+    full = full_sort_sequence(w)
+    used = [row for row in full if not is_const[row]]
+    n_sort = len(used)
+    padded = np.asarray(used + [0] * (len(full) - n_sort), dtype=np.int32)
+    return padded, n_sort
+
+
 @dataclass
 class StagedCols:
-    """A slab's key columns staged on the device: int32 [8+w, n_pad]."""
+    """A slab's key columns staged on the device: int32 [8+w, n_pad].
+
+    sort_rows / n_sort: the radix schedule of the scan and of
+    merge_and_gc_device (build_sort_schedule over col_const; the full
+    schedule when the stats are absent)."""
     cols_dev: torch.Tensor
     n: int
     n_pad: int
     w: int
     col_const: Optional[np.ndarray] = None   # is_const per row (real rows)
     col_first: Optional[np.ndarray] = None   # first value per row
+    sort_rows: Optional[np.ndarray] = None
+    n_sort: int = 0
+
+    def __post_init__(self):
+        if self.sort_rows is None:
+            const = (self.col_const if self.col_const is not None
+                     else np.zeros(_ROW_WORDS + self.w, dtype=bool))
+            self.sort_rows, self.n_sort = build_sort_schedule(self.w, const)
 
 
 def stage_slab(slab: KVSlab, device=None) -> StagedCols:
@@ -318,3 +354,73 @@ def stage_slab(slab: KVSlab, device=None) -> StagedCols:
     cols, n, n_pad, w = pack_cols(slab)
     is_const, first = column_stats(cols, n)
     return StagedCols(u32_to_device(cols, dev), n, n_pad, w, is_const, first)
+
+
+# --------------------------------------------------------------------------
+# The radix merge + GC (merge_gc.py:181-405 of the JAX package): kernel G
+# sorts, kernel I.1 gathers the sorted payload, kernel B runs the GC and
+# packs. Pad rows are never kept (kernel B masks PAD_SENTINEL rows); every
+# caller of the JAX functions masks them with `perm < n` anyway.
+
+
+def sort_and_gc(cols: torch.Tensor, params: GCParams, w: int,
+                sort_rows=None, n_sort: Optional[int] = None,
+                snapshot: bool = False):
+    """Radix merge + GC over one cols matrix int32 [8+w, n_pad]: kernel G
+    sorts, kernel I.1 gathers the sorted payload, kernel B decides.
+
+    Returns (perm, keep, make_tombstone, p_mat, packed) on the device of
+    `cols`; the first three are the JAX function's: perm int32 [n_pad]
+    (input index of each merged position), keep and make_tombstone bool
+    [n_pad] over the merged order. p_mat is kernel B's input (the sorted
+    matrix, perm as its last row; the scan's bound mask reads its key
+    words) and packed B's int32 [n_pad/32, 2] bit-packed keep and
+    make_tombstone. sort_rows/n_sort: the pruned schedule (None: the full
+    schedule). snapshot: scan mode, the cutoff is a read time (see
+    gc_over_sorted)."""
+    if sort_rows is None:
+        sort_rows, n_sort = np.asarray(full_sort_sequence(w)), 4 + w
+    perm = radix.radix_sort(cols, sort_rows, n_sort)       # kernel G
+    p_mat = radix.sorted_payload(cols, perm)               # kernel I.1
+    packed, keep, mk = gc_pack(p_mat, _ROW_WORDS + w, w, params, 1,
+                               cols.shape[1], snapshot)    # kernel B
+    return perm, keep, mk, p_mat, packed
+
+
+def _merge_gc_fused(cols: torch.Tensor, sort_rows, n_sort: int,
+                    params: GCParams, w: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(perm, packed keep, packed make_tombstone) of the compaction-mode
+    radix merge + GC: int32 [n_pad], [n_pad/32], [n_pad/32]."""
+    perm, _keep, _mk, _p_mat, packed = sort_and_gc(cols, params, w,
+                                                   sort_rows, n_sort)
+    return perm, packed[:, 0], packed[:, 1]
+
+
+def _unpack_bits(packed: np.ndarray, n: int) -> np.ndarray:
+    return np.unpackbits(np.ascontiguousarray(packed).view(np.uint8),
+                         bitorder="little")[:n].astype(bool)
+
+
+def merge_and_gc_device(slab: Optional[KVSlab], params: GCParams,
+                        device=None, staged: Optional[StagedCols] = None
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The radix merge + GC of one slab (skewed picks; any input order) on
+    `device` (cuda unless the caller passes device='cpu').
+
+    Returns (perm, keep, make_tombstone) as host arrays of the padded
+    length n_pad; padding rows sort after all real rows and have
+    keep=False. staged: a slab already on the device (skips the pack and
+    upload)."""
+    if staged is None:
+        if slab.n == 0:
+            z = np.zeros(0, dtype=np.int32)
+            zb = np.zeros(0, dtype=bool)
+            return z, zb, zb
+        staged = stage_slab(slab, device)
+    perm, keep_p, mk_p = _merge_gc_fused(staged.cols_dev, staged.sort_rows,
+                                         staged.n_sort, params, staged.w)
+    perm = perm.cpu().numpy()
+    keep = _unpack_bits(keep_p.cpu().numpy(), staged.n_pad) & (perm < staged.n)
+    mk = _unpack_bits(mk_p.cpu().numpy(), staged.n_pad)
+    return perm, keep, mk

@@ -24,6 +24,10 @@ Write-through staging (kernels D and E, csrc/write_through.cu) reads the
 merge products the handle keeps on the device: `survivor_positions` scans
 the keep bytes once per job, and `gather_staged_output_span` gathers one
 output file's survivor span of cols from the merged payload.
+
+Kernel H (`staged_concat`, csrc/concat.cu) lays per-file staged cols out
+into one matrix: run-major for the merge (`_restage_concat`), back to
+back for the radix merge and the scan (`_concat_staged_fused`).
 """
 
 from __future__ import annotations
@@ -230,25 +234,103 @@ def stage_runs_from_slabs(slabs: Sequence[KVSlab], device=None,
                       run_maps=run_maps)
 
 
+# --------------------------------------------------------------------------
+# Staged concat (kernel H, csrc/concat.cu): per-SST staged cols laid out
+# into one matrix on the device, for the run-major merge (_restage_concat)
+# and for the radix / scan input (_concat_staged_fused).
+
+def staged_concat_plain(parts: Sequence[torch.Tensor], ns: Sequence[int],
+                        offsets: Sequence[int], n_out: int,
+                        template: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch version of kernel H. Part i (int32 [r_i, >= n_i])
+    puts its first n_i lanes at output lane offsets[i]; word rows a narrow
+    part lacks are zero there; every lane no part covers carries the
+    template column (u32 [rows]). Returns int32 [rows, n_out]."""
+    r = len(template)
+    dev = parts[0].device
+    out = u32_to_device(template, dev)[:, None].repeat(1, n_out)
+    for cols, n_i, off in zip(parts, ns, offsets):
+        r_i = min(cols.shape[0], r)
+        out[:r_i, off:off + n_i] = cols[:r_i, :n_i]
+        out[r_i:, off:off + n_i] = 0
+    return out
+
+
+_concat_lib = None
+
+
+def _concat():
+    global _concat_lib
+    if _concat_lib is None:
+        lib = torch_setup.load_cuda_lib("concat.cu")
+        lib.ybt_staged_concat.restype = ctypes.c_int
+        lib.ybt_staged_concat.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        _concat_lib = lib
+    return _concat_lib
+
+
+def staged_concat(parts: Sequence[torch.Tensor], ns: Sequence[int],
+                  offsets: Sequence[int], n_out: int,
+                  template: np.ndarray) -> torch.Tensor:
+    """Kernel H wrapper (see staged_concat_plain for the contract). CPU
+    tensors: the plain version. CUDA tensors: csrc/concat.cu, counted in
+    `staged_concat.launches`."""
+    if not parts[0].is_cuda:
+        return staged_concat_plain(parts, ns, offsets, n_out, template)
+    r = len(template)
+    dev = parts[0].device
+    if not len(parts) == len(ns) == len(offsets):
+        raise ValueError("staged_concat: one count and one offset per part")
+    end = 0
+    desc = []
+    for cols, n_i, off in zip(parts, ns, offsets):
+        torch_setup.check_u32_matrix(cols, "staged_concat")
+        if cols.device != dev or cols.dim() != 2 or off < end \
+                or not 0 <= n_i <= cols.shape[1]:
+            raise ValueError(f"staged_concat: part {tuple(cols.shape)} with "
+                             f"n={n_i} at lane {off} overlaps or does not "
+                             f"fit")
+        end = off + n_i
+        desc.append([cols.data_ptr(), cols.shape[1], n_i, off,
+                     min(cols.shape[0], r)])
+    if end > n_out:
+        raise ValueError(f"staged_concat: parts reach lane {end} of {n_out}")
+    desc_dev = torch.tensor(desc, dtype=torch.int64).to(dev)
+    tmpl = u32_to_device(template, dev)
+    out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
+    rc = _concat().ybt_staged_concat(
+        desc_dev.data_ptr(), len(desc), r, n_out, tmpl.data_ptr(),
+        out.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "staged_concat")
+    staged_concat.launches += 1
+    return out
+
+
+staged_concat.launches = 0
+
+
 def _restage_concat(parts: Sequence[torch.Tensor], ns: Sequence[int],
                     w: int, m: int, k_pad: int) -> torch.Tensor:
-    """Per-SST staged cols -> the run-major [8+w, k_pad*m] merge layout, on
-    the device of the parts (torch indexing; the XLA program
-    `_restage_concat` of the JAX package).
+    """Per-SST staged cols -> the run-major [8+w, k_pad*m] merge layout
+    (kernel H). Real rows land at the head of slot i, narrow inputs expose
+    their extra word rows as zero, and every padding lane (slot tails + the
+    k_pad-k empty slots) carries the pad template so it sorts to the
+    tail."""
+    return staged_concat(parts, ns, [i * m for i in range(len(parts))],
+                         k_pad * m, pad_template(_ROW_WORDS + w))
 
-    Real rows land at the head of slot i, narrow inputs expose their extra
-    word rows as zero, and every padding lane (slot tails + the k_pad-k
-    empty slots) carries the pad template so it sorts to the tail."""
-    r = _ROW_WORDS + w
-    dev = parts[0].device
-    pad_col = u32_to_device(pad_template(r), dev)
-    out = pad_col[:, None].repeat(1, k_pad * m)
-    for i, (cols, n_i) in enumerate(zip(parts, ns)):
-        lo = i * m
-        r_i = min(cols.shape[0], r)
-        out[:r_i, lo:lo + n_i] = cols[:r_i, :n_i]
-        out[r_i:, lo:lo + n_i] = 0
-    return out
+
+def _concat_staged_fused(parts: Sequence[torch.Tensor], ns: Sequence[int],
+                         w: int, n_pad: int) -> torch.Tensor:
+    """Per-SST staged cols -> ONE contiguous padded cols matrix [8+w,
+    n_pad] (kernel H; the radix input of storage/device_cache.py
+    concat_staged): real rows of every input back to back, the tail
+    padded with the template."""
+    offsets = np.concatenate(([0], np.cumsum(ns)[:-1])).astype(np.int64)
+    return staged_concat(parts, ns, offsets.tolist(), n_pad,
+                         pad_template(_ROW_WORDS + w))
 
 
 def stage_runs_from_staged(staged_list: Sequence[StagedCols]) -> StagedRuns:

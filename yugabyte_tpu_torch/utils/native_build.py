@@ -76,12 +76,13 @@ def build_cuda_lib(src_name: str) -> str:
     return lib
 
 
-# every library the compaction slice loads: (kind, source, lib name, args)
+# every library the compaction and scan slices load: (source, lib name,
+# args)
 NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                 ("-lz", "-lpthread")),
                ("compaction_baseline.cc", "libcompaction_baseline.so", ()))
 CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
-                "write_through.cu")
+                "write_through.cu", "radix.cu", "concat.cu", "scan.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
