@@ -976,12 +976,666 @@ def bound_pack_bytes(p_mat, keep, w, lo_w, lo_l, hi_w, hi_l) -> int:
     return n + 4 * words_read + n // 8
 
 
+# ------------------------------------------------------------ the pushdown
+#
+# One tablet of TPC-H SF1 lineitem as a YCQL table (TPC-H spec 1.4, the
+# dbgen distributions of 4.2.3): l_orderkey INT64 the hash key,
+# l_linenumber INT32 the range key, four value columns. Decimals are
+# integers (cents, percent) and dates days since 1970-01-01: the pushdown
+# stages 12 value bytes and compiles integer and bool columns only.
+
+LINEITEM_COLS = (("l_orderkey", "INT64"), ("l_linenumber", "INT32"),
+                 ("l_quantity", "INT64"), ("l_extendedprice", "INT64"),
+                 ("l_discount", "INT32"), ("l_shipdate", "INT32"))
+_VALUE_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+SF1_ORDERS = 1_500_000
+# days since 1970-01-01: dbgen's STARTDATE 1992-01-01, ENDDATE 1998-12-31
+# less 151 days (the last order date), and the queries' literals
+D_START, D_LAST_ORDER = 8035, 10440
+D_1998_09_02, D_1994_01_01, D_1995_01_01, D_1998_08_01 = \
+    10471, 8766, 9131, 10439
+# op kinds: INSERT, UPDATE l_quantity, UPDATE l_discount = NULL, DELETE_ROW
+OP_INSERT, OP_SET_QTY, OP_NULL_DISC, OP_DELETE = 0, 1, 2, 3
+_DOC_KEY_LEN = 23      # 'G' hash16 'I' orderkey8 '!' 'I' linenumber8 '!'
+
+
+def lineitem_schema():
+    from yugabyte_tpu_torch.common.schema import ColumnSchema, DataType, Schema
+    return Schema([ColumnSchema(n, DataType[t]) for n, t in LINEITEM_COLS],
+                  num_hash_key_columns=1, num_range_key_columns=1)
+
+
+def _biased(v) -> np.ndarray:
+    """v + 2^63 mod 2^64 of int64 values, as uint64."""
+    return np.asarray(v, np.int64).view(np.uint64) ^ np.uint64(1 << 63)
+
+
+def _int_payload(v) -> np.ndarray:
+    """[n, 9] bytes of each int's encoding: kInt64, then v + 2^63 as 8
+    big-endian bytes (docdb/doc_key.PrimitiveValue)."""
+    out = np.empty((len(v), 9), dtype=np.uint8)
+    out[:, 0] = ord("I")
+    out[:, 1:] = _biased(v).astype(">u8").view(np.uint8).reshape(-1, 8)
+    return out
+
+
+def _hash16(payload: np.ndarray) -> np.ndarray:
+    """common/partition.hash_column_compound_value of each row of
+    encoded hash columns: FNV-1a 64 folded to 16 bits."""
+    h = np.full(payload.shape[0], 0xCBF29CE484222325, dtype=np.uint64)
+    prime = np.uint64(0x100000001B3)
+    for j in range(payload.shape[1]):
+        h ^= payload[:, j].astype(np.uint64)
+        h *= prime
+    h ^= h >> np.uint64(32)
+    h ^= h >> np.uint64(16)
+    return (h & np.uint64(0xFFFF)).astype(np.int64)
+
+
+def lineitem_rows(sf_orders: int, seed: int, tablet=(0, 0x8000)) -> dict:
+    """The line items of the orders among TPC-H's first sf_orders whose
+    partition hash falls in the tablet's range (the first of two hash
+    tablets by default), as numpy columns. Order keys are dbgen's sparse
+    keys (8 of every 32); per order 1-7 lines and an order date in
+    [STARTDATE, ENDDATE - 151]; per line a quantity in 1-50, a part key in
+    1-200,000 whose retail price in cents is 90000 + (pk / 10) mod 20001
+    + 100 (pk mod 1000), the extended price quantity x retail, a discount
+    in 0-10 percent and a ship date 1-121 days after the order date."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(sf_orders, dtype=np.int64)
+    okey = (i // 8) * 32 + i % 8 + 1
+    h = _hash16(_int_payload(okey))
+    mine = (h >= tablet[0]) & (h < tablet[1])
+    okey, h = okey[mine], h[mine]
+    lcnt = rng.integers(1, 8, size=len(okey))
+    odate = rng.integers(D_START, D_LAST_ORDER + 1, size=len(okey))
+    order = np.repeat(np.arange(len(okey)), lcnt)
+    n = len(order)
+    line = np.arange(n) - np.repeat(np.cumsum(lcnt) - lcnt, lcnt) + 1
+    qty = rng.integers(1, 51, size=n)
+    pk = rng.integers(1, 200_001, size=n)
+    retail = 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)
+    return {"orderkey": okey[order], "hash": h[order], "linenumber": line,
+            "l_quantity": qty, "l_extendedprice": qty * retail,
+            "l_discount": rng.integers(0, 11, size=n),
+            "l_shipdate": odate[order] + rng.integers(1, 122, size=n)}
+
+
+def lineitem_ops(rows: dict, seed: int, n_runs: int = 3) -> dict:
+    """The writes, as op arrays (kind, row, value, run): each row's INSERT
+    in one of runs 0..n_runs-1 at random, so the runs overlap in key order
+    as flushes do; then run n_runs: UPDATE l_quantity of 2% of the rows,
+    l_discount = NULL of 1%, DELETE_ROW of 1%."""
+    rng = np.random.default_rng(seed + 1)
+    n = len(rows["orderkey"])
+    kind, row = [np.full(n, OP_INSERT)], [np.arange(n)]
+    value, run = [np.zeros(n, np.int64)], [rng.integers(0, n_runs, size=n)]
+    for k, frac in ((OP_SET_QTY, 0.02), (OP_NULL_DISC, 0.01),
+                    (OP_DELETE, 0.01)):
+        sel = np.flatnonzero(rng.random(n) < frac)
+        kind.append(np.full(len(sel), k))
+        row.append(sel)
+        value.append(rng.integers(1, 51, size=len(sel)) if k == OP_SET_QTY
+                     else np.zeros(len(sel), np.int64))
+        run.append(np.full(len(sel), n_runs))
+    return {"kind": np.concatenate(kind), "row": np.concatenate(row),
+            "value": np.concatenate(value), "run": np.concatenate(run)}
+
+
+def encode_lineitem(rows: dict, ops: dict) -> dict:
+    """Every entry the ops write, in op order, as QLWriteOp.to_kv_pairs
+    writes them: an INSERT the liveness column (write id 0) and the four
+    value columns (1-4), an UPDATE its column (a NULL a column tombstone),
+    a DELETE_ROW a tombstone at the doc key. Returns numpy arrays: op,
+    write id, rank (0 the doc key, 1 liveness, 2 + cid a column: the key
+    order below the doc key), the key as 7 big-endian words and its
+    length, the value bytes [m, 9] and length, and the tombstone flag."""
+    kind, row = ops["kind"], ops["row"]
+    per_op = np.where(kind == OP_INSERT, 5, 1)
+    op = np.repeat(np.arange(len(kind)), per_op)
+    wid = np.arange(len(op)) - np.repeat(np.cumsum(per_op) - per_op, per_op)
+    k, r = kind[op], row[op]
+    rank = np.select([k == OP_INSERT, k == OP_SET_QTY, k == OP_NULL_DISC],
+                     [1 + wid, 2, 4], 0)
+    # 'G' hash16 'I' orderkey8 '!' 'I' linenumber8 '!' ['J'|'K' cid16]
+    ok, ln = _biased(rows["orderkey"][r]), _biased(rows["linenumber"][r])
+    sub_tag = np.select([rank == 1, rank > 1], [ord("J"), ord("K")], 0)
+    cid = np.where(rank == 1, 1, np.maximum(rank - 2, 0))
+    u = np.uint64
+    words = np.stack([
+        (u(ord("G")) << u(24)) | (rows["hash"][r].astype(u) << u(8))
+        | u(ord("I")),
+        ok >> u(32), ok & u(0xFFFFFFFF),
+        (u(ord("!")) << u(24)) | (u(ord("I")) << u(16)) | (ln >> u(48)),
+        (ln >> u(16)) & u(0xFFFFFFFF),
+        ((ln & u(0xFFFF)) << u(16)) | (u(ord("!")) << u(8))
+        | sub_tag.astype(u),
+        np.where(rank > 0, cid, 0).astype(u) << u(16)], axis=1)
+    cols = np.stack([rows[c] for c in _VALUE_COLS])
+    ival = np.where(k == OP_SET_QTY, ops["value"][op],
+                    cols[np.clip(rank - 2, 0, 3), r])
+    is_int = (k == OP_SET_QTY) | ((k == OP_INSERT) & (wid > 0))
+    tomb = (k == OP_NULL_DISC) | (k == OP_DELETE)
+    val = _int_payload(ival)
+    val[~is_int, 0] = np.where(tomb[~is_int], ord("X"), ord("$"))
+    return {"op": op, "wid": wid, "rank": rank,
+            "key_words": words.astype(np.uint32),
+            "key_len": np.where(rank > 0, 26, _DOC_KEY_LEN).astype(np.int32),
+            "val": val, "val_len": np.where(is_int, 9, 1), "tomb": tomb}
+
+
+def lineitem_runs(rows: dict, ops: dict, seed: int):
+    """The sorted runs (KVSlabs) of the ops' entries and the read times:
+    run g's ops take the hybrid times span (g + 1) + a permutation of its
+    ops, span = max(10^6, ops per run), write ids 0..k-1 within an op.
+    Returns (runs, read time above every write, read time between the
+    last INSERT run and the update run)."""
+    from yugabyte_tpu_torch.ops.slabs import (FLAG_TOMBSTONE, KVSlab,
+                                              ValueArray)
+    rng = np.random.default_rng(seed + 2)
+    ent = encode_lineitem(rows, ops)
+    n_runs = int(ops["run"].max()) + 1
+    counts = np.bincount(ops["run"], minlength=n_runs)
+    span = max(1_000_000, int(counts.max()))
+    op_ht = np.zeros(len(ops["kind"]), dtype=np.uint64)
+    for g in range(n_runs):
+        sel = np.flatnonzero(ops["run"] == g)
+        op_ht[sel] = (span * (g + 1) + rng.permutation(len(sel))) << 12
+    run_of, ht = ops["run"][ent["op"]], op_ht[ent["op"]]
+    r = ops["row"][ent["op"]]
+    # run, then the key order: hash, order key, line number, rank (a key
+    # is written at most once per run)
+    u = np.uint64
+    order = np.argsort(
+        (run_of.astype(u) << u(60)) | (rows["hash"][r].astype(u) << u(40))
+        | (rows["orderkey"][r].astype(u) << u(8))
+        | (rows["linenumber"][r].astype(u) << u(4)) | ent["rank"].astype(u),
+        kind="stable")
+    bounds = np.concatenate(([0], np.cumsum(np.bincount(run_of,
+                                                        minlength=n_runs))))
+    runs = []
+    for g in range(n_runs):
+        sel = order[bounds[g]:bounds[g + 1]]
+        n = len(sel)
+        vlen = ent["val_len"][sel]
+        valid = np.arange(9)[None, :] < vlen[:, None]
+        runs.append(KVSlab(
+            key_words=ent["key_words"][sel], key_len=ent["key_len"][sel],
+            doc_key_len=np.full(n, _DOC_KEY_LEN, dtype=np.int32),
+            ht_hi=(ht[sel] >> u(32)).astype(np.uint32),
+            ht_lo=(ht[sel] & u(0xFFFFFFFF)).astype(np.uint32),
+            write_id=ent["wid"][sel].astype(np.uint32),
+            flags=np.where(ent["tomb"][sel], FLAG_TOMBSTONE, 0)
+            .astype(np.uint32),
+            ttl_ms=np.zeros(n, dtype=np.int64),
+            value_idx=np.arange(n, dtype=np.int32),
+            values=ValueArray(ent["val"][sel][valid], np.concatenate(
+                ([0], np.cumsum(vlen))).astype(np.int64))))
+    return runs, (span * (n_runs + 1)) << 12, ((span * n_runs) << 12) - 1
+
+
+def pushdown_queries(schema):
+    """name -> (mode, ScanSpec) of the phase's queries (TPC-H Q1 and Q6
+    without GROUP BY and, for Q6, without its fifth conjunct
+    l_quantity < 24: the kernels hold 4 predicate slots)."""
+    from yugabyte_tpu_torch.docdb import scan_spec as ss
+
+    def pred(c, op, v):
+        return ss.compile_predicate(schema, c, op, v)
+
+    def agg(f, c):
+        return ss.compile_aggregate(schema, f, c)
+
+    q1 = ss.ScanSpec(
+        (pred("l_shipdate", "<=", D_1998_09_02),),
+        (agg("count", None),)
+        + tuple(agg(f, c) for c in ("l_quantity", "l_extendedprice")
+                for f in ("sum", "min", "max")))
+    q6 = ss.ScanSpec(
+        (pred("l_shipdate", ">=", D_1994_01_01),
+         pred("l_shipdate", "<", D_1995_01_01),
+         pred("l_discount", ">=", 5), pred("l_discount", "<=", 7)),
+        (agg("count", None), agg("sum", "l_extendedprice")))
+    rows = ss.ScanSpec((pred("l_quantity", "<", 24),
+                        pred("l_discount", "!=", 6),
+                        pred("l_shipdate", ">=", D_1998_08_01)))
+    if None in q1.predicates + q1.aggregates + q6.predicates \
+            + q6.aggregates + rows.predicates:
+        raise AssertionError("a query did not compile for the pushdown")
+    return {"q1_agg": ("aggregate", q1), "q6_agg": ("aggregate", q6),
+            "filter_rows": ("filtered", rows)}
+
+
+class LineitemOracle:
+    """The host reference of the pushdown queries, independent of the
+    pushdown code: the native C++ heap merge + GC in snapshot shape
+    (`compact_cpu_baseline` at cutoff = read time, the engine of
+    `_visible_entries_host`), the visible entries assembled into rows with
+    numpy (a row exists iff its liveness column or a value column is
+    visible), and the predicates and aggregates evaluated over the rows
+    under the two NULL contracts."""
+
+    _OPS = {"=": np.equal, "!=": np.not_equal, "<": np.less,
+            "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal}
+
+    def __init__(self, slabs, read_ht: int):
+        from yugabyte_tpu_torch.ops.slabs import concat_slabs
+        from yugabyte_tpu_torch.storage.cpu_baseline import \
+            compact_cpu_baseline
+        merged = concat_slabs(slabs)
+        offsets = np.cumsum([0] + [s.n for s in slabs]).tolist()
+        order, keep, _ = compact_cpu_baseline(merged, offsets, read_ht, True)
+        idx = order[keep]
+        ht = (merged.ht_hi[idx].astype(np.uint64) << np.uint64(32)) \
+            | merged.ht_lo[idx]
+        idx = idx[ht <= np.uint64(read_ht)]
+        kb = merged.key_words[idx].astype(">u4").view(np.uint8) \
+            .reshape(len(idx), -1)
+        doc = np.concatenate([kb[:, :_DOC_KEY_LEN],
+                              np.zeros((len(idx), 1), np.uint8)], 1) \
+            .view(">u8").reshape(len(idx), -1)
+        new_doc = np.ones(len(idx), dtype=bool)
+        new_doc[1:] = (doc[1:] != doc[:-1]).any(axis=1)
+        self.doc = np.cumsum(new_doc) - 1
+        self.n_rows = int(self.doc[-1]) + 1 if len(idx) else 0
+        va = merged.values
+        start = va.offsets[merged.value_idx[idx].astype(np.int64)]
+        data = np.concatenate([va.data, np.zeros(9, np.uint8)])
+        val = np.lib.stride_tricks.sliding_window_view(data, 9)[start]
+        tag = val[:, 0]
+        ival = (np.ascontiguousarray(val[:, 1:]).view(">u8")[:, 0]
+                .astype(np.uint64) ^ np.uint64(1 << 63)).view(np.int64)
+        is_col = (merged.key_len[idx] == 26) & (kb[:, 23] == ord("K"))
+        cid = (kb[:, 24].astype(np.int64) << 8) | kb[:, 25]
+        self.cols = {}
+        for c, name in enumerate(_VALUE_COLS):
+            sel = is_col & (cid == c) & (tag == ord("I"))
+            have = np.zeros(self.n_rows, dtype=bool)
+            val = np.zeros(self.n_rows, dtype=np.int64)
+            have[self.doc[sel]] = True
+            val[self.doc[sel]] = ival[sel]
+            self.cols[name] = (have, val)
+        self.merged, self.idx = merged, idx
+
+    def passing(self, spec, wire: bool) -> np.ndarray:
+        """Rows satisfying every predicate: a NULL or absent column fails
+        every operator (the CQL _match contract), or with wire=True
+        passes != (common/wire.FILTER_OPS)."""
+        ok = np.ones(self.n_rows, dtype=bool)
+        for p in spec.predicates:
+            have, val = self.cols[p.col]
+            m = have & self._OPS[p.op](val, int(p.value))
+            ok &= (m | ~have) if wire and p.op == "!=" else m
+        return ok
+
+    def aggregate(self, spec, schema) -> dict:
+        ok = self.passing(spec, wire=False)
+        out = {"rows": int(ok.sum()), "cols": {}}
+        for cid in spec.agg_cids:
+            have, val = self.cols[schema.column_by_id(cid).name]
+            v = [int(x) for x in val[ok & have]]
+            out["cols"][cid] = {"nonnull": len(v), "sum": sum(v),
+                                "min": min(v) if v else None,
+                                "max": max(v) if v else None}
+        return out
+
+    def entries(self, spec) -> list:
+        sel = self.idx[self.passing(spec, wire=True)[self.doc]]
+        m = self.merged
+        return [(m.key_bytes(i), m.values[int(m.value_idx[i])],
+                 (int(m.ht_hi[i]) << 32) | int(m.ht_lo[i]))
+                for i in sel.tolist()]
+
+
+def _pushdown_wrappers():
+    from yugabyte_tpu_torch.ops import pushdown
+    return {"row_flags": pushdown.row_flags,
+            "segment_or": pushdown.segment_or,
+            "row_pass_pack": pushdown.row_pass_pack,
+            "agg_reduce": pushdown.agg_reduce}
+
+
+def check_pushdown_launches(launches, mode: str, presorted: bool, what: str):
+    """Multi-source: G, H on cols and vals, I.1 on cols and vals, B, J.1,
+    J.2 and J.3 or K; presorted: B, J.1, J.2 and K only."""
+    last = "agg_reduce" if mode == "aggregate" else "row_pass_pack"
+    need = {k: 1 for k in ("gc_pack", "row_flags", "segment_or", last)}
+    if not presorted:
+        need.update(staged_concat=2, radix_sort=1, sorted_payload=2)
+    for k, least in need.items():
+        if launches[k] < least:
+            raise AssertionError(f"{what}: kernel {k} launched "
+                                 f"{launches[k]} times (at least {least})")
+    if presorted and any(launches[k] for k in ("staged_concat", "radix_sort",
+                                                "sorted_payload")):
+        raise AssertionError(f"{what}: the presorted route launched G, H or "
+                             f"I.1: {launches}")
+
+
+def pushdown_phase(args, workdir, device="cuda"):
+    """The query pushdown over a TPC-H lineitem tablet in 4 SSTs: each
+    query through `ops.scan.aggregate_sources` / `filtered_entries_sources`
+    over SlabSource(read_all(), sorted_source=True), every launch counter
+    set to 0 just before it and read just after, the answer equal to
+    LineitemOracle's. Returns (summary, the phase's launch totals, the
+    slabs, the read times)."""
+    import torch
+    from yugabyte_tpu_torch.ops import scan
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+
+    schema = lineitem_schema()
+    t0 = time.time()
+    rows = lineitem_rows(args.sf_orders, args.seed)
+    ops = lineitem_ops(rows, args.seed)
+    runs, top_ht, mid_ht = lineitem_runs(rows, ops, args.seed)
+    n_entries = sum(s.n for s in runs)
+    out = {"orders": int(len(np.unique(rows["orderkey"]))),
+           "rows": int(len(rows["orderkey"])), "entries": n_entries,
+           "run_entries": [s.n for s in runs],
+           "generate_s": time.time() - t0}
+    del rows, ops
+    in_dir = os.path.join(workdir, "lineitem")
+    os.makedirs(in_dir)
+    readers = write_inputs(runs, in_dir)
+    del runs
+    log(f"lineitem tablet: {out['orders']} orders, {out['rows']} rows, "
+        f"{n_entries} entries in 4 SSTs ({out['generate_s']:.1f}s)")
+    t0 = time.time()
+    slabs = [r.read_all() for r in readers]
+    out["read_all_s"] = time.time() - t0
+    del readers
+    queries = pushdown_queries(schema)
+    plan = [("q1_agg", "q1_agg", top_ht, slabs),
+            ("q6_agg", "q6_agg", top_ht, slabs),
+            ("q6_agg@mid", "q6_agg", mid_ht, slabs),
+            ("filter_rows", "filter_rows", top_ht, slabs),
+            ("presorted_q1", "q1_agg", top_ht, slabs[:1])]
+    wrappers = {**_wrappers(), **_pushdown_wrappers()}
+    totals = {k: 0 for k in wrappers}
+    oracles = {}
+    for name, qname, read_ht, inputs in plan:
+        mode, spec = queries[qname]
+        presorted = len(inputs) == 1
+        for w in wrappers.values():
+            w.launches = 0
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srcs = [scan.SlabSource(s, sorted_source=True) for s in inputs]
+        if mode == "aggregate":
+            got = scan.aggregate_sources(srcs, read_ht, spec, device=device)
+        else:
+            got = list(scan.filtered_entries_sources(srcs, read_ht, spec,
+                                                     device=device))
+        sync()
+        secs = time.time() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.cuda.is_available() else 0)
+        check_pushdown_launches(launches, mode, presorted, name)
+        for k, v in launches.items():
+            totals[k] += v
+        t0 = time.time()
+        key = (read_ht, len(inputs))
+        if key not in oracles:
+            oracles[key] = LineitemOracle(inputs, read_ht)
+        oracle = oracles[key]
+        t_assemble = time.time() - t0
+        t0 = time.time()
+        want = oracle.aggregate(spec, schema) if mode == "aggregate" \
+            else oracle.entries(spec)
+        t_eval = time.time() - t0
+        if got != want:
+            raise AssertionError(f"{name}: the pushdown's answer differs "
+                                 f"from the host oracle's")
+        if (mode == "aggregate" and got["rows"] == 0) or not got:
+            raise AssertionError(f"{name}: an empty answer")
+        res = {"mode": mode, "read_ht": read_ht, "sources": len(inputs),
+               "entries_in": sum(s.n for s in inputs),
+               "visible_rows": oracle.n_rows, "seconds": secs,
+               "rows_per_s": oracle.n_rows / secs, "peak_bytes": peak,
+               "oracle_assemble_s": t_assemble, "oracle_eval_s": t_eval,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if mode == "aggregate":
+            res["answer"] = {"rows": got["rows"], "cols": {
+                str(c): st for c, st in got["cols"].items()}}
+        else:
+            res["entries_out"] = len(got)
+        out[name] = res
+        log(f"{name}: equal to the host oracle; {secs:.3f}s "
+            f"({res['rows_per_s']:,.0f} rows/s over {oracle.n_rows} visible "
+            f"rows; oracle {t_assemble:.2f}s + {t_eval:.2f}s); peak "
+            f"{peak} bytes; launches {res['launches']}")
+    del oracles
+    return out, totals, slabs, (top_ht, mid_ht)
+
+
+def pushdown_breakdown(slabs, read_ht, spec, mode, device="cuda"):
+    """Seconds of each stage of one pushdown query over the 4 inputs, run
+    one after the other with the same module functions, each ended by a
+    synchronize: host pack + upload of cols and vals, kernel H (cols and
+    vals), kernel G, kernels I.1 (cols and vals) + B, kernel J, kernel K,
+    the decisions down and the host finish (the drain of the kept entries,
+    or the aggregate's reconstruction). Returns the stages, the answer
+    and the tensors the kernel phase checks J and K on."""
+    from yugabyte_tpu_torch.ops import merge_gc, pushdown, radix, scan
+    from yugabyte_tpu_torch.storage.device_cache import concat_staged
+
+    out = {}
+    t0 = time.time()
+    staged = [merge_gc.stage_slab(s, device) for s in slabs]
+    vals = [merge_gc.u32_to_device(scan.pack_vals(s, st.n_pad),
+                                   st.cols_dev.device)
+            for s, st in zip(slabs, staged)]
+    sync()
+    out["pack_upload_s"] = time.time() - t0
+    t0 = time.time()
+    cat = concat_staged(staged)
+    cvals = scan.concat_vals(vals, [st.n for st in staged], cat.n_pad)
+    sync()
+    out["concat_h_s"] = time.time() - t0
+    parts = {"vals": vals, "ns": [st.n for st in staged], "n_pad": cat.n_pad}
+    del staged
+    t0 = time.time()
+    perm = radix.radix_sort(cat.cols_dev, cat.sort_rows, cat.n_sort)
+    sync()
+    out["radix_g_s"] = time.time() - t0
+    t0 = time.time()
+    w = cat.w
+    s = radix.sorted_payload(cat.cols_dev, perm)
+    _packed, keep, _mk = merge_gc.gc_pack(
+        s, merge_gc._ROW_WORDS + w, w, merge_gc.GCParams(read_ht, True), 1,
+        cat.n_pad, snapshot=True)
+    sv = radix.sorted_payload(cvals, perm)
+    sync()
+    out["gather_gc_s"] = time.time() - t0
+    wire = mode == "filtered"
+    p_ops = scan._pack_predicate_operands(
+        spec, scan.pred_slot_bucket(len(spec.predicates)), wire)
+    c_pad = scan.agg_slot_bucket(max(len(spec.agg_cids), 1))
+    a_ops = scan._pack_agg_operands(spec, c_pad) if not wire else None
+    bounds, _lo, _hi = scan._bound_operands(cat, None, None)
+    t0 = time.time()
+    flags = pushdown.row_flags(s, keep, sv, w, bounds, p_ops, a_ops)
+    seg = pushdown.segment_or(flags)
+    if wire:
+        keep_p = pushdown.row_pass_pack(flags, seg, p_ops[1], p_ops[2])
+    sync()
+    out["j_s"] = time.time() - t0
+    if wire:
+        t0 = time.time()
+        perm_h = perm.cpu().numpy()
+        keep_h = merge_gc._unpack_bits(keep_p.cpu().numpy(), cat.n_pad) \
+            & (perm_h < cat.n)
+        out["decisions_down_s"] = time.time() - t0
+        t0 = time.time()
+        srcs = [scan.SlabSource(sl, sorted_source=True) for sl in slabs]
+        answer = list(scan.survivor_entries(srcs, perm_h, keep_h))
+        out["host_drain_s"] = time.time() - t0
+    else:
+        t0 = time.time()
+        acc, ext = pushdown.agg_reduce(flags, seg, sv, p_ops[1], p_ops[2],
+                                       c_pad, c_pad)
+        sync()
+        out["k_s"] = time.time() - t0
+        t0 = time.time()
+        answer = scan.agg_partial(spec, acc, ext, c_pad)
+        out["decisions_down_finish_s"] = time.time() - t0
+    tensors = {"s": s, "keep": keep, "sv": sv, "w": w, "bounds": bounds,
+               "p_ops": p_ops, "a_ops": a_ops, "c_pad": c_pad,
+               "flags": flags, "seg": seg, "cvals": cvals, "parts": parts}
+    return out, answer, tensors
+
+
+def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
+    """Kernels J.1, J.2, J.3 and K against their plain versions on the
+    card, bit for bit, on q6_agg's and filter_rows' tensors; timed with
+    CUDA events on q6_agg's (J.3 on filter_rows') beside their bounds:
+    the bytes each must move on these inputs. No single PyTorch call
+    computes any of them (library_ms null). Also H's vals launch (the zero
+    template) at the phase's shapes, beside torch.cat + a zero fill."""
+    import torch
+    from yugabyte_tpu_torch.ops import pushdown, run_merge, scan
+
+    def calls(t):
+        s, keep, sv, w = t["s"], t["keep"], t["sv"], t["w"]
+        p_op, p_neg = t["p_ops"][1], t["p_ops"][2]
+        c = 0 if t["a_ops"] is None else t["c_pad"]
+        return {
+            "row_flags": (
+                lambda: pushdown.row_flags(s, keep, sv, w, t["bounds"],
+                                           t["p_ops"], t["a_ops"]),
+                lambda: pushdown.row_flags_plain(s, keep, sv, w, t["bounds"],
+                                                 t["p_ops"], t["a_ops"])),
+            "segment_or": (lambda: pushdown.segment_or(t["flags"]),
+                           lambda: pushdown.segment_or_plain(t["flags"])),
+            "row_pass_pack": (
+                lambda: pushdown.row_pass_pack(t["flags"], t["seg"], p_op,
+                                               p_neg),
+                lambda: pushdown.row_pass_pack_plain(t["flags"], t["seg"],
+                                                     p_op, p_neg)),
+            "agg_reduce": (
+                lambda: pushdown.agg_reduce(t["flags"], t["seg"], sv, p_op,
+                                            p_neg, c, t["c_pad"]),
+                lambda: pushdown.agg_reduce_plain(t["flags"], t["seg"], sv,
+                                                  p_op, p_neg, c,
+                                                  t["c_pad"]))}
+
+    errs = {}
+    for what, t in (("q6_agg", t_agg), ("filter_rows", t_rows)):
+        for name, (kern, plain) in calls(t).items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_abs_err(g, x) for g, x in zip(got, want))
+            if err or not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"kernel {name} != its plain version on "
+                                     f"{what}'s tensors (max_abs_err {err})")
+            errs[name] = max(errs.get(name, 0), err)
+    log("kernels J.1, J.2, J.3 and K == their plain versions on q6_agg's and "
+        "filter_rows' tensors")
+
+    rows = []
+    replaces = {
+        "row_flags": "yugabyte_tpu/ops/scan.py:496",
+        "segment_or": "yugabyte_tpu/ops/scan.py:435",
+        "row_pass_pack": "yugabyte_tpu/ops/scan.py:585",
+        "agg_reduce": "yugabyte_tpu/ops/scan.py:612"}
+    nbytes = pushdown_bytes(t_agg, t_rows)
+    for name in ("row_flags", "segment_or", "row_pass_pack", "agg_reduce"):
+        t = t_rows if name == "row_pass_pack" else t_agg
+        kern, plain = calls(t)[name]
+        ms = cuda_ms(kern, args.reps)
+        plain_ms = cuda_ms(plain, 2)
+        e = {"name": name, "route": "cuda",
+             "source": "yugabyte_tpu_torch/csrc/pushdown.cu",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes[name] / bandwidth * 1e3, "bound_by": "bytes",
+             "library_ms": None,
+             "timed_on": "filter_rows" if name == "row_pass_pack"
+             else "q6_agg"}
+        log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+            f"{e['bound_ms']:.4f}), {launches[name]} launches in the "
+            f"pushdown phase")
+        rows.append(e)
+
+    # H on the vals: the 4 inputs' value words into one matrix
+    p = t_agg["parts"]
+    vals, ns, n_pad = p["vals"], p["ns"], p["n_pad"]
+    offs = np.concatenate(([0], np.cumsum(ns)[:-1])).tolist()
+    zero = np.zeros(scan._VAL_ROWS, dtype=np.uint32)
+    got = run_merge.staged_concat(vals, ns, offs, n_pad, zero)
+    err = max_abs_err(got, run_merge.staged_concat_plain(vals, ns, offs,
+                                                         n_pad, zero))
+    if err or not torch.equal(got, t_agg["cvals"]):
+        raise AssertionError("kernel H on the vals != its plain version")
+    total = sum(ns)
+
+    def cat_fill():
+        o = torch.empty((scan._VAL_ROWS, n_pad), dtype=torch.int32,
+                        device=got.device)
+        o[:, :total] = torch.cat([v[:, :k] for v, k in zip(vals, ns)], 1)
+        o[:, total:] = 0
+        return o
+
+    h_vals = {"ms": cuda_ms(lambda: run_merge.staged_concat(
+        vals, ns, offs, n_pad, zero), args.reps),
+        "plain_ms": cuda_ms(lambda: run_merge.staged_concat_plain(
+            vals, ns, offs, n_pad, zero), 2),
+        "library_ms": cuda_ms(cat_fill, 2),
+        "bound_ms": (scan._VAL_ROWS * total + scan._VAL_ROWS * n_pad) * 4
+        / bandwidth * 1e3, "max_abs_err": err,
+        "launches": launches["staged_concat"]}
+    log(f"kernel staged_concat on the vals: equal; {h_vals['ms']:.4f} ms "
+        f"(plain {h_vals['plain_ms']:.4f}, torch.cat + fill "
+        f"{h_vals['library_ms']:.4f}, bound {h_vals['bound_ms']:.4f})")
+    return rows, h_vals
+
+
+def pushdown_bytes(t_agg, t_rows) -> dict:
+    """Bytes each of J.1, J.2, J.3 and K must move on these inputs, each
+    input read once and each output written once. J.1: per lane key_len
+    and keep; per real lane dkl and the key words through its subkey
+    (ceil((dkl + 3) / 4); the lower bound is empty and the upper one
+    infinite here, so they add no word), the 16 value bytes of each base
+    entry with a 3-byte subkey, 4 bytes out. J.2: 4 bytes in and out per
+    lane. J.3: 8 bytes in per lane, n/8 out. K: 8 bytes in per lane, the
+    12 payload bytes of each entry that qualifies for a slot, the output
+    words."""
+    import torch
+    from yugabyte_tpu_torch.ops import pushdown
+    from yugabyte_tpu_torch.ops.merge_gc import (_ROW_DKL, _ROW_KEY_LEN,
+                                                 PAD_SENTINEL, _u)
+    s, flags = t_agg["s"], t_agg["flags"]
+    n = s.shape[1]
+    real = _u(s[_ROW_KEY_LEN]) != PAD_SENTINEL
+    dkl, kl = s[_ROW_DKL].long(), s[_ROW_KEY_LEN].long()
+    words = torch.clamp((dkl + 3 + 3) // 4, max=t_agg["w"])
+    f = flags.long()
+    base3 = ((f >> pushdown.BASE_BIT) & 1).bool() & (kl - dkl == 3)
+    j1 = n * 5 + int(real.sum()) * 4 + 4 * int(words[real].sum()) \
+        + 16 * int(base3.sum()) + 4 * n
+    p_op, p_neg = t_agg["p_ops"][1], t_agg["p_ops"][2]
+    rowpass = pushdown._row_pass(t_agg["seg"].long(), p_op, p_neg)
+    qual = sum(int((((f >> (5 + c)) & 1).bool() & rowpass).sum())
+               for c in range(t_agg["c_pad"]))
+    k = 8 * n + 12 * qual + 4 * (1 + 9 * t_agg["c_pad"]) \
+        + 16 * t_agg["c_pad"]
+    n_rows = t_rows["flags"].shape[0]
+    return {"row_flags": j1, "segment_or": 8 * n,
+            "row_pass_pack": 8 * n_rows + n_rows // 8, "agg_reduce": k}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
                     help="tablet rows")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--sf-orders", type=int, default=SF1_ORDERS,
+                    help="TPC-H orders generated before the lineitem "
+                    "tablet keeps its hash half (1,500,000 = SF1)")
     args = ap.parse_args()
 
     import torch
@@ -1034,18 +1688,46 @@ def main() -> int:
         scan_out["stages"] = stages
         scan_rows = scan_kernel_phase(args, scan_tensors, launches["scan"],
                                       launches["codec"], bandwidth, args.rows)
-        del scan_tensors
+        del scan_tensors, readers
+        torch.cuda.empty_cache()
+        push_out, launches["pushdown"], slabs, (top_ht, _mid) = \
+            pushdown_phase(args, workdir)
+        queries = pushdown_queries(lineitem_schema())
+        push_t = {}
+        for qname in ("q6_agg", "filter_rows"):
+            mode, spec = queries[qname]
+            stages, answer, push_t[qname] = pushdown_breakdown(
+                slabs, top_ht, spec, mode)
+            want = push_out[qname]
+            if (answer["rows"] != want["answer"]["rows"] if mode ==
+                    "aggregate" else len(answer) != want["entries_out"]):
+                raise AssertionError(f"{qname}: the stage breakdown's "
+                                     f"answer differs from the query's")
+            want["stages"] = stages
+            log(f"{qname} stages, one after the other: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()))
+        del slabs
+        push_rows, h_vals = pushdown_kernel_phase(
+            args, push_t["q6_agg"], push_t["filter_rows"],
+            launches["pushdown"], bandwidth)
+        del push_t
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
         entry["launches"] = launches["codec"][entry["name"]]
         entry["launches_shell_path"] = launches["shell"][entry["name"]]
     b["launches_scan"] = launches["scan"]["gc_pack"]
+    b["launches_pushdown"] = launches["pushdown"]["gc_pack"]
+    for entry in scan_rows:
+        entry["launches_pushdown"] = launches["pushdown"][entry["name"]]
+        if entry["name"] == "staged_concat":
+            entry["vals"] = h_vals
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
-               "scan": scan_out, "seconds": time.time() - t_start}
+               "scan": scan_out, "pushdown": push_out,
+               "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
-    print(json.dumps({"kernels": [a, b] + codec_rows + scan_rows}),
-          flush=True)
+    print(json.dumps({"kernels": [a, b] + codec_rows + scan_rows
+                      + push_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -379,3 +379,164 @@ def test_merge_and_gc_device_cuda_equals_cpu(cuda, is_major):
     assert radix.radix_sort.launches == before[0] + 1
     assert radix.sorted_payload.launches == before[1] + 1
     assert want[1].any() and (is_major or want[2].any())
+
+
+# -------------------------------------------- kernels J and K (the pushdown)
+
+
+def _table():
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    return Schema([ColumnSchema("h", DataType.INT64),
+                   ColumnSchema("r", DataType.INT64),
+                   ColumnSchema("v", DataType.INT64),
+                   ColumnSchema("w", DataType.INT32),
+                   ColumnSchema("b", DataType.BOOL)],
+                  num_hash_key_columns=1, num_range_key_columns=1)
+
+
+def _table_runs(seed, n_runs, n_ops, n_docs, long_doc=0):
+    """Sorted runs of INSERT / UPDATE / DELETE_ROW entries of _table(),
+    one hybrid time per op; long_doc extra versions of one column of one
+    row make a document longer than many 1024-entry tiles."""
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import QLWriteOp, WriteOpKind
+    from yugabyte_tpu_torch.ops.slabs import pack_kvs
+    schema = _table()
+    rng = np.random.default_rng(seed)
+    runs, t = [], 0
+    for g in range(n_runs):
+        entries = []
+        for j in range(n_ops):
+            dk = DocKey((int(rng.integers(0, n_docs // 4)),),
+                        (int(rng.integers(0, 4)),))
+            roll = rng.random()
+            if g == 0 and j < long_doc:
+                op = QLWriteOp(WriteOpKind.UPDATE, DocKey((1,), (1,)),
+                               {"v": int(rng.integers(-9, 9))})
+            elif roll < 0.6:
+                op = QLWriteOp(WriteOpKind.INSERT, dk, {
+                    "v": None if rng.random() < 0.1 else
+                    int(rng.integers(-2 ** 62, 2 ** 62)),
+                    "w": int(rng.integers(-99, 99)),
+                    "b": bool(rng.random() < 0.5)},
+                    ttl_ms=None if rng.random() < 0.9 else 0)
+            elif roll < 0.9:
+                op = QLWriteOp(WriteOpKind.UPDATE, dk, {
+                    "v": None if rng.random() < 0.3 else
+                    int(rng.integers(-500, 500))})
+            else:
+                op = QLWriteOp(WriteOpKind.DELETE_ROW, dk)
+            t += 1
+            ht = (1000 + t) << 12
+            for wid, (k, v) in enumerate(op.to_kv_pairs(schema)):
+                entries.append((k, (ht << 32) | wid, v))
+        entries.sort(key=lambda e: (e[0], -e[1]))
+        runs.append(pack_kvs(entries))
+    return runs, (1000 + t // 2) << 12
+
+
+def _pushdown_specs():
+    from yugabyte_tpu_torch.docdb import scan_spec as ss
+    schema = _table()
+    preds = [ss.compile_predicate(schema, c, op, v) for c, op, v in
+             (("v", "!=", 0), ("w", ">", -50), ("b", "=", True),
+              ("v", "<", 2 ** 61))]
+    aggs = [ss.compile_aggregate(schema, f, c) for f, c in
+            (("count", None), ("sum", "v"), ("max", "w"))]
+    return [ss.ScanSpec(tuple(preds[:p]), tuple(aggs[:a]))
+            for p, a in ((1, 2), (2, 3), (4, 3), (0, 1))]
+
+
+@pytest.mark.parametrize("n_runs,n_ops,long_doc", [
+    (1, 3000, 0), (3, 2000, 0), (2, 4000, 3000)])
+def test_pushdown_kernels_match_plain(cuda, n_runs, n_ops, long_doc):
+    """J.1, J.2, J.3 and K against their plain versions on the card, on
+    the presorted route (one run) and the merge route, with a document
+    of 3000 versions spanning several tiles."""
+    from yugabyte_tpu_torch.ops import pushdown, scan
+    runs, read_ht = _table_runs(n_runs + n_ops, n_runs, n_ops, 400,
+                                long_doc)
+    for spec in _pushdown_specs():
+        srcs = [scan.SlabSource(s, sorted_source=True) for s in runs]
+        staged, vals, _live, presorted = scan._stage_pushdown(srcs, spec,
+                                                              cuda)
+        perm, s, keep = scan._pushdown_base(
+            staged.cols_dev, staged.sort_rows, staged.n_sort, read_ht,
+            staged.w, presorted)
+        sv = None if vals is None else scan._sorted_vals(vals, perm,
+                                                         presorted)
+        c_pad = scan.agg_slot_bucket(max(len(spec.agg_cids), 1))
+        p_ops = scan._pack_predicate_operands(
+            spec, scan.pred_slot_bucket(len(spec.predicates)), True)
+        a_ops = scan._pack_agg_operands(spec, c_pad)
+        bounds, _lo, _hi = scan._bound_operands(staged, None, None)
+        flags = pushdown.row_flags(s, keep, sv, staged.w, bounds, p_ops,
+                                   a_ops)
+        assert torch.equal(flags, pushdown.row_flags_plain(
+            s, keep, sv, staged.w, bounds, p_ops, a_ops))
+        seg = pushdown.segment_or(flags)
+        assert torch.equal(seg, pushdown.segment_or_plain(flags))
+        assert torch.equal(
+            pushdown.row_pass_pack(flags, seg, p_ops[1], p_ops[2]),
+            pushdown.row_pass_pack_plain(flags, seg, p_ops[1], p_ops[2]))
+        c = c_pad if sv is not None else 0
+        got = pushdown.agg_reduce(flags, seg, sv, p_ops[1], p_ops[2], c,
+                                  c_pad)
+        want = pushdown.agg_reduce_plain(flags, seg, sv, p_ops[1], p_ops[2],
+                                         c, c_pad)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+
+
+def test_segment_or_long_segments(cuda):
+    """J.2 alone on random flag words: documents of one entry, of
+    thousands of entries across tiles, and a first lane without a start
+    flag."""
+    from yugabyte_tpu_torch.ops import pushdown
+    rng = np.random.default_rng(8)
+    for n, p_start in ((1 << 20, 0.3), (1 << 20, 1e-4), (70000, 0.0)):
+        flags = rng.integers(0, 1 << 8, size=n, dtype=np.int64)
+        flags |= (rng.random(n) < p_start).astype(np.int64) << 8
+        x = torch.from_numpy(flags.astype(np.int32)).to(cuda)
+        assert torch.equal(pushdown.segment_or(x),
+                           pushdown.segment_or_plain(x))
+
+
+def test_pushdown_on_the_card_equals_cpu(cuda, tmp_path):
+    """Filtered and aggregating scans over SST files on the card launch G,
+    H, I.1, B, J and K and answer what the CPU run answers; one sorted SST
+    takes the presorted route (no G)."""
+    from yugabyte_tpu_torch.ops import pushdown, radix, scan
+    from yugabyte_tpu_torch.storage.sst import (Frontier, SSTReader,
+                                                SSTWriter)
+    runs, read_ht = _table_runs(77, 4, 2500, 2000)
+    paths = []
+    for i, slab in enumerate(runs):
+        p = str(tmp_path / f"in{i}.sst")
+        SSTWriter(p).write(slab, Frontier())
+        paths.append(p)
+    kernels = [radix.radix_sort, run_merge.staged_concat,
+               radix.sorted_payload, merge_gc.gc_pack, pushdown.row_flags,
+               pushdown.segment_or]
+    for spec in _pushdown_specs():
+        for files in (paths, paths[:1]):
+            before = [k.launches for k in kernels + [pushdown.row_pass_pack,
+                                                     pushdown.agg_reduce]]
+            out = {}
+            for dev in ("cuda", "cpu"):
+                srcs = [scan.SlabSource(SSTReader(p).read_all(), True)
+                        for p in files]
+                out[dev] = (scan.aggregate_sources(srcs, read_ht, spec,
+                                                   device=dev),
+                            list(scan.filtered_entries_sources(
+                                srcs, read_ht, spec, device=dev)))
+            assert out["cuda"] == out["cpu"]
+            assert out["cpu"][0]["rows"] > 0
+            after = [k.launches for k in kernels + [pushdown.row_pass_pack,
+                                                    pushdown.agg_reduce]]
+            ran = [a > b for a, b in zip(after, before)]
+            if len(files) > 1:
+                assert all(ran)
+            else:   # presorted: no G, no H, no I.1
+                assert not any(ran[:3]) and all(ran[3:])

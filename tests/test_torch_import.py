@@ -19,9 +19,12 @@ MODULES = [
     "yugabyte_tpu_torch.utils.torch_setup",
     "yugabyte_tpu_torch.common.hybrid_time",
     "yugabyte_tpu_torch.common.partition",
+    "yugabyte_tpu_torch.common.schema",
     "yugabyte_tpu_torch.docdb.value_type",
     "yugabyte_tpu_torch.docdb.doc_key",
     "yugabyte_tpu_torch.docdb.value",
+    "yugabyte_tpu_torch.docdb.doc_operations",
+    "yugabyte_tpu_torch.docdb.scan_spec",
     "yugabyte_tpu_torch.ops.slabs",
     "yugabyte_tpu_torch.ops.merge_gc",
     "yugabyte_tpu_torch.ops.merge_path",
@@ -30,6 +33,7 @@ MODULES = [
     "yugabyte_tpu_torch.ops.block_codec",
     "yugabyte_tpu_torch.ops.radix",
     "yugabyte_tpu_torch.ops.scan",
+    "yugabyte_tpu_torch.ops.pushdown",
     "yugabyte_tpu_torch.storage.bloom",
     "yugabyte_tpu_torch.storage.block_format",
     "yugabyte_tpu_torch.storage.sst",
@@ -37,6 +41,7 @@ MODULES = [
     "yugabyte_tpu_torch.storage.native_engine",
     "yugabyte_tpu_torch.storage.compaction",
     "yugabyte_tpu_torch.storage.device_cache",
+    "chip_smoke",
 ]
 
 _CHECK = """
@@ -69,6 +74,25 @@ _NO_CUDA = """
 import torch
 torch.cuda.is_available = lambda: False
 {body}
+"""
+
+# one row (liveness + v = 5) of a table (h INT64 hash key, v INT64)
+_PUSHDOWN = """
+from yugabyte_tpu_torch.common.schema import ColumnSchema, DataType, Schema
+from yugabyte_tpu_torch.docdb import scan_spec
+from yugabyte_tpu_torch.docdb.doc_key import DocKey
+from yugabyte_tpu_torch.docdb.doc_operations import QLWriteOp, WriteOpKind
+from yugabyte_tpu_torch.ops import scan
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+SCHEMA = Schema([ColumnSchema("h", DataType.INT64),
+                 ColumnSchema("v", DataType.INT64)], num_hash_key_columns=1)
+KVS = QLWriteOp(WriteOpKind.INSERT, DocKey((7,)), {"v": 5}).to_kv_pairs(SCHEMA)
+SRC = [scan.SlabSource(pack_kvs([(k, ((5 << 12) << 32) | i, v)
+                                 for i, (k, v) in enumerate(KVS)]), True)]
+SPEC = scan_spec.ScanSpec(
+    (scan_spec.compile_predicate(SCHEMA, "v", ">", 1),),
+    (scan_spec.compile_aggregate(SCHEMA, "count", None),
+     scan_spec.compile_aggregate(SCHEMA, "sum", "v")))
 """
 
 ENTRY_POINTS = {
@@ -106,6 +130,12 @@ from yugabyte_tpu_torch.ops.scan import visible_entries
 from yugabyte_tpu_torch.ops.slabs import pack_kvs
 list(visible_entries([pack_kvs([(b"k", 1 << 32, b"\\x01")])], 1 << 40))
 """,
+    "filtered_entries_sources": _PUSHDOWN + """
+scan.filtered_entries_sources(SRC, 1 << 40, SPEC)
+""",
+    "aggregate_sources": _PUSHDOWN + """
+scan.aggregate_sources(SRC, 1 << 40, SPEC)
+""",
 }
 
 
@@ -136,6 +166,15 @@ from yugabyte_tpu_torch.ops.slabs import pack_kvs
 got = list(visible_entries([pack_kvs([(b"k", 5 << 32, b"\\x01")])], 1 << 40,
                            device="cpu"))
 assert got == [(b"k", b"\\x01", 5)], got
+""",
+    "filtered_entries_sources": _PUSHDOWN + """
+got = list(scan.filtered_entries_sources(SRC, 1 << 40, SPEC, device="cpu"))
+assert [(k, v) for k, v, _ht in got] == KVS, got
+""",
+    "aggregate_sources": _PUSHDOWN + """
+got = scan.aggregate_sources(SRC, 1 << 40, SPEC, device="cpu")
+assert got == {"rows": 1, "cols": {0: {"nonnull": 1, "sum": 5, "min": 5,
+                                       "max": 5}}}, got
 """,
 }
 

@@ -427,9 +427,15 @@ def test_scan_over_port_sst_files(tmp_path):
 def test_calls_outside_the_slice_raise():
     class ResidentSource:
         n = 1
+    from yugabyte_tpu_torch.docdb.scan_spec import ScanSpec
     with pytest.raises(NotImplementedError, match="later slice"):
         list(scan.visible_entries_sources([ResidentSource()], 1))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        scan.filtered_entries_sources([], 1, None)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        scan.aggregate_sources([], 1, None)
+    # the query pushdown is ported (tests/test_torch_pushdown.py); the
+    # device cache's inputs are not
+    with pytest.raises(NotImplementedError, match="later slice"):
+        scan.filtered_entries_sources([ResidentSource()], 1, ScanSpec())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        scan.aggregate_sources([ResidentSource()], 1, ScanSpec())
+    assert list(scan.filtered_entries_sources([], 1, ScanSpec())) == []
+    assert scan.aggregate_sources([], 1, ScanSpec()) == {"rows": 0,
+                                                         "cols": {}}

@@ -172,11 +172,14 @@ def n_src_planes(k_pad: int) -> int:
 
 
 def gc_pack_plain(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
-                  k_pad: int, m: int, snapshot: bool = False
+                  k_pad: int, m: int, snapshot: bool = False,
+                  perm: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel B. p_mat: int32 [>= r+1, n] merged
     payload, rows 0..r-1 the cols layout, row r the perm (run-major input
-    index). Returns (packed int32 [n//32, 2+b], keep, make_tombstone)."""
+    index); or [>= r, n] with the perm given apart (`perm`, int32 [n]: the
+    pushdown's presorted route runs B on a sorted input's own cols).
+    Returns (packed int32 [n//32, 2+b], keep, make_tombstone)."""
     n = p_mat.shape[1]
     s = p_mat[:r]
     keep, mk = gc_over_sorted(s, w, *params.limbs(),
@@ -184,7 +187,7 @@ def gc_pack_plain(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
                               retain_deletes=params.retain_deletes,
                               snapshot=snapshot)
     keep = keep & (_u(s[_ROW_KEY_LEN]) != PAD_SENTINEL)
-    src = _u(p_mat[r]) >> (int(m).bit_length() - 1)
+    src = _u(p_mat[r] if perm is None else perm) >> (int(m).bit_length() - 1)
     groups = [pack_bits_u32(keep, n), pack_bits_u32(mk, n)]
     for t in range(n_src_planes(k_pad)):
         groups.append(pack_bits_u32(((src >> t) & 1).bool(), n))
@@ -210,18 +213,24 @@ def _lib():
 
 
 def gc_pack(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
-            k_pad: int, m: int, snapshot: bool = False
+            k_pad: int, m: int, snapshot: bool = False,
+            perm: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B wrapper: GC + decision packing over the merged payload
     (see gc_pack_plain for the contract). CPU tensor: the plain version.
     CUDA tensor: csrc/gc_pack.cu, counted in `gc_pack.launches`."""
     if not p_mat.is_cuda:
-        return gc_pack_plain(p_mat, r, w, params, k_pad, m, snapshot)
+        return gc_pack_plain(p_mat, r, w, params, k_pad, m, snapshot, perm)
     torch_setup.check_u32_matrix(p_mat, "gc_pack")
     n = p_mat.shape[1]
-    if p_mat.shape[0] < r + 1 or r != _ROW_WORDS + w or n % 32:
+    if p_mat.shape[0] < r + (perm is None) or r != _ROW_WORDS + w or n % 32:
         raise ValueError(f"gc_pack: bad shape {tuple(p_mat.shape)} for "
                          f"r={r} w={w} (n must be a multiple of 32)")
+    if perm is not None and (perm.dtype != torch.int32 or perm.shape != (n,)
+                             or not perm.is_contiguous()
+                             or perm.device != p_mat.device):
+        raise ValueError("gc_pack: perm must be a contiguous int32 [n] "
+                         "tensor beside p_mat")
     lib = _lib()
     b = n_src_planes(k_pad)
     dev = p_mat.device
@@ -232,7 +241,8 @@ def gc_pack(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
     mk = torch.empty(n, dtype=torch.bool, device=dev)
     base = p_mat.data_ptr()
     rc = lib.ybt_gc_pack(
-        base, base + r * n * 4, n, w, *params.limbs(),
+        base, base + r * n * 4 if perm is None else perm.data_ptr(), n, w,
+        *params.limbs(),
         int(params.is_major_compaction), int(params.retain_deletes),
         int(snapshot), int(m).bit_length() - 1, b,
         scratch.data_ptr(), packed.data_ptr(), keep.data_ptr(),

@@ -19,9 +19,19 @@ the scan resolves a whole key range in one device pass over every input:
 The host downloads perm and the packed keep and gathers the surviving
 (key, value) pairs from the slabs: values never cross to the device.
 
+The query pushdown (`filtered_entries_sources`, `aggregate_sources`)
+extends it with row-level predicates and COUNT/SUM/MIN/MAX over a small
+per-entry value-word matrix (`pack_vals`: the payload byte length and the
+first 12 payload bytes, control fields stripped), concatenated beside the
+cols by kernel H with a zero template and gathered through the same perm
+by kernel I.1; kernels J and K (ops/pushdown.py) evaluate the predicates
+per document and reduce. A single sorted source (`SlabSource(...,
+sorted_source=True)`, an SST) takes the presorted route: no G, no I.1,
+kernel B over its own cols.
+
 Ported: `SlabSource` inputs (memtables, SSTs read with `read_all`).
-Not ported yet: `ResidentSource` (the device slab cache) and the query
-pushdown (`scan_filtered`, `scan_agg`); they raise NotImplementedError.
+Not ported yet: `ResidentSource` (the device slab cache); it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,10 +42,11 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from yugabyte_tpu_torch.ops import pushdown, radix
 from yugabyte_tpu_torch.ops.merge_gc import (
     _ROW_KEY_LEN, _ROW_WORDS, GCParams, StagedCols, _u, _unpack_bits,
-    pack_bits_u32, sort_and_gc, u32_to_device)
-from yugabyte_tpu_torch.ops.slabs import KVSlab, _pad_keys_to_words
+    bucket_size, gc_pack, pack_bits_u32, sort_and_gc, u32_to_device)
+from yugabyte_tpu_torch.ops.slabs import KVSlab, ValueArray, _pad_keys_to_words
 from yugabyte_tpu_torch.utils import torch_setup
 
 
@@ -176,11 +187,16 @@ def scan_visible(staged: StagedCols, read_ht_value: int,
 
 class SlabSource:
     """Scan input backed by a decoded host slab (memtables, SSTs read with
-    `read_all`): keys and values come straight from the slab arrays."""
+    `read_all`): keys and values come straight from the slab arrays.
 
-    def __init__(self, slab: KVSlab):
+    sorted_source: the slab came from a SORTED file (an SST); a single
+    sorted source takes the pushdown's presorted route (no merge sort and
+    no permutation gather)."""
+
+    def __init__(self, slab: KVSlab, sorted_source: bool = False):
         self.slab = slab
         self.n = slab.n
+        self.sorted_source = sorted_source
 
     def to_slab(self) -> KVSlab:
         return self.slab
@@ -203,12 +219,7 @@ def visible_entries_sources(sources, read_ht_value: int,
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
     from yugabyte_tpu_torch.storage.device_cache import concat_staged
 
-    for s in sources:
-        if not isinstance(s, SlabSource):
-            raise NotImplementedError(
-                f"visible_entries_sources: {type(s).__name__} inputs (the "
-                f"device slab cache) belong to a later slice of the port; "
-                f"this slice scans SlabSource inputs")
+    _check_sources(sources, "visible_entries_sources")
     live = [s for s in sources if s.n]
     if not live:
         return
@@ -234,6 +245,15 @@ def visible_entries_sources(sources, read_ht_value: int,
                               upper_truncated=hi_exact is not None)
     del staged
     yield from survivor_entries(live, perm, keep, lo_exact, hi_exact)
+
+
+def _check_sources(sources, what: str) -> None:
+    for s in sources:
+        if not isinstance(s, SlabSource):
+            raise NotImplementedError(
+                f"{what}: {type(s).__name__} inputs (the device slab cache) "
+                f"belong to a later slice of the port; this slice scans "
+                f"SlabSource inputs")
 
 
 def survivor_entries(live: Sequence[SlabSource], perm: np.ndarray,
@@ -298,13 +318,330 @@ def _visible_entries_host(slabs: Sequence[KVSlab], read_ht_value: int,
         yield key, merged.values[int(merged.value_idx[i])], ht
 
 
-def filtered_entries_sources(*_args, **_kwargs):
-    """The filtering pushdown scan (scan.py:857 of the JAX package)."""
-    raise NotImplementedError("filtered_entries_sources (query pushdown) "
-                              "belongs to the next slice of the port")
+# ---------------------------------------------------------------------------
+# Query pushdown: filtered and aggregating scans (scan.py:258-995 of the JAX
+# package). Predicates and aggregate column selectors are operand data on
+# small slot lattices; bounds are operands too (an empty lower bound and
+# the up_inf flag cover the no-bound cases).
+
+VAL_WORDS = pushdown.VAL_WORDS      # value payload words staged per entry
+_VAL_ROWS = 1 + VAL_WORDS           # + the payload byte-length row
+PRED_SLOTS = (1, 2, 4)              # predicate-slot lattice
+AGG_SLOTS = (1, 2)                  # aggregate-column-slot lattice
+# byte-column SUM accumulators are exact only while n * 255 < 2^32
+PUSHDOWN_MAX_NPAD = 1 << 24
+
+_TAG_MERGE_FLAGS = 0x6B             # ValueType.kMergeFlags
+_TAG_TTL = 0x74                     # ValueType.kTTL
 
 
-def aggregate_sources(*_args, **_kwargs):
-    """The aggregating pushdown scan (scan.py:924 of the JAX package)."""
-    raise NotImplementedError("aggregate_sources (query pushdown) belongs to "
-                              "the next slice of the port")
+def pred_slot_bucket(n: int) -> Optional[int]:
+    """Smallest predicate-slot lattice point holding n predicates, or
+    None when the conjunction is too wide for the kernels."""
+    for p in PRED_SLOTS:
+        if n <= p:
+            return p
+    return None
+
+
+def agg_slot_bucket(n: int) -> Optional[int]:
+    for c in AGG_SLOTS:
+        if n <= c:
+            return c
+    return None
+
+
+def pack_vals(slab: KVSlab, n_pad: int) -> np.ndarray:
+    """Pack a slab's value payloads into the [1+VAL_WORDS, n_pad] uint32
+    vals matrix: row 0 = payload byte length (the kMergeFlags and kTTL
+    control fields stripped), rows 1.. = the first VAL_WORDS*4 payload
+    bytes as big-endian words. One vectorized pass over the value blob."""
+    va = slab.values if isinstance(slab.values, ValueArray) \
+        else ValueArray.from_list(list(slab.values))
+    n = slab.n
+    stride = VAL_WORDS * 4
+    out = np.zeros((_VAL_ROWS, n_pad), dtype=np.uint32)
+    if n == 0:
+        return out
+    idx = slab.value_idx.astype(np.int64)
+    starts = va.offsets[idx]
+    ends = va.offsets[idx + 1]
+    # guard-padded blob: every speculative gather below stays in bounds
+    data = np.concatenate([va.data, np.zeros(stride, dtype=np.uint8)])
+    first = np.where(starts < ends, data[starts], 0)
+    skip = np.where(first == _TAG_MERGE_FLAGS, 5, 0).astype(np.int64)
+    p2 = starts + skip
+    second = np.where(p2 < ends, data[np.minimum(p2, len(data) - 1)], 0)
+    skip += np.where(second == _TAG_TTL, 9, 0)
+    pstart = starts + skip
+    plen = np.maximum(ends - pstart, 0)
+    # each payload's first `stride` bytes as one row of a window view (no
+    # per-byte index matrix), the bytes past its length zeroed
+    b = np.lib.stride_tricks.sliding_window_view(data, stride)[
+        np.minimum(pstart, len(va.data))]
+    b[np.arange(stride)[None, :] >= np.minimum(plen, stride)[:, None]] = 0
+    out[0, :n] = plen.astype(np.uint32)
+    out[1:, :n] = b.view(">u4").T
+    return out
+
+
+def concat_vals(vals_list, ns: Sequence[int], n_pad: int) -> torch.Tensor:
+    """Per-source vals matrices -> one [1+VAL_WORDS, n_pad] matrix (kernel
+    H with a zero template), laid out at exactly the lanes
+    device_cache.concat_staged gives the cols: the two matrices stay
+    row-aligned through the shared sort permutation. A single source
+    passes through untouched."""
+    from yugabyte_tpu_torch.ops.run_merge import staged_concat
+    if len(vals_list) == 1:
+        return vals_list[0]
+    offsets = np.concatenate(([0], np.cumsum(ns)[:-1])).astype(np.int64)
+    return staged_concat(vals_list, ns, offsets.tolist(), n_pad,
+                         np.zeros(_VAL_ROWS, dtype=np.uint32))
+
+
+def _pushdown_base(cols: torch.Tensor, sort_rows, n_sort: int,
+                   read_ht_value: int, w: int, presorted: bool):
+    """Snapshot resolution shared by both pushdown scans: (perm, the
+    sorted matrix, kernel B's keep). presorted: a single SST source is
+    already in internal-key order (pad rows sort to its tail), so the
+    radix merge (G) and the sorted payload (I.1) drop out and kernel B
+    runs over the cols themselves with an identity perm."""
+    params = GCParams(read_ht_value, True)
+    if presorted:
+        n = cols.shape[1]
+        perm = torch.arange(n, dtype=torch.int32, device=cols.device)
+        _packed, keep, _mk = gc_pack(cols, _ROW_WORDS + w, w, params, 1, n,
+                                     snapshot=True, perm=perm)
+        return perm, cols, keep
+    perm, keep, _mk, s, _packed = sort_and_gc(cols, params, w, sort_rows,
+                                              n_sort, snapshot=True)
+    return perm, s, keep
+
+
+def _sorted_vals(vals: torch.Tensor, perm: torch.Tensor,
+                 presorted: bool) -> torch.Tensor:
+    """vals[:, perm] (kernel I.1's gather; perm rides as its last row)."""
+    return vals if presorted else radix.sorted_payload(vals, perm)
+
+
+def _scan_filtered_fused(cols, vals, sort_rows, n_sort, read_ht_value: int,
+                         bounds, p_ops, w: int, presorted: bool = False):
+    """(perm, packed keep) of the filtered scan: snapshot resolution,
+    bounds and the row-level predicates. The keep marks EVERY visible
+    entry of the rows that pass (the host assembles rows from them)."""
+    perm, s, keep = _pushdown_base(cols, sort_rows, n_sort, read_ht_value,
+                                   w, presorted)
+    sv = None if vals is None else _sorted_vals(vals, perm, presorted)
+    flags = pushdown.row_flags(s, keep, sv, w, bounds, p_ops)
+    del s, keep, sv
+    seg = pushdown.segment_or(flags)
+    return perm, pushdown.row_pass_pack(flags, seg, p_ops[1], p_ops[2])
+
+
+def _scan_agg_fused(cols, vals, sort_rows, n_sort, read_ht_value: int,
+                    bounds, p_ops, a_ops, w: int, c_pad: int,
+                    has_vals: bool, presorted: bool = False):
+    """Kernel K's (acc, ext) of the aggregating scan (pushdown.decode_agg
+    reads them): the passing rows' count and, per aggregate slot, over
+    entries of passing rows whose payload tag is acceptable (NULLs
+    excluded), the nonnull count, 8 byte-column sums of the biased int
+    payload and its min / max limbs. A row exists iff a visible bare
+    DocKey marker or column entry survives (VisibleEntryRowAssembler)."""
+    perm, s, keep = _pushdown_base(cols, sort_rows, n_sort, read_ht_value,
+                                   w, presorted)
+    sv = _sorted_vals(vals, perm, presorted) if has_vals else None
+    del perm
+    flags = pushdown.row_flags(s, keep, sv, w, bounds, p_ops, a_ops)
+    del s, keep
+    seg = pushdown.segment_or(flags)
+    return pushdown.agg_reduce(flags, seg, sv, p_ops[1], p_ops[2],
+                               c_pad if has_vals else 0, c_pad)
+
+
+def _pack_predicate_operands(spec, p_pad: int,
+                             wire_ne_semantics: bool = False):
+    """wire_ne_semantics: pack != as NOT(exists equal entry) — the
+    common/wire.FILTER_OPS contract where NULL/absent columns PASS !=
+    (row-scan mode). False = the CQL _match contract (exists a non-equal
+    entry; NULL fails) — the aggregate mode, which has no per-row
+    re-check."""
+    from yugabyte_tpu_torch.docdb.doc_operations import column_key_suffix
+    from yugabyte_tpu_torch.docdb.scan_spec import OP_CODES
+    p_sub = np.zeros(p_pad, np.uint32)
+    p_op = np.zeros(p_pad, np.int32)
+    p_neg = np.zeros(p_pad, np.int32)
+    p_ta = np.zeros(p_pad, np.uint32)
+    p_tb = np.zeros(p_pad, np.uint32)
+    p_words = np.zeros((p_pad, VAL_WORDS), np.uint32)
+    p_len = np.zeros(p_pad, np.int32)
+    for i, p in enumerate(spec.predicates):
+        suf = column_key_suffix(p.cid)
+        assert len(suf) == 3 and len(p.enc) <= VAL_WORDS * 4
+        p_sub[i] = (suf[0] << 16) | (suf[1] << 8) | suf[2]
+        if wire_ne_semantics and p.op == "!=":
+            p_op[i] = OP_CODES["="]
+            p_neg[i] = 1
+        else:
+            p_op[i] = OP_CODES[p.op]
+        p_ta[i] = p.tag_a
+        p_tb[i] = p.tag_b
+        w4 = np.zeros(VAL_WORDS * 4, np.uint8)
+        w4[: len(p.enc)] = np.frombuffer(p.enc, dtype=np.uint8)
+        w4 = w4.reshape(VAL_WORDS, 4).astype(np.uint32)
+        p_words[i] = (w4[:, 0] << 24) | (w4[:, 1] << 16) \
+            | (w4[:, 2] << 8) | w4[:, 3]
+        p_len[i] = len(p.enc)
+    return p_sub, p_op, p_neg, p_ta, p_tb, p_words, p_len
+
+
+def _pack_agg_operands(spec, c_pad: int):
+    from yugabyte_tpu_torch.docdb.doc_operations import column_key_suffix
+    a_sub = np.zeros(c_pad, np.uint32)
+    a_ta = np.zeros(c_pad, np.uint32)
+    a_tb = np.zeros(c_pad, np.uint32)
+    by_cid = {a.cid: a for a in spec.aggregates if a.cid is not None}
+    for c, cid in enumerate(spec.agg_cids):
+        suf = column_key_suffix(cid)
+        a_sub[c] = (suf[0] << 16) | (suf[1] << 8) | suf[2]
+        a_ta[c] = by_cid[cid].tag_a
+        a_tb[c] = by_cid[cid].tag_b
+    return a_sub, a_ta, a_tb
+
+
+def _bound_operands(staged: StagedCols, lower_key, upper_key):
+    """(bounds, lo_exact, hi_exact): the kernels' bound operands (see
+    ops/pushdown.py) and the exact host re-check residue. Bounds longer
+    than the key stride are truncated for the device compare; the caller
+    re-checks winners against the exact bytes (filtered mode) or must
+    refuse (aggregate mode)."""
+    stride = staged.w * 4
+    lo_exact = lower_key if lower_key and len(lower_key) > stride else None
+    hi_exact = upper_key if upper_key and len(upper_key) > stride else None
+    lo_w, lo_l = _pack_bound(lower_key[:stride] if lower_key else None,
+                             staged.w)
+    hi_w, hi_l = _pack_bound(upper_key[:stride] if upper_key else None,
+                             staged.w)
+    return ((lo_w, lo_l, hi_w, hi_l, upper_key is None,
+             hi_exact is not None), lo_exact, hi_exact)
+
+
+def _stage_pushdown(sources, spec, device):
+    """Stage (cols, vals) for the source list: one merged matrix pair,
+    row-aligned. Raises PushdownUnsupported on deep documents, slot
+    overflow, a source without a host slab to stage values from, or an
+    oversized batch (callers serve the query on the host)."""
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    from yugabyte_tpu_torch.ops.merge_gc import stage_slab
+    from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
+    from yugabyte_tpu_torch.storage.device_cache import concat_staged
+
+    _check_sources(sources, "query pushdown")
+    live = [s for s in sources if s.n]
+    if not live:
+        return None, None, [], False
+    if any(s.slab is not None and bool((s.slab.flags & FLAG_DEEP).any())
+           for s in live):
+        raise PushdownUnsupported("deep")
+    if pred_slot_bucket(len(spec.predicates)) is None:
+        raise PushdownUnsupported("predicates")
+    if spec.agg_cids and agg_slot_bucket(len(spec.agg_cids)) is None:
+        raise PushdownUnsupported("agg_width")
+    if spec.needs_vals and any(s.slab is None for s in live):
+        raise PushdownUnsupported("vals")
+    if bucket_size(sum(s.n for s in live)) > PUSHDOWN_MAX_NPAD:
+        raise PushdownUnsupported("batch_size")
+    staged_list = [stage_slab(s.slab, device) for s in live]
+    staged = (staged_list[0] if len(staged_list) == 1
+              else concat_staged(staged_list))
+    vals = None
+    if spec.needs_vals:
+        vals_list = [u32_to_device(pack_vals(s.slab, st.n_pad),
+                                   st.cols_dev.device)
+                     for s, st in zip(live, staged_list)]
+        vals = concat_vals(vals_list, [st.n for st in staged_list],
+                           staged.n_pad)
+    presorted = len(live) == 1 and live[0].sorted_source
+    return staged, vals, live, presorted
+
+
+def filtered_entries_sources(sources, read_ht_value: int, spec,
+                             lower_key: Optional[bytes] = None,
+                             upper_key: Optional[bytes] = None,
+                             device=None
+                             ) -> Iterator[Tuple[bytes, bytes, int]]:
+    """Pushdown twin of visible_entries_sources: the visible entries of
+    exactly the rows satisfying spec.predicates (the wire filter contract:
+    a NULL or absent column passes `!=`), in key order, over SlabSource
+    inputs (on `device`: cuda unless the caller passes device='cpu'). The
+    device work and its decision download happen EAGERLY, before the
+    first entry is yielded."""
+    staged, vals, live, presorted = _stage_pushdown(sources, spec, device)
+    if staged is None:
+        return iter(())
+    p_ops = _pack_predicate_operands(
+        spec, pred_slot_bucket(len(spec.predicates)), wire_ne_semantics=True)
+    bounds, lo_exact, hi_exact = _bound_operands(staged, lower_key,
+                                                 upper_key)
+    perm, keep_p = _scan_filtered_fused(
+        staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
+        read_ht_value, bounds, p_ops, staged.w, presorted)
+    del vals
+    perm = perm.cpu().numpy()
+    keep = _unpack_bits(keep_p.cpu().numpy(), staged.n_pad) & (perm < staged.n)
+    return survivor_entries(live, perm, keep, lo_exact, hi_exact)
+
+
+def aggregate_sources(sources, read_ht_value: int, spec,
+                      lower_key: Optional[bytes] = None,
+                      upper_key: Optional[bytes] = None,
+                      device=None) -> dict:
+    """The aggregate partial of the source set (the CQL _match contract:
+    a NULL or absent column fails every operator): {"rows": <count of
+    passing rows>, "cols": {cid: {"nonnull", "sum", "min", "max"}}}.
+    Sums and extremes are exact arbitrary-precision ints reconstructed
+    from the device's byte-column sums and biased limbs."""
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+
+    staged, vals, _live, presorted = _stage_pushdown(sources, spec, device)
+    if staged is None:
+        return {"rows": 0,
+                "cols": {cid: {"nonnull": 0, "sum": 0, "min": None,
+                               "max": None} for cid in spec.agg_cids}}
+    stride = staged.w * 4
+    if (lower_key and len(lower_key) > stride) or \
+            (upper_key and len(upper_key) > stride):
+        # no per-row host re-check exists for a scalar result: refuse
+        # bounds the device compare cannot represent exactly
+        raise PushdownUnsupported("bound_width")
+    c_pad = agg_slot_bucket(max(len(spec.agg_cids), 1))
+    p_ops = _pack_predicate_operands(spec,
+                                     pred_slot_bucket(len(spec.predicates)))
+    a_ops = _pack_agg_operands(spec, c_pad)
+    bounds, _lo, _hi = _bound_operands(staged, lower_key, upper_key)
+    acc, ext = _scan_agg_fused(
+        staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
+        read_ht_value, bounds, p_ops, a_ops, staged.w, c_pad,
+        spec.needs_vals, presorted)
+    return agg_partial(spec, acc, ext, c_pad)
+
+
+def agg_partial(spec, acc: torch.Tensor, ext: torch.Tensor,
+                c_pad: int) -> dict:
+    """Kernel K's outputs (downloaded here) -> the aggregate partial of
+    aggregate_sources."""
+    rows_count, nonnull, sums, min_hi, min_lo, max_hi, max_lo = \
+        pushdown.decode_agg(acc, ext, c_pad)
+    bias = 1 << 63
+    cols = {}
+    for c, cid in enumerate(spec.agg_cids):
+        nn = int(nonnull[c])
+        total = sum(int(sums[c][j]) << (8 * (7 - j)) for j in range(8))
+        cols[cid] = {
+            "nonnull": nn,
+            "sum": total - nn * bias,
+            "min": None if nn == 0 else
+            (((int(min_hi[c]) << 32) | int(min_lo[c])) - bias),
+            "max": None if nn == 0 else
+            (((int(max_hi[c]) << 32) | int(max_lo[c])) - bias),
+        }
+    return {"rows": rows_count, "cols": cols}

@@ -82,7 +82,8 @@ NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                 ("-lz", "-lpthread")),
                ("compaction_baseline.cc", "libcompaction_baseline.so", ()))
 CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
-                "write_through.cu", "radix.cu", "concat.cu", "scan.cu")
+                "write_through.cu", "radix.cu", "concat.cu", "scan.cu",
+                "pushdown.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
