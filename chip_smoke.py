@@ -44,10 +44,26 @@ Phases (any failure exits non-zero):
   7. kernels G-I (radix sort, staged concat, sorted payload, bound pack)
      at the seq-scan's shapes == their plain versions, timed beside their
      bounds and a PyTorch call that computes the same function;
-  8. a `kernels` JSON line, the card line, and last
+  8. the query pushdown over a TPC-H lineitem tablet in 4 SSTs: five
+     queries each equal to a host oracle, their launch counters, stage
+     breakdowns, kernels J and K == their plain versions;
+  9. batched point reads through `storage.db.DB.multi_get` over a
+     DeviceSlabCache: the YCSB tablet (the compaction phase's shape) as
+     a DB (runs 0-2 bulk-loaded with ingest_packed, run 3 written and
+     flushed, YCSB-B's updates in the memtable); YCSB-C scrambled-
+     zipfian reads in calls of 1024 (the cold first call timed apart),
+     reads at a mid read time, 32 small calls, reads with the learned
+     index off, and learned-index reads over the lineitem SSTs opened as
+     a DB. Every answer equals the native per-key path's, a sample equals
+     sequential gets; P1 launches once per chunk, P2 once per chunk and
+     SST, P3 in exact and learned-index mode (no lineitem key
+     mispredicted); P4 on every SST equals its persisted model. Stage breakdowns of one warm chunk per DB; kernels
+     P1-P4 == their plain versions, timed beside their bounds;
+ 10. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
+       [--sf-orders M] [--point-reads K]
 """
 
 from __future__ import annotations
@@ -1627,6 +1643,614 @@ def pushdown_bytes(t_agg, t_rows) -> dict:
             "row_pass_pack": 8 * n_rows + n_rows // 8, "agg_reduce": k}
 
 
+# --------------------------------------------------------------------------
+# Point reads (slice 5): DB.multi_get over a YCSB tablet
+
+
+def scrambled_zipfian(n: int, item_count: int, rng) -> np.ndarray:
+    """n draws of YCSB's ScrambledZipfianGenerator over [0, item_count)
+    (core/generator/ScrambledZipfianGenerator.java): a zipfian (theta
+    0.99) over 10^10 items with YCSB's precomputed zeta, each draw
+    scrambled by YCSB's 8-octet FNV-1a-64 (`Utils.fnvhash64`, absolute
+    value as a signed long) modulo item_count."""
+    items, zetan, theta = 10_000_000_000, 26.46902820178302, 0.99
+    alpha = 1.0 / (1.0 - theta)
+    eta = (1 - (2.0 / items) ** (1 - theta)) / (1 - (1 + 0.5 ** theta)
+                                                / zetan)
+    u = rng.random(n)
+    uz = u * zetan
+    draw = (items * (eta * u - eta + 1) ** alpha).astype(np.int64)
+    draw = np.where(uz < 1.0, 0, np.where(uz < 1.0 + 0.5 ** theta, 1, draw))
+    val = draw.astype(np.uint64)
+    h = np.full(n, 0xCBF29CE484222325, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for _ in range(8):
+            h = (h ^ (val & np.uint64(0xFF))) * np.uint64(1099511628211)
+            val = val >> np.uint64(8)
+    return np.abs(h.view(np.int64)) % item_count
+
+
+def ycsb_keys(ids: np.ndarray, is_tomb=None) -> np.ndarray:
+    """uint8 [n, 19] key rows of synth_ycsb_runs' layout: root 'S'
+    'user%08d' 00 00 '!' (16 bytes), a column write + 'K' 00 00; a row
+    tombstone is the root alone (its length 16)."""
+    n = len(ids)
+    keys = np.zeros((n, 19), dtype=np.uint8)
+    keys[:, 0] = ord("S")
+    keys[:, 1:5] = np.frombuffer(b"user", dtype=np.uint8)
+    digits = ids[:, None] // (10 ** np.arange(7, -1, -1)[None, :]) % 10
+    keys[:, 5:13] = (digits + ord("0")).astype(np.uint8)
+    keys[:, 15] = ord("!")
+    keys[:, 16] = ord("K")
+    if is_tomb is not None:
+        keys[is_tomb, 16] = 0
+    return keys
+
+
+def ycsb_packed_run(ids, is_tomb, ht, rng):
+    """One packed run (keys_blob, key_offs, ht, wid, vals_blob, val_offs)
+    of YCSB writes: 19-byte column keys with 64-byte DocDB string values
+    (kString, 61 letters, the 00 00 terminator), 16-byte row tombstones
+    with Value.tombstone().encode()."""
+    from yugabyte_tpu_torch.docdb.value import Value
+    n = len(ids)
+    keys = ycsb_keys(ids, is_tomb)
+    klen = np.where(is_tomb, 16, 19)
+    vals = np.zeros((n, 64), dtype=np.uint8)
+    vals[:, 0] = ord("S")
+    vals[:, 1:62] = rng.integers(ord("a"), ord("z") + 1, size=(n, 61),
+                                 dtype=np.uint8)
+    tomb = Value.tombstone().encode()
+    vals[is_tomb, :len(tomb)] = np.frombuffer(tomb, dtype=np.uint8)
+    vlen = np.where(is_tomb, len(tomb), 64)
+    return (keys[np.arange(19)[None, :] < klen[:, None]].tobytes(),
+            np.concatenate(([0], np.cumsum(klen))).astype(np.int64), ht,
+            np.zeros(n, dtype=np.uint32),
+            vals[np.arange(64)[None, :] < vlen[:, None]].tobytes(),
+            np.concatenate(([0], np.cumsum(vlen))).astype(np.int64))
+
+
+def _split(blob: bytes, offs) -> list:
+    o = offs.tolist()
+    return [blob[a:b] for a, b in zip(o[:-1], o[1:])]
+
+
+def point_options(device):
+    """A serving DB's options: the device and the shared slab cache, a
+    4 GiB decoded-block cache (the winners' value fetch decodes each
+    touched block once), no compaction, and a memtable large enough that
+    only explicit flushes cut files."""
+    from yugabyte_tpu_torch.storage.db import DBOptions
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import BlockCache
+    return DBOptions(device=device, device_cache=DeviceSlabCache(device),
+                     block_cache=BlockCache(4 << 30), auto_compact=False,
+                     memstore_size_bytes=1 << 40)
+
+
+def ycsb_point_db(args, workdir, device="cuda"):
+    """The YCSB tablet as a DB: n rows in 4 runs (key space n/2, 5% row
+    tombstones), runs 0-2 bulk-loaded with ingest_packed (not resident),
+    run 3 written with write_batch_columns and flushed (staged by the
+    flush's write-through), then YCSB-B's updates (5% of the read count,
+    scrambled-zipfian ids, column writes above every run) left in the
+    memtable. Returns (db, summary, top read time, mid read time)."""
+    from yugabyte_tpu_torch.storage.db import DB
+    rng = np.random.default_rng(args.seed + 50)
+    n, key_space = args.rows, max(1, args.rows // 2)
+    per_run = n // 4
+    span = max(1_000_000, per_run)
+    db = DB(os.path.join(workdir, "ycsb"), point_options(device))
+    out = {"rows": 4 * per_run, "key_space": key_space}
+    t0 = time.time()
+    for g in range(4):
+        ids = rng.integers(0, key_space, size=per_run)
+        is_tomb = rng.random(per_run) < 0.05
+        ht = ((span * (g + 1) + rng.permutation(per_run)).astype(np.uint64)
+              << np.uint64(12))
+        run = ycsb_packed_run(ids, is_tomb, ht, rng)
+        if g < 3:
+            db.ingest_packed(*run, op_id=(1, g + 1))
+        else:
+            db.write_batch_columns(_split(run[0], run[1]), run[2], run[3],
+                                   _split(run[4], run[5]), op_id=(1, 4))
+            if db.flush() is None:
+                raise AssertionError("the flush of run 3 wrote no file")
+    out["load_s"] = time.time() - t0
+    n_upd = args.point_reads // 20
+    ids = scrambled_zipfian(n_upd, key_space, rng)
+    ht = ((span * 5 + np.arange(n_upd)).astype(np.uint64) << np.uint64(12))
+    run = ycsb_packed_run(ids, np.zeros(n_upd, bool), ht, rng)
+    db.write_batch_columns(_split(run[0], run[1]), run[2], run[3],
+                           _split(run[4], run[5]), op_id=(1, 5))
+    out["memtable_updates"] = n_upd
+    out["files"] = [r.props.n_entries for r in db._readers.values()]
+    out["resident_after_load"] = [db._device_cache.contains(fid)
+                                  for fid in db._readers]
+    log(f"YCSB tablet: {out['rows']} rows in {len(out['files'])} SSTs "
+        f"({out['load_s']:.1f}s; resident after load "
+        f"{out['resident_after_load']}), {n_upd} updates in the memtable")
+    return db, out, (span * 6) << 12, ((span * 4) << 12) - 1
+
+
+def lineitem_point_db(lineitem_dir, workdir, device="cuda"):
+    """The pushdown phase's 4 lineitem SSTs opened as a DB (hard links
+    under file ids 1-4 and a manifest): SSTWriter fitted a learned index
+    into each, so P3 runs its model mode here."""
+    from yugabyte_tpu_torch.storage.db import DB
+    from yugabyte_tpu_torch.storage.sst import SSTReader, data_file_name
+    from yugabyte_tpu_torch.storage.version_set import VersionSet
+    d = os.path.join(workdir, "lineitem_db")
+    os.makedirs(d)
+    vs = VersionSet(d)
+    for src in sorted(f for f in os.listdir(lineitem_dir)
+                      if f.endswith(".sst")):
+        fid = vs.new_file_id()
+        path = os.path.join(d, f"{fid:06d}.sst")
+        os.link(os.path.join(lineitem_dir, src), path)
+        os.link(data_file_name(os.path.join(lineitem_dir, src)),
+                data_file_name(path))
+        r = SSTReader(path)
+        vs.add_file(fid, path, r.props)
+        r.close()
+    return DB(d, point_options(device))
+
+
+def lineitem_point_keys(db, n: int, seed: int) -> list:
+    """n keys of the lineitem DB's entries (every entry of 16 random
+    blocks per file, shuffled); each key lives in one of the runs, so the
+    other files' seeks miss."""
+    from yugabyte_tpu_torch.ops.slabs import unpack_keys
+    rng = np.random.default_rng(seed + 60)
+    keys = []
+    for r in db._readers.values():
+        for b in rng.choice(r.n_blocks, size=min(16, r.n_blocks),
+                            replace=False):
+            keys.extend(unpack_keys(r.read_block(int(b))))
+    return [keys[i] for i in rng.permutation(len(keys))[:n]]
+
+
+def _point_wrappers():
+    from yugabyte_tpu_torch.ops import point_read
+    return {"fnv64": point_read.fnv64, "bloom_probe": point_read.bloom_probe,
+            "locate_gather": point_read.locate_gather,
+            "index_fit": point_read.index_fit}
+
+
+def point_reads(db, keys, read_ht, batch: int, what: str):
+    """multi_get over keys in calls of `batch`, every launch counter set
+    to 0 just before and read just after; each call's seconds, ended by
+    the call's own downloads. Returns (results, seconds, launches,
+    {learned-index locates, keys a model mispredicted (each resolved by
+    an exact P3 relaunch)})."""
+    from yugabyte_tpu_torch.ops import point_read
+    wrappers = _point_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    m = point_read.point_read_metrics()
+    before = {k: m[k] for k in ("learned_hits", "learned_fallbacks")}
+    res, secs = [], []
+    for s in range(0, len(keys), batch):
+        t0 = time.time()
+        res.extend(db.multi_get(keys[s:s + batch], read_ht))
+        secs.append(time.time() - t0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    learned = {k: m[k] - v for k, v in before.items()}
+    log(f"{what}: {len(keys)} keys in {len(secs)} calls, "
+        f"{sum(secs):.3f}s; launches {launches}; learned-index locates "
+        f"{learned['learned_hits']}, mispredicted keys "
+        f"{learned['learned_fallbacks']}")
+    return res, secs, launches, learned
+
+
+def check_point_launches(launches, chunks: int, files: int, what: str):
+    """P1 once per chunk, P2 once per chunk and file, P3 at least once;
+    no P4 on the read path."""
+    want = {"fnv64": chunks, "bloom_probe": chunks * files}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{what}: {k} launched {launches[k]} "
+                                 f"times, not {v}")
+    if launches["locate_gather"] < 1 or launches["index_fit"]:
+        raise AssertionError(f"{what}: launches {launches}")
+
+
+def same_answers(got, db, keys, read_ht, what: str) -> float:
+    """got == _multi_get_native on the same DB and keys, key for key, in
+    calls of 1024. Returns the native path's seconds."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    ht = HybridTime(read_ht)
+    t0 = time.time()
+    want = []
+    for s in range(0, len(keys), 1024):
+        want.extend(db._multi_get_native(keys[s:s + 1024], ht))
+    secs = time.time() - t0
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"{what}: multi_get differs from the native "
+                             f"path at key {bad}: {got[bad]} != {want[bad]}")
+    return secs
+
+
+def point_read_phase(args, workdir, lineitem_dir, device="cuda"):
+    """Batched point reads through `DB.multi_get` (kernels P1-P3 over
+    the resident staged cols) on the YCSB tablet: YCSB workload C's
+    scrambled-zipfian reads at a read time above every write in calls of
+    1024 (the first, cold call timed apart), reads at a mid read time,
+    small calls (the 64 bucket) and reads with the learned index off;
+    then learned-index reads over the lineitem SSTs. Every answer equals
+    the native per-key path's; a sample equals sequential gets."""
+    import torch
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    from yugabyte_tpu_torch.utils import flags
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    db, out, top_ht, mid_ht = ycsb_point_db(args, workdir, device)
+    rng = np.random.default_rng(args.seed + 70)
+    key_space = out["key_space"]
+
+    def col_keys(ids):
+        return [bytes(k) for k in ycsb_keys(ids)]
+
+    n = args.point_reads
+    files = len(db._readers)
+    top = HybridTime(top_ht)
+    keys = col_keys(scrambled_zipfian(n, key_space, rng))
+    out["distinct_keys"] = len(set(keys))
+    t0 = time.time()
+    cold = db.multi_get(keys[:1024], top)
+    out["cold_call_s"] = time.time() - t0
+    out["read_stages"] = db.opts.device_cache.read_stages
+    log(f"cold call: {out['cold_call_s']:.3f}s (staged "
+        f"{out['read_stages']} files on a miss)")
+    got, secs, launches, learned = point_reads(db, keys, top, 1024,
+                                               "warm reads")
+    check_point_launches(launches, len(secs), files, "warm reads")
+    if got[:1024] != cold:
+        raise AssertionError("the cold call and the warm call differ")
+    native_s = same_answers(got, db, keys, top_ht, "warm reads")
+    lat = np.asarray(secs)
+    out.update({
+        "warm_keys": n, "warm_calls": len(secs), "warm_s": float(lat.sum()),
+        "warm_keys_per_s": n / float(lat.sum()),
+        "call_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "call_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "native_s": native_s, "native_keys_per_s": n / native_s,
+        "hits": sum(r is not None for r in got), "launches": launches,
+        "learned": learned})
+    total = {k: v for k, v in launches.items()}
+    t0 = time.time()
+    sample = keys[:16384]
+    if [db.get(k, top) for k in sample] != got[:16384]:
+        raise AssertionError("warm reads differ from sequential gets")
+    out["sequential_get_s"] = time.time() - t0
+    log(f"warm reads: {out['warm_keys_per_s']:,.0f} keys/s, call p50 "
+        f"{out['call_p50_ms']:.3f} ms p99 {out['call_p99_ms']:.3f} ms; "
+        f"native path {out['native_keys_per_s']:,.0f} keys/s; equal to it "
+        f"and (16,384 keys) to sequential gets; {out['hits']} hits")
+
+    mid_keys = col_keys(scrambled_zipfian(n // 4, key_space, rng))
+    got, secs, launches, learned = point_reads(
+        db, mid_keys, HybridTime(mid_ht), 1024, "reads at the mid read time")
+    check_point_launches(launches, len(secs), files, "mid reads")
+    same_answers(got, db, mid_keys, mid_ht, "mid reads")
+    out["mid"] = {"keys": len(mid_keys), "s": sum(secs),
+                  "hits": sum(r is not None for r in got),
+                  "learned": learned}
+    for k, v in launches.items():
+        total[k] += v
+
+    small = col_keys(scrambled_zipfian(32 * 64, key_space, rng))
+    sizes = rng.integers(1, 65, size=32)
+    small_keys = [small[64 * i: 64 * i + int(s)] for i, s in enumerate(sizes)]
+    wrappers = _point_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    got = [db.multi_get(ks, top) for ks in small_keys]
+    small_s = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check_point_launches(launches, 32, files, "small calls")
+    for ks, g in zip(small_keys, got):
+        same_answers(g, db, ks, top_ht, "small calls")
+    out["small"] = {"calls": 32, "keys": int(sizes.sum()), "s": small_s}
+    for k, v in launches.items():
+        total[k] += v
+
+    exact_keys = col_keys(scrambled_zipfian(n // 4, key_space, rng))
+    flags.set_flag("point_read_learned_index", False)
+    try:
+        got, secs, launches, learned = point_reads(
+            db, exact_keys, top, 1024, "reads with the learned index off")
+    finally:
+        flags.set_flag("point_read_learned_index", True)
+    check_point_launches(launches, len(secs), files, "exact reads")
+    same_answers(got, db, exact_keys, top_ht, "exact reads")
+    if learned["learned_hits"]:
+        raise AssertionError(f"exact reads used a learned index: {learned}")
+    out["exact"] = {"keys": len(exact_keys), "s": sum(secs),
+                    "learned": learned}
+    for k, v in launches.items():
+        total[k] += v
+    out["lindex"] = [r.props.lindex is not None
+                     for r in db._readers.values()]
+
+    li_db = lineitem_point_db(lineitem_dir, workdir, device)
+    li_keys = lineitem_point_keys(li_db, n // 4, args.seed)
+    li_top = HybridTime.kMax
+    li_db.multi_get(li_keys[:1024], li_top)             # stages the files
+    got, secs, launches, learned = point_reads(
+        li_db, li_keys, li_top, 1024, "lineitem reads, learned index on")
+    check_point_launches(launches, len(secs), len(li_db._readers),
+                         "lineitem reads")
+    if learned["learned_hits"] < 1 or learned["learned_fallbacks"]:
+        raise AssertionError(f"lineitem reads: learned-index locates and "
+                             f"mispredicted keys {learned}; every locate "
+                             f"should be seeded and none mispredicted")
+    same_answers(got, li_db, li_keys, li_top.value, "lineitem reads")
+    out["lineitem"] = {"keys": len(li_keys), "s": sum(secs),
+                       "learned": learned,
+                       "lindex": [r.props.lindex and r.props.lindex["max_err"]
+                                  for r in li_db._readers.values()]}
+    for k, v in launches.items():
+        total[k] += v
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.cuda.is_available() else 0)
+
+    fits, fit_launches = point_fit_check(db, li_db)
+    out["fits"] = fits
+    total["index_fit"] = fit_launches
+    return out, total, db, li_db, (keys[:1024], top, li_keys[:1024])
+
+
+def point_fit_check(*dbs):
+    """P4 on every SST's staged cols, the launch counter set to 0 just
+    before and read just after: the model it fits (learned_index.
+    finish_model over its anchors, p and max_err, as
+    `fit_learned_index_device` builds it) equals the file's persisted
+    one; a file whose max_err exceeds the bound has none, in both.
+    Returns ({file: P4's max_err}, launches)."""
+    from yugabyte_tpu_torch.ops import point_read
+    from yugabyte_tpu_torch.storage import learned_index
+    point_read.index_fit.launches = 0
+    out = {}
+    for db in dbs:
+        for fid, r in db._readers.items():
+            st = db._device_cache.get(fid)
+            a_hi, a_lo, p, err = point_read.index_fit(st.cols_dev, st.n, st.w)
+            model = learned_index.finish_model(
+                a_hi.cpu().numpy().view(np.uint32),
+                a_lo.cpu().numpy().view(np.uint32), int(p), int(err), st.n)
+            if model != r.props.lindex:
+                raise AssertionError(f"P4 on {r.base_path}: {model} != "
+                                     f"the persisted {r.props.lindex}")
+            out[os.path.join(os.path.basename(db.db_dir),
+                             os.path.basename(r.base_path))] = int(err)
+    log(f"P4 on every SST equals its persisted model (or both none); "
+        f"max_err measured {out}")
+    return out, point_read.index_fit.launches
+
+
+def point_breakdown(db, chunk, read_ht):
+    """Seconds of each stage of one warm 1024-key chunk, run one after
+    the other through the DB's own steps of `_multi_get_device` (the
+    loop of `_device_chunk` unrolled), each ended by its download or a
+    synchronize: host pack (`_pack_chunk`: _doc_key_len,
+    pack_query_batch, uploads), P1 (`hash_batch`), P2 + download per SST
+    (`probe_bloom`), P3 + download per SST (`_locate_file`, with its fold
+    of the file's hits), combine (the memtable probe, `_mem_probe_many`)
+    and the winners' value fetch (`_combine_device_chunk`). Returns the
+    stages, the answers and the tensors of the kernel checks."""
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.storage import learned_index
+    staged_by = db._stage_live(list(db._readers.items()))
+    mems = [m for m in db._mem_snapshot() if not m.empty]
+    st_t = {}
+    b = len(chunk)
+    t0 = time.time()
+    hw, dk, packs = db._pack_chunk(chunk, None, staged_by)
+    sync()
+    st_t["host_pack_s"] = time.time() - t0
+    t0 = time.time()
+    h1, h2 = pr.hash_batch(hw, dk, hw.device)
+    sync()
+    st_t["p1_s"] = time.time() - t0
+    t = {"qwords_hash": hw, "dkls": dk, "h1": h1, "h2": h2,
+         "blooms": [], "locates": []}
+    st_t["p2_download_s"], st_t["p3_download_s"] = [], []
+    best = None
+    for fi, (_fid, r, st) in enumerate(staged_by):
+        t0 = time.time()
+        maybe = pr.probe_bloom(r, h1, h2)
+        st_t["p2_download_s"].append(time.time() - t0)
+        t["blooms"].append(pr.bloom_device_words(r, hw.device))
+        if maybe is not None and not maybe[:b].any():
+            st_t["p3_download_s"].append(0.0)
+            continue
+        t0 = time.time()
+        best = db._locate_file(packs[st.w], r, st, read_ht, b, fi, best)
+        st_t["p3_download_s"].append(time.time() - t0)
+        t["locates"].append((st, *packs[st.w], learned_index.model_operands(
+            r.props.lindex, st.n)))
+    t0 = time.time()
+    mem_hits = db._mem_probe_many(mems, chunk, read_ht)
+    st_t["combine_s"] = time.time() - t0
+    t0 = time.time()
+    res = [None] * b
+    db._combine_device_chunk(chunk, 0, mem_hits, staged_by, best, res)
+    st_t["value_fetch_s"] = time.time() - t0
+    t["read_ht"] = read_ht.value
+    t["staged"] = [st for _fid, _r, st in staged_by]
+    return st_t, res, t
+
+
+def point_bytes(t, calls):
+    """Bytes each of P1-P4 must move on these inputs, each input read
+    once and each output written once. P1: per lane its key words up to
+    its doc-key length, the length, 8 bytes out. P2: per lane h1 and h2,
+    the distinct filter words the probes read up to each lane's first
+    zero bit, 1 byte out. P3: see locate_bytes. P4: the two coordinate
+    rows of the n real entries, 17 x 8 + 8 bytes out."""
+    import torch
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.ops.merge_gc import _u
+    w = t["qwords_hash"].shape[1]
+    dk = t["dkls"].long().clamp(0, 4 * w)
+    p1 = int((4 * ((dk + 3) // 4)).sum()) + 12 * dk.numel()
+    words, m_bits, k = next(filter(None, t["blooms"]))
+    h1, h2 = _u(t["h1"]), _u(t["h2"])
+    alive = torch.ones_like(h1, dtype=torch.bool)
+    touched = []
+    for i in range(min(k, pr._K_MAX)):
+        pos = (h1 + i * h2) % m_bits
+        touched.append((pos >> 5)[alive])
+        alive &= ((_u(words)[pos >> 5] >> (pos & 31)) & 1) == 1
+    p2 = 9 * h1.numel() + 4 * int(torch.cat(touched).unique().numel())
+    p3, chain = locate_bytes(*calls["locate_gather"])
+    p3_model, chain_model = locate_bytes(*calls["locate_gather_model"])
+    return {"fnv64": p1, "bloom_probe": p2, "locate_gather": p3,
+            "locate_gather_model": p3_model,
+            "index_fit": 8 * calls["index_fit"][1] + 144,
+            "chain": chain, "chain_model": chain_model}
+
+
+def locate_bytes(cols, n, qw, ql, rhi, rlo, model, w):
+    """P3's bytes on one SST (the arguments are locate_gather's) and its
+    dependent-load chain, from the cells the kernel reads as
+    `locate_gather_plain(trace=)` reports them: a probe reads the key
+    words up to the first that differs, key_len only when every word is
+    equal and the two ht limbs only when key_len is equal too; the gather
+    reads the same prefix and always the ht limbs and wid. Bytes: every
+    distinct (row, column) cell read, each lane's query words up to the
+    last it compared (at least the model's two coordinate words) and its
+    length, the model's 17 x 3 anchors and two scalars, 18 bytes out per
+    lane. Chain: per lane the loads of its probes and its gather, one
+    after the other (each load depends on the compare before it)."""
+    import torch
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.ops.merge_gc import _ROW_WORDS
+    trace = []
+    pr.locate_gather_plain(cols, n, qw, ql, rhi, rlo, model, w, trace=trace)
+    b, n_pad = qw.shape[0], cols.shape[1]
+    cells = []
+    loads = torch.zeros(b, dtype=torch.int64, device=cols.device)
+    qwords = torch.zeros(b, dtype=torch.int64, device=cols.device)
+    for col, read in trace:
+        lane, row = read.nonzero(as_tuple=True)
+        cells.append(row * n_pad + col[lane])
+        loads += read.sum(1)
+        qwords = torch.maximum(qwords, read[:, _ROW_WORDS:].sum(1))
+    if model is not None:
+        qwords = torch.clamp(qwords, min=min(max(int(model[3]), 0), w - 2)
+                             + 2)
+    nbytes = (4 * int(torch.cat(cells).unique().numel())
+              + 4 * int(qwords.sum()) + 4 * b + 18 * b
+              + (4 * 3 * 17 + 8 if model is not None else 0))
+    probes = len(trace) - 1
+    return nbytes, {"probes": probes,
+                    "chain_loads_mean": float(loads.double().mean()),
+                    "chain_loads_max": int(loads.max()),
+                    "loads_per_probe_mean": float(
+                        (loads - trace[-1][1].sum(1)).double().mean()
+                        / probes)}
+
+
+def point_kernel_phase(args, t, t_li, launches, bandwidth):
+    """P1-P4 against their plain versions on the card, bit for bit, on
+    the point-read phase's tensors: P1 on the breakdown chunk's hash
+    batch, P2 on every SST's filter, P3 on every located SST of the YCSB
+    chunk (exact mode) and of the lineitem chunk (learned-index mode), P4
+    on every staged YCSB and lineitem SST. Timed with CUDA events beside
+    their bounds (bytes over the card's rate); no single PyTorch call
+    computes any of them (library_ms null)."""
+    import torch
+    from yugabyte_tpu_torch.ops import point_read as pr
+
+    def same(got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs_err(g.reshape(-1), x.reshape(-1))
+                  for g, x in zip(got, want))
+        if err or not all(torch.equal(g.reshape(-1), x.reshape(-1))
+                          for g, x in zip(got, want)):
+            raise AssertionError(f"{what} != its plain version "
+                                 f"(max_abs_err {err})")
+        return err
+
+    errs = {k: 0 for k in ("fnv64", "bloom_probe", "locate_gather",
+                           "index_fit")}
+    calls = {}
+    for tt in (t, t_li):
+        args1 = (tt["qwords_hash"], tt["dkls"])
+        errs["fnv64"] = max(errs["fnv64"], same(
+            pr.fnv64(*args1), pr.fnv64_plain(*args1), "P1"))
+        calls.setdefault("fnv64", args1)
+        for words, m_bits, k in filter(None, tt["blooms"]):
+            a = (tt["h1"], tt["h2"], words, m_bits, k)
+            errs["bloom_probe"] = max(errs["bloom_probe"], same(
+                pr.bloom_probe(*a), pr.bloom_probe_plain(*a), "P2"))
+            calls.setdefault("bloom_probe", a)
+        for st, qw, ql, model in tt["locates"]:
+            rd = tt["read_ht"]
+            # exact mode on every located SST; learned-index mode where
+            # the file has a model
+            for m in {id(None): None, id(model): model}.values():
+                a = (st.cols_dev, st.n, qw, ql, rd >> 32, rd & 0xFFFFFFFF,
+                     m, st.w)
+                errs["locate_gather"] = max(errs["locate_gather"], same(
+                    pr.locate_gather(*a), pr.locate_gather_plain(*a), "P3"))
+                calls.setdefault("locate_gather" if m is None
+                                 else "locate_gather_model", a)
+        for st in tt["staged"]:
+            a4 = (st.cols_dev, st.n, st.w)
+            errs["index_fit"] = max(errs["index_fit"], same(
+                pr.index_fit(*a4), pr.index_fit_plain(*a4), "P4"))
+            calls.setdefault("index_fit", a4)
+    if "locate_gather" not in calls or "locate_gather_model" not in calls:
+        raise AssertionError("P3 was not checked in both modes")
+    log("kernels P1-P4 == their plain versions on the point-read phase's "
+        "tensors (P3 in exact and learned-index mode)")
+    nbytes = point_bytes(t, calls)
+    kern = {"fnv64": pr.fnv64, "bloom_probe": pr.bloom_probe,
+            "locate_gather": pr.locate_gather,
+            "locate_gather_model": pr.locate_gather,
+            "index_fit": pr.index_fit}
+    plain = {"fnv64": pr.fnv64_plain, "bloom_probe": pr.bloom_probe_plain,
+             "locate_gather": pr.locate_gather_plain,
+             "locate_gather_model": pr.locate_gather_plain,
+             "index_fit": pr.index_fit_plain}
+    times = {k: (cuda_ms(lambda k=k: kern[k](*calls[k]), args.reps),
+                 cuda_ms(lambda k=k: plain[k](*calls[k]), 2))
+             for k in kern}
+    replaces = {"fnv64": "yugabyte_tpu/ops/point_read.py:150",
+                "bloom_probe": "yugabyte_tpu/ops/point_read.py:171",
+                "locate_gather": "yugabyte_tpu/ops/point_read.py:317",
+                "index_fit": "yugabyte_tpu/ops/point_read.py:257"}
+    rows = []
+    for name in ("fnv64", "bloom_probe", "locate_gather", "index_fit"):
+        ms, plain_ms = times[name]
+        e = {"name": name, "route": "cuda",
+             "source": "yugabyte_tpu_torch/csrc/point_read.cu",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes[name] / bandwidth * 1e3, "bound_by": "bytes",
+             "library_ms": None}
+        if name == "locate_gather":
+            mm, mp = times["locate_gather_model"]
+            e.update({"chain": nbytes["chain"], "ms_model": mm,
+                      "plain_ms_model": mp,
+                      "bound_ms_model": nbytes["locate_gather_model"]
+                      / bandwidth * 1e3,
+                      "chain_model": nbytes["chain_model"]})
+        log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {e['bound_ms']:.6f}), {launches[name]} launches"
+            + (f"; model mode {e['ms_model']:.4f} ms, chains "
+               f"{e['chain']} / {e['chain_model']}"
+               if name == "locate_gather" else ""))
+        rows.append(e)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -1636,6 +2260,10 @@ def main() -> int:
     ap.add_argument("--sf-orders", type=int, default=SF1_ORDERS,
                     help="TPC-H orders generated before the lineitem "
                     "tablet keeps its hash half (1,500,000 = SF1)")
+    ap.add_argument("--point-reads", type=int, default=262_144,
+                    help="YCSB-C reads above every write; the mid-time, "
+                    "exact-mode and lineitem read sets take a quarter "
+                    "each")
     args = ap.parse_args()
 
     import torch
@@ -1644,6 +2272,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from yugabyte_tpu_torch.common.hybrid_time import HybridTime
         from yugabyte_tpu_torch.utils import native_build
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script: {e}",
@@ -1711,6 +2340,26 @@ def main() -> int:
             args, push_t["q6_agg"], push_t["filter_rows"],
             launches["pushdown"], bandwidth)
         del push_t
+        torch.cuda.empty_cache()
+        point_out, launches["point"], ydb, ldb, (chunk, top, li_chunk) = \
+            point_read_phase(args, workdir, os.path.join(workdir, "lineitem"))
+        t_pt = {}
+        for what, db, keys, read_ht in (
+                ("ycsb", ydb, chunk, top),
+                ("lineitem", ldb, li_chunk, HybridTime.kMax)):
+            stages, answer, t_pt[what] = point_breakdown(db, keys, read_ht)
+            if answer != db.multi_get(keys, read_ht):
+                raise AssertionError(f"{what}: the stage breakdown's "
+                                     f"answers differ from multi_get's")
+            point_out[f"{what}_stages"] = stages
+            log(f"{what} chunk stages, one after the other: " + ", ".join(
+                f"{k} {v}" for k, v in stages.items()))
+        point_rows = point_kernel_phase(args, t_pt["ycsb"],
+                                        t_pt["lineitem"], launches["point"],
+                                        bandwidth)
+        del t_pt
+        ydb.close()
+        ldb.close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
@@ -1724,10 +2373,10 @@ def main() -> int:
             entry["vals"] = h_vals
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
                "scan": scan_out, "pushdown": push_out,
-               "seconds": time.time() - t_start}
+               "point_read": point_out, "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + scan_rows
-                      + push_rows}), flush=True)
+                      + push_rows + point_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

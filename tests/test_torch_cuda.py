@@ -540,3 +540,154 @@ def test_pushdown_on_the_card_equals_cpu(cuda, tmp_path):
                 assert all(ran)
             else:   # presorted: no G, no H, no I.1
                 assert not any(ran[:3]) and all(ran[3:])
+
+
+# ------------------------------------------------------- point reads (P1-P4)
+def _point_cols(seed, n_ids=3000):
+    """A sorted slab of row and column keys with 1-3 versions each, its
+    staged cols on the card, and its learned index."""
+    from yugabyte_tpu_torch.ops.slabs import pack_kvs
+    from yugabyte_tpu_torch.storage import learned_index
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice(3 * n_ids, size=n_ids, replace=False))
+    entries, wid = [], 0
+    for i in ids:
+        for col in (b"", b"K\x00\x01"):
+            for v in range(int(rng.integers(1, 4))):
+                wid += 1
+                ht = (1000 + int(i) * 10 + v) << 12
+                entries.append((b"Suser%08d\x00\x00!" % i + col,
+                                (ht << 32) | (wid & 7), b"v"))
+    slab = pack_kvs(entries)
+    return ids, entries, slab, learned_index.fit_from_slab(slab)
+
+
+def _point_queries(ids, entries, w, rng):
+    from yugabyte_tpu_torch.ops.point_read import pack_query_batch
+    present = [e[0] for e in entries]
+    qs = [present[int(j)] for j in rng.integers(0, len(present), 500)]
+    qs += [b"Suser%08d\x00\x00!" % int(i)
+           for i in rng.integers(0, 3 * len(ids), 500)]
+    qs += [b"S", b"Suser99999999\x00\x00!", present[0] + b"\0" * 40,
+           b"Suser00000000\x00\x00!"]            # 20 pad lanes follow
+    return pack_query_batch(qs, w)
+
+
+def test_point_fnv64_and_bloom_kernels_match_plain(cuda):
+    from yugabyte_tpu_torch.ops import point_read as pr
+    rng = np.random.default_rng(31)
+    for b, w in ((64, 4), (1024, 8), (1024, 16)):
+        qw = rng.integers(0, 2 ** 32, size=(b, w), dtype=np.uint32)
+        ql = rng.integers(-1, 4 * w + 3, size=b).astype(np.int32)
+        ql[-5:] = 0                                  # pad lanes
+        qw_d = merge_gc.u32_to_device(qw, cuda)
+        ql_d = torch.from_numpy(ql).to(cuda)
+        before = pr.fnv64.launches
+        h1, h2 = pr.fnv64(qw_d, ql_d)
+        assert pr.fnv64.launches == before + 1
+        w1, w2 = pr.fnv64_plain(qw_d, ql_d)
+        assert torch.equal(h1, w1) and torch.equal(h2, w2)
+        for m_bits, k in ((1 << 16, 1), (64 * 311, 7), (32 * 57 + 5, 12),
+                          ((1 << 20) + 3, 12)):
+            n_words = merge_gc.bucket_size(-(-m_bits // 32))
+            # bit density 0.5^(1/k): about half the lanes pass all k
+            bits = rng.random((n_words, 32)) < 0.5 ** (1 / k)
+            words = merge_gc.u32_to_device(
+                (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64))
+                .sum(axis=1).astype(np.uint32), cuda)
+            got = pr.bloom_probe(h1, h2, words, m_bits, k)
+            assert torch.equal(got, pr.bloom_probe_plain(h1, h2, words,
+                                                         m_bits, k))
+            assert 0 < int(got.sum()) < b
+
+
+def test_point_locate_kernel_matches_plain(cuda):
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.storage import learned_index
+    ids, entries, slab, fit = _point_cols(32)
+    st = merge_gc.stage_slab(slab, cuda)
+    n = st.n
+    bad = dict(fit, a_hi=fit["a_hi"][::-1], a_lo=fit["a_lo"][::-1],
+               max_err=0)
+    wide = dict(fit, max_err=learned_index.LINDEX_MAX_ERR)
+    models = {"exact": None,
+              "fit": learned_index.model_operands(fit, n),
+              "garbage": learned_index.model_operands(bad, n),
+              "widest": learned_index.model_operands(wide, n)}
+    qw, ql = _point_queries(ids, entries, st.w, np.random.default_rng(33))
+    qw_d = merge_gc.u32_to_device(qw, cuda)
+    ql_d = torch.from_numpy(ql).to(cuda)
+    for name, model in models.items():
+        for read_ht in ((1000 + 4500 * 10 + 1) << 12, (1 << 64) - 1,
+                        (1000 << 12) - 1):
+            args = (st.cols_dev, n, qw_d, ql_d, read_ht >> 32,
+                    read_ht & 0xFFFFFFFF, model, st.w)
+            got = pr.locate_gather(*args)
+            want = pr.locate_gather_plain(*args)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x), (name, read_ht)
+            if name == "garbage":
+                assert bool(got[5].any())
+            if name in ("fit", "widest"):
+                assert not bool(got[5].any())
+    # the learned windows clip at both edges: the first and last keys
+    edge = pr.pack_query_batch([entries[0][0], entries[-1][0]], st.w)
+    got = pr.locate_gather(st.cols_dev, n,
+                           merge_gc.u32_to_device(edge[0], cuda),
+                           torch.from_numpy(edge[1]).to(cuda), 0xFFFFFFFF,
+                           0xFFFFFFFF, models["widest"], st.w)
+    assert got[1][:2].tolist() == [True, True]
+    assert got[0][1].item() < n
+
+
+def test_point_index_fit_kernel_matches_plain_and_host(cuda):
+    from yugabyte_tpu_torch.ops import point_read as pr
+    for seed in (34, 35):
+        _ids, _entries, slab, fit = _point_cols(seed, n_ids=5000 + seed)
+        st = merge_gc.stage_slab(slab, cuda)
+        got = pr.index_fit(st.cols_dev, st.n, st.w)
+        want = pr.index_fit_plain(st.cols_dev, st.n, st.w)
+        for g, x in zip(got, want):
+            assert torch.equal(g.reshape(-1), x.reshape(-1))
+        assert pr.fit_learned_index_device(st) == fit
+
+
+def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
+    """DB.multi_get over a DeviceSlabCache on the card launches P1-P3 and
+    answers what the native per-key path and sequential gets answer."""
+    from yugabyte_tpu_torch.common.hybrid_time import (DocHybridTime,
+                                                       HybridTime)
+    from yugabyte_tpu_torch.docdb.value import Value
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.storage.db import DB, DBOptions
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    db = DB(str(tmp_path / "db"), DBOptions(
+        device="cuda", device_cache=DeviceSlabCache("cuda"),
+        auto_compact=False))
+    try:
+        tomb = Value.tombstone().encode()
+        for f in range(3):
+            db.write_batch([
+                (b"Suser%08d\x00\x00!" % i,
+                 DocHybridTime(HybridTime.from_micros(1000 + i + 7 * f), f),
+                 tomb if i % 17 == 0 and f == 1 else b"value%d" % f)
+                for i in range(f, 3000, 3)], op_id=(1, f + 1))
+            db.flush()
+        db.write_batch([(b"Suser%08d\x00\x00!" % i,
+                         DocHybridTime(HybridTime.from_micros(99_999), 1),
+                         b"mem") for i in range(0, 300, 7)], op_id=(1, 9))
+        rng = np.random.default_rng(36)
+        keys = [b"Suser%08d\x00\x00!" % int(i)
+                for i in rng.integers(0, 3300, size=2100)]
+        kernels = [pr.fnv64, pr.bloom_probe, pr.locate_gather]
+        for micros in (None, 1500, 50_000):
+            read_ht = None if micros is None else HybridTime.from_micros(
+                micros)
+            before = [k.launches for k in kernels]
+            got = db.multi_get(keys, read_ht)
+            assert all(k.launches > b for k, b in zip(kernels, before))
+            assert got == db._multi_get_native(keys,
+                                               read_ht or HybridTime.kMax)
+            assert got[:64] == [db.get(k, read_ht) for k in keys[:64]]
+    finally:
+        db.close()

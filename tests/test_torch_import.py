@@ -41,6 +41,11 @@ MODULES = [
     "yugabyte_tpu_torch.storage.native_engine",
     "yugabyte_tpu_torch.storage.compaction",
     "yugabyte_tpu_torch.storage.device_cache",
+    "yugabyte_tpu_torch.storage.learned_index",
+    "yugabyte_tpu_torch.storage.memtable",
+    "yugabyte_tpu_torch.storage.version_set",
+    "yugabyte_tpu_torch.storage.native_read",
+    "yugabyte_tpu_torch.storage.db",
     "chip_smoke",
 ]
 
@@ -136,6 +141,15 @@ scan.filtered_entries_sources(SRC, 1 << 40, SPEC)
     "aggregate_sources": _PUSHDOWN + """
 scan.aggregate_sources(SRC, 1 << 40, SPEC)
 """,
+    "DeviceSlabCache": """
+from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+DeviceSlabCache()
+""",
+    "DB_multi_get": """
+import tempfile
+from yugabyte_tpu_torch.storage.db import DB, DBOptions
+DB(tempfile.mkdtemp(), DBOptions(auto_compact=False))
+""",
 }
 
 
@@ -175,6 +189,24 @@ assert [(k, v) for k, v, _ht in got] == KVS, got
 got = scan.aggregate_sources(SRC, 1 << 40, SPEC, device="cpu")
 assert got == {"rows": 1, "cols": {0: {"nonnull": 1, "sum": 5, "min": 5,
                                        "max": 5}}}, got
+""",
+    "DB_multi_get": """
+import shutil, tempfile
+from yugabyte_tpu_torch.common.hybrid_time import DocHybridTime, HybridTime
+from yugabyte_tpu_torch.ops import point_read
+from yugabyte_tpu_torch.storage.db import DB, DBOptions
+from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+d = tempfile.mkdtemp()
+db = DB(d, DBOptions(device="cpu", device_cache=DeviceSlabCache("cpu"),
+                     auto_compact=False))
+db.write_batch([(b"k", DocHybridTime(HybridTime(5 << 12), 0), b"\x01")])
+db.flush()
+got = db.multi_get([b"k", b"j"])
+assert [g and (g[0].ht.value, g[1]) for g in got] == [(5 << 12, b"\x01"),
+                                                        None], got
+assert point_read.point_read_metrics()["batches"] == 1
+db.close()
+shutil.rmtree(d)
 """,
 }
 

@@ -350,6 +350,11 @@ class StagedCols:
     sort_rows: Optional[np.ndarray] = None
     n_sort: int = 0
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the staged matrix (the cache's accounting)."""
+        return self.cols_dev.numel() * 4
+
     def __post_init__(self):
         if self.sort_rows is None:
             const = (self.col_const if self.col_const is not None

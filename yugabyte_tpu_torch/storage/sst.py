@@ -99,9 +99,9 @@ class SSTProps:
     # lets the compaction dispatcher decide device routing WITHOUT
     # decoding the file (the fused kernel handles depth-2 only)
     has_deep: bool = False
-    # learned per-SST index, OPTIONAL and advisory: files written by the
-    # JAX package may carry one; this package reads and keeps it but
-    # fits none (its writers leave it out)
+    # learned per-SST index (storage/learned_index.py) — OPTIONAL and
+    # advisory: absent in pre-model files (reads fall back to the exact
+    # binary seek), ignored as an unknown JSON key by pre-model readers
     lindex: Optional[dict] = None
 
     def to_json(self) -> dict:
@@ -188,12 +188,59 @@ class SSTWriter:
             max_expire_us = int(
                 (ht_phys + slab.ttl_ms.astype(np.uint64) * 1000).max())
         from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
+        # the learned per-SST index (storage/learned_index.py), advisory:
+        # readers verify its predictions
+        from yugabyte_tpu_torch.storage import learned_index
+        lindex = learned_index.fit_from_slab(slab)
         return write_base_file(
             self.base_path, index_items, n, hashes,
             key_at(0) if n else b"", key_at(n - 1) if n else b"",
             frontier, data_off, self.bits_per_key,
             max_expire_us=max_expire_us,
-            has_deep=bool(n) and bool(((slab.flags & FLAG_DEEP) != 0).any()))
+            has_deep=bool(n) and bool(((slab.flags & FLAG_DEEP) != 0).any()),
+            lindex=lindex)
+
+
+def write_sst_from_packed(base_path: str, keys_blob: bytes, key_offs,
+                          ht, wid, vals_blob: bytes, val_offs,
+                          frontier: Optional[Frontier] = None,
+                          block_entries: Optional[int] = None,
+                          compress: Optional[bool] = None) -> SSTProps:
+    """Native-encoded SST from one packed run (the flush / bulk-load hot
+    path, ref: db/flush_job.cc WriteLevel0Table + memtable.cc iteration).
+    Block encode, bloom hashing and doc-key parsing run in C++
+    (ce_job_add_raw → ce_job_sort_all → ce_job_write_output); Python
+    assembles the base file as usual. Caller guarantees native_engine is
+    available. The JAX package's run-cache write-through is not ported
+    (ROADMAP item 1)."""
+    from yugabyte_tpu_torch.storage import native_engine
+    if block_entries is None:
+        block_entries = _sst_flags.get_flag("sst_block_entries")
+    if compress is None:
+        compress = sst_compression_enabled()
+    n = len(key_offs) - 1
+    data_path = data_file_name(base_path)
+    if os.path.exists(data_path):
+        os.remove(data_path)  # never append to a stale data file
+    with native_engine.NativeCompactionJob() as job:
+        job.add_raw(keys_blob, key_offs, ht, wid, vals_blob, val_offs)
+        job.sort_all()
+        size, index, hashes, first_key, last_key = job.write_output(
+            0, n, data_path, block_entries, compress, b"X")
+        max_expire_us, has_deep = job.props()
+    ht_arr = np.asarray(ht, dtype=np.uint64)
+    fr = frontier or Frontier()
+    if n and fr.ht_min == 0 and fr.ht_max == 0:
+        fr.ht_min = int(ht_arr.min())
+        fr.ht_max = int(ht_arr.max())
+    # the packed run may arrive unsorted (bulk ingest) — the fit's key
+    # coordinate is a monotone transform of memcmp order, so sorting the
+    # coordinates reproduces the written-order sequence
+    from yugabyte_tpu_torch.storage import learned_index
+    lindex = learned_index.fit_from_packed_keys(keys_blob, key_offs)
+    return write_base_file(base_path, index, n, hashes, first_key, last_key,
+                           fr, size, max_expire_us=max_expire_us,
+                           has_deep=has_deep, lindex=lindex)
 
 
 def write_base_file(base_path: str,
@@ -271,9 +318,11 @@ def _decode_index(data: bytes) -> Tuple[List[bytes], List[Tuple[int, int, int]]]
 class SSTReader:
     """Random and sequential access to one SST (ref: BlockBasedTable::Open)."""
 
-    def __init__(self, base_path: str):
+    def __init__(self, base_path: str,
+                 block_cache: Optional["BlockCache"] = None):
         from yugabyte_tpu_torch.utils.env import get_env
         self.base_path = base_path
+        self.block_cache = block_cache
         self.data_path = data_file_name(base_path)
         raw = get_env().read_file(base_path)
         if len(raw) < _FOOTER.size:
@@ -305,8 +354,15 @@ class SSTReader:
         return len(self.block_handles)
 
     def read_block(self, block_idx: int) -> KVSlab:
+        if self.block_cache is not None:
+            cached = self.block_cache.get((self.base_path, block_idx))
+            if cached is not None:
+                return cached
         off, size, _ = self.block_handles[block_idx]
-        return block_format.decode_block(self._data.pread(size, off))
+        slab = block_format.decode_block(self._data.pread(size, off))
+        if self.block_cache is not None:
+            self.block_cache.put((self.base_path, block_idx), slab, size)
+        return slab
 
     def read_all(self) -> KVSlab:
         """Whole-file slab (compaction input path)."""
@@ -349,3 +405,40 @@ class SSTReader:
 def _empty_slab() -> KVSlab:
     from yugabyte_tpu_torch.ops.slabs import pack_kvs
     return pack_kvs([])
+
+
+class BlockCache:
+    """LRU cache of decoded blocks (ref: util/lru_cache.cc,
+    db/table_cache.cc). Shared server-wide across all tablets' DBs (keys
+    embed the SST path, so file-id collisions between DBs are impossible);
+    locked because every tablet's read and compaction threads hit it."""
+
+    def __init__(self, capacity_bytes: int = 256 * 1024 * 1024):
+        import threading
+        from collections import OrderedDict
+        self.capacity = capacity_bytes
+        self.used = 0
+        self._map: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            item = self._map.get(key)
+            if item is None:
+                return None
+            self._map.move_to_end(key)
+            return item[0]
+
+    def put(self, key, slab: KVSlab, size: int) -> None:
+        with self._lock:
+            if key in self._map:
+                return
+            self._map[key] = (slab, size)
+            self.used += size
+            while self.used > self.capacity and self._map:
+                self._pop_lru_locked()
+
+    def _pop_lru_locked(self) -> int:
+        _, (_, sz) = self._map.popitem(last=False)
+        self.used -= sz
+        return sz

@@ -76,14 +76,16 @@ def build_cuda_lib(src_name: str) -> str:
     return lib
 
 
-# every library the compaction and scan slices load: (source, lib name,
-# args)
+# every library the compaction, scan and point-read slices load:
+# (source, lib name, args)
 NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                 ("-lz", "-lpthread")),
-               ("compaction_baseline.cc", "libcompaction_baseline.so", ()))
+               ("compaction_baseline.cc", "libcompaction_baseline.so", ()),
+               ("read_engine.cc", "libread_engine.so", ("-lz",)),
+               ("memtable_arena.cc", "libmemtable_arena.so", ()))
 CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
                 "write_through.cu", "radix.cu", "concat.cu", "scan.cu",
-                "pushdown.cu")
+                "pushdown.cu", "point_read.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
