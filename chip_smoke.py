@@ -4,7 +4,8 @@
 Drives the port's main paths over a YCSB-A tablet — disk-to-disk L0->L1
 compaction through `storage.compaction.run_compaction_job_device_native`
 on its default device-codec path and on its native-shell path
-(YBTPU_DEVICE_CODEC=0), and the snapshot scan `ops.scan.
+(YBTPU_DEVICE_CODEC=0), chunked and skewed picks through the router
+`storage.compaction.run_compaction_job`, and the snapshot scan `ops.scan.
 visible_entries_sources` — and holds every CUDA kernel of those paths
 against its plain PyTorch version, the compaction decisions against the
 native C++ heap-merge oracle and the scan against the native host scan.
@@ -32,6 +33,22 @@ Phases (any failure exits non-zero):
      at the codec job's shapes == their plain versions, timed with CUDA
      events beside their bounds and, for D and E, a PyTorch call that
      computes the same function;
+ 5b. chunked subcompactions through the router `storage.compaction.
+     run_compaction_job(device="cuda")` over the same inputs, on the
+     codec and the shell route, each an unchunked job and then a chunked
+     one (YBTPU_MERGE_CHUNK_ROWS = --chunk-rows, 2^20: 20 chunks); every
+     job's files == the native job's; the chunked jobs launch kernel L
+     once, the carve (kernel H) once per chunk, A twice and B once per
+     chunk, H for the restage (and the parent payload), C-F on the codec
+     route. Kernel L and the carve at the chunked job's shapes == their
+     plain versions, timed beside their bounds; kernels A and B on every
+     carved chunk and kernel H's parent payload (index row remapped) ==
+     their plain versions, the payload == the job's. A skewed pick
+     through the router: the codec job's first output file plus 4 L0
+     runs of --skew-rows (65,536) YCSB-A updates above every write (k_pad
+     8, 4x inflation): the radix re-sort (kernels G, I.1, B over the
+     host-concatenated slab), files == the native job's, and G, I.1, B
+     on the job's staged matrix == their plain versions;
   6. the snapshot scan over the same 4 input SSTs: the full-tablet
      seq-scan (`ops.scan.visible_entries_sources` over
      SlabSource(read_all()), read time above every write, no bounds)
@@ -63,7 +80,7 @@ Phases (any failure exits non-zero):
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
-       [--sf-orders M] [--point-reads K]
+       [--chunk-rows C] [--skew-rows L] [--sf-orders M] [--point-reads K]
 """
 
 from __future__ import annotations
@@ -99,14 +116,16 @@ def card_line() -> str:
 
 
 def synth_ycsb_runs(n_total: int, n_runs: int, key_space: int, seed: int,
-                    tombstone_frac: float = 0.05, value_bytes: int = 64):
+                    tombstone_frac: float = 0.05, value_bytes: int = 64,
+                    ht_base: int = 0):
     """YCSB-A-like tablet: n_runs sorted runs of row writes (the JAX
     package's bench.synth_ycsb_runs, copied). Key layout (DocDB encoding):
     root = 'S' 'user%08d' 00 00 '!' (16B); column write = root + 'K' +
     2B col id (19B); tombstones hit the row root.
 
-    Run g's hybrid times are span*(g+1) + a permutation of its rows, with
-    span = max(10^6, rows per run): the JAX package's formula up to 10^6
+    Run g's hybrid times are ht_base + span*(g+1) + a permutation of its
+    rows, with span = max(10^6, rows per run): the JAX package's formula
+    (ht_base = 0) up to 10^6
     rows per run. Above that its runs' time ranges overlap and two runs can
     write one key at one hybrid time, which no tablet does (a write's
     hybrid time is unique) and which leaves the merge order of the two
@@ -131,7 +150,7 @@ def synth_ycsb_runs(n_total: int, n_runs: int, key_space: int, seed: int,
                                   np.zeros((per_run, 3), np.uint8),
                                   np.array([[ord("K"), 0, 0]], np.uint8))
         key_len = np.where(is_tomb, 16, 19).astype(np.int32)
-        ht = ((span * (g + 1) + rng.permutation(per_run))
+        ht = ((ht_base + span * (g + 1) + rng.permutation(per_run))
               .astype(np.uint64) << 12)
         flags = np.where(is_tomb, FLAG_TOMBSTONE, 0).astype(np.uint32)
         order = np.lexsort([~ht] + [keys[:, j]
@@ -187,6 +206,17 @@ def max_abs_err(x, y) -> int:
     step = 1 << 24
     return max(int((_u(xf[i:i + step]) - _u(yf[i:i + step])).abs().max())
                for i in range(0, xf.numel(), step))
+
+
+def same_or_raise(what, got, want) -> int:
+    """max_abs_err of a kernel's output against its plain version's on the
+    same inputs; raises unless the two are equal."""
+    import torch
+    err = max_abs_err(got, want)
+    if err or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what} != its plain version (max_abs_err "
+                             f"{err})")
+    return err
 
 
 def lexsort_level(p_mat, L, cmp_rows):
@@ -369,7 +399,9 @@ def _wrappers():
             "staged_concat": run_merge.staged_concat,
             "radix_sort": radix.radix_sort,
             "sorted_payload": radix.sorted_payload,
-            "bound_pack": scan.bound_pack}
+            "bound_pack": scan.bound_pack,
+            "chunk_split_search": run_merge.chunk_split_search,
+            "carve_chunk": run_merge.carve_chunk}
 
 
 # the kernels each path must launch
@@ -379,6 +411,7 @@ _PATH_KERNELS = {
               "span_gather", "block_encode", "staged_concat"),
     "scan": ("staged_concat", "radix_sort", "sorted_payload", "gc_pack",
              "bound_pack"),
+    "skewed": ("radix_sort", "sorted_payload", "gc_pack"),
 }
 
 
@@ -667,6 +700,477 @@ def codec_kernel_phase(args, t, launches, bandwidth):
           cuda_ms(lambda: block_codec.block_encode(sc), args.reps),
           cuda_ms(lambda: block_codec.block_encode_plain(sc), 2),
           sc.shape[1] * ((3 + w_pad) * 4 + w_pad * 4 + 2 + 2 + 1 + 8), None)
+    return rows
+
+
+# ---------------------------------------------- chunked subcompactions
+
+
+def check_chunked_launches(launches, handle, parent_m, k_pad, route,
+                           files, n_inputs):
+    """The chunked job's exact launch counts: kernel L once, the carve
+    once per chunk, log2(k_pad) merge levels and one GC a chunk, kernel H
+    for the restage (and, on the codec route, the parent payload), and
+    the codec route's C, D, E and F."""
+    from yugabyte_tpu_torch.ops import run_merge
+    if not isinstance(handle, run_merge._ChunkedMergeGCHandle):
+        raise AssertionError(f"{route}: the job did not run chunked")
+    nc = len(handle._handles)
+    m_c = handle._handles[0]._staged.m
+    if nc < 2 or any(h._staged.m != m_c for h in handle._handles) \
+            or m_c >= parent_m:
+        raise AssertionError(f"{route}: {nc} chunks at m_c={m_c} against "
+                             f"the parent's m={parent_m}")
+    want = {"chunk_split_search": 1, "carve_chunk": nc,
+            "merge_path_level": nc * (k_pad.bit_length() - 1),
+            "gc_pack": nc, "staged_concat": 1}
+    if route == "codec":
+        want.update(staged_concat=2, block_decode=n_inputs, survivor_scan=1,
+                    span_gather=files, block_encode=files)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{route} chunked job launches {got}, "
+                             f"expected {want}")
+    return nc, m_c
+
+
+def chunked_phase(args, readers, workdir, device="cuda"):
+    """The tablet's 4 input SSTs through `run_compaction_job(device=
+    "cuda")` on the codec route and the shell route (YBTPU_DEVICE_CODEC=0),
+    each as a pair: unchunked, then chunked (YBTPU_MERGE_CHUNK_ROWS =
+    args.chunk_rows). Every job's files == the native job's; every launch
+    counter set to 0 just before each job and read just after. Returns
+    the summary, the chunked codec job's launches, the parent staged runs
+    and chunk windows of that job (kernel L's and the carve's inputs), and
+    the unchunked codec job's first output file."""
+    from yugabyte_tpu_torch.ops import run_merge
+    from yugabyte_tpu_torch.storage import compaction
+
+    rows = sum(r.props.n_entries for r in readers)
+    cutoff = history_cutoff(rows)
+    wrappers = _wrappers()
+    ids = iter(range(200000, 300000))
+    d = os.path.join(workdir, "chunk_native")
+    os.makedirs(d)
+    native = compaction._run_native_job(readers, d, lambda: next(ids),
+                                        cutoff, True, False, None)
+    captured = {}
+    real = run_merge._launch_chunked
+
+    def spy(staged, params, snapshot, target):
+        h = real(staged, params, snapshot, target)
+        captured.update(staged=staged, handle=h, target=target,
+                        params=params)
+        return h
+
+    out, launches, kin, base_file = {}, {}, None, None
+    run_merge._launch_chunked = spy
+    try:
+        for route, codec in (("codec", "1"), ("shell", "0")):
+            os.environ["YBTPU_DEVICE_CODEC"] = codec
+            for chunked in (False, True):
+                name = f"{route}_{'chunked' if chunked else 'unchunked'}"
+                if chunked:
+                    os.environ["YBTPU_MERGE_CHUNK_ROWS"] = str(
+                        args.chunk_rows)
+                else:
+                    os.environ.pop("YBTPU_MERGE_CHUNK_ROWS", None)
+                captured.clear()
+                d = os.path.join(workdir, name)
+                os.makedirs(d)
+                for w in wrappers.values():
+                    w.launches = 0
+                t0 = time.time()
+                res = compaction.run_compaction_job(
+                    readers, d, lambda: next(ids), cutoff, True,
+                    device=device)
+                sync()
+                secs = time.time() - t0
+                launches[name] = {k: w.launches for k, w in wrappers.items()}
+                same_files(res, native, f"{name} job vs native")
+                out[f"{name}_s"] = secs
+                out[f"{name}_rows_per_s"] = rows / secs
+                if chunked:
+                    st = captured["staged"]
+                    nc, m_c = check_chunked_launches(
+                        launches[name], captured["handle"], st.m, st.k_pad,
+                        route, len(res.outputs), len(readers))
+                    out.update(nc=nc, m_c=m_c, m=st.m, k_pad=st.k_pad)
+                    if route == "codec":
+                        h = captured["handle"]
+                        if h._p_mat is None:
+                            raise AssertionError("the chunked codec job "
+                                                 "built no parent payload")
+                        kin = {"staged": st, "m_c": m_c,
+                               "target": captured["target"],
+                               "params": captured["params"],
+                               "metas": h._metas,
+                               "parent": (h._p_mat, h._mk_dev)}
+                else:
+                    if "handle" in captured:
+                        raise AssertionError(f"{name}: chunked unasked")
+                    check_launches(launches[name], route)
+                    if route == "codec":
+                        base_file = res.outputs[0][1]
+                captured.clear()
+                log(f"{name} job: {res.rows_in} -> {res.rows_out} rows, "
+                    f"{len(res.outputs)} files, {secs:.2f}s "
+                    f"({rows / secs:,.0f} rows/s) == native")
+    finally:
+        run_merge._launch_chunked = real
+        os.environ.pop("YBTPU_MERGE_CHUNK_ROWS", None)
+        os.environ["YBTPU_DEVICE_CODEC"] = "1"
+    log(f"chunked jobs: nc={out['nc']} chunks at m_c={out['m_c']} (parent "
+        f"m={out['m']}, k_pad={out['k_pad']}); codec route "
+        f"{out['codec_chunked_rows_per_s']:,.0f} rows/s chunked, "
+        f"{out['codec_unchunked_rows_per_s']:,.0f} unchunked; shell route "
+        f"{out['shell_chunked_rows_per_s']:,.0f} chunked, "
+        f"{out['shell_unchunked_rows_per_s']:,.0f} unchunked; launches "
+        f"{launches['codec_chunked']}")
+    return out, launches["codec_chunked"], kin, base_file
+
+
+def skewed_phase(args, base_file, workdir, device="cuda"):
+    """A skewed pick through the router: the codec job's first output
+    file (a full L1 file) plus 4 L0 runs of args.skew_rows (65,536) YCSB-A
+    updates (5% row tombstones) written above every hybrid time of the
+    tablet, as four memtable flushes. k = 5 -> k_pad 8 at m =
+    run_bucket(2,000,000): the run layout inflates 4x, so
+    `run_compaction_job(device="cuda")` takes the radix re-sort (kernels
+    G, I.1, B over the slabs concatenated on the host). Its files == the
+    native job's; its launch counters set to 0 just before and read just
+    after. Then G, I.1 and B against their plain versions on the job's own
+    staged matrix (captured at `merge_gc._merge_gc_fused`), G's perm ==
+    the job's."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, radix, run_merge
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+
+    ht_base = history_cutoff(args.rows) >> 12
+    runs = synth_ycsb_runs(4 * args.skew_rows, 4, max(1, args.rows // 2),
+                           args.seed + 1, ht_base=ht_base)
+    in_dir = os.path.join(workdir, "skewed_in")
+    os.makedirs(in_dir)
+    readers = [SSTReader(base_file)] + write_inputs(runs, in_dir)
+    del runs
+    ns = [r.props.n_entries for r in readers]
+    infl = run_merge.run_layout_inflation(ns)
+    if infl <= 2.0:
+        raise AssertionError(f"the skewed pick inflates {infl}x only")
+    cutoff = (ht_base + (history_cutoff(4 * args.skew_rows) >> 12)) << 12
+    wrappers = _wrappers()
+    out = {"inputs": ns, "inflation": infl}
+    ids = iter(range(300000, 400000))
+    res = {}
+    seen = []
+    real = merge_gc._merge_gc_fused
+
+    def spy(cols, sort_rows, n_sort, params, w):
+        out = real(cols, sort_rows, n_sort, params, w)
+        seen.append((cols, sort_rows, n_sort, params, w, out[0]))
+        return out
+
+    for name in ("native", "router"):
+        d = os.path.join(workdir, f"skewed_{name}")
+        os.makedirs(d)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        if name == "native":
+            res[name] = compaction._run_native_job(
+                readers, d, lambda: next(ids), cutoff, True, False, None)
+        else:
+            merge_gc._merge_gc_fused = spy
+            try:
+                res[name] = compaction.run_compaction_job(
+                    readers, d, lambda: next(ids), cutoff, True,
+                    device=device)
+            finally:
+                merge_gc._merge_gc_fused = real
+        sync()
+        secs = time.time() - t0
+        out[f"{name}_s"] = secs
+        out[f"{name}_rows_per_s"] = sum(ns) / secs
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check_launches(launches, "skewed")
+    if (launches["merge_path_level"] or launches["chunk_split_search"]
+            or launches["staged_concat"] or len(seen) != 1):
+        raise AssertionError(f"the skewed pick did not take the radix "
+                             f"route once: {launches}, {len(seen)} calls")
+    same_files(res["router"], res["native"], "skewed pick vs native")
+    cols, sort_rows, n_sort, params, w, perm_job = seen.pop()
+    errs = {}
+    perm = radix.radix_sort(cols, sort_rows, n_sort)
+    errs["radix_sort"] = same_or_raise(
+        "kernel G (skewed pick)", perm,
+        radix.radix_sort_plain(cols, sort_rows, n_sort))
+    if not torch.equal(perm, perm_job):
+        raise AssertionError("kernel G's perm differs from the job's")
+    p_mat = radix.sorted_payload(cols, perm)
+    errs["sorted_payload"] = same_or_raise(
+        "kernel I.1 (skewed pick)", p_mat,
+        radix.sorted_payload_plain(cols, perm))
+    r = merge_gc._ROW_WORDS + w
+    got = merge_gc.gc_pack(p_mat, r, w, params, 1, cols.shape[1])
+    want = merge_gc.gc_pack_plain(p_mat, r, w, params, 1, cols.shape[1])
+    errs["gc_pack"] = max(same_or_raise(f"kernel B (skewed pick) {what}",
+                                        x, y)
+                          for what, x, y in zip(
+                              ("packed", "keep", "make_tombstone"), got,
+                              want))
+    out["n_pad"] = int(cols.shape[1])
+    del cols, perm, perm_job, p_mat, got, want
+    out.update(rows_out=res["router"].rows_out,
+               files=len(res["router"].outputs), launches=launches)
+    log(f"skewed pick: {sum(ns)} rows in {ns} (inflation {infl}x) -> "
+        f"{out['rows_out']} rows, {out['files']} files == native; router "
+        f"{out['router_rows_per_s']:,.0f} rows/s, native "
+        f"{out['native_rows_per_s']:,.0f}; launches {launches}; G, I.1, "
+        f"B on its {out['n_pad']} lanes == plain")
+    for rd in readers:
+        rd.close()
+    return out, launches, errs
+
+
+def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
+    """Bytes kernel L must move on these inputs: the distinct cells its
+    probes read (doc_key_len, and the route words up to the first that
+    differs from the splitter), the splitters, the run sizes and the
+    output. The probes are those of the kernel's bisection."""
+    import torch
+    from yugabyte_tpu_torch.ops.merge_gc import _u, route_word_mask
+    k_pad, ns = run_ns.numel(), splitters.shape[0]
+    lo = torch.zeros((k_pad, ns), dtype=torch.int64, device=cols.device)
+    hi = run_ns.long()[:, None].expand(k_pad, ns)
+    base = torch.arange(k_pad, device=cols.device)[:, None] * m
+    sp = _u(splitters)[None]
+    cells = set()
+    for _ in range(n_iters):
+        live = lo < hi
+        if not bool(live.any()):
+            break
+        mid = (lo + hi) >> 1
+        idx = (base + mid).clamp(max=cols.shape[1] - 1)
+        kr = (_u(cols[8:8 + w_route][:, idx]).permute(1, 2, 0)
+              & _u(route_word_mask(cols[1][idx], w_route, leading=False)))
+        diff = kr != sp
+        nread = torch.where(diff.any(-1), diff.int().argmax(-1),
+                            w_route - 1) + 1
+        for i, nr in zip(idx[live].tolist(), nread[live].tolist()):
+            cells.add((1, i))
+            cells.update((8 + q, i) for q in range(nr))
+        lt = torch.zeros_like(live)
+        eq = torch.ones_like(live)
+        for q in range(w_route):
+            lt = lt | (eq & (kr[..., q] < sp[..., q]))
+            eq = eq & (kr[..., q] == sp[..., q])
+        hi = torch.where(live & ~lt, mid, hi)
+        lo = torch.where(live & lt, mid + 1, lo)
+    return 4 * (len(cells) + splitters.numel() + k_pad + k_pad * ns)
+
+
+def chunk_window(starts, lens, k_pad):
+    """A chunk's window (starts, lens over the live runs) padded to k_pad
+    slots of zero length."""
+    s_full = np.zeros(k_pad, np.int64)
+    l_full = np.zeros(k_pad, np.int64)
+    s_full[:len(starts)], l_full[:len(lens)] = starts, lens
+    return s_full, l_full
+
+
+def chunk_merge_check(kin):
+    """Kernels A and B on every carved chunk of the chunked codec job, and
+    kernel H's parent payload built from them (`to_parent_products`, what
+    D and E read), each against its plain version on the same inputs:
+    merge_level_plain per level, gc_pack_plain, and staged_concat_plain of
+    the chunks' plain merged prefixes with the index row remapped to
+    parent lanes (slot*m + starts[slot] + j) and keep / make-tombstone
+    concatenated. The rebuilt payload and make-tombstone bytes must equal
+    the job's, and every parent lane's payload the parent cols at its
+    index. Returns the max_abs_err of A, B and H."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, merge_path, run_merge
+
+    st, m_c, params = kin["staged"], kin["m_c"], kin["params"]
+    cols, m, k_pad, w = st.cols_dev, st.m, st.k_pad, st.w
+    dev = cols.device
+    r = merge_gc._ROW_WORDS + w
+    errs = {"merge_path_level": 0, "gc_pack": 0, "staged_concat": 0}
+    handles, plain = [], []
+    for c, (starts, lens) in enumerate(kin["metas"]):
+        s_full, l_full = chunk_window(starts, lens, k_pad)
+        carved = run_merge.carve_chunk(cols, s_full, l_full, m, m_c, k_pad)
+        sub = run_merge.StagedRuns(carved, m_c, k_pad, w,
+                                   [int(x) for x in lens], st.cmp_rows,
+                                   st.n_cmp)
+        pos = torch.arange(sub.n_pad, dtype=torch.int32, device=dev)
+        p_k = p_p = torch.cat([carved, pos[None]])
+        length = m_c
+        while length < sub.n_pad:
+            p_k = merge_path.merge_level(p_k, length, st.cmp_rows)
+            p_p = merge_path.merge_level_plain(p_p, length, st.cmp_rows)
+            errs["merge_path_level"] = max(
+                errs["merge_path_level"],
+                same_or_raise(f"kernel A, chunk {c}, L={length}", p_k, p_p))
+            length *= 2
+        got = merge_gc.gc_pack(p_k, r, w, params, k_pad, m_c)
+        want = merge_gc.gc_pack_plain(p_p, r, w, params, k_pad, m_c)
+        for what, x, y in zip(("packed", "keep", "make_tombstone"), got,
+                              want):
+            errs["gc_pack"] = max(errs["gc_pack"], same_or_raise(
+                f"kernel B, chunk {c}, {what}", x, y))
+        handles.append(run_merge.MergeGCHandle(got[0], sub, p_k, got[1],
+                                               got[2]))
+        plain.append((p_p, want[1], want[2], int(lens.sum()), starts))
+    h = run_merge._ChunkedMergeGCHandle(handles, kin["metas"], st)
+    h.to_parent_products()
+    ns = [x[3] for x in plain]
+    offs = np.concatenate(([0], np.cumsum(ns)[:-1])).tolist()
+    tmpl = np.concatenate([merge_gc.pad_template(r),
+                           [merge_gc.PAD_SENTINEL]]).astype(np.uint32)
+    p_mat = run_merge.staged_concat_plain([x[0] for x in plain], ns, offs,
+                                          st.n_pad, tmpl)
+    keep = torch.zeros(st.n_pad, dtype=torch.bool, device=dev)
+    mk = torch.zeros(st.n_pad, dtype=torch.bool, device=dev)
+    for (_p, kp, mkp, n_c, starts), o in zip(plain, offs):
+        idx = p_mat[-1, o:o + n_c].long()
+        slot = idx // m_c
+        first = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        p_mat[-1, o:o + n_c] = (slot * m + first[slot]
+                                + idx % m_c).to(torch.int32)
+        keep[o:o + n_c] = kp[:n_c]
+        mk[o:o + n_c] = mkp[:n_c]
+    for what, x, y in (("payload", h._p_mat, p_mat), ("keep", h._keep_dev,
+                                                      keep),
+                       ("make_tombstone", h._mk_dev, mk)):
+        errs["staged_concat"] = max(errs["staged_concat"], same_or_raise(
+            f"the parent products' {what}", x, y))
+    # the job's keep bytes were consumed by kernel D (survivor_positions)
+    for what, x, y in zip(("payload", "make_tombstone"), kin["parent"],
+                          (p_mat, mk)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"the chunked job's parent {what} differs "
+                                 f"from the rebuilt one")
+    n = st.n
+    step = 1 << 22
+    for i in range(0, n, step):
+        j = min(n, i + step)
+        if not torch.equal(cols[:, p_mat[-1, i:j].long()], p_mat[:r, i:j]):
+            raise AssertionError("a parent lane's payload is not the "
+                                 "parent cols at its index")
+    log(f"chunks: kernels A and B on {len(handles)} carved chunks and the "
+        f"parent payload (kernel H, index row remapped) == plain; the "
+        f"job's parent products == the rebuilt ones")
+    return errs
+
+
+def chunk_kernel_phase(args, kin, launches, bandwidth):
+    """Kernel L and the carve at the chunked codec job's shapes, against
+    their plain versions (max_abs_err must be 0): L over the job's parent
+    matrix and splitters, the carve for every chunk's windows. Timed with
+    CUDA events (the carve at chunk 0) beside their bounds and, for the
+    carve, one torch.cat of the windows and the template fills."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, run_merge
+
+    st = kin["staged"]
+    cols, m, k_pad, m_c = st.cols_dev, st.m, st.k_pad, kin["m_c"]
+    dev = cols.device
+    r = cols.shape[0]
+    nc, w_route, run_ns, splitters = run_merge._chunk_plan(st, kin["target"])
+    rn = torch.from_numpy(run_ns).to(dev)
+    sp = torch.from_numpy(splitters.view(np.int32)).to(dev)
+    n_iters = int(m).bit_length() + 1
+    a_l = (cols, rn, sp, k_pad, m, w_route, n_iters)
+    got = run_merge.chunk_split_search(*a_l)
+    want = run_merge.chunk_split_search_plain(*a_l)
+    err_l = max_abs_err(got, want)
+    if err_l or not torch.equal(got, want) or got.shape != (k_pad, nc - 1):
+        raise AssertionError(f"kernel L != its plain version (max_abs_err "
+                             f"{err_l})")
+    l_bytes = split_search_bytes(cols, rn, sp, m, w_route, n_iters)
+    rows = [{"name": "chunk_split_search", "route": "cuda",
+             "source": "yugabyte_tpu_torch/csrc/chunk.cu",
+             "replaces": "yugabyte_tpu/ops/run_merge.py:1029",
+             "launches": launches["chunk_split_search"], "max_abs_err": err_l,
+             "ms": cuda_ms(lambda: run_merge.chunk_split_search(*a_l),
+                           args.reps),
+             "plain_ms": cuda_ms(
+                 lambda: run_merge.chunk_split_search_plain(*a_l), 2),
+             "bound_ms": l_bytes / bandwidth * 1e3, "bound_by": "bytes",
+             "library_ms": None, "lanes": k_pad * (nc - 1),
+             "n_iters": n_iters, "bytes": l_bytes}]
+
+    err_c = 0
+    for starts, lens in kin["metas"]:
+        s_full, l_full = chunk_window(starts, lens, k_pad)
+        err = max_abs_err(
+            run_merge.carve_chunk(cols, s_full, l_full, m, m_c, k_pad),
+            run_merge.carve_chunk_plain(cols, s_full, l_full, m, m_c, k_pad))
+        if err:
+            raise AssertionError(f"the carve != its plain version "
+                                 f"(max_abs_err {err})")
+        err_c = max(err_c, err)
+    s0, l0 = chunk_window(*kin["metas"][0], k_pad)
+    tmpl = merge_gc.u32_to_device(merge_gc.pad_template(r), dev)[:, None]
+
+    def cat_fill():
+        pieces = []
+        for i in range(k_pad):
+            a = i * m + int(s0[i])
+            pieces += [cols[:, a:a + int(l0[i])],
+                       tmpl.expand(r, m_c - int(l0[i]))]
+        return torch.cat(pieces, 1)
+
+    a_c = (cols, s0, l0, m, m_c, k_pad)
+    want = run_merge.carve_chunk_plain(*a_c)
+    if not torch.equal(cat_fill(), want):
+        raise AssertionError("the carve's library yardstick differs")
+    launch_only_ms = None
+    if cols.is_cuda:
+        # the carve's kernel alone, its descriptors and template already on
+        # the card: what the wrapper's two blocking uploads add
+        from yugabyte_tpu_torch.utils import torch_setup
+        parts, ns, offs, sts = run_merge._carve_parts(*a_c)
+        desc = run_merge._concat_desc(parts, ns, offs, sts, k_pad * m_c, r,
+                                      "carve_chunk")
+        desc_dev = torch.tensor(desc, dtype=torch.int64).to(dev)
+        tmpl_dev = tmpl[:, 0].contiguous()
+        lib = run_merge._concat()
+
+        def launch_only():
+            out = torch.empty((r, k_pad * m_c), dtype=torch.int32,
+                              device=dev)
+            torch_setup.raise_on_cuda_error(lib.ybt_staged_concat(
+                desc_dev.data_ptr(), len(desc), r, k_pad * m_c,
+                tmpl_dev.data_ptr(), out.data_ptr(),
+                torch_setup.stream_ptr(dev)), "carve_chunk")
+            return out
+
+        if not torch.equal(launch_only(), want):
+            raise AssertionError("the carve's bare launch differs")
+        launch_only_ms = cuda_ms(launch_only, args.reps)
+    # the windows' cells read, the chunk written, the template and the
+    # descriptors read
+    c_bytes = 4 * r * (int(l0.sum()) + k_pad * m_c + 1) + 40 * k_pad
+    rows.append({"name": "carve_chunk", "route": "cuda",
+                 "source": "yugabyte_tpu_torch/csrc/concat.cu",
+                 "replaces": "yugabyte_tpu/ops/run_merge.py:1068",
+                 "launches": launches["carve_chunk"], "max_abs_err": err_c,
+                 "ms": cuda_ms(lambda: run_merge.carve_chunk(*a_c),
+                               args.reps),
+                 "plain_ms": cuda_ms(
+                     lambda: run_merge.carve_chunk_plain(*a_c), 2),
+                 "bound_ms": c_bytes / bandwidth * 1e3, "bound_by": "bytes",
+                 "library_ms": cuda_ms(cat_fill, 2), "m_c": m_c,
+                 "chunk_rows": int(l0.sum()),
+                 "launch_only_ms": launch_only_ms})
+    for e in rows:
+        log(f"kernel {e['name']}: equal; {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.4f}, library {e['library_ms']}, bound "
+            f"{e['bound_ms']:.6f}), {e['launches']} launches in the chunked "
+            f"codec job")
     return rows
 
 
@@ -2260,6 +2764,10 @@ def main() -> int:
     ap.add_argument("--sf-orders", type=int, default=SF1_ORDERS,
                     help="TPC-H orders generated before the lineitem "
                     "tablet keeps its hash half (1,500,000 = SF1)")
+    ap.add_argument("--chunk-rows", type=int, default=1 << 20,
+                    help="YBTPU_MERGE_CHUNK_ROWS of the chunked jobs")
+    ap.add_argument("--skew-rows", type=int, default=65_536,
+                    help="rows of each L0 run of the skewed pick")
     ap.add_argument("--point-reads", type=int, default=262_144,
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
@@ -2306,6 +2814,16 @@ def main() -> int:
         codec_rows = codec_kernel_phase(args, tensors, launches["codec"],
                                         bandwidth)
         del tensors
+        torch.cuda.empty_cache()
+        chunk_out, launches["chunked"], kin, base_file = chunked_phase(
+            args, readers, workdir)
+        chunk_rows = chunk_kernel_phase(args, kin, launches["chunked"],
+                                        bandwidth)
+        errs_chunked = chunk_merge_check(kin)
+        del kin
+        torch.cuda.empty_cache()
+        chunk_out["skewed"], launches["skewed"], errs_skewed = skewed_phase(
+            args, base_file, workdir)
         torch.cuda.empty_cache()
         scan_out, launches["scan"], read_ht = scan_phase(readers, args.rows)
         stages, scan_tensors = scan_breakdown(readers, read_ht)
@@ -2371,12 +2889,24 @@ def main() -> int:
         entry["launches_pushdown"] = launches["pushdown"][entry["name"]]
         if entry["name"] == "staged_concat":
             entry["vals"] = h_vals
+    for entry in [a, b] + codec_rows + scan_rows:
+        name_k = entry["name"]
+        entry["launches_chunked_job"] = launches["chunked"][name_k]
+        entry["launches_skewed_job"] = launches["skewed"][name_k]
+        # A, B and H (the parent payload) at the chunks' shapes; G, I.1
+        # and B at the skewed pick's
+        for tag, errs in (("chunked", errs_chunked),
+                          ("skewed", errs_skewed)):
+            if name_k in errs:
+                entry[f"max_abs_err_{tag}"] = errs[name_k]
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           errs[name_k])
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
-               "scan": scan_out, "pushdown": push_out,
+               "chunked": chunk_out, "scan": scan_out, "pushdown": push_out,
                "point_read": point_out, "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
-    print(json.dumps({"kernels": [a, b] + codec_rows + scan_rows
-                      + push_rows + point_rows}), flush=True)
+    print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows
+                      + scan_rows + push_rows + point_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

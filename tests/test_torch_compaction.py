@@ -5,8 +5,12 @@ plain PyTorch versions of its kernels). Its output SST files, base and
 data, must be byte-identical to the JAX package's
 `run_compaction_job_device_native`, with the device codec off
 (YBTPU_DEVICE_CODEC=0) and on, and to the stock native CompactionJob
-(`_run_native_job`) over the same input files. Inputs are made from a seed
-with numpy and written once; both packages read the same files.
+(`_run_native_job`) over the same input files. The router
+`run_compaction_job` is held against the JAX package's on each of its
+routes (the Python path, an explicit device, "native", a skewed pick, the
+radix override, deep documents, chunked subcompactions). Inputs are made
+from a seed with numpy and written once; both packages read the same
+files.
 """
 
 import os
@@ -154,16 +158,20 @@ def test_byte_identical_multi_file_split(tmp_path):
 
 
 def test_outside_the_slice_raises(tmp_path):
+    """A skewed pick, once refused, now re-enters the router's radix
+    route; the caches and an encrypted Env still raise, naming their
+    ROADMAP items."""
     rng = np.random.default_rng(29)
     skewed = [_mk_run(rng, n, key_space=3000) for n in (3000, 40, 40, 40, 40)]
     paths = _write_inputs(str(tmp_path), skewed)
     readers = [PortSSTReader(p) for p in paths]
     ids = iter(range(100, 200))
-    with pytest.raises(NotImplementedError, match="radix"):
-        port_compaction.run_compaction_job_device_native(
-            readers, str(tmp_path), lambda: next(ids), CUTOFF, True,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="cache"):
+    (tmp_path / "skewed").mkdir()
+    res = port_compaction.run_compaction_job_device_native(
+        readers, str(tmp_path / "skewed"), lambda: next(ids), CUTOFF, True,
+        device="cpu")
+    assert res.rows_in == 3160 and res.outputs
+    with pytest.raises(NotImplementedError, match="item 4"):
         port_compaction.run_compaction_job_device_native(
             readers[:1], str(tmp_path), lambda: next(ids), CUTOFF, True,
             device="cpu", device_cache=object())
@@ -174,10 +182,236 @@ def test_outside_the_slice_raises(tmp_path):
     old = port_env.get_env()
     port_env.set_env(_Encrypted())
     try:
-        with pytest.raises(NotImplementedError, match="encrypted"):
+        with pytest.raises(NotImplementedError, match="encrypted Env: "
+                           "ROADMAP item 5"):
             port_compaction.run_compaction_job_device_native(
                 readers[:1], str(tmp_path), lambda: next(ids), CUTOFF, True,
                 device="cpu")
 
+    finally:
+        port_env.set_env(old)
+
+
+# ------------------------------------------------- the router, route by route
+
+
+def _cpu_default(monkeypatch):
+    """Let the port's device=None (the card) resolve to the CPU, so that
+    the router's Python path with no device runs here."""
+    from yugabyte_tpu_torch.utils import torch_setup
+    real = torch_setup.resolve_device
+    monkeypatch.setattr(torch_setup, "resolve_device",
+                        lambda device=None: real("cpu" if device is None
+                                                 else device))
+
+
+def _route_three(tmp_path, paths, cutoff, is_major, port_device,
+                 ref_device, retain_deletes=False):
+    """run_compaction_job of both packages and the stock native job over
+    the same files: byte-identical outputs, equal row counts."""
+    results = {}
+    for name in ("ref", "port", "native"):
+        out_dir = tmp_path / f"out_{name}"
+        out_dir.mkdir()
+        ids = iter(range(100, 1000))
+        if name == "ref":
+            res = ref_compaction.run_compaction_job(
+                [SSTReader(p) for p in paths], str(out_dir),
+                lambda: next(ids), cutoff, is_major, retain_deletes,
+                device=ref_device)
+        elif name == "port":
+            res = port_compaction.run_compaction_job(
+                [PortSSTReader(p) for p in paths], str(out_dir),
+                lambda: next(ids), cutoff, is_major, retain_deletes,
+                device=port_device)
+        else:
+            res = port_compaction._run_native_job(
+                [PortSSTReader(p) for p in paths], str(out_dir),
+                lambda: next(ids), cutoff, is_major, retain_deletes, None)
+        results[name] = (res, _files(res.outputs))
+    ref, port, native = results["ref"], results["port"], results["native"]
+    assert (port[0].rows_in, port[0].rows_out) == \
+        (ref[0].rows_in, ref[0].rows_out) == \
+        (native[0].rows_in, native[0].rows_out)
+    assert port[0].tombstones_written == ref[0].tombstones_written
+    assert port[1] == ref[1], "port differs from the JAX package"
+    assert port[1] == native[1], "port differs from the native job"
+    return port[0]
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _jax_cpu():
+    import jax
+    return jax.devices("cpu")[0]
+
+
+ROUTE_RUNS = {"equal": (900, 800, 700, 600),
+              "skewed": (3000, 40, 40, 40, 40)}
+
+
+@pytest.mark.parametrize("runs", sorted(ROUTE_RUNS))
+@pytest.mark.parametrize("route", ["none", "explicit", "native",
+                                   "force_radix"])
+def test_router_matches_reference(tmp_path, monkeypatch, route, runs):
+    from yugabyte_tpu_torch.ops import merge_gc as port_merge_gc
+    rng = np.random.default_rng(31 + len(route) + len(runs))
+    paths = _write_inputs(str(tmp_path), [
+        _mk_run(rng, n, key_space=2500, ttl_frac=0.1)
+        for n in ROUTE_RUNS[runs]])
+    combined = _spy(monkeypatch, port_compaction,
+                    "run_compaction_job_device_native")
+    radix = _spy(monkeypatch, port_merge_gc, "merge_and_gc_device")
+    native = _spy(monkeypatch, port_compaction, "_run_native_job")
+    port_device, ref_device = {"none": (None, None),
+                               "explicit": ("cpu", _jax_cpu()),
+                               "native": ("native", "native"),
+                               "force_radix": ("cpu", _jax_cpu())}[route]
+    if route == "none":
+        _cpu_default(monkeypatch)
+    if route == "force_radix":
+        monkeypatch.setenv("YBTPU_FORCE_RADIX", "1")
+    res = _route_three(tmp_path, paths, (1 << 19) << 12, False,
+                       port_device, ref_device)
+    assert res.rows_out > 0
+    assert bool(combined) == (route == "explicit")
+    assert len(native) == (route == "native") + 1   # + the oracle job
+    assert bool(radix) == (route != "native" and (
+        runs == "skewed" or route == "force_radix"))
+
+
+def _deep_inputs(tmp_path):
+    """Two runs of random documents up to three subkeys deep (the
+    generator of tests/test_deep_documents.py), written by the JAX
+    package's writer."""
+    import random
+    from tests.test_deep_documents import (TestNativeBaselineDeep, _key,
+                                           ModelEntry, ht)
+    rng = random.Random(11)
+    dk_len = len(_key("r0"))
+    runs, seen = ([], []), set()
+    for _ in range(600):
+        depth = rng.randrange(4)
+        subkeys = [("col", rng.randrange(3)), f"m{rng.randrange(3)}",
+                   f"n{rng.randrange(2)}"][:depth]
+        e = ModelEntry(_key(f"r{rng.randrange(4)}", *subkeys), dk_len,
+                       ht(rng.randrange(1, 300), rng.randrange(3)),
+                       is_tombstone=rng.random() < 0.2)
+        if (e.key, e.dht) not in seen:
+            seen.add((e.key, e.dht))
+            runs[rng.randrange(2)].append(e)
+    paths = []
+    for i, entries in enumerate(runs):
+        p = os.path.join(str(tmp_path), f"deep{i}.sst")
+        SSTWriter(p).write(TestNativeBaselineDeep()._slab(entries),
+                           Frontier(op_id_min=(1, i), op_id_max=(1, i + 1)))
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("cutoff_us,is_major", [(150, False), (400, True)])
+def test_router_deep_documents_match_reference(tmp_path, monkeypatch,
+                                               cutoff_us, is_major):
+    """Twin of tests/test_deep_documents.py:163: deep inputs with a device
+    configured take the native merge's overwrite stack, in both
+    packages."""
+    from yugabyte_tpu.common.hybrid_time import HybridTime
+    from yugabyte_tpu_torch.storage import cpu_baseline
+    paths = _deep_inputs(tmp_path)
+    combined = _spy(monkeypatch, port_compaction,
+                    "run_compaction_job_device_native")
+    baseline = _spy(monkeypatch, cpu_baseline, "compact_cpu_baseline")
+    res = _route_three(tmp_path, paths, HybridTime.from_micros(
+        cutoff_us).value, is_major, "cpu", _jax_cpu())
+    assert res.rows_out > 0 and not combined and baseline
+
+
+def test_router_deep_tombstone_does_not_resurrect(tmp_path):
+    from tests.test_deep_documents import (TestNativeBaselineDeep,
+                                           _entries_depth3)
+    from yugabyte_tpu.common.hybrid_time import HybridTime
+    entries, _ = _entries_depth3()
+    path = str(tmp_path / "000001.sst")
+    SSTWriter(path).write(TestNativeBaselineDeep()._slab(entries),
+                          Frontier())
+    res = port_compaction.run_compaction_job(
+        [PortSSTReader(path)], str(tmp_path), iter(range(2, 100)).__next__,
+        HybridTime.from_micros(100).value, True, device="cpu")
+    assert res.rows_out == 0, "deleted map entries resurrected"
+
+
+def test_chunked_jobs_match_reference(tmp_path, monkeypatch):
+    """With YBTPU_MERGE_CHUNK_ROWS set, the device-native job (on the
+    codec and the shell route) and the Python path run chunked
+    subcompactions and stay byte-identical to the JAX package's job under
+    the same setting and to the native job."""
+    from yugabyte_tpu_torch.ops import run_merge as port_run_merge
+    rng = np.random.default_rng(37)
+    paths = _write_inputs(str(tmp_path), [
+        _mk_run(rng, n, key_space=3000, ttl_frac=0.1)
+        for n in (1500, 1400, 1300, 1200)])
+    monkeypatch.setenv("YBTPU_MERGE_CHUNK_ROWS", "2048")
+    chunked = []
+    real = port_run_merge._launch_chunked
+
+    def spy(*a, **k):
+        h = real(*a, **k)
+        chunked.append(h is not None and len(h._handles))
+        return h
+
+    monkeypatch.setattr(port_run_merge, "_launch_chunked", spy)
+    for sub, port_dev, ref_dev in (("device", "cpu", _jax_cpu()),
+                                   ("python", None, None)):
+        if port_dev is None:
+            _cpu_default(monkeypatch)
+        d = tmp_path / sub
+        d.mkdir()
+        _route_three(d, paths, (1 << 19) << 12, False, port_dev, ref_dev)
+        assert chunked and chunked[-1] >= 2, chunked
+
+
+def test_router_unported_arguments_raise(tmp_path):
+    rng = np.random.default_rng(41)
+    paths = _write_inputs(str(tmp_path), [_mk_run(rng, 300, 400)])
+    readers = [PortSSTReader(p) for p in paths]
+
+    def job(**kw):
+        return port_compaction.run_compaction_job(
+            readers, str(tmp_path), iter(range(9, 99)).__next__, CUTOFF,
+            True, device="cpu", **kw)
+
+    for kw, item in (({"device_cache": object()}, 4),
+                     ({"input_ids": [1]}, 4), ({"run_cache": object()}, 4),
+                     ({"mesh": object()}, 2),
+                     ({"offload_policy": object()}, 6),
+                     ({"cancel": object()}, 9)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            job(**kw)
+    key = "compaction_rate_bytes_per_sec"
+    port_flags.set_flag(key, 1 << 20)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+            job()
+    finally:
+        port_flags.set_flag(key, 0)
+
+    class _Encrypted(port_env.Env):
+        encrypted = True
+
+    old = port_env.get_env()
+    port_env.set_env(_Encrypted())
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+            job()
     finally:
         port_env.set_env(old)

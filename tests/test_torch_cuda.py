@@ -691,3 +691,148 @@ def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
             assert got[:64] == [db.get(k, read_ht) for k in keys[:64]]
     finally:
         db.close()
+
+
+# ------------------------------------- kernel L and the carve (chunking)
+
+
+def _chunk_inputs(rng, k, n, key_space, w):
+    runs = [_make_run(rng, int(rng.integers(max(1, n // 2), n + 1)),
+                      key_space, w=w) for _ in range(k)]
+    st = _staged(runs, "cpu")
+    run_ns = np.zeros(st.k_pad, np.int32)
+    run_ns[:k] = st.run_ns
+    return st, run_ns
+
+
+@pytest.mark.parametrize("k,n,key_space,w,w_route", [
+    (2, 300, 50, 3, 4), (3, 5000, 40, 3, 4), (4, 9000, 100000, 3, 2),
+    (8, 700, 9, 3, 1), (5, 3000, 500, 20, 3), (2, 70000, 30000, 3, 4)])
+def test_chunk_split_search_kernel_matches_plain(cuda, k, n, key_space, w,
+                                                 w_route):
+    rng = np.random.default_rng(k * 13 + n)
+    st, run_ns = _chunk_inputs(rng, k, n, key_space, w)
+    cols = st.cols_dev
+    idx = torch.from_numpy(rng.integers(0, st.n_pad, size=40))
+    words = cols[8:8 + w_route][:, idx].numpy().view(np.uint32)
+    routes = run_merge._mask_route_host(words, cols[1][idx].numpy()).T
+    # sampled routes, duplicated splitters, both extremes, random words
+    sp = np.concatenate([routes, routes[:5], np.zeros((1, w_route)),
+                         np.full((1, w_route), 0xFFFFFFFF),
+                         rng.integers(0, 1 << 32, size=(4, w_route))]
+                        ).astype(np.uint32)
+    sp = torch.from_numpy(sp.view(np.int32))
+    n_iters = int(st.m).bit_length() + 1
+    want = run_merge.chunk_split_search_plain(
+        cols, torch.from_numpy(run_ns), sp, st.k_pad, st.m, w_route,
+        n_iters)
+    before = run_merge.chunk_split_search.launches
+    got = run_merge.chunk_split_search(
+        cols.to(cuda), torch.from_numpy(run_ns).to(cuda), sp.to(cuda),
+        st.k_pad, st.m, w_route, n_iters)
+    assert torch.equal(got.cpu(), want)
+    assert run_merge.chunk_split_search.launches == before + 1
+
+
+@pytest.mark.parametrize("k,n,m_c", [(2, 300, 256), (4, 4096, 1024),
+                                     (3, 5000, 4096), (8, 2000, 512),
+                                     (4, 70000, 1 << 15)])
+def test_carve_chunk_kernel_matches_plain(cuda, k, n, m_c):
+    rng = np.random.default_rng(k + n)
+    st, run_ns = _chunk_inputs(rng, k, n, 500, 3)
+    cols = st.cols_dev.to(cuda)
+    cases = []
+    for _ in range(3):
+        lens = np.array([rng.integers(0, min(m_c, rn) + 1) for rn in run_ns])
+        cases.append((np.array([rng.integers(0, rn - ln + 1)
+                                for rn, ln in zip(run_ns, lens)]), lens))
+    last = k - 1          # the last live run's tail window, and no window
+    lens = np.zeros_like(run_ns)
+    lens[last] = min(m_c // 2, run_ns[last])
+    starts = np.zeros_like(run_ns)
+    starts[last] = run_ns[last] - lens[last]
+    cases += [(starts, lens), (run_ns.copy(), np.zeros_like(run_ns))]
+    for starts, lens in cases:
+        before = run_merge.carve_chunk.launches
+        got = run_merge.carve_chunk(cols, starts, lens, st.m, m_c, st.k_pad)
+        want = run_merge.carve_chunk_plain(cols, starts, lens, st.m, m_c,
+                                           st.k_pad)
+        assert torch.equal(got, want)
+        assert run_merge.carve_chunk.launches == before + 1
+
+
+def test_chunked_launch_on_the_card_equals_cpu(cuda, monkeypatch):
+    """A chunked launch on the card (kernels L, H, A, B) gives the
+    unchunked CPU decisions, and its parent-domain products serve kernels
+    D and E."""
+    rng = np.random.default_rng(23)
+    runs = [_make_run(rng, int(rng.integers(3000, 4097)), 2000,
+                      ttl_frac=0.2) for _ in range(4)]
+    params = merge_gc.GCParams((1 << 19) << 12, False)
+    monkeypatch.setenv("YBTPU_MERGE_CHUNK_ROWS", "0")
+    h0 = run_merge.launch_merge_gc(_staged(runs, "cpu"), params)
+    want = h0.result()
+    monkeypatch.setenv("YBTPU_MERGE_CHUNK_ROWS", "4096")
+    before = (run_merge.chunk_split_search.launches,
+              run_merge.carve_chunk.launches)
+    h = run_merge.launch_merge_gc(_staged(runs, cuda), params)
+    assert isinstance(h, run_merge._ChunkedMergeGCHandle)
+    nc = len(h._handles)
+    assert nc >= 2
+    assert (run_merge.chunk_split_search.launches,
+            run_merge.carve_chunk.launches) == (before[0] + 1,
+                                                before[1] + nc)
+    for x, y in zip(h.result(), want):
+        assert np.array_equal(x, y)
+    pos0 = run_merge.survivor_positions(h0)
+    pos1 = run_merge.survivor_positions(h)
+    assert torch.equal(pos1.cpu(), pos0)
+    rows_out = int(want[1].sum())
+    for start in range(0, rows_out, 3000):
+        end = min(start + 3000, rows_out)
+        a = run_merge.gather_staged_output_span(h0, pos0, start, end)
+        b = run_merge.gather_staged_output_span(h, pos1, start, end)
+        assert torch.equal(b.cols_dev.cpu(), a.cols_dev)
+
+
+def test_router_skewed_pick_on_the_card_equals_native(cuda, tmp_path):
+    """A skewed pick through run_compaction_job on the card takes the
+    radix route (kernels G, I.1, B over the host-concatenated slab, no
+    kernel H) and writes the native job's files."""
+    from yugabyte_tpu_torch.ops import radix
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import (Frontier, SSTReader,
+                                                SSTWriter)
+    rng = np.random.default_rng(29)
+    readers = []
+    for i, n in enumerate((20000, 300, 300, 300, 300)):
+        slab = _make_run(rng, n, 9000, ttl_frac=0.1)
+        slab.values = ValueArray(
+            rng.integers(0, 256, size=n * 8, dtype=np.uint8),
+            np.arange(n + 1, dtype=np.int64) * 8)
+        p = str(tmp_path / f"in{i}.sst")
+        SSTWriter(p).write(slab, Frontier())
+        readers.append(SSTReader(p))
+    counters = [radix.radix_sort, radix.sorted_payload, merge_gc.gc_pack]
+    before = [c.launches for c in counters]
+    concat_before = run_merge.staged_concat.launches
+    out = {}
+    for name in ("router", "native"):
+        (tmp_path / name).mkdir()
+        ids = iter(range(100, 200))
+        if name == "router":
+            out[name] = compaction.run_compaction_job(
+                readers, str(tmp_path / name), lambda: next(ids),
+                (1 << 19) << 12, True, device="cuda")
+        else:
+            out[name] = compaction._run_native_job(
+                readers, str(tmp_path / name), lambda: next(ids),
+                (1 << 19) << 12, True, False, None)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert run_merge.staged_concat.launches == concat_before
+    assert len(out["router"].outputs) == len(out["native"].outputs) >= 1
+    for (_, pa, _), (_, pb, _) in zip(out["router"].outputs,
+                                      out["native"].outputs):
+        for suffix in ("", ".sblock.0"):
+            with open(pa + suffix, "rb") as fa, open(pb + suffix, "rb") as fb:
+                assert fa.read() == fb.read()

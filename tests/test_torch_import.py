@@ -125,6 +125,16 @@ from yugabyte_tpu_torch.storage.compaction import (
     run_compaction_job_device_native)
 run_compaction_job_device_native([], ".", lambda: 1, 0, True)
 """,
+    "run_compaction_job": """
+from yugabyte_tpu_torch.storage.compaction import run_compaction_job
+from yugabyte_tpu_torch.storage.sst import Frontier, SSTReader, SSTWriter
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+import os, tempfile
+d = tempfile.mkdtemp()
+p = os.path.join(d, "000001.sst")
+SSTWriter(p).write(pack_kvs([(b"k", 1 << 32, b"\\x01")]), Frontier())
+run_compaction_job([SSTReader(p)], d, lambda: 2, 1 << 40, True)
+""",
     "merge_and_gc_device": """
 from yugabyte_tpu_torch.ops.merge_gc import GCParams, merge_and_gc_device
 from yugabyte_tpu_torch.ops.slabs import pack_kvs
@@ -189,6 +199,27 @@ assert [(k, v) for k, v, _ht in got] == KVS, got
 got = scan.aggregate_sources(SRC, 1 << 40, SPEC, device="cpu")
 assert got == {"rows": 1, "cols": {0: {"nonnull": 1, "sum": 5, "min": 5,
                                        "max": 5}}}, got
+""",
+    "run_compaction_job": """
+import os, sys, tempfile
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+from yugabyte_tpu_torch.storage.compaction import run_compaction_job
+from yugabyte_tpu_torch.storage.sst import Frontier, SSTReader, SSTWriter
+d = tempfile.mkdtemp()
+paths = [os.path.join(d, f"00000{i}.sst") for i in (1, 2)]
+for i, p in enumerate(paths):
+    SSTWriter(p).write(pack_kvs([(b"k", (5 + i) << 32, b"\\x01")]),
+                       Frontier())
+ids = iter(range(3, 99))
+for dev in ("cpu", "native"):
+    out = os.path.join(d, dev)
+    os.mkdir(out)
+    res = run_compaction_job([SSTReader(p) for p in paths], out,
+                             lambda: next(ids), 1 << 40, True, device=dev)
+    assert (res.rows_in, res.rows_out) == (2, 1), res
+assert not any(m in ("jax", "yugabyte_tpu")
+               or m.startswith(("jax.", "yugabyte_tpu."))
+               for m in sys.modules), "the router imported jax"
 """,
     "DB_multi_get": """
 import shutil, tempfile

@@ -590,7 +590,7 @@ def test_cache_parts_not_ported_raise():
                  lambda: cache.stage(("ns", 1), slab, include_vals=True),
                  lambda: dc.ShardPartition(cache, "ns", 0),
                  dc.host_staging_pool):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
             call()
     st = cache.stage(("ns", 1), slab, for_read=True)
     assert cache.get(("ns", 1)) is st and cache.read_stages == 1
@@ -618,7 +618,7 @@ def test_cache_evicts_shallow_levels_first_and_never_pinned():
 
 
 def test_db_without_cuda_and_unported_parts_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         DB(str(tmp_path / "a"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -255,6 +255,26 @@ def gc_pack(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
 gc_pack.launches = 0
 
 
+def route_word_mask(dkl: torch.Tensor, w_route: int,
+                    leading: bool = True) -> torch.Tensor:
+    """Per-word doc-key mask of route prefixes: word i keeps
+    clip(dkl - 4*i, 0, 4) leading bytes (big-endian packed keys).
+
+    The single definition of route masking: chunk boundaries and the host
+    splitter sampling (ops/run_merge.py) and the mesh's shard routing must
+    agree bit for bit, or a document splits across partitions; kernel L
+    (csrc/chunk.cu) inlines the same arithmetic. dkl: int32 [...]; returns
+    the mask as int32 (u32 bits) with the word index on the LEADING axis
+    (leading=True: [w_route, *dkl.shape]) or the TRAILING one ([...,
+    w_route])."""
+    wi = torch.arange(w_route, dtype=torch.int64, device=dkl.device) * 4
+    d = dkl.long()
+    nb = (d[None] - wi.reshape((w_route,) + (1,) * d.dim()) if leading
+          else d[..., None] - wi).clamp(0, 4)
+    # nb = 0 shifts every bit out of the low 32: the mask is 0
+    return to_u32_bits((_U32 << ((4 - nb) * 8)) & _U32)
+
+
 def bucket_size(n: int) -> int:
     """Power-of-two shape bucket."""
     return 1 << max(8, (n - 1).bit_length() if n > 1 else 1)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -41,9 +42,10 @@ import numpy as np
 import torch
 
 from yugabyte_tpu_torch.ops.merge_gc import (
-    _ROW_FLAGS, _ROW_HT_HI, _ROW_HT_LO, _ROW_KEY_LEN, _ROW_WID, _ROW_WORDS,
-    GCParams, StagedCols, bucket_size, column_stats, gc_pack, pack_cols,
-    pad_template, u32_to_device)
+    _ROW_DKL, _ROW_FLAGS, _ROW_HT_HI, _ROW_HT_LO, _ROW_KEY_LEN, _ROW_WID,
+    _ROW_WORDS, PAD_SENTINEL, GCParams, StagedCols, _u, bucket_size,
+    column_stats, gc_pack, pack_cols, pad_template, route_word_mask,
+    u32_to_device)
 from yugabyte_tpu_torch.ops.merge_path import merge_level
 from yugabyte_tpu_torch.ops.slabs import FLAG_TOMBSTONE, KVSlab
 from yugabyte_tpu_torch.utils import torch_setup
@@ -241,17 +243,22 @@ def stage_runs_from_slabs(slabs: Sequence[KVSlab], device=None,
 
 def staged_concat_plain(parts: Sequence[torch.Tensor], ns: Sequence[int],
                         offsets: Sequence[int], n_out: int,
-                        template: np.ndarray) -> torch.Tensor:
-    """Plain PyTorch version of kernel H. Part i (int32 [r_i, >= n_i])
-    puts its first n_i lanes at output lane offsets[i]; word rows a narrow
+                        template: np.ndarray,
+                        starts: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of kernel H. Part i (int32 [r_i, >= starts[i]
+    + n_i]) puts its lanes [starts[i], starts[i] + n_i) (starts: 0 for
+    every part when None) at output lane offsets[i]; word rows a narrow
     part lacks are zero there; every lane no part covers carries the
     template column (u32 [rows]). Returns int32 [rows, n_out]."""
     r = len(template)
     dev = parts[0].device
+    if starts is None:
+        starts = [0] * len(parts)
     out = u32_to_device(template, dev)[:, None].repeat(1, n_out)
-    for cols, n_i, off in zip(parts, ns, offsets):
+    for cols, n_i, off, st in zip(parts, ns, offsets, starts):
         r_i = min(cols.shape[0], r)
-        out[:r_i, off:off + n_i] = cols[:r_i, :n_i]
+        out[:r_i, off:off + n_i] = cols[:r_i, st:st + n_i]
         out[r_i:, off:off + n_i] = 0
     return out
 
@@ -271,6 +278,50 @@ def _concat():
     return _concat_lib
 
 
+def _concat_launch(desc: List[List[int]], n_out: int, template: np.ndarray,
+                   dev: torch.device, what: str) -> torch.Tensor:
+    """One launch of kernel H over descriptors (pointer at the part's
+    first lane, row stride, n, output offset, rows), offsets increasing."""
+    r = len(template)
+    desc_dev = torch.tensor(desc, dtype=torch.int64).to(dev)
+    tmpl = u32_to_device(template, dev)
+    out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
+    rc = _concat().ybt_staged_concat(
+        desc_dev.data_ptr(), len(desc), r, n_out, tmpl.data_ptr(),
+        out.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, what)
+    return out
+
+
+def _concat_desc(parts: Sequence[torch.Tensor], ns: Sequence[int],
+                 offsets: Sequence[int], starts: Sequence[int], n_out: int,
+                 r: int, what: str) -> List[List[int]]:
+    """Kernel H's descriptors, checked: part i's lanes [starts[i], starts[i]
+    + ns[i]) at output lane offsets[i]. A window's pointer is its first
+    lane, and its row stride stays the part's own (a view would carry the
+    wrong one)."""
+    dev = parts[0].device
+    if not len(parts) == len(ns) == len(offsets) == len(starts):
+        raise ValueError(f"{what}: one count, one offset and one start per "
+                         f"part")
+    end = 0
+    desc = []
+    for cols, n_i, off, st in zip(parts, ns, offsets, starts):
+        torch_setup.check_u32_matrix(cols, what)
+        n_i, off, st = int(n_i), int(off), int(st)
+        if cols.device != dev or cols.dim() != 2 or off < end \
+                or n_i < 0 or not 0 <= st <= cols.shape[1] - n_i:
+            raise ValueError(f"{what}: part {tuple(cols.shape)} with lanes "
+                             f"[{st}, {st + n_i}) at lane {off} overlaps or "
+                             f"does not fit")
+        end = off + n_i
+        desc.append([cols.data_ptr() + 4 * st, cols.shape[1], n_i, off,
+                     min(cols.shape[0], r)])
+    if end > n_out:
+        raise ValueError(f"{what}: parts reach lane {end} of {n_out}")
+    return desc
+
+
 def staged_concat(parts: Sequence[torch.Tensor], ns: Sequence[int],
                   offsets: Sequence[int], n_out: int,
                   template: np.ndarray) -> torch.Tensor:
@@ -279,31 +330,10 @@ def staged_concat(parts: Sequence[torch.Tensor], ns: Sequence[int],
     `staged_concat.launches`."""
     if not parts[0].is_cuda:
         return staged_concat_plain(parts, ns, offsets, n_out, template)
-    r = len(template)
-    dev = parts[0].device
-    if not len(parts) == len(ns) == len(offsets):
-        raise ValueError("staged_concat: one count and one offset per part")
-    end = 0
-    desc = []
-    for cols, n_i, off in zip(parts, ns, offsets):
-        torch_setup.check_u32_matrix(cols, "staged_concat")
-        if cols.device != dev or cols.dim() != 2 or off < end \
-                or not 0 <= n_i <= cols.shape[1]:
-            raise ValueError(f"staged_concat: part {tuple(cols.shape)} with "
-                             f"n={n_i} at lane {off} overlaps or does not "
-                             f"fit")
-        end = off + n_i
-        desc.append([cols.data_ptr(), cols.shape[1], n_i, off,
-                     min(cols.shape[0], r)])
-    if end > n_out:
-        raise ValueError(f"staged_concat: parts reach lane {end} of {n_out}")
-    desc_dev = torch.tensor(desc, dtype=torch.int64).to(dev)
-    tmpl = u32_to_device(template, dev)
-    out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
-    rc = _concat().ybt_staged_concat(
-        desc_dev.data_ptr(), len(desc), r, n_out, tmpl.data_ptr(),
-        out.data_ptr(), torch_setup.stream_ptr(dev))
-    torch_setup.raise_on_cuda_error(rc, "staged_concat")
+    desc = _concat_desc(parts, ns, offsets, [0] * len(parts), n_out,
+                        len(template), "staged_concat")
+    out = _concat_launch(desc, n_out, template, parts[0].device,
+                         "staged_concat")
     staged_concat.launches += 1
     return out
 
@@ -575,7 +605,10 @@ span_gather.launches = 0
 def survivor_positions(handle: MergeGCHandle) -> torch.Tensor:
     """Survivor-position scan (kernel D) over a finished merge's keep
     bytes: the first half of write-through staging, once per job. The keep
-    bytes have no later reader, so the handle lets go of them."""
+    bytes have no later reader, so the handle lets go of them. A chunked
+    handle first builds its parent-domain products."""
+    if isinstance(handle, _ChunkedMergeGCHandle):
+        handle.to_parent_products()
     keep = handle._keep_dev
     if keep is None:
         raise RuntimeError("survivor_positions: the keep mask of this "
@@ -611,6 +644,367 @@ def gather_staged_outputs(handle: MergeGCHandle,
             for start, end in ranges]
 
 
+# --------------------------------------------------------------------------
+# Chunked subcompactions (JAX run_merge.py:980-1330; ref:
+# GenSubcompactionBoundaries, rocksdb/db/compaction_job.cc:330): one large
+# staged job split into key-range chunks, each merged by its own launch of
+# kernels A and B on a smaller run-major matrix.
+#
+# Chunk boundaries are doc-key ROUTE prefixes (the first _W_ROUTE_CHUNK key
+# words masked to doc_key_len, merge_gc.route_word_mask): every version of
+# one document shares its route, and encoded doc keys are prefix-free, so
+# the route is monotone within each sorted run and a binary search per run
+# (kernel L, csrc/chunk.cu) gives slice bounds that never split a document.
+# The GC segments never straddle chunks, and the chunks in order ARE the
+# global merged order. Each chunk's matrix is carved from the parent by
+# one launch of kernel H with a descriptor per run window.
+
+_W_ROUTE_CHUNK = 4
+
+
+def _chunk_target_rows() -> int:
+    """YBTPU_MERGE_CHUNK_ROWS: target padded rows per chunk launch. Unset,
+    malformed or below 1024: chunking is off. The JAX package turns it on
+    by default on the TPU only, to bound its compiled shapes; a CUDA kernel
+    has no compiled shape to bound."""
+    try:
+        t = int(os.environ.get("YBTPU_MERGE_CHUNK_ROWS", "0"))
+    except ValueError:
+        return 0
+    return t if t >= 1024 else 0
+
+
+def _mask_route_host(words: np.ndarray, dkl: np.ndarray) -> np.ndarray:
+    """words u32 [w_route, s], dkl int32 [s] -> the doc-key-masked routes
+    (host wrapper over merge_gc.route_word_mask)."""
+    msk = route_word_mask(torch.from_numpy(np.asarray(dkl, np.int32)),
+                          words.shape[0])
+    return words & msk.numpy().view(np.uint32)
+
+
+def chunk_split_search_plain(cols: torch.Tensor, run_ns: torch.Tensor,
+                             splitters: torch.Tensor, k_pad: int, m: int,
+                             w_route: int, n_iters: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel L (`_chunk_split_search`): for each
+    (run, splitter) lane, the first row of run i's [0, run_ns[i]) whose
+    route key (the first w_route key words, masked by route_word_mask) is
+    >= the splitter, by n_iters vectorized bisection steps.
+
+    cols: int32 (u32 bits) [8+w, k_pad*m]; run_ns: int32 [k_pad];
+    splitters: int32 (u32 bits) [n_split, w_route]. Returns int32 [k_pad,
+    n_split]. Only real rows decide a step (mid < run_ns[i])."""
+    dev = cols.device
+    n_pad = cols.shape[1]
+    n_split = splitters.shape[0]
+    lo = torch.zeros((k_pad, n_split), dtype=torch.int64, device=dev)
+    hi = run_ns.long()[:, None].expand(k_pad, n_split)
+    base = torch.arange(k_pad, device=dev)[:, None] * m
+    words = cols[_ROW_WORDS:_ROW_WORDS + w_route]
+    sp = _u(splitters)[None]                              # [1, ns, w]
+    for _ in range(n_iters):
+        live = lo < hi
+        mid = (lo + hi) >> 1
+        idx = (base + mid).clamp(max=n_pad - 1)           # [k, ns]
+        kr = (_u(words[:, idx]).permute(1, 2, 0)          # [k, ns, w]
+              & _u(route_word_mask(cols[_ROW_DKL][idx], w_route,
+                                   leading=False)))
+        lt = torch.zeros_like(live)
+        eq = torch.ones_like(live)
+        for i in range(w_route):
+            lt = lt | (eq & (kr[..., i] < sp[..., i]))
+            eq = eq & (kr[..., i] == sp[..., i])
+        hi = torch.where(live & ~lt, mid, hi)
+        lo = torch.where(live & lt, mid + 1, lo)
+    return lo.to(torch.int32)
+
+
+_chunk_lib = None
+
+
+def _chunk():
+    global _chunk_lib
+    if _chunk_lib is None:
+        lib = torch_setup.load_cuda_lib("chunk.cu")
+        lib.ybt_chunk_split_search.restype = ctypes.c_int
+        lib.ybt_chunk_split_search.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        _chunk_lib = lib
+    return _chunk_lib
+
+
+def chunk_split_search(cols: torch.Tensor, run_ns: torch.Tensor,
+                       splitters: torch.Tensor, k_pad: int, m: int,
+                       w_route: int, n_iters: int) -> torch.Tensor:
+    """Kernel L wrapper (see chunk_split_search_plain). CPU tensors: the
+    plain version. CUDA tensors: csrc/chunk.cu, counted in
+    `chunk_split_search.launches`."""
+    if not cols.is_cuda:
+        return chunk_split_search_plain(cols, run_ns, splitters, k_pad, m,
+                                        w_route, n_iters)
+    torch_setup.check_u32_matrix(cols, "chunk_split_search")
+    n_split = splitters.shape[0]
+    dev = cols.device
+    if not (1 <= w_route <= 4 and cols.shape[0] >= _ROW_WORDS + w_route
+            and cols.shape[1] == k_pad * m and n_split >= 1
+            and run_ns.dtype == splitters.dtype == torch.int32
+            and run_ns.device == splitters.device == dev
+            and run_ns.shape == (k_pad,) and run_ns.is_contiguous()
+            and splitters.shape == (n_split, w_route)
+            and splitters.is_contiguous()):
+        raise ValueError(f"chunk_split_search: bad arguments for cols "
+                         f"{tuple(cols.shape)}, run_ns "
+                         f"{tuple(run_ns.shape)}, splitters "
+                         f"{tuple(splitters.shape)}, k_pad={k_pad}, m={m}, "
+                         f"w_route={w_route}")
+    out = torch.empty((k_pad, n_split), dtype=torch.int32, device=dev)
+    rc = _chunk().ybt_chunk_split_search(
+        cols.data_ptr(), cols.shape[1], run_ns.data_ptr(),
+        splitters.data_ptr(), k_pad, n_split, m, w_route, n_iters,
+        out.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "chunk_split_search")
+    chunk_split_search.launches += 1
+    return out
+
+
+chunk_split_search.launches = 0
+
+
+def _carve_parts(cols: torch.Tensor, starts: Sequence[int],
+                 lens: Sequence[int], m: int, m_c: int, k_pad: int):
+    """Kernel H's parts of one carve: run i's window [i*m + starts[i], +
+    lens[i]) of the parent at output lane i*m_c."""
+    return ([cols] * k_pad, [int(x) for x in lens[:k_pad]],
+            [i * m_c for i in range(k_pad)],
+            [i * m + int(starts[i]) for i in range(k_pad)])
+
+
+def carve_chunk_plain(cols: torch.Tensor, starts: Sequence[int],
+                      lens: Sequence[int], m: int, m_c: int, k_pad: int
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of the carve (`_carve_chunk`): a fresh
+    run-major int32 [r, k_pad*m_c] with out[:, i*m_c + j] = cols[:, i*m +
+    starts[i] + j] for j < lens[i] and the pad template elsewhere
+    (kernel H's plain version over the run windows)."""
+    parts, ns, offs, sts = _carve_parts(cols, starts, lens, m, m_c, k_pad)
+    return staged_concat_plain(parts, ns, offs, k_pad * m_c,
+                               pad_template(cols.shape[0]), sts)
+
+
+def carve_chunk(cols: torch.Tensor, starts: Sequence[int],
+                lens: Sequence[int], m: int, m_c: int, k_pad: int
+                ) -> torch.Tensor:
+    """The carve wrapper (see carve_chunk_plain): one launch of kernel H
+    (csrc/concat.cu) with a descriptor per run window, each at the
+    window's first lane with the parent's row stride. CPU tensors: the
+    plain version. CUDA tensors: counted in `carve_chunk.launches`."""
+    if not cols.is_cuda:
+        return carve_chunk_plain(cols, starts, lens, m, m_c, k_pad)
+    # _concat_desc checks the windows against the parent and each other;
+    # each must also stay inside its run's slot
+    if cols.dim() != 2 or cols.shape[1] != k_pad * m or any(
+            int(starts[i]) + int(lens[i]) > m for i in range(k_pad)):
+        raise ValueError(f"carve_chunk: windows starts={list(starts)} "
+                         f"lens={list(lens)} do not fit m={m}, m_c={m_c}, "
+                         f"cols {tuple(cols.shape)}")
+    parts, ns, offs, sts = _carve_parts(cols, starts, lens, m, m_c, k_pad)
+    tmpl = pad_template(cols.shape[0])
+    desc = _concat_desc(parts, ns, offs, sts, k_pad * m_c, len(tmpl),
+                        "carve_chunk")
+    out = _concat_launch(desc, k_pad * m_c, tmpl, cols.device, "carve_chunk")
+    carve_chunk.launches += 1
+    return out
+
+
+carve_chunk.launches = 0
+
+
+class _ChunkedMergeGCHandle:
+    """Per-chunk merge + GC launches, in global merged order.
+
+    Chunks are range-partitioned by route, so chunk-order concatenation IS
+    the global merged order; each chunk's perm (over its own live-run
+    concatenation) remaps through the slice offsets and the parent's
+    run_maps. Like MergeGCHandle it holds the parent's metadata only.
+
+    Write-through staging (kernels D and E) reads the parent-domain merge
+    products that to_parent_products builds on the device from the chunks'
+    merged payloads: `_p_mat` [r+1, n_pad], `_keep_dev`, `_mk_dev`. A
+    device error propagates; the JAX package's re-carve retry and its
+    fused download are not ported (ROADMAP item 6)."""
+
+    def __init__(self, handles, metas, staged: StagedRuns):
+        self._handles = handles          # one per chunk, in key order
+        self._metas = metas              # (starts[k_live], lens[k_live])
+        self._staged = dataclasses.replace(staged, cols_dev=None)
+        self._result = None
+        self._parent_built = False
+        self._p_mat = self._keep_dev = self._mk_dev = None
+
+    def _remap_perm(self, p: np.ndarray, starts: np.ndarray,
+                    lens: np.ndarray) -> np.ndarray:
+        """Chunk-local perm (over the chunk's slot concatenation) ->
+        global input-row indices, through the slice offsets and, when the
+        slots were greedily packed, the per-slot run_maps."""
+        staged = self._staged
+        k_live = len(staged.run_ns)
+        lb = np.concatenate(([0], np.cumsum(lens)))
+        run_of = np.searchsorted(lb[1:], p, side="right")
+        slot_pos = p - lb[run_of] + starts[run_of]
+        if staged.run_maps is None:
+            grb = np.concatenate(([0], np.cumsum(staged.run_ns)))
+            return grb[:k_live][run_of] + slot_pos
+        out = np.empty(len(p), dtype=np.int64)
+        for r_i in range(k_live):
+            selr = run_of == r_i
+            if selr.any():
+                out[selr] = staged.run_maps[r_i][slot_pos[selr]]
+        return out
+
+    def result_iter(self):
+        """Stream per-chunk (perm, keep, make_tombstone) in global merged
+        order: the shell writes chunk i's survivors while chunks i+1...
+        still compute. The full result is memoized."""
+        if self._result is not None:
+            yield self._result
+            return
+        perms, keeps, mks = [], [], []
+        for h, (starts, lens) in zip(self._handles, self._metas):
+            p, keep, mk = h.result()
+            perm_g = self._remap_perm(p, starts, lens)
+            perms.append(perm_g)
+            keeps.append(keep)
+            mks.append(mk)
+            yield perm_g, keep, mk
+        self._result = (np.concatenate(perms), np.concatenate(keeps),
+                        np.concatenate(mks))
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(perm, keep, make_tombstone) host arrays over the merged order,
+        as MergeGCHandle.result."""
+        if self._result is None:
+            for _ in self.result_iter():
+                pass
+        return self._result
+
+    def to_parent_products(self) -> None:
+        """Build the parent-domain device products kernels D and E read:
+        the merged payload [r+1, n_pad] from each chunk's merged prefix of
+        n_c lanes at lane sum(n_<c) (one kernel-H launch, the pad template
+        beyond n), its index row remapped to parent run-major lanes (slot*m
+        + starts[slot] + j), and keep / make-tombstone concatenated the
+        same way. The chunks' own products are released."""
+        if self._parent_built:
+            return
+        staged = self._staged
+        r = _ROW_WORDS + staged.w
+        parts, ns, offs, remaps = [], [], [], []
+        off = 0
+        for h, (starts, lens) in zip(self._handles, self._metas):
+            if isinstance(h, _ChunkedMergeGCHandle):
+                h.to_parent_products()
+            n_c = int(lens.sum())
+            parts.append(h._p_mat)
+            ns.append(n_c)
+            offs.append(off)
+            remaps.append((h._staged.m, starts))
+            off += n_c
+        dev = parts[0].device
+        tmpl = np.concatenate([pad_template(r), [PAD_SENTINEL]]).astype(
+            np.uint32)
+        p_mat = staged_concat(parts, ns, offs, staged.n_pad, tmpl)
+        keep = torch.zeros(staged.n_pad, dtype=torch.bool, device=dev)
+        mk = torch.zeros(staged.n_pad, dtype=torch.bool, device=dev)
+        for h, n_c, o, (m_c, starts) in zip(self._handles, ns, offs,
+                                            remaps):
+            idx = p_mat[-1, o:o + n_c].long()
+            slot = idx // m_c
+            st = torch.from_numpy(np.asarray(starts, np.int64)).to(dev)
+            p_mat[-1, o:o + n_c] = (slot * staged.m + st[slot]
+                                    + idx % m_c).to(torch.int32)
+            keep[o:o + n_c] = h._keep_dev[:n_c]
+            mk[o:o + n_c] = h._mk_dev[:n_c]
+            h._p_mat = h._keep_dev = h._mk_dev = None
+        self._p_mat, self._keep_dev, self._mk_dev = p_mat, keep, mk
+        self._parent_built = True
+
+    @property
+    def _perm_dev(self) -> torch.Tensor:
+        return self._p_mat[-1]
+
+
+def _chunk_plan(staged: StagedRuns, target: int
+                ) -> Tuple[int, int, np.ndarray, np.ndarray]:
+    """(nc, w_route, run_ns [k_pad] int32, splitters u32 [nc-1, w_route])
+    of a chunked job: nc chunks of about target/2 real rows, split at the
+    route quantiles of 256 strided samples per run (a small download,
+    sorted on the host)."""
+    m, w = staged.m, staged.w
+    cols = staged.cols_dev
+    w_route = min(_W_ROUTE_CHUNK, w)
+    nc = max(2, -(-staged.n // max(1, target // 2)))
+    run_ns_arr = np.zeros(staged.k_pad, dtype=np.int32)
+    run_ns_arr[:len(staged.run_ns)] = staged.run_ns
+    s_per = 256
+    idx = np.concatenate([
+        i * m + (np.arange(s_per, dtype=np.int64) * rn) // s_per
+        for i, rn in enumerate(staged.run_ns) if rn > 0])
+    idx_t = torch.from_numpy(idx).to(cols.device)
+    words = cols[_ROW_WORDS:_ROW_WORDS + w_route][:, idx_t].cpu().numpy()
+    dkl = cols[_ROW_DKL][idx_t].cpu().numpy()
+    routes = _mask_route_host(words.view(np.uint32), dkl).T   # [s, w]
+    order = np.lexsort(tuple(routes[:, i]
+                             for i in range(w_route - 1, -1, -1)))
+    routes = routes[order]
+    q = (np.arange(1, nc, dtype=np.int64) * len(routes)) // nc
+    return nc, w_route, run_ns_arr, np.ascontiguousarray(routes[q])
+
+
+def _launch_chunked(staged: StagedRuns, params: GCParams, snapshot: bool,
+                    target: int) -> Optional[_ChunkedMergeGCHandle]:
+    """Split one staged job into route-partitioned chunk launches.
+
+    Returns the handle, or None when chunking cannot help (the chunk
+    bucket would not shrink below the parent's m): the caller then
+    launches the one big merge."""
+    k_live = len(staged.run_ns)
+    if k_live < 1 or staged.n == 0:
+        return None
+    m, k_pad, w = staged.m, staged.k_pad, staged.w
+    cols = staged.cols_dev
+    dev = cols.device
+    nc, w_route, run_ns_arr, splitters = _chunk_plan(staged, target)
+    bounds = chunk_split_search(
+        cols, torch.from_numpy(run_ns_arr).to(dev),
+        torch.from_numpy(splitters.view(np.int32)).to(dev), k_pad, m,
+        w_route, int(m).bit_length() + 1).cpu().numpy()
+    bounds = np.concatenate(
+        [np.zeros((k_pad, 1), np.int32), bounds,
+         run_ns_arr[:, None]], axis=1)                     # [k_pad, nc+1]
+    bounds = np.maximum.accumulate(bounds, axis=1)
+    lens_all = np.diff(bounds, axis=1)                     # [k_pad, nc]
+    m_c = run_bucket(int(lens_all.max()))
+    if m_c >= m:
+        return None                                        # skew: no win
+    handles, metas = [], []
+    for c in range(nc):
+        starts = bounds[:, c]
+        lens = lens_all[:, c]
+        if int(lens.sum()) == 0:
+            continue                                       # dup splitter
+        carved = carve_chunk(cols, starts, lens, m, m_c, k_pad)
+        sub = StagedRuns(carved, m_c, k_pad, w,
+                         [int(x) for x in lens[:k_live]],
+                         staged.cmp_rows, staged.n_cmp)
+        handles.append(launch_merge_gc(sub, params, snapshot=snapshot))
+        metas.append((starts[:k_live].astype(np.int64),
+                      lens[:k_live].astype(np.int64)))
+    if not handles:
+        return None
+    return _ChunkedMergeGCHandle(handles, metas, staged)
+
+
 def merge_payload(staged: StagedRuns) -> torch.Tensor:
     """The run-major cols plus the global index row, merged through
     log2(k_pad) levels of kernel A: int32 [8+w+1, n_pad]."""
@@ -628,7 +1022,17 @@ def launch_merge_gc(staged: StagedRuns, params: GCParams,
                     snapshot: bool = False) -> MergeGCHandle:
     """Merge (kernel A, k_pad >= 2) + GC and packing (kernel B), enqueued
     on the current stream of the staged matrix's device. k_pad == 1 runs
-    no merge: the single run is already sorted."""
+    no merge: the single run is already sorted.
+
+    With YBTPU_MERGE_CHUNK_ROWS set (>= 1024) a job larger than it is
+    split into route-partitioned chunk launches (_launch_chunked), as in
+    the JAX package; unset, chunking is off."""
+    target = _chunk_target_rows()
+    if (target and staged.k_pad >= 2 and staged.n_pad > target
+            and staged.m >= 512):
+        h = _launch_chunked(staged, params, snapshot, target)
+        if h is not None:
+            return h
     p_mat = merge_payload(staged)
     r = _ROW_WORDS + staged.w
     packed, keep, mk = gc_pack(p_mat, r, staged.w, params, staged.k_pad,
@@ -636,10 +1040,43 @@ def launch_merge_gc(staged: StagedRuns, params: GCParams,
     return MergeGCHandle(packed, staged, p_mat, keep, mk)
 
 
+def merge_and_gc_runs(slabs: Sequence[KVSlab], params: GCParams, device=None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Blocking wrapper: stage, run, decode: (perm, keep, make_tombstone)
+    over the merged order of the real rows.
+
+    A skewed run layout (inflation past 2x, see run_layout_inflation) or
+    YBTPU_FORCE_RADIX takes the radix re-sort instead: the live slabs
+    concatenated on the host and sorted + GC'd by
+    merge_gc.merge_and_gc_device (kernels G, I.1, B), masked to perm < n.
+    Empty input returns empty arrays."""
+    live = [s for s in slabs if s.n]
+    if not live:
+        z = np.zeros(0, dtype=np.int64)
+        zb = np.zeros(0, dtype=bool)
+        return z, zb, zb
+    if run_layout_inflation([s.n for s in live]) > 2.0 or force_radix():
+        from yugabyte_tpu_torch.ops.merge_gc import merge_and_gc_device
+        from yugabyte_tpu_torch.ops.slabs import concat_slabs
+        merged = concat_slabs(live)
+        perm, keep, mk = merge_and_gc_device(merged, params, device=device)
+        real = perm < merged.n
+        return perm[real].astype(np.int64), keep[real], mk[real]
+    staged = stage_runs_from_slabs(live, device)
+    return launch_merge_gc(staged, params).result()
+
+
+def force_radix() -> bool:
+    """YBTPU_FORCE_RADIX: route every run merge to the radix re-sort."""
+    return os.environ.get("YBTPU_FORCE_RADIX", "").lower() not in (
+        "", "0", "false")
+
+
 def run_layout_inflation(run_ns: Sequence[int]) -> float:
     """Padded-slot inflation of the run-major layout vs one radix bucket:
-    k_pad * max(run_bucket) over bucket_size(sum). Past 2x the JAX package
-    takes its radix re-sort, which this package has not ported yet."""
+    k_pad * max(run_bucket) over bucket_size(sum). Skewed picks (one huge
+    base run + small L0s) inflate about k times; past 2x the job takes the
+    radix re-sort (merge_and_gc_runs, storage/compaction.py)."""
     from yugabyte_tpu_torch.ops.merge_gc import bucket_size
     k_pad, m = _layout(run_ns)
     return (k_pad * m) / bucket_size(int(sum(run_ns)))

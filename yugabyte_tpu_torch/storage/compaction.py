@@ -1,9 +1,29 @@
 """The compaction job: device merge+GC decisions and the byte paths around it.
 
-Counterpart of yugabyte_tpu/storage/compaction.py:
+Counterpart of yugabyte_tpu/storage/compaction.py, with no HBM slab cache
+and no run cache. `run_compaction_job` (compaction.py:174 there) is the
+router, argument for argument as the JAX package's, except that the
+port's device=None is the card:
+
+  combined path: an explicit device ("cuda" or "cpu"), the native engine
+          available, no YBTPU_FORCE_RADIX and no deep input go to
+          `run_compaction_job_device_native`;
+  native job: device="native" runs the stock native CompactionJob
+          (`_run_native_job`);
+  Python path: everything else, and the device-native job's re-entry for
+          skewed picks (`_no_combined=True`): `read_all` + `concat_slabs`;
+          deep inputs take the native C++ merge (`compact_cpu_baseline`),
+          the rest `run_merge.merge_and_gc_runs` on the device (the radix
+          re-sort past 2x run-layout inflation or under YBTPU_FORCE_RADIX:
+          kernels G, I.1, B over the concatenated slab; else kernels A and B, chunked when
+          YBTPU_MERGE_CHUNK_ROWS is set); then `_gather_slab` and
+          `SSTWriter(fit_lindex=False)`, one file per
+          compaction_max_output_entries_per_sst rows.
+
 `run_compaction_job_device_native` (compaction.py:560 there), the
-production L0->L1 path, with no HBM slab cache and no run cache. It
-routes as the JAX package does (compaction.py:660-695 there):
+production L0->L1 path, routes as the JAX package's
+(compaction.py:660-695 there); past 2x run-layout inflation, or on a
+deep input, it re-enters the router's Python path:
 
 Device codec on (the default; slice 2 of the port), `_device_codec_attempt`:
   stage A: each input's raw data file is read and CRC-checked on the host
@@ -30,13 +50,13 @@ Both paths write output files byte-identical to the stock native
 CompactionJob (`_run_native_job`) and to the JAX package's job over the
 same inputs.
 
-Not ported yet, each raising NotImplementedError naming its later slice:
-the device slab cache and the native run cache (their write-through
-installer and the resident chain), run layouts past 2x inflation (the
-radix re-sort), deep documents, an encrypted Env. The bucket-health
-routing, the device-fault containment that re-runs natively, the sampled
-shadow verifier, cancellation and the compaction rate limiter are later
-slices too: here a device error propagates.
+Not ported yet, each raising NotImplementedError naming its ROADMAP item:
+the device slab cache, `input_ids` and the native run cache (item 4: their
+write-through installer and the resident chain), the mesh (item 2), the
+offload policy (item 6), cancellation and the compaction rate limiter
+(item 9), an encrypted Env (item 5). The bucket-health routing, the
+device-fault containment that re-runs natively and the sampled shadow
+verifier are items 6 and 7: here a device error propagates.
 """
 
 from __future__ import annotations
@@ -50,11 +70,47 @@ import numpy as np
 
 from yugabyte_tpu_torch.docdb.value import Value
 from yugabyte_tpu_torch.ops.merge_gc import GCParams
-from yugabyte_tpu_torch.storage.sst import Frontier, SSTProps, SSTReader
+from yugabyte_tpu_torch.ops.slabs import KVSlab
+from yugabyte_tpu_torch.storage.sst import (Frontier, SSTProps, SSTReader,
+                                            SSTWriter)
 from yugabyte_tpu_torch.utils import flags
 
 flags.define_flag("compaction_max_output_entries_per_sst", 2_000_000,
                   "split compaction output files at this row count")
+flags.define_flag("compaction_rate_bytes_per_sec", 0,
+                  "token-bucket cap on compaction output bytes/sec; "
+                  "0 = unlimited (the limiter is ROADMAP item 9)")
+
+
+def _check_ported(device_cache=None, input_ids=None, run_cache=None,
+                  mesh=None, offload_policy=None, cancel=None) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for every
+    argument and setting of the JAX package's job that the port does not
+    have yet."""
+    from yugabyte_tpu_torch.utils.env import get_env
+    if device_cache is not None or input_ids is not None \
+            or run_cache is not None:
+        raise NotImplementedError(
+            "device slab cache / input_ids / native run cache: ROADMAP "
+            "item 4 (storage/device_cache, storage/run_cache and the "
+            "resident-span installer over the survivor-gather kernels)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the multi-device compaction is ROADMAP item 2")
+    if offload_policy is not None:
+        raise NotImplementedError(
+            "offload_policy: the bucket-health board is ROADMAP item 6")
+    if cancel is not None:
+        raise NotImplementedError(
+            "cancel: compaction cancellation is ROADMAP item 9")
+    if flags.get_flag("compaction_rate_bytes_per_sec") > 0:
+        raise NotImplementedError(
+            "compaction_rate_bytes_per_sec: the compaction rate limiter is "
+            "ROADMAP item 9")
+    if get_env().encrypted:
+        raise NotImplementedError(
+            "compaction under an encrypted Env: ROADMAP item 5 (the JAX "
+            "package's encrypted Env needs the cryptography package)")
 
 
 def filter_expired_inputs(inputs: Sequence[SSTReader],
@@ -198,6 +254,119 @@ def _run_native_job(inputs: Sequence[SSTReader], out_dir: str, new_file_id,
     return CompactionResult(outputs, rows_in, rows_out)
 
 
+def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
+                       new_file_id, history_cutoff_ht: int, is_major: bool,
+                       retain_deletes: bool = False, device=None,
+                       block_entries: Optional[int] = None, device_cache=None,
+                       input_ids: Optional[Sequence[int]] = None,
+                       mesh=None, offload_policy=None, run_cache=None,
+                       _no_combined: bool = False,
+                       cancel=None) -> CompactionResult:
+    """The compaction job (ref: CompactionJob::Run, compaction_job.cc:442),
+    routed as the JAX package's (see the module docstring).
+
+    new_file_id: callable returning the next file id. device: "cuda",
+    "cpu" (the kernels' plain PyTorch versions; the tests) or "native"
+    (the native CompactionJob); None takes the Python path on the card.
+    Without a GPU, "cuda" and None raise. device_cache, input_ids,
+    run_cache, mesh, offload_policy and cancel raise NotImplementedError
+    (see _check_ported)."""
+    _check_ported(device_cache, input_ids, run_cache, mesh, offload_policy,
+                  cancel)
+    all_inputs = list(inputs)
+    if device is not None and device != "native" and not _no_combined:
+        # the production path: device decisions + the codec or the C++
+        # byte shell, for depth-2 inputs without the radix override; the
+        # device-native job re-enters below for skewed picks
+        from yugabyte_tpu_torch.ops import run_merge
+        from yugabyte_tpu_torch.storage import native_engine
+        if (native_engine.available() and not run_merge.force_radix()
+                and not any(r.props.has_deep for r in all_inputs)):
+            return run_compaction_job_device_native(
+                all_inputs, out_dir, new_file_id, history_cutoff_ht,
+                is_major, retain_deletes, device=device,
+                block_entries=block_entries)
+    inputs, dropped = filter_expired_inputs(
+        all_inputs, history_cutoff_ht, is_major, retain_deletes)
+    dropped_rows = sum(r.props.n_entries for r in dropped)
+    if not inputs:
+        return CompactionResult([], dropped_rows, 0)
+    if device == "native":
+        from yugabyte_tpu_torch.storage import native_engine
+        if native_engine.available():
+            result = _run_native_job(inputs, out_dir, new_file_id,
+                                     history_cutoff_ht, is_major,
+                                     retain_deletes, block_entries,
+                                     frontier_inputs=all_inputs)
+            result.rows_in += dropped_rows
+            return result
+    from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP, concat_slabs
+    slabs = [s for s in (r.read_all() for r in inputs) if s.n]
+    if not slabs:
+        return CompactionResult([], 0, 0)
+    merged = concat_slabs(slabs)
+    params = GCParams(history_cutoff_ht, is_major, retain_deletes)
+    if device == "native" or bool((merged.flags & FLAG_DEEP).any()):
+        # documents deeper than row + column: the device GC implements
+        # depth-2 overwrite truncation only; the native merge carries the
+        # full per-component overwrite stack (ref:
+        # docdb_compaction_filter.cc:104-123)
+        from yugabyte_tpu_torch.storage.cpu_baseline import (
+            compact_cpu_baseline)
+        offsets = np.concatenate(
+            ([0], np.cumsum([s.n for s in slabs]))).tolist()
+        perm, keep, make_tomb = compact_cpu_baseline(
+            merged, offsets, history_cutoff_ht, is_major, retain_deletes)
+    else:
+        # the run-aware device merge; merge_and_gc_runs takes the radix
+        # re-sort itself when the run layout would inflate
+        from yugabyte_tpu_torch.ops import run_merge
+        perm, keep, make_tomb = run_merge.merge_and_gc_runs(
+            slabs, params, device=device)
+    surv = perm[keep]                       # input indices, merged order
+    tomb_flags = make_tomb[keep]
+    rows_out = int(surv.shape[0])
+    # the frontier covers whole-file-dropped inputs too (ref:
+    # compaction_job.cc:683-692)
+    fr = _merge_frontiers([r.props.frontier for r in all_inputs],
+                          history_cutoff_ht)
+    max_rows = flags.get_flag("compaction_max_output_entries_per_sst")
+    tombstone_value = Value.tombstone().encode()
+    outputs: List[Tuple[int, str, SSTProps]] = []
+    for start in range(0, rows_out, max_rows):
+        end = min(start + max_rows, rows_out)
+        out_slab = _gather_slab(merged, surv[start:end],
+                                tomb_flags[start:end], tombstone_value)
+        fid = new_file_id()
+        base_path = os.path.join(out_dir, f"{fid:06d}.sst")
+        # fit_lindex=False: byte-identical to the native writer's outputs
+        props = SSTWriter(base_path, block_entries=block_entries,
+                          fit_lindex=False).write(out_slab, fr)
+        outputs.append((fid, base_path, props))
+    return CompactionResult(outputs, merged.n + dropped_rows, rows_out,
+                            tombstones_written=int(
+                                np.count_nonzero(tomb_flags)))
+
+
+def _gather_slab(slab: KVSlab, sel: np.ndarray, make_tomb: np.ndarray,
+                 tombstone_value: bytes) -> KVSlab:
+    """The surviving rows, vectorized: values move as one offset-arithmetic
+    gather (ref hot loop 3, compaction_job.cc:958-1024), rows rewritten as
+    tombstones get the tombstone value and flag."""
+    from yugabyte_tpu_torch.ops.slabs import FLAG_TOMBSTONE, ValueArray
+    va = ValueArray.from_list(slab.values)
+    values = va.gather(slab.value_idx[sel], replace_mask=make_tomb,
+                       replacement=tombstone_value)
+    flags_out = slab.flags[sel].copy()
+    flags_out[make_tomb] |= FLAG_TOMBSTONE
+    return KVSlab(
+        key_words=slab.key_words[sel], key_len=slab.key_len[sel],
+        doc_key_len=slab.doc_key_len[sel], ht_hi=slab.ht_hi[sel],
+        ht_lo=slab.ht_lo[sel], write_id=slab.write_id[sel],
+        flags=flags_out, ttl_ms=slab.ttl_ms[sel],
+        value_idx=np.arange(len(sel), dtype=np.int32), values=values)
+
+
 def run_compaction_job_device_native(
         inputs: Sequence[SSTReader], out_dir: str, new_file_id,
         history_cutoff_ht: int, is_major: bool,
@@ -210,39 +379,33 @@ def run_compaction_job_device_native(
 
     device: 'cuda' (the default) or 'cpu' (the kernels' plain PyTorch
     versions; the tests). Without a GPU and without device='cpu' it
-    raises. device_cache and run_cache must be None: the caches are the
-    next slice of the port."""
+    raises. A skewed pick (run-layout inflation past 2x) or a deep input
+    re-enters run_compaction_job's Python path (the radix re-sort, or the
+    native merge). device_cache and run_cache raise NotImplementedError
+    (ROADMAP item 4)."""
     from yugabyte_tpu_torch.ops import block_codec, run_merge
-    from yugabyte_tpu_torch.utils.env import get_env
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
     dev = resolve_device(device)
-    if device_cache is not None or run_cache is not None:
-        raise NotImplementedError(
-            "device slab cache / native run cache: the next slice of the "
-            "port (storage/device_cache, storage/run_cache and the "
-            "resident-span installer over the survivor-gather kernels)")
-    if get_env().encrypted:
-        raise NotImplementedError(
-            "compaction under an encrypted Env: a later slice of the port "
-            "(with the radix job)")
+    _check_ported(device_cache=device_cache, run_cache=run_cache)
     all_inputs = list(inputs)
-    if any(r.props.has_deep for r in all_inputs):
-        raise NotImplementedError(
-            "deep documents (FLAG_DEEP) need the native overwrite-stack "
-            "routing of run_compaction_job: a later slice of the port "
-            "(with the radix job)")
     inputs, dropped = filter_expired_inputs(
         all_inputs, history_cutoff_ht, is_major, retain_deletes)
     dropped_rows = sum(r.props.n_entries for r in dropped)
     inputs = [r for r in inputs if r.props.n_entries]
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
-    if run_merge.run_layout_inflation(
-            [r.props.n_entries for r in inputs]) > 2.0:
-        raise NotImplementedError(
-            "run layout inflation > 2: the radix re-sort (sort_and_gc) is "
-            "a later slice of the port")
+    if (any(r.props.has_deep for r in all_inputs)
+            or run_merge.run_layout_inflation(
+                [r.props.n_entries for r in inputs]) > 2.0):
+        # deep documents take the native merge's overwrite stack; skewed
+        # run sizes would pad every run to the largest bucket on the
+        # device: the radix re-sort instead (same outputs)
+        return run_compaction_job(all_inputs, out_dir, new_file_id,
+                                  history_cutoff_ht, is_major,
+                                  retain_deletes, device=device,
+                                  block_entries=block_entries,
+                                  _no_combined=True)
     if block_codec.codec_enabled():
         try:
             return _device_codec_attempt(

@@ -24,12 +24,12 @@ caller's back.
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item: compaction scheduling (`auto_compact=True`, `compact_all`,
 `maybe_schedule_compaction`) and the scans (`scan_visible`,
-`scan_filtered`, `scan_aggregate`, `scan_native`): item 6; the
+`scan_filtered`, `scan_aggregate`, `scan_native`): item 9; the
 health-board gate and device-fault containment of `_multi_get_device`:
-item 2 — here a kernel error propagates to the caller; the background-
-error slot and its retry, and the read-corruption routing: item 2;
-`scrub`: item 3; `checkpoint`: item 6. The run cache and
-`pre_flush_hook` come with items 1 and 10.
+item 6 — here a kernel error propagates to the caller; the background-
+error slot and its retry, and the read-corruption routing: item 6;
+`scrub`: item 7; `checkpoint`: item 9. The run cache and
+`pre_flush_hook` come with items 4 and 10.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ class DB:
         if self.opts.auto_compact:
             raise NotImplementedError(
                 "DBOptions(auto_compact=True): compaction scheduling is not "
-                "ported yet (ROADMAP item 6); pass auto_compact=False")
+                "ported yet (ROADMAP item 9); pass auto_compact=False")
         self._device = self._device_cache = None
         if self.opts.device == "native":
             if self.opts.device_cache is not None:
@@ -226,7 +226,7 @@ class DB:
         result; the SST write runs unlocked while reads serve from the
         immutable memtable. On failure the un-flushed entries go back
         into the live memtable, partial outputs are removed, and the
-        error propagates (the background-error slot is ROADMAP item 2).
+        error propagates (the background-error slot is ROADMAP item 6).
         """
         with self._lock:
             if self._imm is not None:
@@ -471,7 +471,7 @@ class DB:
     def _multi_get_device(self, keys, read_ht, doc_key_lens=None):
         """The batched device path. A kernel error propagates (the
         reference's health-board gate and fault containment are ROADMAP
-        item 2)."""
+        item 6)."""
         # memtable snapshot BEFORE the reader set (see _get_inner)
         with self._lock:
             mems = [self.mem] + ([self._imm] if self._imm is not None
@@ -672,31 +672,31 @@ class DB:
 
     # ------------------------------------------------------- not ported yet
     def scan_visible(self, *args, **kwargs):
-        raise _not_ported("scan_visible", 6)
+        raise _not_ported("scan_visible", 9)
 
     def scan_filtered(self, *args, **kwargs):
-        raise _not_ported("scan_filtered", 6)
+        raise _not_ported("scan_filtered", 9)
 
     def scan_aggregate(self, *args, **kwargs):
-        raise _not_ported("scan_aggregate", 6)
+        raise _not_ported("scan_aggregate", 9)
 
     def scan_native(self, *args, **kwargs):
-        raise _not_ported("scan_native", 6)
+        raise _not_ported("scan_native", 9)
 
     def maybe_schedule_compaction(self) -> bool:
-        raise _not_ported("maybe_schedule_compaction", 6)
+        raise _not_ported("maybe_schedule_compaction", 9)
 
     def compact_all(self) -> None:
-        raise _not_ported("compact_all", 6)
+        raise _not_ported("compact_all", 9)
 
     def retry_background_work(self) -> bool:
-        raise _not_ported("retry_background_work", 2)
+        raise _not_ported("retry_background_work", 6)
 
     def scrub(self, *args, **kwargs) -> dict:
-        raise _not_ported("scrub", 3)
+        raise _not_ported("scrub", 7)
 
     def checkpoint(self, out_dir: str) -> None:
-        raise _not_ported("checkpoint", 6)
+        raise _not_ported("checkpoint", 9)
 
     # ------------------------------------------------------------ lifecycle
     def _purge_obsolete_unlocked(self) -> None:

@@ -16,7 +16,7 @@ never evicted. Values stay on the host.
 `torch_setup.resolve_device`: `cuda`, or the CPU only when the caller
 passes `device="cpu"`.
 
-Not ported yet (ROADMAP item 1): `ShardPartition`, `HostStagingPool`,
+Not ported yet (ROADMAP item 4): `ShardPartition`, `HostStagingPool`,
 the value words (`attach_vals`, `stage(include_vals=True)`),
 `stage_from_raw`, and the compaction write-through that installs
 resident outputs. Each of the first four raises NotImplementedError.
@@ -44,7 +44,7 @@ flags.define_flag("device_cache_capacity_bytes", 4 << 30,
 
 CacheKey = Tuple[str, int]  # (namespace, file_id) — file ids are per-DB
 
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP item 1: the device "
+_NOT_PORTED = ("{what} is not ported yet (ROADMAP item 4: the device "
                "cache's second half)")
 
 
@@ -71,7 +71,7 @@ class DeviceSlabCache:
             OrderedDict()                  # guarded-by: _lock
         self._used = 0                     # guarded-by: _lock
         # per-instance ints (tests diff fresh caches); the JAX package's
-        # registry counters come with the metrics registry (ROADMAP 2)
+        # registry counters come with the metrics registry (ROADMAP item 6)
         self.hits = 0                      # guarded-by: _lock
         self.misses = 0                    # guarded-by: _lock
         self.evictions = 0                 # guarded-by: _lock

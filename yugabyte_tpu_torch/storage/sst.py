@@ -136,7 +136,8 @@ class SSTWriter:
 
     def __init__(self, base_path: str, block_entries: Optional[int] = None,
                  compress: Optional[bool] = None,
-                 bits_per_key: Optional[int] = None):
+                 bits_per_key: Optional[int] = None,
+                 fit_lindex: bool = True):
         self.base_path = base_path
         # None = take the server-wide tuning flags (the reference's LSM
         # option surface, docdb_rocksdb_util.cc:62-140)
@@ -147,6 +148,9 @@ class SSTWriter:
         self.bits_per_key = (bits_per_key if bits_per_key is not None
                              else _sst_flags.get_flag(
                                  "sst_bloom_bits_per_key"))
+        # compaction's Python-path writer passes False: its outputs stay
+        # byte-identical to the native writer's, which fits no model
+        self.fit_lindex = fit_lindex
 
     def write(self, slab: KVSlab, frontier: Optional[Frontier] = None) -> SSTProps:
         n = slab.n
@@ -191,7 +195,8 @@ class SSTWriter:
         # the learned per-SST index (storage/learned_index.py), advisory:
         # readers verify its predictions
         from yugabyte_tpu_torch.storage import learned_index
-        lindex = learned_index.fit_from_slab(slab)
+        lindex = learned_index.fit_from_slab(slab) if self.fit_lindex \
+            else None
         return write_base_file(
             self.base_path, index_items, n, hashes,
             key_at(0) if n else b"", key_at(n - 1) if n else b"",
@@ -212,7 +217,7 @@ def write_sst_from_packed(base_path: str, keys_blob: bytes, key_offs,
     (ce_job_add_raw → ce_job_sort_all → ce_job_write_output); Python
     assembles the base file as usual. Caller guarantees native_engine is
     available. The JAX package's run-cache write-through is not ported
-    (ROADMAP item 1)."""
+    (ROADMAP item 4)."""
     from yugabyte_tpu_torch.storage import native_engine
     if block_entries is None:
         block_entries = _sst_flags.get_flag("sst_block_entries")

@@ -85,7 +85,7 @@ NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                ("memtable_arena.cc", "libmemtable_arena.so", ()))
 CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
                 "write_through.cu", "radix.cu", "concat.cu", "scan.cu",
-                "pushdown.cu", "point_read.cu")
+                "pushdown.cu", "point_read.cu", "chunk.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
