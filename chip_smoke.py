@@ -49,6 +49,23 @@ Phases (any failure exits non-zero):
      8, 4x inflation): the radix re-sort (kernels G, I.1, B over the
      host-concatenated slab), files == the native job's, and G, I.1, B
      on the job's staged matrix == their plain versions;
+ 5c. the mesh (8 virtual shards of the one card, `parallel.mesh.
+     make_mesh(8, devices=[cuda:0] * 8)`): the 10M-row job through
+     `run_compaction_job(device="cuda", mesh=mesh)` (the dist-native
+     job: kernels M1 once, M2, M3, G, I.1, B once a shard per attempt)
+     and the skewed pick's inputs through `run_compaction_job(device=
+     None, mesh=mesh)` (the Python path's `distributed_compact`), both
+     == the native job's files, launch counts exact; the 10M-row job's
+     `DistOutputs.gather_span` over every output file's span == the
+     single-device spans (H once, D once, E per span); the overflow retry
+     over a 2^20-row skewed-prefix slab at capacity factor 0.05 (counted,
+     == a first try at 2.0 == the single-device merge); the pooled wave:
+     8 YCSB-A tablets (4 runs of --wave-rows each) in one
+     `pooled_merge_gc` (A twice and B once a slot), then
+     `run_compaction_job_with_decisions`, each == its native job, the
+     decisions == sequential launches, one span == the sequential one;
+     kernels M1-M3 at the 10M-row job's shard shapes == their plain
+     versions, timed beside their bounds, and the exchange copy;
   6. the snapshot scan over the same 4 input SSTs: the full-tablet
      seq-scan (`ops.scan.visible_entries_sources` over
      SlabSource(read_all()), read time above every write, no bounds)
@@ -80,7 +97,8 @@ Phases (any failure exits non-zero):
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
-       [--chunk-rows C] [--skew-rows L] [--sf-orders M] [--point-reads K]
+       [--chunk-rows C] [--skew-rows L] [--wave-rows W] [--sf-orders M]
+       [--point-reads K]
 """
 
 from __future__ import annotations
@@ -858,7 +876,7 @@ def skewed_phase(args, base_file, workdir, device="cuda"):
     infl = run_merge.run_layout_inflation(ns)
     if infl <= 2.0:
         raise AssertionError(f"the skewed pick inflates {infl}x only")
-    cutoff = (ht_base + (history_cutoff(4 * args.skew_rows) >> 12)) << 12
+    cutoff = skewed_cutoff(args)
     wrappers = _wrappers()
     out = {"inputs": ns, "inflation": infl}
     ids = iter(range(300000, 400000))
@@ -928,9 +946,17 @@ def skewed_phase(args, base_file, workdir, device="cuda"):
         f"{out['router_rows_per_s']:,.0f} rows/s, native "
         f"{out['native_rows_per_s']:,.0f}; launches {launches}; G, I.1, "
         f"B on its {out['n_pad']} lanes == plain")
+    paths = [rd.base_path for rd in readers]
     for rd in readers:
         rd.close()
-    return out, launches, errs
+    return out, launches, errs, paths
+
+
+def skewed_cutoff(args) -> int:
+    """The skewed pick's history cutoff: above its L0 runs, which are
+    written above every hybrid time of the tablet."""
+    ht_base = history_cutoff(args.rows) >> 12
+    return (ht_base + (history_cutoff(4 * args.skew_rows) >> 12)) << 12
 
 
 def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
@@ -1172,6 +1198,479 @@ def chunk_kernel_phase(args, kin, launches, bandwidth):
             f"{e['bound_ms']:.6f}), {e['launches']} launches in the chunked "
             f"codec job")
     return rows
+
+
+# ---------------------------------------------------------------- the mesh
+
+
+def _mesh_wrappers():
+    """The kernel wrappers of the mesh paths, by their names in the
+    kernels line (M1-M3 beside every earlier one)."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    w = _wrappers()
+    w.update(splitter_pick=dist_compact.splitter_pick,
+             route_dest=dist_compact.route_dest,
+             bucket_scatter=dist_compact.bucket_scatter)
+    return w
+
+
+def check_mesh_launches(launches, attempts, n_shards, what):
+    """A mesh job's exact launch counts: M1 once and M2, M3 once a shard
+    per attempt (an attempt that overflowed stops before the exchange),
+    G, I.1 and B once a shard; no other kernel."""
+    want = {k: 0 for k in launches}
+    want.update(splitter_pick=attempts, route_dest=n_shards * attempts,
+                bucket_scatter=n_shards * attempts, radix_sort=n_shards,
+                sorted_payload=n_shards, gc_pack=n_shards)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{want}")
+
+
+def _counted_run(wrappers, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; returns (result, seconds, launches, overflow retries)."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    for w in wrappers.values():
+        w.launches = 0
+    retries = dist_compact.dist_compact_overflow_retry_total
+    t0 = time.time()
+    res = fn()
+    sync()
+    secs = time.time() - t0
+    return (res, secs, {k: w.launches for k, w in wrappers.items()},
+            dist_compact.dist_compact_overflow_retry_total - retries)
+
+
+def skewed_prefix_slab(n: int, groups: int, seed: int):
+    """n root writes, in random order, over documents whose 24-byte doc
+    keys share their first 16 bytes ('Sgroup%02d' padded with '_') within
+    each of `groups` prefixes: the 16-byte route cannot tell a group's
+    documents apart, so each group lands in one bucket. About 4 versions
+    a document; hybrid times unique (no repeated internal key)."""
+    from yugabyte_tpu_torch.ops.slabs import KVSlab, ValueArray
+    rng = np.random.default_rng(seed)
+    doc = rng.integers(0, max(1, n // 4), size=n).astype(np.uint64)
+    keys = np.full((n, 24), ord("_"), dtype=np.uint8)
+    keys[:, :6] = np.frombuffer(b"Sgroup", dtype=np.uint8)
+    g = (doc % groups).astype(np.int64)
+    keys[:, 6] = ord("0") + g // 10
+    keys[:, 7] = ord("0") + g % 10
+    keys[:, 16:] = ((doc[:, None] >> (8 * np.arange(7, -1, -1,
+                                                    dtype=np.uint64)))
+                    & 0xFF).astype(np.uint8)
+    kw = keys.reshape(n, 6, 4).astype(np.uint32)
+    words = (kw[:, :, 0] << 24) | (kw[:, :, 1] << 16) | (kw[:, :, 2] << 8) \
+        | kw[:, :, 3]
+    ht = (rng.permutation(n).astype(np.uint64) + 1) << 12
+    return KVSlab(
+        key_words=words, key_len=np.full(n, 24, np.int32),
+        doc_key_len=np.full(n, 24, np.int32),
+        ht_hi=(ht >> 32).astype(np.uint32),
+        ht_lo=(ht & 0xFFFFFFFF).astype(np.uint32),
+        write_id=np.zeros(n, np.uint32), flags=np.zeros(n, np.uint32),
+        ttl_ms=np.zeros(n, np.int64), value_idx=np.arange(n, dtype=np.int32),
+        values=ValueArray(rng.integers(0, 256, size=8 * n, dtype=np.uint8),
+                          np.arange(n + 1, dtype=np.int64) * 8))
+
+
+def mesh_phase(args, readers, skew_paths, workdir, comp, card="",
+               device="cuda"):
+    """The port's mesh paths on 8 virtual shards of one device
+    (`make_mesh(8, devices=[device] * 8)`), each with every launch counter
+    set to 0 just before it and read just after:
+      1. the 10M-row job through `run_compaction_job(device=device,
+         mesh=mesh)`: `run_compaction_job_dist_native`; files == the
+         native job's; launches exact for its attempts;
+      2. the skewed pick's inputs through `run_compaction_job(device=None,
+         mesh=mesh)`: the Python path's `distributed_compact`; files ==
+         the native job's;
+      3. the 10M-row job's DistOutputs: every output file's span ==
+         the single-device job's `gather_staged_output_span`;
+      4. the overflow retry over a skewed-prefix slab of 2^20 rows at
+         capacity_factor 0.05: retries counted, decisions == a first try
+         at 2.0 == the single-device radix merge;
+      5. the pooled wave: 8 YCSB-A tablets (seeds 0-7, 4 runs each) as one
+         `pooled_merge_gc`; `run_compaction_job_with_decisions` files ==
+         each tablet's native job; decisions == sequential launches; one
+         slot's span == the sequential span.
+    Returns (summary, launches per path, kernel-check inputs)."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, run_merge
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    from yugabyte_tpu_torch.utils import flags
+
+    t_phase = time.time()
+    dev = torch.device(device)
+    n_shards = 8
+    mesh = make_mesh(n_shards, devices=[dev] * n_shards)
+    log(f"mesh: {n_shards} virtual shards on {dev} (the machine has "
+        f"{torch.cuda.device_count()} CUDA device(s))")
+    wrappers = _mesh_wrappers()
+    out = {"n_shards": n_shards, "cuda_device_count":
+           torch.cuda.device_count()}
+    launches = {}
+    ids = iter(range(400000, 500000))
+    rows = sum(r.props.n_entries for r in readers)
+    cutoff = history_cutoff(rows)
+
+    # -- 1: the 10M-row job, the combined path
+    captured = {}
+    real = dist_compact.distributed_compact_with_outputs
+
+    def spy(slab, params, mesh_, **kw):
+        t0 = time.time()
+        got = real(slab, params, mesh_, **kw)   # ends in its downloads
+        captured.update(slab=slab, params=params, outputs=got[3],
+                        dist_s=time.time() - t0)
+        return got
+
+    d_native = os.path.join(workdir, "mesh_native")
+    os.makedirs(d_native)
+    native, native_s, _l, _r = _counted_run(wrappers, lambda: (
+        compaction._run_native_job(readers, d_native, lambda: next(ids),
+                                   cutoff, True, False, None)))
+    d = os.path.join(workdir, "mesh_job")
+    os.makedirs(d)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    dist_compact.distributed_compact_with_outputs = spy
+    try:
+        res, secs, launches["mesh_job"], retries = _counted_run(
+            wrappers, lambda: compaction.run_compaction_job(
+                readers, d, lambda: next(ids), cutoff, True, device=device,
+                mesh=mesh))
+    finally:
+        dist_compact.distributed_compact_with_outputs = real
+    if "outputs" not in captured:
+        raise AssertionError("the mesh job did not reach "
+                             "run_compaction_job_dist_native")
+    same_files(res, native, "mesh job vs native")
+    check_mesh_launches(launches["mesh_job"], retries + 1, n_shards,
+                        "mesh job")
+    outputs = captured["outputs"]
+    out.update(rows=rows, rows_out=res.rows_out, files=len(res.outputs),
+               mesh_job_s=secs, mesh_job_rows_per_s=rows / secs,
+               mesh_job_dist_step_s=captured["dist_s"],
+               native_s=native_s, native_rows_per_s=rows / native_s,
+               attempts=retries + 1, capacity=outputs.capacity,
+               mesh_job_peak_bytes=(torch.cuda.max_memory_allocated()
+                                    if torch.cuda.is_available() else 0))
+    log(f"mesh job on {card}: {rows} -> {res.rows_out} rows, "
+        f"{len(res.outputs)} "
+        f"files == native; {secs:.2f}s ({rows / secs:,.0f} rows/s; the "
+        f"distributed step {captured['dist_s']:.3f}s of it, pack and "
+        f"upload to decisions down), native "
+        f"{rows / native_s:,.0f} rows/s here; this call's codec job "
+        f"{comp['codec_rows_per_s']:,.0f}, shell job "
+        f"{comp['shell_rows_per_s']:,.0f}; {retries + 1} attempt(s) at "
+        f"capacity {outputs.capacity}; launches {launches['mesh_job']}; "
+        f"peak device memory {out['mesh_job_peak_bytes']:,} bytes")
+
+    # -- 3: DistOutputs.gather_span against the single-device spans
+    max_rows = flags.get_flag("compaction_max_output_entries_per_sst")
+    spans = [(a, min(a + max_rows, res.rows_out))
+             for a in range(0, res.rows_out, max_rows)]
+    slabs = [r.read_all() for r in readers]
+    staged = run_merge.stage_runs_from_slabs(slabs, device)
+    del slabs
+    h = run_merge.launch_unchunked(staged, captured["params"])
+    del staged
+    pos = run_merge.survivor_positions(h)
+    got_spans, _s, launches["mesh_gather_span"], _r = _counted_run(
+        wrappers, lambda: [outputs.gather_span(a, b) for a, b in spans])
+    want = {k: 0 for k in wrappers}
+    want.update(staged_concat=1, survivor_scan=1, span_gather=len(spans))
+    if launches["mesh_gather_span"] != want:
+        raise AssertionError(f"gather_span launches "
+                             f"{launches['mesh_gather_span']}, expected "
+                             f"{want}")
+    for (a, b), st in zip(spans, got_spans):
+        ref = run_merge.gather_staged_output_span(h, pos, a, b)
+        if (st.n, st.n_pad) != (ref.n, ref.n_pad) or not torch.equal(
+                st.cols_dev, ref.cols_dev):
+            raise AssertionError(f"gather_span [{a}, {b}) != the single-"
+                                 f"device span")
+    del h, pos, got_spans, ref
+    out["spans"] = spans
+    log(f"DistOutputs.gather_span: spans {spans} == the single-device "
+        f"job's; launches H 1, D 1, E {len(spans)}")
+    kin = {"slab": captured["slab"], "params": captured["params"],
+           "capacity": outputs.capacity, "mesh": mesh}
+    del outputs, captured
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # -- 2: the Python path's branch over the skewed pick's inputs
+    skew = [SSTReader(p) for p in skew_paths]
+    skew_rows = sum(r.props.n_entries for r in skew)
+    if skew_rows < flags.get_flag("distributed_compaction_min_rows"):
+        raise AssertionError(f"the skewed pick ({skew_rows} rows) is below "
+                             f"distributed_compaction_min_rows")
+    s_cut = skewed_cutoff(args)
+    reached = []
+    real_dc = dist_compact.distributed_compact
+
+    def spy_dc(*a, **k):
+        reached.append(1)
+        return real_dc(*a, **k)
+
+    d_native = os.path.join(workdir, "mesh_py_native")
+    os.makedirs(d_native)
+    native = compaction._run_native_job(skew, d_native, lambda: next(ids),
+                                        s_cut, True, False, None)
+    d = os.path.join(workdir, "mesh_py")
+    os.makedirs(d)
+    dist_compact.distributed_compact = spy_dc
+    try:
+        res, secs, launches["mesh_python"], retries = _counted_run(
+            wrappers, lambda: compaction.run_compaction_job(
+                skew, d, lambda: next(ids), s_cut, True, device=None,
+                mesh=mesh))
+    finally:
+        dist_compact.distributed_compact = real_dc
+    if reached != [1]:
+        raise AssertionError("the Python path did not reach "
+                             "distributed_compact once")
+    same_files(res, native, "mesh Python path vs native")
+    check_mesh_launches(launches["mesh_python"], retries + 1, n_shards,
+                        "mesh Python path")
+    for r in skew:
+        r.close()
+    out.update(python_rows=skew_rows, python_s=secs,
+               python_rows_per_s=skew_rows / secs,
+               python_attempts=retries + 1)
+    log(f"mesh Python path (device=None): {skew_rows} rows -> "
+        f"{res.rows_out}, {len(res.outputs)} files == native; "
+        f"{skew_rows / secs:,.0f} rows/s; launches {launches['mesh_python']}")
+
+    # -- 4: the overflow retry
+    slab = skewed_prefix_slab(1 << 20, 64, args.seed + 2)
+    params = merge_gc.GCParams(history_cutoff(1 << 20), True)
+    tight, t_s, launches["mesh_overflow"], retries = _counted_run(
+        wrappers, lambda: dist_compact.distributed_compact(
+            slab, params, mesh, capacity_factor=0.05))
+    check_mesh_launches(launches["mesh_overflow"], retries + 1, n_shards,
+                        "overflow retry")
+    first, _s, _l, retries_2 = _counted_run(
+        wrappers, lambda: dist_compact.distributed_compact(slab, params,
+                                                           mesh))
+    if retries < 1 or retries_2:
+        raise AssertionError(f"overflow retries {retries} at 0.05, "
+                             f"{retries_2} at 2.0")
+    perm, keep, mk = merge_gc.merge_and_gc_device(slab, params, device)
+    single = (perm[keep], mk[keep])
+    for what, got in (("0.05", tight), ("2.0", first)):
+        _cols, k, m, src = got
+        if not (np.array_equal(src[k], single[0])
+                and np.array_equal(m[k], single[1])):
+            raise AssertionError(f"the decisions at capacity factor {what} "
+                                 f"differ from the single-device merge")
+    out.update(overflow_rows=slab.n, overflow_retries=retries,
+               overflow_s=t_s)
+    log(f"overflow retry: {slab.n} rows in 64 prefix groups; {retries} "
+        f"retries at factor 0.05 (counted), none at 2.0; both == the "
+        f"single-device radix merge ({int(keep.sum())} survivors)")
+    del slab, tight, first, perm, keep, mk, single
+
+    # -- 5: the pooled wave
+    wave = pool_wave_phase(args, workdir, mesh, device, wrappers, ids)
+    out["wave"] = wave.pop("summary")
+    launches["pool_wave"] = wave.pop("launches")
+    out["seconds"] = time.time() - t_phase
+    return out, launches, kin
+
+
+def pool_wave_phase(args, workdir, mesh, device, wrappers, ids):
+    """8 YCSB-A tablets (seeds 0-7), each 4 L0 runs of args.wave_rows
+    rows, through `stage_pool_slot` -> `pooled_merge_gc` (one wave of 8
+    slots, counted) -> `run_compaction_job_with_decisions` per tablet.
+    Files == each tablet's native job; decisions == a sequential
+    launch_merge_gc per tablet; slot 0's first span == the sequential
+    span."""
+    import torch
+    from yugabyte_tpu_torch.ops import merge_gc, run_merge
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.storage import compaction
+
+    n_tab = mesh.size
+    n = 4 * args.wave_rows
+    tablets = []
+    t0 = time.time()
+    for seed in range(n_tab):
+        in_dir = os.path.join(workdir, f"wave_in{seed}")
+        os.makedirs(in_dir)
+        runs = synth_ycsb_runs(n, 4, max(1, n // 2), seed)
+        tablets.append(write_inputs(runs, in_dir))
+    del runs
+    log(f"pool wave: wrote {n_tab} tablets of {n} rows in "
+        f"{time.time() - t0:.1f}s")
+    cutoff = history_cutoff(n)
+    natives, native_s = [], 0.0
+    for i, readers in enumerate(tablets):
+        d = os.path.join(workdir, f"wave_native{i}")
+        os.makedirs(d)
+        t0 = time.time()
+        natives.append(compaction._run_native_job(
+            readers, d, lambda: next(ids), cutoff, True, False, None))
+        native_s += time.time() - t0
+    t0 = time.time()
+    slabs = [[r.read_all() for r in readers] for readers in tablets]
+    bucket = dist_compact.pool_slot_bucket(slabs[0])
+    params = merge_gc.GCParams(cutoff, True)
+    jobs = [(dist_compact.stage_pool_slot(s, *bucket), params)
+            for s in slabs]
+    stage_s = time.time() - t0
+    handle, wave_s, launches, _r = _counted_run(
+        wrappers, lambda: dist_compact.pooled_merge_gc(mesh, jobs))
+    levels = bucket[0].bit_length() - 1
+    want = {k: 0 for k in wrappers}
+    want.update(merge_path_level=n_tab * levels, gc_pack=n_tab)
+    if launches != want:
+        raise AssertionError(f"pool wave launches {launches}, expected "
+                             f"{want}")
+    t0 = time.time()
+    for i, readers in enumerate(tablets):
+        perm, keep, mk = handle.decisions[i]
+        d = os.path.join(workdir, f"wave_out{i}")
+        os.makedirs(d)
+        res = compaction.run_compaction_job_with_decisions(
+            readers, slabs[i], d, lambda: next(ids), cutoff, True, False,
+            None, perm[keep], mk[keep], sum(s.n for s in slabs[i]))
+        same_files(res, natives[i], f"pool wave tablet {i} vs native")
+    write_s = time.time() - t0
+    seq0 = None
+    for i, s in enumerate(slabs):
+        h = run_merge.launch_merge_gc(
+            run_merge.stage_runs_from_slabs(s, device), params)
+        for a, b in zip(handle.decisions[i], h.result()):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"pool wave slot {i}'s decisions != "
+                                     f"the sequential launch's")
+        if i == 0:
+            seq0 = h
+    n_out = int(handle.decisions[0][1].sum())
+    end = min(n_out, 2_000_000)
+    got = handle.gather_span(0, 0, end)
+    ref = run_merge.gather_staged_output_span(
+        seq0, run_merge.survivor_positions(seq0), 0, end)
+    if not torch.equal(got.cols_dev, ref.cols_dev):
+        raise AssertionError("pool wave slot 0's span != the sequential "
+                             "span")
+    for readers in tablets:
+        for r in readers:
+            r.close()
+    rows = n_tab * n
+    summary = {"tablets": n_tab, "rows": rows, "bucket": list(bucket),
+               "stage_s": stage_s, "wave_s": wave_s, "write_s": write_s,
+               "wave_rows_per_s": rows / wave_s,
+               "pooled_rows_per_s": rows / (stage_s + wave_s + write_s),
+               "native_rows_per_s": rows / native_s}
+    log(f"pool wave: {n_tab} tablets x {n} rows (bucket k_pad, m, w = "
+        f"{bucket}) == native each; wave {wave_s:.3f}s, host staging "
+        f"{stage_s:.2f}s, stage C {write_s:.2f}s: "
+        f"{summary['pooled_rows_per_s']:,.0f} rows/s against the native "
+        f"jobs' {summary['native_rows_per_s']:,.0f}; launches {launches}; "
+        f"decisions == sequential, slot 0's span [0, {end}) == sequential")
+    return {"summary": summary, "launches": launches}
+
+
+def mesh_kernel_phase(args, kin, launches, bandwidth):
+    """Kernels M1-M3 at the 10M-row mesh job's shard shapes (shard 0 for
+    M2 and M3), against their plain versions (max_abs_err must be 0),
+    timed with CUDA events beside their byte bounds; M3 beside
+    torch.sort(dest, stable=True), which gives the stable order alone;
+    the exchange (`_exchange_copies`, the job's own) timed beside its
+    byte bound and beside one permuted copy of the same stacked sends."""
+    import torch
+    from yugabyte_tpu_torch.parallel import dist_compact
+
+    mesh, cap = kin["mesh"], kin["capacity"]
+    n_shards = mesh.size
+    cols, n_local = dist_compact.stage_sharded_cols(kin["slab"], mesh)
+    r = cols[0].shape[0]
+    w_route = min(dist_compact._W_ROUTE, r - 8)
+    dev = mesh.devices[0]
+    samp = dist_compact._sample_matrix(cols, n_local, w_route, dev)
+    m1 = (samp, w_route, n_shards)
+    split = dist_compact.splitter_pick(*m1)
+    err1 = same_or_raise("kernel M1", split,
+                         dist_compact.splitter_pick_plain(*m1))
+    c0 = cols[0]
+    m2 = (c0, split, w_route, n_shards)
+    got2 = dist_compact.route_dest(*m2)
+    err2 = max(same_or_raise(f"kernel M2 {what}", a, b) for what, a, b in
+               zip(("dest", "hist", "real_hist"), got2,
+                   dist_compact.route_dest_plain(*m2)))
+    dest, hist, real = got2
+    m3 = (c0, dest, hist, real, cap, n_shards, 0)
+    got3 = dist_compact.bucket_scatter(*m3)
+    err3 = max(same_or_raise(f"kernel M3 {what}", a, b) for what, a, b in
+               zip(("send", "overflow"), got3,
+                   dist_compact.bucket_scatter_plain(*m3)))
+    tiles = hist.shape[1]
+    width = n_shards * cap
+    b1 = samp.numel() * 4 + split.numel() * 4
+    b2 = n_local * (4 * (2 + w_route) + 4) + split.numel() * 4 \
+        + 2 * hist.numel() * 4
+    b3 = (r * n_local + n_local + 2 * n_shards * tiles) * 4 \
+        + (r + 1) * width * 4 + 4
+    rows = []
+    for name, fn, plain, lib, nbytes, err, src_line in (
+            ("splitter_pick", lambda: dist_compact.splitter_pick(*m1),
+             lambda: dist_compact.splitter_pick_plain(*m1), None, b1, err1,
+             125),
+            ("route_dest", lambda: dist_compact.route_dest(*m2),
+             lambda: dist_compact.route_dest_plain(*m2), None, b2, err2,
+             113),
+            ("bucket_scatter", lambda: dist_compact.bucket_scatter(*m3),
+             lambda: dist_compact.bucket_scatter_plain(*m3),
+             lambda: torch.sort(dest, stable=True), b3, err3, 150)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "yugabyte_tpu_torch/csrc/dist.cu",
+            "replaces": f"yugabyte_tpu/parallel/dist_compact.py:{src_line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": cuda_ms(fn, args.reps), "plain_ms": cuda_ms(plain, 2),
+            "bound_ms": nbytes / bandwidth * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_ms(lib, args.reps) if lib else None,
+            "bytes": nbytes})
+    rows[2]["library_call"] = "torch.sort(dest, stable=True), the order alone"
+    rows[2]["shard_lanes"] = n_local
+    rows[2]["send_lanes"] = width
+    del got3
+    # the exchange: the job's per-destination copies of the 8 shards'
+    # send buffers, and for comparison one permuted copy of them stacked
+    send_all = torch.arange(n_shards * (r + 1) * width, dtype=torch.int32,
+                            device=dev).view(n_shards, r + 1, width)
+    sends = list(send_all)
+    devs = list(mesh.devices.flat)
+    want = send_all.view(n_shards, r + 1, n_shards, cap).permute(2, 1, 0, 3)
+    for d, recv in enumerate(dist_compact._exchange_copies(sends, cap,
+                                                           devs)):
+        if not torch.equal(recv.view(r + 1, n_shards, cap),
+                           want[d].to(recv.device)):
+            raise AssertionError(f"exchange: recv[{d}] differs")
+    del recv
+    ex_ms = cuda_ms(lambda: dist_compact._exchange_copies(sends, cap, devs),
+                    args.reps)
+    perm_ms = cuda_ms(lambda: want.contiguous(), args.reps)
+    ex_bytes = 2 * send_all.numel() * 4
+    del sends, want, send_all, cols
+    exchange = {"ms": ex_ms, "one_permuted_copy_ms": perm_ms,
+                "bound_ms": ex_bytes / bandwidth * 1e3, "bytes": ex_bytes}
+    for e in rows:
+        log(f"kernel {e['name']}: equal; {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.4f}, library {e['library_ms']}, bound "
+            f"{e['bound_ms']:.6f}), {e['launches']} launches in the mesh job")
+    log(f"exchange copies: {ex_ms:.4f} ms for {ex_bytes:,} bytes moved "
+        f"(one permuted copy {perm_ms:.4f} ms, bound "
+        f"{exchange['bound_ms']:.4f} ms)")
+    return rows, exchange
 
 
 # ---------------------------------------------------------------- the scan
@@ -2768,6 +3267,9 @@ def main() -> int:
                     help="YBTPU_MERGE_CHUNK_ROWS of the chunked jobs")
     ap.add_argument("--skew-rows", type=int, default=65_536,
                     help="rows of each L0 run of the skewed pick")
+    ap.add_argument("--wave-rows", type=int, default=262_144,
+                    help="rows of each of the 4 L0 runs of each of the "
+                    "pool wave's 8 tablets")
     ap.add_argument("--point-reads", type=int, default=262_144,
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
@@ -2822,8 +3324,15 @@ def main() -> int:
         errs_chunked = chunk_merge_check(kin)
         del kin
         torch.cuda.empty_cache()
-        chunk_out["skewed"], launches["skewed"], errs_skewed = skewed_phase(
-            args, base_file, workdir)
+        chunk_out["skewed"], launches["skewed"], errs_skewed, skew_paths = \
+            skewed_phase(args, base_file, workdir)
+        torch.cuda.empty_cache()
+        mesh_out, mesh_launches, mesh_kin = mesh_phase(
+            args, readers, skew_paths, workdir, comp, card)
+        launches.update(mesh_launches)
+        mesh_rows, mesh_out["exchange"] = mesh_kernel_phase(
+            args, mesh_kin, launches["mesh_job"], bandwidth)
+        del mesh_kin
         torch.cuda.empty_cache()
         scan_out, launches["scan"], read_ht = scan_phase(readers, args.rows)
         stages, scan_tensors = scan_breakdown(readers, read_ht)
@@ -2889,6 +3398,9 @@ def main() -> int:
         entry["launches_pushdown"] = launches["pushdown"][entry["name"]]
         if entry["name"] == "staged_concat":
             entry["vals"] = h_vals
+    for entry in [a, b] + codec_rows + chunk_rows + scan_rows + mesh_rows:
+        for path in ("mesh_job", "mesh_python", "pool_wave"):
+            entry[f"launches_{path}"] = launches[path][entry["name"]]
     for entry in [a, b] + codec_rows + scan_rows:
         name_k = entry["name"]
         entry["launches_chunked_job"] = launches["chunked"][name_k]
@@ -2902,11 +3414,13 @@ def main() -> int:
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            errs[name_k])
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
-               "chunked": chunk_out, "scan": scan_out, "pushdown": push_out,
+               "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
+               "pushdown": push_out,
                "point_read": point_out, "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows
-                      + scan_rows + push_rows + point_rows}), flush=True)
+                      + mesh_rows + scan_rows + push_rows + point_rows}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

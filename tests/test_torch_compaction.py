@@ -24,6 +24,7 @@ from yugabyte_tpu.ops.slabs import ValueArray
 from yugabyte_tpu.storage import compaction as ref_compaction
 from yugabyte_tpu.storage.sst import Frontier, SSTReader, SSTWriter
 from yugabyte_tpu.utils import flags as ref_flags
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
 from yugabyte_tpu_torch.storage import compaction as port_compaction
 from yugabyte_tpu_torch.storage.sst import SSTReader as PortSSTReader
 from yugabyte_tpu_torch.utils import flags as port_flags
@@ -392,7 +393,8 @@ def test_router_unported_arguments_raise(tmp_path):
 
     for kw, item in (({"device_cache": object()}, 4),
                      ({"input_ids": [1]}, 4), ({"run_cache": object()}, 4),
-                     ({"mesh": object()}, 2),
+                     ({"mesh": make_mesh(2, devices=["cpu"] * 2),
+                       "device_cache": object()}, 4),
                      ({"offload_policy": object()}, 6),
                      ({"cancel": object()}, 9)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):

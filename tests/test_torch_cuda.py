@@ -836,3 +836,193 @@ def test_router_skewed_pick_on_the_card_equals_native(cuda, tmp_path):
         for suffix in ("", ".sblock.0"):
             with open(pa + suffix, "rb") as fa, open(pb + suffix, "rb") as fb:
                 assert fa.read() == fb.read()
+
+
+# ------------------------------------------------- the mesh (kernels M1-M3)
+
+
+def _mesh_slab(rng, n, dkl_max=12):
+    slab = _make_run(rng, n, max(2, n // 3))
+    slab.doc_key_len[:] = rng.integers(0, dkl_max, size=n)
+    return slab
+
+
+@pytest.mark.parametrize("n,n_shards,factor", [
+    (300, 8, 2.0),            # shards 5-7 all pad
+    (40000, 3, 0.5),          # 4 tiles a shard, pad columns appended
+    (200000, 2, 0.05)])       # drops past capacity and the overflow word
+def test_dist_route_kernels_match_plain(cuda, n, n_shards, factor):
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(n + n_shards)
+    mesh = make_mesh(n_shards, devices=[cuda] * n_shards)
+    parts, n_local = dist_compact.stage_sharded_cols(_mesh_slab(rng, n),
+                                                     mesh)
+    w_route = 4
+    cap = dist_compact._quantized_capacity(n_local, n_shards, factor)
+    samp = dist_compact._sample_matrix(parts, n_local, w_route, cuda)
+    before = (dist_compact.splitter_pick.launches,
+              dist_compact.route_dest.launches,
+              dist_compact.bucket_scatter.launches)
+    split = dist_compact.splitter_pick(samp, w_route, n_shards)
+    assert torch.equal(split, dist_compact.splitter_pick_plain(
+        samp, w_route, n_shards))
+    overflow = False
+    for s, c in enumerate(parts):
+        got = dist_compact.route_dest(c, split, w_route, n_shards)
+        want = dist_compact.route_dest_plain(c, split, w_route, n_shards)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        send, ovf = dist_compact.bucket_scatter(c, *got, cap, n_shards,
+                                                s * n_local)
+        send_p, ovf_p = dist_compact.bucket_scatter_plain(
+            c, *got, cap, n_shards, s * n_local)
+        assert torch.equal(send, send_p)
+        assert int(ovf.item()) == int(ovf_p.item())
+        overflow |= bool(ovf.item())
+    assert overflow or factor >= 0.1
+    assert (dist_compact.splitter_pick.launches,
+            dist_compact.route_dest.launches,
+            dist_compact.bucket_scatter.launches) == (
+        before[0] + 1, before[1] + n_shards, before[2] + n_shards)
+
+
+def test_one_shard_mesh_on_the_card(cuda, monkeypatch):
+    """make_mesh's one-card mesh: M1 returns an empty splitter tensor on
+    the card with no launch and no plain sort; M2 and M3 launch once; the
+    job equals the CPU's."""
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    split = dist_compact.splitter_pick(
+        torch.zeros((6, 64), dtype=torch.int32, device=cuda), 4, 1)
+    assert split.shape == (4, 0) and split.device.type == cuda.type
+
+    def no_plain(*_a):
+        raise AssertionError("plain splitter pick on a CUDA tensor")
+    rng = np.random.default_rng(41)
+    slab = concat_slabs([_make_run(rng, 5000, 2500) for _ in range(2)])
+    params = merge_gc.GCParams((1 << 19) << 12, True)
+    want = dist_compact.distributed_compact(
+        slab, params, make_mesh(1, devices=["cpu"]))
+    monkeypatch.setattr(dist_compact, "splitter_pick_plain", no_plain)
+    before = (dist_compact.splitter_pick.launches,
+              dist_compact.route_dest.launches,
+              dist_compact.bucket_scatter.launches)
+    got = dist_compact.distributed_compact(
+        slab, params, make_mesh(1, devices=[cuda]))
+    assert (dist_compact.splitter_pick.launches,
+            dist_compact.route_dest.launches,
+            dist_compact.bucket_scatter.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_mesh_compact_on_the_card_equals_cpu(cuda, n_shards):
+    """distributed_compact on a mesh of virtual shards on the card equals
+    the CPU mesh's in full, pad slots included; so do the gather_spans."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(31 + n_shards)
+    runs = [_make_run(rng, 6000, 3000, ttl_frac=0.2) for _ in range(3)]
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    slab = concat_slabs(runs)
+    params = merge_gc.GCParams((1 << 19) << 12, False)
+    outs = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        mesh = make_mesh(n_shards, devices=[dev] * n_shards)
+        outs[name] = dist_compact.distributed_compact_with_outputs(
+            slab, params, mesh, capacity_factor=0.5)
+    for a, b in zip(outs["cuda"][:3], outs["cpu"][:3]):
+        assert np.array_equal(a, b)
+    n_out = int(outs["cpu"][0].sum())
+    for start, end in ((0, n_out // 2), (n_out // 2, n_out)):
+        a = outs["cuda"][3].gather_span(start, end)
+        b = outs["cpu"][3].gather_span(start, end)
+        assert torch.equal(a.cols_dev.cpu(), b.cols_dev)
+    cols, _k, _m, _s = dist_compact.distributed_compact(
+        slab, params, make_mesh(n_shards, devices=[cuda] * n_shards))
+    cols_c, _k, _m, _s = dist_compact.distributed_compact(
+        slab, params, make_mesh(n_shards, devices=["cpu"] * n_shards))
+    assert np.array_equal(cols, cols_c)
+
+
+def test_mesh_router_on_the_card_equals_native(cuda, tmp_path):
+    """run_compaction_job with a mesh of 8 virtual shards on the card:
+    the combined path (run_compaction_job_dist_native) and the Python path
+    (device=None, distributed_compact) write the native job's files, each
+    launching M1 once and M2, M3, G, I.1 and B once per shard."""
+    import chip_smoke
+    from yugabyte_tpu_torch.ops import radix
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.utils import flags
+    runs = chip_smoke.synth_ycsb_runs(80_000, 4, 40_000, 3)
+    (tmp_path / "in").mkdir()
+    readers = chip_smoke.write_inputs(runs, str(tmp_path / "in"))
+    cutoff = chip_smoke.history_cutoff(80_000)
+    mesh = make_mesh(8, devices=[cuda] * 8)
+    counters = [dist_compact.splitter_pick, dist_compact.route_dest,
+                dist_compact.bucket_scatter, radix.radix_sort,
+                radix.sorted_payload, merge_gc.gc_pack,
+                merge_path.merge_level]
+    old = flags.get_flag("distributed_compaction_min_rows")
+    flags.set_flag("distributed_compaction_min_rows", 1000)
+    out = {}
+    try:
+        for name, dev in (("native", "native"), ("combined", "cuda"),
+                          ("python", None)):
+            (tmp_path / name).mkdir()
+            ids = iter(range(100, 200))
+            before = [c.launches for c in counters]
+            out[name] = compaction.run_compaction_job(
+                readers, str(tmp_path / name), lambda: next(ids), cutoff,
+                True, device=dev, mesh=mesh if dev != "native" else None)
+            if dev != "native":
+                assert [c.launches - b for c, b in zip(counters, before)] \
+                    == [1, 8, 8, 8, 8, 8, 0], name
+    finally:
+        flags.set_flag("distributed_compaction_min_rows", old)
+    for name in ("combined", "python"):
+        assert len(out[name].outputs) == len(out["native"].outputs) >= 1
+        for (_, pa, _), (_, pb, _) in zip(out[name].outputs,
+                                          out["native"].outputs):
+            for suffix in ("", ".sblock.0"):
+                with open(pa + suffix, "rb") as fa, \
+                        open(pb + suffix, "rb") as fb:
+                    assert fa.read() == fb.read(), name
+
+
+def test_pooled_wave_on_the_card_equals_sequential(cuda):
+    """3 jobs in 4 slots on the card: each job's decisions equal a
+    sequential launch_merge_gc's; A launches log2(k_pad) times and B once
+    per slot, unfilled slots included; gather_span equals the sequential
+    span."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(37)
+    jobs, seq = [], []
+    for j in range(3):
+        runs = [_make_run(rng, 3000, 2500, ttl_frac=0.1) for _ in range(4)]
+        params = merge_gc.GCParams(((1 << 18) + j) << 12, True)
+        st = dist_compact.stage_pool_slot(
+            runs, *dist_compact.pool_slot_bucket(runs))
+        jobs.append((st, params))
+        seq.append(run_merge.launch_merge_gc(
+            run_merge.stage_runs_from_slabs(runs, device=cuda), params))
+    before = (merge_path.merge_level.launches, merge_gc.gc_pack.launches)
+    handle = dist_compact.pooled_merge_gc(make_mesh(4, devices=[cuda] * 4),
+                                          jobs)
+    assert (merge_path.merge_level.launches - before[0],
+            merge_gc.gc_pack.launches - before[1]) == (4 * 2, 4)
+    for got, h in zip(handle.decisions, seq):
+        for a, b in zip(got, h.result()):
+            assert np.array_equal(a, b)
+    n_out = int(handle.decisions[2][1].sum())
+    pos = run_merge.survivor_positions(seq[2])
+    a = handle.gather_span(2, 0, n_out)
+    b = run_merge.gather_staged_output_span(seq[2], pos, 0, n_out)
+    assert torch.equal(a.cols_dev, b.cols_dev)

@@ -46,6 +46,9 @@ MODULES = [
     "yugabyte_tpu_torch.storage.version_set",
     "yugabyte_tpu_torch.storage.native_read",
     "yugabyte_tpu_torch.storage.db",
+    "yugabyte_tpu_torch.parallel",
+    "yugabyte_tpu_torch.parallel.mesh",
+    "yugabyte_tpu_torch.parallel.dist_compact",
     "chip_smoke",
 ]
 
@@ -100,7 +103,35 @@ SPEC = scan_spec.ScanSpec(
      scan_spec.compile_aggregate(SCHEMA, "sum", "v")))
 """
 
+# a mesh of two CUDA shards, built without make_mesh's own check
+_CUDA_MESH = """
+import torch
+from yugabyte_tpu_torch.ops.merge_gc import GCParams
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+from yugabyte_tpu_torch.parallel.mesh import Mesh
+MESH = Mesh([torch.device("cuda", 0)] * 2)
+SLAB = pack_kvs([(b"k", 1 << 32, b"\\x01")])
+"""
+
 ENTRY_POINTS = {
+    "make_mesh": """
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
+make_mesh()
+""",
+    "make_mesh_cuda_devices": """
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
+make_mesh(8, devices=["cuda"] * 8)
+""",
+    "distributed_compact": _CUDA_MESH + """
+from yugabyte_tpu_torch.parallel.dist_compact import distributed_compact
+distributed_compact(SLAB, GCParams(1, True), MESH)
+""",
+    "pooled_merge_gc": _CUDA_MESH + """
+from yugabyte_tpu_torch.parallel.dist_compact import (
+    pool_slot_bucket, pooled_merge_gc, stage_pool_slot)
+st = stage_pool_slot([SLAB], *pool_slot_bucket([SLAB]))
+pooled_merge_gc(MESH, [(st, GCParams(1, True))])
+""",
     "resolve_device": """
 from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 resolve_device()
@@ -171,6 +202,24 @@ def test_entry_point_without_cuda_raises(name):
 
 
 CPU_CALLS = {
+    "mesh_jobs": """
+import sys
+from yugabyte_tpu_torch.ops.merge_gc import GCParams
+from yugabyte_tpu_torch.ops.slabs import pack_kvs
+from yugabyte_tpu_torch.parallel import dist_compact
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(2, devices=["cpu"] * 2)
+slab = pack_kvs([(b"k%d" % i, (5 + i) << 32, b"\\x01") for i in range(9)])
+_cols, keep, _mk, src = dist_compact.distributed_compact(
+    slab, GCParams(1 << 40, True), mesh)
+assert sorted(src[keep]) == list(range(9)), src[keep]
+st = dist_compact.stage_pool_slot([slab], *dist_compact.pool_slot_bucket([slab]))
+h = dist_compact.pooled_merge_gc(mesh, [(st, GCParams(1 << 40, True))])
+assert int(h.decisions[0][1].sum()) == 9
+assert not any(m in ("jax", "yugabyte_tpu")
+               or m.startswith(("jax.", "yugabyte_tpu."))
+               for m in sys.modules), "the mesh path imported jax"
+""",
     "stage_slab": """
 from yugabyte_tpu_torch.ops.merge_gc import stage_slab
 from yugabyte_tpu_torch.ops.slabs import pack_kvs

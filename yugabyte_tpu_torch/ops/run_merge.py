@@ -150,6 +150,15 @@ def plan_run_packing(run_ns: Sequence[int]) -> Optional[List[List[int]]]:
     return [sorted(b[1]) for b in bins]
 
 
+def packed_run_ns(run_ns: Sequence[int]) -> List[int]:
+    """Slot sizes after greedy run packing: the layout the job would
+    actually stage."""
+    bins = plan_run_packing(run_ns)
+    if bins is None:
+        return list(run_ns)
+    return [sum(run_ns[i] for i in b) for b in bins]
+
+
 def _slab_sort_order(slab: KVSlab) -> np.ndarray:
     """Merged order of a concatenated slab under the kernel comparator
     (stable: ties keep concatenation order, matching the global-index
@@ -1033,6 +1042,14 @@ def launch_merge_gc(staged: StagedRuns, params: GCParams,
         h = _launch_chunked(staged, params, snapshot, target)
         if h is not None:
             return h
+    return launch_unchunked(staged, params, snapshot)
+
+
+def launch_unchunked(staged: StagedRuns, params: GCParams,
+                     snapshot: bool = False) -> MergeGCHandle:
+    """The one big merge + GC of launch_merge_gc (kernel A's levels, then
+    kernel B), never chunked: the counterpart of `_merge_gc_runs_impl`,
+    which the pooled wave runs per slot."""
     p_mat = merge_payload(staged)
     r = _ROW_WORDS + staged.w
     packed, keep, mk = gc_pack(p_mat, r, staged.w, params, staged.k_pad,

@@ -7,12 +7,15 @@ port's device=None is the card:
 
   combined path: an explicit device ("cuda" or "cpu"), the native engine
           available, no YBTPU_FORCE_RADIX and no deep input go to
-          `run_compaction_job_device_native`;
+          `run_compaction_job_device_native`, or, with a mesh of more than
+          one shard and at least distributed_compaction_min_rows input rows
+          (`_wants_distributed`), to `run_compaction_job_dist_native`;
   native job: device="native" runs the stock native CompactionJob
           (`_run_native_job`);
   Python path: everything else, and the device-native job's re-entry for
           skewed picks (`_no_combined=True`): `read_all` + `concat_slabs`;
           deep inputs take the native C++ merge (`compact_cpu_baseline`),
+          a mesh-sized job `parallel.dist_compact.distributed_compact`,
           the rest `run_merge.merge_and_gc_runs` on the device (the radix
           re-sort past 2x run-layout inflation or under YBTPU_FORCE_RADIX:
           kernels G, I.1, B over the concatenated slab; else kernels A and B, chunked when
@@ -50,10 +53,19 @@ Both paths write output files byte-identical to the stock native
 CompactionJob (`_run_native_job`) and to the JAX package's job over the
 same inputs.
 
+`run_compaction_job_dist_native` (compaction.py:1433 there) is the mesh
+path: the native shell ingests the input bytes on its own thread while
+`read_all` + `concat_slabs` + the distributed step
+(parallel/dist_compact.distributed_compact_with_outputs: kernels M1-M3,
+G, I.1, B) run, then _StreamingNativeWriter writes the outputs.
+`run_compaction_job_with_decisions` (:1626 there) is stage C of a pooled
+wave slot (parallel/dist_compact.pooled_merge_gc): outputs from decisions
+computed elsewhere.
+
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
 the device slab cache, `input_ids` and the native run cache (item 4: their
-write-through installer and the resident chain), the mesh (item 2), the
-offload policy (item 6), cancellation and the compaction rate limiter
+write-through installers, the mesh's included, and the resident chain),
+the offload policy (item 6), cancellation and the compaction rate limiter
 (item 9), an encrypted Env (item 5). The bucket-health routing, the
 device-fault containment that re-runs natively and the sampled shadow
 verifier are items 6 and 7: here a device error propagates.
@@ -80,10 +92,15 @@ flags.define_flag("compaction_max_output_entries_per_sst", 2_000_000,
 flags.define_flag("compaction_rate_bytes_per_sec", 0,
                   "token-bucket cap on compaction output bytes/sec; "
                   "0 = unlimited (the limiter is ROADMAP item 9)")
+flags.define_flag("distributed_compaction_min_rows", 1 << 20,
+                  "jobs at or above this many input rows fan their "
+                  "subcompactions across the device mesh when one is "
+                  "available (ref: subcompaction sizing, "
+                  "compaction_job.cc:330 GenSubcompactionBoundaries)")
 
 
 def _check_ported(device_cache=None, input_ids=None, run_cache=None,
-                  mesh=None, offload_policy=None, cancel=None) -> None:
+                  offload_policy=None, cancel=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every
     argument and setting of the JAX package's job that the port does not
     have yet."""
@@ -94,9 +111,6 @@ def _check_ported(device_cache=None, input_ids=None, run_cache=None,
             "device slab cache / input_ids / native run cache: ROADMAP "
             "item 4 (storage/device_cache, storage/run_cache and the "
             "resident-span installer over the survivor-gather kernels)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the multi-device compaction is ROADMAP item 2")
     if offload_policy is not None:
         raise NotImplementedError(
             "offload_policy: the bucket-health board is ROADMAP item 6")
@@ -111,6 +125,14 @@ def _check_ported(device_cache=None, input_ids=None, run_cache=None,
         raise NotImplementedError(
             "compaction under an encrypted Env: ROADMAP item 5 (the JAX "
             "package's encrypted Env needs the cryptography package)")
+
+
+def _wants_distributed(mesh, n_rows: int) -> bool:
+    """The single gate of the distributed compaction: a mesh of more than
+    one shard and a job at or above distributed_compaction_min_rows."""
+    return (mesh is not None
+            and getattr(mesh, "devices", np.empty(0)).size > 1
+            and n_rows >= flags.get_flag("distributed_compaction_min_rows"))
 
 
 def filter_expired_inputs(inputs: Sequence[SSTReader],
@@ -167,8 +189,10 @@ class _StreamingNativeWriter:
     byte-identical over identical ranges."""
 
     def __init__(self, job, out_dir: str, new_file_id, fr,
-                 block_entries: Optional[int], has_deep: bool = False):
+                 block_entries: Optional[int], has_deep: bool = False,
+                 on_span=None):
         self._job = job
+        self._on_span = on_span
         self._out_dir = out_dir
         self._new_file_id = new_file_id
         self._fr = fr
@@ -196,6 +220,8 @@ class _StreamingNativeWriter:
                                 has_deep=self._has_deep)
         self.outputs.append((fid, base_path, props))
         self.ranges.append((start, end))
+        if self._on_span is not None:
+            self._on_span(fid, base_path, start, end)
 
     def feed(self, n_available: int) -> None:
         # strictly >: an exactly-full final span must come from finish()
@@ -268,10 +294,12 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     new_file_id: callable returning the next file id. device: "cuda",
     "cpu" (the kernels' plain PyTorch versions; the tests) or "native"
     (the native CompactionJob); None takes the Python path on the card.
-    Without a GPU, "cuda" and None raise. device_cache, input_ids,
-    run_cache, mesh, offload_policy and cancel raise NotImplementedError
-    (see _check_ported)."""
-    _check_ported(device_cache, input_ids, run_cache, mesh, offload_policy,
+    Without a GPU, "cuda" and None raise. mesh: a parallel.mesh.Mesh —
+    jobs at or above distributed_compaction_min_rows fan their
+    subcompactions across its shards (parallel/dist_compact.py).
+    device_cache, input_ids, run_cache, offload_policy and cancel raise
+    NotImplementedError (see _check_ported)."""
+    _check_ported(device_cache, input_ids, run_cache, offload_policy,
                   cancel)
     all_inputs = list(inputs)
     if device is not None and device != "native" and not _no_combined:
@@ -282,6 +310,14 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
         from yugabyte_tpu_torch.storage import native_engine
         if (native_engine.available() and not run_merge.force_radix()
                 and not any(r.props.has_deep for r in all_inputs)):
+            if _wants_distributed(
+                    mesh, sum(r.props.n_entries for r in all_inputs)):
+                # mesh-sized job: distributed decisions + the same native
+                # byte shell / streaming writer as the single-device job
+                return run_compaction_job_dist_native(
+                    all_inputs, out_dir, new_file_id, history_cutoff_ht,
+                    is_major, retain_deletes, device=device,
+                    block_entries=block_entries, mesh=mesh)
             return run_compaction_job_device_native(
                 all_inputs, out_dir, new_file_id, history_cutoff_ht,
                 is_major, retain_deletes, device=device,
@@ -317,6 +353,15 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
             ([0], np.cumsum([s.n for s in slabs]))).tolist()
         perm, keep, make_tomb = compact_cpu_baseline(
             merged, offsets, history_cutoff_ht, is_major, retain_deletes)
+    elif _wants_distributed(mesh, merged.n):
+        # a large job and a mesh: the subcompactions fan across its
+        # shards; the outputs come back globally range-partitioned, so the
+        # survivors are in merged order
+        from yugabyte_tpu_torch.parallel.dist_compact import (
+            distributed_compact)
+        _cols, keep_d, mk_d, src_idx = distributed_compact(merged, params,
+                                                           mesh)
+        perm, keep, make_tomb = src_idx, keep_d, mk_d
     else:
         # the run-aware device merge; merge_and_gc_runs takes the radix
         # re-sort itself when the run layout would inflate
@@ -440,10 +485,13 @@ def _device_native_attempt(
 def _remove_outputs(writer) -> None:
     """Unwind of a failed attempt: delete every output file (base and
     data) its writer wrote."""
-    if writer is None:
-        return
+    if writer is not None:
+        _remove_files(writer.outputs)
+
+
+def _remove_files(outputs) -> None:
     from yugabyte_tpu_torch.storage.sst import data_file_name
-    for _fid, base_path, _props in writer.outputs:
+    for _fid, base_path, _props in outputs:
         for p in (base_path, data_file_name(base_path)):
             try:
                 os.remove(p)
@@ -672,6 +720,168 @@ def _device_codec_body(
     outputs = writer.write_all(surv, mk, rows_out)
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=int(np.count_nonzero(mk)))
+
+
+def run_compaction_job_dist_native(
+        inputs: Sequence[SSTReader], out_dir: str, new_file_id,
+        history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool = False, device=None,
+        block_entries: Optional[int] = None, device_cache=None,
+        input_ids: Optional[Sequence[int]] = None, mesh=None,
+        cancel=None) -> CompactionResult:
+    """The mesh path: key-range-sharded merge + GC decisions
+    (parallel/dist_compact.distributed_compact_with_outputs) with the
+    native byte shell around them.
+
+    Stage A ingests the input bytes into the C++ shell on its own thread,
+    overlapping `read_all` + `concat_slabs` + the distributed step; only
+    the decision-sized arrays come down (the merged cols stay on the
+    mesh's devices); _StreamingNativeWriter writes the outputs, with the
+    split and tombstone rules of the single-device job, so the files are
+    byte-identical to it. The shards run on the mesh's devices; a
+    `device` given must be of their type ("cuda" for a mesh of cards,
+    "cpu" for a CPU mesh), or the job raises. device_cache, input_ids
+    (item 4: `_DistResidentInstaller` waits for the cache write-through)
+    and cancel (item 9) raise NotImplementedError; a device error
+    propagates, and every output file written is deleted first."""
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    from yugabyte_tpu_torch.parallel.dist_compact import (
+        distributed_compact_with_outputs)
+    from yugabyte_tpu_torch.storage import native_engine
+    from yugabyte_tpu_torch.utils.torch_setup import resolve_device
+
+    _check_ported(device_cache=device_cache, input_ids=input_ids,
+                  cancel=cancel)
+    if device is not None:
+        kind = resolve_device(device).type
+        if any(d.type != kind for d in mesh.devices.flat):
+            raise ValueError(f"run_compaction_job_dist_native: device "
+                             f"{device} is not the mesh's "
+                             f"({list(mesh.devices.flat)})")
+    all_inputs = list(inputs)
+    inputs, dropped = filter_expired_inputs(
+        all_inputs, history_cutoff_ht, is_major, retain_deletes)
+    dropped_rows = sum(r.props.n_entries for r in dropped)
+    inputs = [r for r in inputs if r.props.n_entries]
+    if not inputs:
+        return CompactionResult([], dropped_rows, 0)
+    params = GCParams(history_cutoff_ht, is_major, retain_deletes)
+    state = {"writer": None}
+    try:
+        with native_engine.NativeCompactionJob() as job:
+            ingest = {"rows_in": None, "err": None}
+
+            def _ingest_inputs():
+                try:
+                    for r in inputs:
+                        with open(r.data_path, "rb") as f:
+                            job.add_input(f.read(), r.block_handles)
+                    ingest["rows_in"] = job.prepare()
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    ingest["err"] = e
+
+            ingest_thread = threading.Thread(
+                target=_ingest_inputs, name="dist-compaction-ingest",
+                daemon=True)
+            ingest_thread.start()
+            try:
+                merged = concat_slabs([s for s in (r.read_all()
+                                                   for r in inputs) if s.n])
+                keep, mk, src_idx, _outputs = \
+                    distributed_compact_with_outputs(merged, params, mesh)
+                del merged, _outputs
+            finally:
+                # the thread calls into the C++ job; it MUST finish
+                # before any unwind can free the job
+                ingest_thread.join()
+            if ingest["err"] is not None:
+                raise ingest["err"]
+            rows_in = ingest["rows_in"]
+            surv = src_idx[keep]
+            mk_surv = mk[keep]
+            rows_out = int(surv.shape[0])
+            fr = _merge_frontiers([r.props.frontier for r in all_inputs],
+                                  history_cutoff_ht)
+            writer = _StreamingNativeWriter(job, out_dir, new_file_id, fr,
+                                            block_entries, has_deep=False)
+            state["writer"] = writer
+            job.set_survivors(surv, mk_surv)
+            outputs, _ranges = writer.finish(job.n_survivors)
+    except BaseException:
+        _remove_outputs(state["writer"])
+        raise
+    return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
+                            tombstones_written=int(np.count_nonzero(mk_surv)))
+
+
+def run_compaction_job_with_decisions(
+        inputs: Sequence[SSTReader], slabs: Sequence[KVSlab], out_dir: str,
+        new_file_id, history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool, block_entries: Optional[int],
+        surv: np.ndarray, mk_surv: np.ndarray, rows_in: int,
+        frontier_inputs: Optional[Sequence[SSTReader]] = None,
+        cancel=None, on_span=None) -> CompactionResult:
+    """Write a compaction job's outputs from decisions computed elsewhere:
+    stage C of a pooled wave slot (parallel/dist_compact.pooled_merge_gc).
+
+    The byte path is the sequential writer's: the native shell +
+    _StreamingNativeWriter where the shell can run the bytes, else the
+    `_gather_slab` + SSTWriter loop, so the outputs are byte-identical to a
+    sequential job over the same inputs. inputs: the filtered reader list;
+    slabs: their read_all() slabs (the Python writer's input); surv indexes
+    the concatenation of the live slabs in input order, in merged order.
+    on_span(fid, base_path, start, end) runs after each output file.
+    cancel raises NotImplementedError (ROADMAP item 9)."""
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    from yugabyte_tpu_torch.storage import native_engine
+
+    _check_ported(cancel=cancel)
+    fr = _merge_frontiers(
+        [r.props.frontier for r in (frontier_inputs or inputs)],
+        history_cutoff_ht)
+    has_deep = any(r.props.has_deep for r in inputs)
+    rows_out = int(surv.shape[0])
+    tombstones = int(np.count_nonzero(mk_surv))
+    if native_engine.available() and not has_deep:
+        with native_engine.NativeCompactionJob() as job:
+            for r in inputs:
+                with open(r.data_path, "rb") as f:
+                    job.add_input(f.read(), r.block_handles)
+            job.prepare()
+            job.set_survivors(surv, mk_surv)
+            writer = _StreamingNativeWriter(
+                job, out_dir, new_file_id, fr, block_entries,
+                has_deep=has_deep, on_span=on_span)
+            try:
+                outputs, _ranges = writer.finish(job.n_survivors)
+            except BaseException:
+                _remove_outputs(writer)
+                raise
+        return CompactionResult(outputs, rows_in, rows_out,
+                                tombstones_written=tombstones)
+    # the Python writer: run_compaction_job's Python path over the same
+    # decisions
+    merged = concat_slabs([s for s in slabs if s.n])
+    max_rows = flags.get_flag("compaction_max_output_entries_per_sst")
+    tombstone_value = Value.tombstone().encode()
+    outputs: List[Tuple[int, str, SSTProps]] = []
+    try:
+        for start in range(0, rows_out, max_rows):
+            end = min(start + max_rows, rows_out)
+            out_slab = _gather_slab(merged, surv[start:end],
+                                    mk_surv[start:end], tombstone_value)
+            fid = new_file_id()
+            base_path = os.path.join(out_dir, f"{fid:06d}.sst")
+            props = SSTWriter(base_path, block_entries=block_entries,
+                              fit_lindex=False).write(out_slab, fr)
+            outputs.append((fid, base_path, props))
+            if on_span is not None:
+                on_span(fid, base_path, start, end)
+    except BaseException:
+        _remove_files(outputs)
+        raise
+    return CompactionResult(outputs, rows_in, rows_out,
+                            tombstones_written=tombstones)
 
 
 def _merge_frontiers(frontiers: Sequence[Frontier],

@@ -76,7 +76,7 @@ def build_cuda_lib(src_name: str) -> str:
     return lib
 
 
-# every library the compaction, scan and point-read slices load:
+# every library the compaction, scan, point-read and mesh slices load:
 # (source, lib name, args)
 NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                 ("-lz", "-lpthread")),
@@ -85,7 +85,7 @@ NATIVE_LIBS = (("compaction_engine.cc", "libcompaction_engine.so",
                ("memtable_arena.cc", "libmemtable_arena.so", ()))
 CUDA_SOURCES = ("merge_path.cu", "gc_pack.cu", "block_codec.cu",
                 "write_through.cu", "radix.cu", "concat.cu", "scan.cu",
-                "pushdown.cu", "point_read.cu", "chunk.cu")
+                "pushdown.cu", "point_read.cu", "chunk.cu", "dist.cu")
 
 
 def build_all(cuda: bool = True) -> Dict[str, str]:
