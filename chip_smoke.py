@@ -19,9 +19,10 @@ Phases (any failure exits non-zero):
      in 4 sorted L0 runs (key space n/2, 5% row tombstones, 19-byte
      column keys -> w = 8, cutoff above all writes, major compaction):
      m = 2^22, k_pad = 4, n_pad = 2^24. Kernel A (merge-path level) ==
-     its plain version at each level; kernel B (GC + packing) == its
-     plain version; decisions == the C++ oracle compact_cpu_baseline.
-     Times with CUDA events;
+     its plain version at each level, its split launch == merge_splits_
+     plain, the split and tile launches also timed apart; kernel B (GC +
+     packing) == its plain version; decisions == the C++ oracle
+     compact_cpu_baseline. Times with CUDA events;
   4. compaction: the 4 runs written as SST files; the stock native
      CompactionJob, the port's shell path and the port's codec path over
      the same inputs must write byte-identical files. Every launch
@@ -214,6 +215,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of the kernels and memsets `fn`
+    launches (torch.profiler's CUDA activity, one warm-up call): the
+    kernels' own time, without the wrapper's host work between calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / reps / 1e3
+
+
 def max_abs_err(x, y) -> int:
     """Largest |x - y| over two integer tensors (u32 bits compared as
     unsigned values), in slices of 2^24 to bound the temporaries."""
@@ -278,7 +300,9 @@ def kernel_phase(args, runs, bandwidth, device="cuda"):
          "source": "yugabyte_tpu_torch/csrc/merge_path.cu",
          "replaces": "yugabyte_tpu/ops/pallas_merge.py:222",
          "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-         "bound_by": "bytes", "max_abs_err": 0, "levels": []}
+         "device_ms": 0.0, "bound_by": "bytes", "max_abs_err": 0,
+         "levels": []}
+    c = len(merge_path.cmp_desc(staged.cmp_rows)[0])
     length = staged.m
     while length < n:
         out_k = merge_path.merge_level(p_k, length, staged.cmp_rows)
@@ -288,25 +312,47 @@ def kernel_phase(args, runs, bandwidth, device="cuda"):
             bad = int((out_k != out_p).any(dim=0).sum())
             raise AssertionError(f"kernel A != plain at L={length}: "
                                  f"{bad} columns differ")
-        a["max_abs_err"] = max(a["max_abs_err"], err)
+        tile, threads, smem = merge_path.tile_plan(rp, c, length)
+        splits = merge_path.merge_splits(p_k, length, staged.cmp_rows, tile)
+        split_err = same_or_raise(
+            f"kernel A's split launch at L={length}", splits,
+            merge_path.merge_splits_plain(p_k, length, staged.cmp_rows,
+                                          tile))
+        a["max_abs_err"] = max(a["max_abs_err"], err, split_err)
         ms = cuda_ms(lambda: merge_path.merge_level(p_k, length,
                                                     staged.cmp_rows),
                      args.reps)
+        split_ms = cuda_ms(lambda: merge_path.merge_splits(
+            p_k, length, staged.cmp_rows, tile), args.reps)
+        tile_ms = cuda_ms(lambda: merge_path.merge_tiles(
+            p_k, splits, length, staged.cmp_rows, tile), args.reps)
+        split_dev = device_ms(lambda: merge_path.merge_splits(
+            p_k, length, staged.cmp_rows, tile), args.reps)
+        tile_dev = device_ms(lambda: merge_path.merge_tiles(
+            p_k, splits, length, staged.cmp_rows, tile), args.reps)
         plain_ms = cuda_ms(lambda: merge_path.merge_level_plain(
             p_k, length, staged.cmp_rows), 2)
         lib_ms = cuda_ms(lambda: lexsort_level(p_k, length, staged.cmp_rows),
                          2)
-        bound = 2 * rp * n * 4 / bandwidth * 1e3
-        a["levels"].append({"L": length, "tile": merge_path.tile_for(
-            len(merge_path.cmp_desc(staged.cmp_rows)[0]), length),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound})
+        bound = (2 * rp * n * 4 + splits.numel() * 4) / bandwidth * 1e3
+        a["levels"].append({"L": length, "tile": tile, "threads": threads,
+                            "smem_bytes": smem, "ms": ms,
+                            "split_ms": split_ms, "tile_ms": tile_ms,
+                            "split_plus_tile_ms": split_ms + tile_ms,
+                            "split_device_ms": split_dev,
+                            "tile_device_ms": tile_dev,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bound})
         a["ms"] += ms
         a["plain_ms"] += plain_ms
         a["library_ms"] += lib_ms
         a["bound_ms"] += bound
-        log(f"kernel A L={length}: equal; {ms:.3f} ms (plain {plain_ms:.3f}, "
+        a["device_ms"] += split_dev + tile_dev
+        log(f"kernel A L={length}: equal, splits equal; {ms:.3f} ms (split "
+            f"{split_ms:.4f} + tile {tile_ms:.3f}; on the device "
+            f"{split_dev:.4f} + {tile_dev:.3f}; plain {plain_ms:.3f}, "
             f"lexsort {lib_ms:.3f}, bound {bound:.3f})")
+        del splits
         p_k, p_p = out_k, out_p
         length *= 2
     del p_p, out_p
@@ -691,7 +737,11 @@ def codec_kernel_phase(args, t, launches, bandwidth):
           "yugabyte_tpu/ops/run_merge.py:866", err,
           cuda_ms(lambda: run_merge.survivor_scan(keep), args.reps),
           cuda_ms(lambda: run_merge.survivor_scan_plain(keep), 2),
-          keep.numel() * 5, cuda_ms(lambda: torch.nonzero(keep), 2))
+          keep.numel() * 5, cuda_ms(lambda: torch.nonzero(keep), args.reps))
+    rows[-1]["device_ms"] = device_ms(lambda: run_merge.survivor_scan(keep),
+                                      args.reps)
+    log(f"kernel survivor_scan on the device: {rows[-1]['device_ms']:.4f} "
+        f"ms")
 
     # E: the first output file's span
     p_mat, r, pos, mk = t["p_mat"], t["r"], t["pos"], t["mk"]

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Kernels A and D of the PyTorch port, timed for several checkouts in one
+run on one GPU.
+
+    python3 kernel_ab.py [--rows N] [--seed S] [--reps R] ROOT [ROOT ...]
+
+Each ROOT is a checkout of this repository (`.` for this one). Each is
+timed in its own process, in the order given, so that two versions of a
+kernel are compared on one card in turns (old, new, new, old). Every
+process builds its checkout's kernels, stages the same YCSB-A tablet
+(chip_smoke's generator: --rows rows in 4 sorted runs, key space rows/2),
+and times with CUDA events, --reps launches after a warm-up:
+  - kernel A (`merge_path.merge_level`) at each tournament level, its
+    output held against the first process's (the same bytes everywhere);
+  - kernel D (`run_merge.survivor_scan`) on the merge's keep bytes, beside
+    `torch.nonzero` on the same bytes;
+  - for both wrappers, the host's milliseconds to enqueue one call, and
+    the device's milliseconds per call by kernel name (torch.profiler):
+    where the enqueue takes longer than the device, the events time the
+    host.
+Prints one JSON line per process and the card's name and power limit.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds to enqueue one call (no synchronize inside)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def device_ms(fn, reps: int) -> dict:
+    """Device milliseconds per call by kernel (and memset) name, from
+    torch.profiler's CUDA activity. Kept here, not taken from the root's
+    chip_smoke: an older checkout's chip_smoke has no such helper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def child(root: str, rows: int, seed: int, reps: int) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import chip_smoke as cs
+    from yugabyte_tpu_torch.ops import merge_gc, merge_path, run_merge
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    runs = cs.synth_ycsb_runs(rows, 4, max(1, rows // 2), seed)
+    st = run_merge.stage_runs_from_slabs(runs, device="cuda")
+    p = torch.cat([st.cols_dev, torch.arange(
+        st.n_pad, dtype=torch.int32, device="cuda")[None]])
+    levels = []
+    digest = hashlib.sha256()
+    length = st.m
+    while length < st.n_pad:
+        def level():
+            return merge_path.merge_level(p, length, st.cmp_rows)
+        entry = {"L": length, "ms": cs.cuda_ms(level, reps),
+                 "host_ms": host_ms(level, reps),
+                 "device_ms": device_ms(level, reps)}
+        p = level()
+        digest.update(p.cpu().numpy().tobytes())
+        levels.append(entry)
+        length *= 2
+    r = merge_gc._ROW_WORDS + st.w
+    params = merge_gc.GCParams(cs.history_cutoff(rows), True)
+    _packed, keep, _mk = merge_gc.gc_pack(p, r, st.w, params, st.k_pad,
+                                          st.m)
+    pos = run_merge.survivor_scan(keep)
+    digest.update(pos.cpu().numpy().tobytes())
+
+    def scan():
+        return run_merge.survivor_scan(keep)
+    return {"root": root, "rp": int(p.shape[0]), "n": int(p.shape[1]),
+            "levels": levels, "survivor_scan_ms": cs.cuda_ms(scan, reps),
+            "survivor_scan_host_ms": host_ms(scan, reps),
+            "survivor_scan_device_ms": device_ms(scan, reps),
+            "nonzero_ms": cs.cuda_ms(lambda: torch.nonzero(keep), reps),
+            "kept": int(keep.sum()), "sha256": digest.hexdigest()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--rows", type=int, default=10_000_000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.roots[0], args.rows, args.seed,
+                               args.reps)), flush=True)
+        return 0
+    results = []
+    for root in args.roots:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             "--rows", str(args.rows), "--seed", str(args.seed), "--reps",
+             str(args.reps), root], capture_output=True, text=True,
+            check=False, timeout=900)
+        sys.stderr.write(out.stderr)
+        if out.returncode != 0:
+            print(f"kernel_ab: {root} failed ({out.returncode})",
+                  file=sys.stderr)
+            return 1
+        results.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(json.dumps(results[-1]), flush=True)
+    if len({r["sha256"] for r in results}) != 1:
+        print("kernel_ab: the checkouts' outputs differ", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -82,6 +82,95 @@ def test_merge_level_kernel_matches_plain(cuda, k, n, key_space, w):
     assert merge_path.merge_level.launches > before
 
 
+def _sorted_payload(rng, rp, L, n_pairs, cmp_rows, key_space):
+    """A [rp, 2L * n_pairs] payload (u32 bits in int32) whose runs of L are
+    sorted by the comparator, the last row the global index."""
+    n = 2 * L * n_pairs
+    p = rng.integers(0, key_space, size=(rp, n)).astype(np.uint32)
+    rows, inv = merge_path.cmp_desc(cmp_rows)
+    for q in range(n // L):
+        seg = p[:rp - 1, q * L:(q + 1) * L]
+        keys = [seg[r] ^ np.uint32(iv) for r, iv in zip(rows, inv)][::-1]
+        p[:rp - 1, q * L:(q + 1) * L] = seg[:, np.lexsort(tuple(keys))]
+    p[-1] = np.arange(n, dtype=np.uint32)
+    return p.view(np.int32)
+
+
+def _level_matches_plain(p, L, cmp_rows):
+    """Kernel A's level and its split launch == their plain versions; the
+    wrapper counts the level once."""
+    rp, _n = p.shape
+    tile, _t, _b = merge_path.tile_plan(
+        rp, len(merge_path.cmp_desc(cmp_rows)[0]), L)
+    got_s = merge_path.merge_splits(p, L, cmp_rows, tile)
+    assert torch.equal(got_s.cpu(), merge_path.merge_splits_plain(
+        p.cpu(), L, cmp_rows, tile)), f"splits at L={L}"
+    before = merge_path.merge_level.launches
+    got = merge_path.merge_level(p, L, cmp_rows)
+    assert merge_path.merge_level.launches == before + 1
+    assert torch.equal(got, merge_path.merge_level_plain(p, L, cmp_rows)), \
+        f"level L={L}"
+    return got
+
+
+@pytest.mark.parametrize("case,rp,L,n_pairs,key_space", [
+    ("2L below the tile", 13, 128, 4, 50),
+    ("2L below the tile, odd", 13, 100, 3, 50),
+    ("one pair", 13, 4096, 1, 300),
+    ("all-equal compare rows", 13, 3000, 2, 1),
+    ("L = 7, n % 4 == 2", 13, 7, 1, 4),
+    ("L = 1001", 13, 1001, 2, 60),
+    ("L = 999, n % 4 == 2", 6, 999, 3, 9),
+    ("L = 3075", 6, 3075, 2, 1 << 30),
+    ("L = 4098", 17, 4098, 2, 1000)])
+def test_merge_level_kernel_edge_shapes(cuda, case, rp, L, n_pairs,
+                                        key_space):
+    """Tiles that straddle every window alignment (L not a multiple of 4,
+    rows whose length is not one), 2L below the tile, one pair and
+    all-equal compare rows where the index alone decides."""
+    rng = np.random.default_rng(L * 7 + rp)
+    cmp_rows = [1, 0, 2, 3] if rp < 8 else [8, 9, 0, 2, 3, 4]
+    p = torch.from_numpy(_sorted_payload(rng, rp, L, n_pairs, cmp_rows,
+                                         key_space)).to(cuda)
+    _level_matches_plain(p, L, cmp_rows)
+
+
+def test_merge_level_kernel_all_pad_run(cuda):
+    """A run that is entirely pad columns (0xFFFFFFFF) beside real runs."""
+    rng = np.random.default_rng(8)
+    runs = [_make_run(rng, 3000, 200) for _ in range(3)]
+    st = _staged(runs, cuda)
+    assert st.k_pad == 4, "the fourth run slot is all pad"
+    p = torch.cat([st.cols_dev, torch.arange(
+        st.n_pad, dtype=torch.int32, device=cuda)[None]])
+    assert bool((p[[0, 1, 8], 3 * st.m:] == -1).all())
+    length = st.m
+    while length < st.n_pad:
+        p = _level_matches_plain(p, length, st.cmp_rows)
+        length *= 2
+
+
+def test_merge_level_kernel_k_pad_8(cuda):
+    rng = np.random.default_rng(88)
+    runs = [_make_run(rng, 1500, 400) for _ in range(8)]
+    st = _staged(runs, cuda)
+    assert st.k_pad == 8
+    p = torch.cat([st.cols_dev, torch.arange(
+        st.n_pad, dtype=torch.int32, device=cuda)[None]])
+    length = st.m
+    while length < st.n_pad:
+        p = _level_matches_plain(p, length, st.cmp_rows)
+        length *= 2
+
+
+@pytest.mark.parametrize("rp,c,L", [(17, 7, 1 << 22), (13, 6, 128),
+                                    (73, 68, 1024), (6, 3, 999)])
+def test_merge_tiles_smem_plan_matches_the_kernel(cuda, rp, c, L):
+    tile, _threads, nbytes = merge_path.tile_plan(rp, c, L)
+    assert merge_path._lib().ybt_merge_tiles_smem_bytes(rp, c, tile) \
+        == nbytes
+
+
 @pytest.mark.parametrize("ttl,tomb,cutoff,is_major,retain,snapshot", [
     (0.0, 0.1, (1 << 21) << 12, True, False, False),
     (0.4, 0.3, (1 << 22) << 12, False, False, False),
@@ -161,6 +250,44 @@ def test_survivor_scan_kernel_matches_plain(cuda, n, density):
     got = run_merge.survivor_scan(keep)
     want = run_merge.survivor_scan_plain(keep)
     assert torch.equal(got, want)
+
+
+_SCAN_TILE = run_merge.SURVIVOR_SCAN_TILE
+
+
+def _keep_case(case, n):
+    if case == "alternating":
+        return np.arange(n) % 2 == 1
+    keep = np.zeros(n, dtype=bool)
+    if case == "only the first tile":
+        first = min(n, _SCAN_TILE)
+        keep[:first] = np.random.default_rng(1).random(first) < 0.5
+    elif case == "only the last tile":
+        last = (n - 1) // _SCAN_TILE * _SCAN_TILE
+        keep[last:] = np.random.default_rng(2).random(n - last) < 0.5
+    elif case == "dense":
+        keep[:] = True
+    elif case == "random":
+        keep = np.random.default_rng(n).random(n) < 0.37
+    return keep
+
+
+@pytest.mark.parametrize("n", [16, _SCAN_TILE - 16, _SCAN_TILE + 16,
+                               3 * _SCAN_TILE + 48, 1 << 24])
+@pytest.mark.parametrize("case", ["empty", "dense", "alternating",
+                                  "only the first tile",
+                                  "only the last tile", "random"])
+def test_survivor_scan_kernel_tiles(cuda, n, case):
+    """The single-pass scan at n = 16, one 16-byte step short of and past
+    a CTA tile (n is a multiple of 16), several tiles, and 2^24; densities
+    0 and 1, alternating bytes, keep only in the first or the last
+    tile."""
+    assert run_merge._wt().ybt_survivor_scan_scratch_words(_SCAN_TILE) == 2
+    keep = torch.from_numpy(_keep_case(case, n)).to(cuda)
+    before = run_merge.survivor_scan.launches
+    got = run_merge.survivor_scan(keep)
+    assert run_merge.survivor_scan.launches == before + 1
+    assert torch.equal(got, run_merge.survivor_scan_plain(keep))
 
 
 @pytest.mark.parametrize("k", [1, 4])

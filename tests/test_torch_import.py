@@ -50,6 +50,7 @@ MODULES = [
     "yugabyte_tpu_torch.parallel.mesh",
     "yugabyte_tpu_torch.parallel.dist_compact",
     "chip_smoke",
+    "kernel_ab",
 ]
 
 _CHECK = """

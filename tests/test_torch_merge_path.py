@@ -134,11 +134,109 @@ def test_merge_level_plain_is_a_stable_pair_merge(k, L):
         assert np.array_equal(out[:, p * 2 * L:(p + 1) * 2 * L], want)
 
 
-@pytest.mark.parametrize("c,L,tile", [(7, 1 << 21, 1024), (2, 1 << 21, 2048),
-                                      (17, 1 << 21, 512), (33, 1 << 21, 256),
-                                      (7, 128, 256)])
-
-def test_tile_fits_shared_memory(c, L, tile):
-    got = merge_path.tile_for(c, L)
+@pytest.mark.parametrize("rp,c,L,tile", [(17, 7, 1 << 21, 1024),
+                                         (13, 2, 1 << 21, 1024),
+                                         (25, 17, 1 << 21, 512),
+                                         (41, 33, 1 << 21, 256),
+                                         (73, 68, 1 << 21, 128),
+                                         (13, 7, 128, 256)])
+def test_tile_fits_shared_memory(rp, c, L, tile):
+    got = merge_path.tile_for(rp, c, L)
     assert got == tile
-    assert (c + 1) * got * 4 + 8 * c <= 48 * 1024 or got == 256
+    assert merge_path.smem_bytes(rp, c, got) <= 233472 // 3 - 1024
+
+
+# Every level shape kernel A runs at: (rp, c, L). The YCSB codec and shell
+# jobs (k_pad 4, m 2^22), the chunked job (m_c 2^17), the pool wave (m
+# 2^18), k_pad 8, and the small shapes of the tests (w 3 -> 4 key words,
+# w 20 -> 32, w 40 -> 64; 2L below the tile; L not a multiple of 4).
+_LEVEL_SHAPES = [(17, c, L) for c in (2, 7, 12) for L in
+                 (1 << 22, 1 << 23, 1 << 17, 1 << 18, 1 << 19, 1 << 20)] + [
+    (13, 6, L) for L in (128, 256, 512, 700, 1024, 2048, 3000, 4096)] + [
+    (41, 24, 2048), (41, 24, 4096), (73, 68, 1024), (13, 3, 7),
+    (13, 3, 1001), (6, 3, 999), (6, 3, 3075), (2, 1, 4)]
+
+
+@pytest.mark.parametrize("rp,c,L", _LEVEL_SHAPES)
+def test_tile_plan_fits_the_card(rp, c, L):
+    """The wrapper's shared-memory plan fits one CTA's 232,448 bytes and
+    covers the level: enough threads for the tile at 4 outputs each, the
+    tile at most 2L, and tiles that cover each pair."""
+    tile, threads, nbytes = merge_path.tile_plan(rp, c, L)
+    assert nbytes == merge_path.smem_bytes(rp, c, tile) <= 232448
+    assert 0 < tile <= 2 * L and threads % 32 == 0 and threads <= 512
+    assert threads * 4 >= tile
+    tpp = -(-2 * L // tile)
+    assert (tpp - 1) * tile < 2 * L <= tpp * tile
+
+
+def _sorted_payload(rng, rp, L, n_pairs, cmp_rows, key_space):
+    """A [rp, 2L * n_pairs] u32 payload whose runs of L are sorted by the
+    comparator, the last row the global index."""
+    n = 2 * L * n_pairs
+    p = rng.integers(0, key_space, size=(rp, n)).astype(np.uint32)
+    rows, inv = merge_path.cmp_desc(cmp_rows)
+    for q in range(n // L):
+        seg = p[:rp - 1, q * L:(q + 1) * L]
+        keys = [seg[r] ^ np.uint32(iv) for r, iv in zip(rows, inv)][::-1]
+        p[:rp - 1, q * L:(q + 1) * L] = seg[:, np.lexsort(tuple(keys))]
+    p[-1] = np.arange(n, dtype=np.uint32)
+    return p
+
+
+def _ref_splits(p, L, cmp_rows, tile):
+    """The JAX package's _compute_splits on the same payload."""
+    import jax.numpy as jnp
+    rows = [int(r) for r in cmp_rows]
+    inv = np.asarray([merge_path._inv_word(r) for r in rows], np.uint32)
+    s_t = jnp.asarray((p[rows] ^ inv[:, None]).T)
+    n = p.shape[1]
+    return np.asarray(pallas_merge._compute_splits(
+        s_t, L, tile, n // (2 * L), 2 * L // tile, len(rows)))
+
+
+@pytest.mark.parametrize("k,L,tile", [(2, 256, 64), (4, 256, 128),
+                                      (4, 512, 256), (8, 256, 32),
+                                      (2, 256, 512), (4, 1024, 2048)])
+def test_merge_splits_plain_matches_compute_splits(k, L, tile):
+    """The split launch's plain version gives `_compute_splits`'s layout
+    and values on staged runs (the n_cmp lattice's repeated rows
+    included)."""
+    rng = np.random.default_rng(k * 31 + L + tile)
+    runs = [_make_run(rng, L, key_space=40) for _ in range(k)]
+    ts = port_rm.stage_runs_from_slabs([_carry(s) for s in runs],
+                                       device="cpu", pack_runs=False)
+    cols = ts.cols_dev.numpy().view(np.uint32)
+    n = cols.shape[1]
+    p = np.concatenate([cols, np.arange(n, dtype=np.uint32)[None]])
+    got = merge_path.merge_splits(torch.from_numpy(p.view(np.int32)), L,
+                                  ts.cmp_rows, tile).numpy()
+    assert np.array_equal(got, _ref_splits(p, L, ts.cmp_rows, tile))
+
+
+@pytest.mark.parametrize("case", ["all_equal", "all_pad_run", "one_pair",
+                                  "wide_keys"])
+def test_merge_splits_plain_edge_cases(case):
+    """All-equal compare rows (the index alone decides), a run of pad
+    columns, one pair, many distinct keys: the plain splits equal
+    `_compute_splits`, and the level equals a per-pair lexsort."""
+    rng = np.random.default_rng(len(case))
+    cmp_rows = [8, 9, 0, 2, 3, 4]
+    L, n_pairs, tile = 256, 2, 64
+    key_space = {"all_equal": 1, "wide_keys": 1 << 30}.get(case, 5)
+    if case == "one_pair":
+        n_pairs = 1
+    p = _sorted_payload(rng, 13, L, n_pairs, cmp_rows, key_space)
+    if case == "all_pad_run":
+        p[:-1, 3 * L:] = 0xFFFFFFFF
+    t = torch.from_numpy(p.view(np.int32))
+    got = merge_path.merge_splits_plain(t, L, cmp_rows, tile).numpy()
+    assert np.array_equal(got, _ref_splits(p, L, cmp_rows, tile))
+    out = merge_path.merge_level(t, L, cmp_rows).numpy().view(np.uint32)
+    rows, inv = merge_path.cmp_desc(cmp_rows)
+    for q in range(n_pairs):
+        seg = p[:, q * 2 * L:(q + 1) * 2 * L]
+        keys = [seg[-1]] + [seg[r] ^ np.uint32(iv)
+                            for r, iv in zip(rows, inv)][::-1]
+        assert np.array_equal(out[:, q * 2 * L:(q + 1) * 2 * L],
+                              seg[:, np.lexsort(tuple(keys))])

@@ -517,6 +517,10 @@ def _wt():
     return _wt_lib
 
 
+# positions per CTA tile of kernel D (kTile in csrc/write_through.cu)
+SURVIVOR_SCAN_TILE = 16384
+
+
 def survivor_scan_plain(keep: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel D (`_survivor_positions_impl`):
     int32 [n] positions of the kept lanes in increasing order, then n-1 in
@@ -532,8 +536,8 @@ def survivor_scan_plain(keep: torch.Tensor) -> torch.Tensor:
 
 def survivor_scan(keep: torch.Tensor) -> torch.Tensor:
     """Kernel D wrapper (see survivor_scan_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/write_through.cu (three launches, counted
-    as one in `survivor_scan.launches`)."""
+    version. CUDA tensor: csrc/write_through.cu (one launch after one
+    memset of its scratch, counted in `survivor_scan.launches`)."""
     if not keep.is_cuda:
         return survivor_scan_plain(keep)
     n = keep.shape[0]
@@ -542,16 +546,17 @@ def survivor_scan(keep: torch.Tensor) -> torch.Tensor:
         raise ValueError("survivor_scan: expected a contiguous, 16-byte "
                          "aligned bool vector whose length is a multiple "
                          f"of 16, got {keep.dtype} {tuple(keep.shape)}")
-    lib = _wt()
     dev = keep.device
-    scratch = torch.empty(int(lib.ybt_survivor_scan_scratch_words(n)),
-                          dtype=torch.int32, device=dev)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.ybt_survivor_scan(keep.data_ptr(), n, scratch.data_ptr(),
-                               pos.data_ptr(), torch_setup.stream_ptr(dev))
+    # one allocation: pos, then the scratch's 8-byte words (4n is a
+    # multiple of 64, so they stay aligned)
+    buf = torch.empty(n + 2 * (-(-n // SURVIVOR_SCAN_TILE) + 1),
+                      dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    rc = _wt().ybt_survivor_scan(keep.data_ptr(), n, ptr + 4 * n, ptr,
+                                 torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "survivor_scan")
     survivor_scan.launches += 1
-    return pos
+    return buf[:n]
 
 
 survivor_scan.launches = 0
