@@ -22,7 +22,9 @@ Phases (any failure exits non-zero):
      its plain version at each level, its split launch == merge_splits_
      plain, the split and tile launches also timed apart; kernel B (GC +
      packing) == its plain version; decisions == the C++ oracle
-     compact_cpu_baseline. Times with CUDA events;
+     compact_cpu_baseline. Times with CUDA events; A, B (and D, G below)
+     also by torch.profiler's device time with their launches, memsets
+     and copies per call;
   4. compaction: the 4 runs written as SST files; the stock native
      CompactionJob, the port's shell path and the port's codec path over
      the same inputs must write byte-identical files. Every launch
@@ -78,7 +80,10 @@ Phases (any failure exits non-zero):
      its stages run one after the other for a time breakdown;
   7. kernels G-I (radix sort, staged concat, sorted payload, bound pack)
      at the seq-scan's shapes == their plain versions, timed beside their
-     bounds and a PyTorch call that computes the same function;
+     bounds and a PyTorch call that computes the same function; G's
+     statistics launches == their plain versions, and its plan (the
+     sorted prefix before the pad block, the 8-bit passes kept and
+     dropped per row) in the kernels line;
   8. the query pushdown over a TPC-H lineitem tablet in 4 SSTs: five
      queries each equal to a host oracle, their launch counters, stage
      breakdowns, kernels J and K == their plain versions;
@@ -215,25 +220,58 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of the kernels and memsets `fn`
-    launches (torch.profiler's CUDA activity, one warm-up call): the
-    kernels' own time, without the wrapper's host work between calls."""
+def profiled(fn, reps: int) -> list:
+    """(name, device microseconds) of every kernel, memset and copy that
+    `reps` calls of `fn` run, from torch.profiler: one call before the
+    profiler, one sacrificial call inside it (a trace's first events can
+    be lost), then the timed calls, whose device events are those that
+    start inside their record_function range."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if total <= 0:
+        with record_function("timed_calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = next(e.time_range.start for e in events if e.name == "timed_calls")
+    # the range itself also shows on the device's timeline
+    return [(e.name, e.time_range.elapsed_us()) for e in events
+            if e.device_type == DeviceType.CUDA and e.time_range.start >= t0
+            and e.name != "timed_calls"]
+
+
+def device_profile(fn, reps: int) -> dict:
+    """torch.profiler's CUDA activity over `reps` calls of `fn` (see
+    profiled): the device milliseconds per call of the kernels, memsets
+    and copies it launches (their own time, without the wrapper's host
+    work between calls), and how many of each a call launches."""
+    out = {"device_ms": 0.0, "launches_per_call": 0.0,
+           "memsets_per_call": 0.0, "copies_per_call": 0.0}
+    for name, us in profiled(fn, reps):
+        out["device_ms"] += us / reps / 1e3
+        kind = ("memsets_per_call" if name.startswith("Memset") else
+                "copies_per_call" if name.startswith("Memcpy") else
+                "launches_per_call")
+        out[kind] += 1
+    for kind in ("launches_per_call", "memsets_per_call", "copies_per_call"):
+        out[kind] /= reps
+    if out["device_ms"] <= 0:
         raise AssertionError("the profiler saw no device time")
-    return total / reps / 1e3
+    return out
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of the kernels, memsets and copies `fn`
+    launches (see device_profile)."""
+    return device_profile(fn, reps)["device_ms"]
 
 
 def max_abs_err(x, y) -> int:
@@ -381,8 +419,12 @@ def kernel_phase(args, runs, bandwidth, device="cuda"):
          "ms": b_ms, "plain_ms": b_plain, "library_ms": None,
          "bound_ms": b_bytes / bandwidth * 1e3, "bound_by": "bytes",
          "max_abs_err": b_err}
-    log(f"kernel B: equal; {b_ms:.3f} ms (plain {b_plain:.3f}, bound "
-        f"{b['bound_ms']:.3f})")
+    b.update(device_profile(lambda: merge_gc.gc_pack(
+        p_k, r, staged.w, params, staged.k_pad, staged.m), args.reps))
+    log(f"kernel B: equal; {b_ms:.3f} ms, on the device "
+        f"{b['device_ms']:.4f} ({b['launches_per_call']:g} launches and "
+        f"{b['memsets_per_call']:g} memsets a call; plain {b_plain:.3f}, "
+        f"bound {b['bound_ms']:.3f})")
 
     # decisions against the C++ heap-merge oracle on the same runs
     h = run_merge.MergeGCHandle(packed, staged)
@@ -1952,12 +1994,36 @@ def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows):
             order = order[torch.sort(key, stable=True).indices]
         return order
 
+    # the statistics launches against their plain versions, and the plan
+    # they give: the sorted prefix before the tail block of equal (pad)
+    # columns, the 8-bit passes kept and dropped per scheduled row
+    counts, tail = radix.sort_stats(cols, sched)
+    want_c, want_t = radix.sort_stats_plain(cols, sched)
+    err = max(err, check("radix_sort", counts, want_c),
+              check("radix_sort", tail, want_t))
+    plan, n_prefix, at = radix.sort_plan(counts.cpu().numpy(),
+                                         tail.cpu().numpy(), sched, n)
+    passes = {str(row): {"kept": [int(d) for r_, d in plan[:, :2]
+                                  if r_ == row]} for row in sched}
+    for v in passes.values():
+        v["dropped"] = [d for d in range(4) if d not in v["kept"]]
+    log(f"kernel G's plan: the first {n_prefix} of {n} columns sorted, the "
+        f"tail block placed at {at}; {len(plan)} of {4 * len(sched)} "
+        f"passes kept; per row {passes}")
+
+    def g():
+        return radix.radix_sort(cols, sched, len(sched))
     entry("radix_sort", "radix.cu", "yugabyte_tpu/ops/merge_gc.py:181", err,
-          cuda_ms(lambda: radix.radix_sort(cols, sched, len(sched)),
-                  args.reps),
+          cuda_ms(g, args.reps),
           cuda_ms(lambda: radix.radix_sort_plain(cols, sched, len(sched)), 2),
           (len(sched) + 1) * n * 4, cuda_ms(torch_sort_chain, 2),
-          {"n_sort": len(sched), "rows": sched})
+          dict(device_profile(g, args.reps), n_sort=len(sched), rows=sched,
+               n_prefix=n_prefix, tail_at=at, passes_kept=len(plan),
+               passes=passes))
+    log(f"kernel G on the device: {rows[-1]['device_ms']:.4f} ms, "
+        f"{rows[-1]['launches_per_call']:g} launches, "
+        f"{rows[-1]['memsets_per_call']:g} memsets and "
+        f"{rows[-1]['copies_per_call']:g} copies a call")
 
     # H: the 4 staged inputs into the concatenated matrix
     parts = [s.cols_dev for s in staged]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels A and D of the PyTorch port, timed for several checkouts in one
-run on one GPU.
+"""Kernels A, B, D and G of the PyTorch port, timed for several checkouts
+in one run on one GPU.
 
     python3 kernel_ab.py [--rows N] [--seed S] [--reps R] ROOT [ROOT ...]
 
@@ -12,13 +12,20 @@ process builds its checkout's kernels, stages the same YCSB-A tablet
 and times with CUDA events, --reps launches after a warm-up:
   - kernel A (`merge_path.merge_level`) at each tournament level, its
     output held against the first process's (the same bytes everywhere);
+  - kernel B (`merge_gc.gc_pack`) on the merged payload (the codec job's
+    shape);
   - kernel D (`run_merge.survivor_scan`) on the merge's keep bytes, beside
     `torch.nonzero` on the same bytes;
-  - for both wrappers, the host's milliseconds to enqueue one call, and
-    the device's milliseconds per call by kernel name (torch.profiler):
-    where the enqueue takes longer than the device, the events time the
-    host.
-Prints one JSON line per process and the card's name and power limit.
+  - kernel G (`radix.radix_sort`) over the tablet as one unsorted matrix
+    (`stage_slab(concat_slabs(runs))`, the seq-scan's pruned schedule);
+  - for every wrapper, the host's milliseconds to enqueue one call, and
+    the device's milliseconds and launches per call by kernel name
+    (torch.profiler): where the enqueue takes longer than the device, the
+    events time the host.
+The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
+D's positions, G's perm) go into one sha256 that must match across the
+checkouts. Prints one JSON line per process and the card's name and
+power limit.
 Imports nothing of JAX.
 """
 
@@ -46,30 +53,56 @@ def host_ms(fn, reps: int) -> float:
     return t / reps * 1e3
 
 
-def device_ms(fn, reps: int) -> dict:
+def device_ms(fn, reps: int, launches: bool = False) -> dict:
     """Device milliseconds per call by kernel (and memset) name, from
-    torch.profiler's CUDA activity. Kept here, not taken from the root's
-    chip_smoke: an older checkout's chip_smoke has no such helper."""
+    torch.profiler's CUDA activity: one call before the profiler, one
+    sacrificial call inside it (a trace's first events can be lost), then
+    `reps` timed calls, whose device events are those that start inside
+    their record_function range; with `launches`, {name: [ms, launches
+    per call]}. Kept here, not taken from the root's chip_smoke: an older
+    checkout's chip_smoke has no such helper."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+        with record_function("timed_calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = next(e.time_range.start for e in events if e.name == "timed_calls")
+    out = {}
+    for e in events:
+        # the range itself also shows on the device's timeline
+        if e.device_type == DeviceType.CUDA and e.time_range.start >= t0 \
+                and e.name != "timed_calls":
+            ms, n = out.get(e.name[:80], (0.0, 0))
+            out[e.name[:80]] = (ms + e.time_range.elapsed_us() / reps / 1e3,
+                                n + 1)
+    return {k: [ms, n / reps] if launches else ms
+            for k, (ms, n) in out.items()}
+
+
+def timed(fn, reps: int) -> dict:
+    """Events, enqueue and profiler times of one wrapper call."""
+    import chip_smoke as cs
+    dev = device_ms(fn, reps, launches=True)
+    return {"ms": cs.cuda_ms(fn, reps), "host_ms": host_ms(fn, reps),
+            "device_ms": sum(v[0] for v in dev.values()),
+            "device": dev}
 
 
 def child(root: str, rows: int, seed: int, reps: int) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import chip_smoke as cs
-    from yugabyte_tpu_torch.ops import merge_gc, merge_path, run_merge
+    from yugabyte_tpu_torch.ops import merge_gc, merge_path, radix, run_merge
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
@@ -92,19 +125,38 @@ def child(root: str, rows: int, seed: int, reps: int) -> dict:
         length *= 2
     r = merge_gc._ROW_WORDS + st.w
     params = merge_gc.GCParams(cs.history_cutoff(rows), True)
-    _packed, keep, _mk = merge_gc.gc_pack(p, r, st.w, params, st.k_pad,
-                                          st.m)
+
+    def gc():
+        return merge_gc.gc_pack(p, r, st.w, params, st.k_pad, st.m)
+    packed, keep, mk = gc()
+    for x in (packed, keep, mk):
+        digest.update(x.cpu().numpy().tobytes())
+    gc_entry = timed(gc, reps)
     pos = run_merge.survivor_scan(keep)
     digest.update(pos.cpu().numpy().tobytes())
 
     def scan():
         return run_merge.survivor_scan(keep)
-    return {"root": root, "rp": int(p.shape[0]), "n": int(p.shape[1]),
-            "levels": levels, "survivor_scan_ms": cs.cuda_ms(scan, reps),
-            "survivor_scan_host_ms": host_ms(scan, reps),
-            "survivor_scan_device_ms": device_ms(scan, reps),
-            "nonzero_ms": cs.cuda_ms(lambda: torch.nonzero(keep), reps),
-            "kept": int(keep.sum()), "sha256": digest.hexdigest()}
+    out = {"root": root, "rp": int(p.shape[0]), "n": int(p.shape[1]),
+           "levels": levels, "gc_pack": gc_entry,
+           "survivor_scan_ms": cs.cuda_ms(scan, reps),
+           "survivor_scan_host_ms": host_ms(scan, reps),
+           "survivor_scan_device_ms": device_ms(scan, reps),
+           "nonzero_ms": cs.cuda_ms(lambda: torch.nonzero(keep), reps),
+           "kept": int(keep.sum())}
+    del p, packed, keep, mk, pos, st
+    torch.cuda.empty_cache()
+
+    cat = merge_gc.stage_slab(concat_slabs(runs), "cuda")
+    sched = [int(x) for x in cat.sort_rows[:cat.n_sort]]
+
+    def sort():
+        return radix.radix_sort(cat.cols_dev, sched, len(sched))
+    digest.update(sort().cpu().numpy().tobytes())
+    out["radix_sort"] = dict(timed(sort, reps), rows=sched,
+                             n=int(cat.cols_dev.shape[1]))
+    out["sha256"] = digest.hexdigest()
+    return out
 
 
 def main() -> int:

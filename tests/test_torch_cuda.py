@@ -1153,3 +1153,249 @@ def test_pooled_wave_on_the_card_equals_sequential(cuda):
     a = handle.gather_span(2, 0, n_out)
     b = run_merge.gather_staged_output_span(seq[2], pos, 0, n_out)
     assert torch.equal(a.cols_dev, b.cols_dev)
+
+
+# ------------------ kernel G's onesweep passes and kernel B's tiles at edges
+
+
+def _u32_rows(rng, rows, n, high):
+    """u32 [rows, n]: row r uniform below high[r] (0: constant 0x9E3779B9,
+    None: any u32)."""
+    out = np.empty((rows, n), dtype=np.uint32)
+    for r in range(rows):
+        h = high.get(r)
+        out[r] = (np.uint32(0x9E3779B9) if h == 0 else rng.integers(
+            0, h or (1 << 32), size=n, dtype=np.uint64).astype(np.uint32))
+    return out
+
+
+def _radix_on_card(cuda, cols, rows):
+    """Kernel G over cols u32 [R, n] == radix_sort_plain, its statistics
+    launches == their plain versions, one counted call; returns (perm,
+    the plan, the sorted prefix's length, where the tail block lands)."""
+    from yugabyte_tpu_torch.ops import radix
+    x = torch.from_numpy(cols.view(np.int32)).to(cuda)
+    counts, tail = radix.sort_stats(x, rows)
+    want_c, want_t = radix.sort_stats_plain(x.cpu(), rows)
+    assert torch.equal(counts.cpu(), want_c)
+    assert torch.equal(tail.cpu(), want_t)
+    before = radix.radix_sort.launches
+    got = radix.radix_sort(x, rows, len(rows))
+    assert radix.radix_sort.launches == before + 1
+    assert torch.equal(got, radix.radix_sort_plain(x, rows, len(rows)))
+    plan, n_prefix, at = radix.sort_plan(counts.cpu().numpy(),
+                                         tail.cpu().numpy(), rows, x.shape[1])
+    return got, plan, n_prefix, at
+
+
+@pytest.mark.parametrize("case,n", [("below one tile", 1000),
+                                    ("ragged last tile", 3 * 4096 + 77),
+                                    ("2^22", 1 << 22)])
+def test_radix_passes_at_tile_edges(cuda, case, n):
+    rng = np.random.default_rng(n)
+    cols = _u32_rows(rng, 13, n, {0: 64, 12: None, 11: 1 << 20, 3: None})
+    _perm, plan, _np, _at = _radix_on_card(cuda, cols, [3, 0, 12, 11])
+    assert len(plan) >= 6
+
+
+def test_radix_all_keys_equal_is_the_iota(cuda):
+    cols = _u32_rows(np.random.default_rng(5), 13, 9000,
+                     {r: 0 for r in range(13)})
+    perm, plan, n_prefix, _at = _radix_on_card(cuda, cols,
+                                               [4, 3, 2, 0, 12, 11, 10, 9])
+    assert len(plan) == 0 and n_prefix == 0
+    assert torch.equal(perm.cpu(), torch.arange(9000, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kept", [1, 2, 3, 4, 5])
+def test_radix_odd_and_even_kept_passes(cuda, kept):
+    """Rows below 2^8 keep one pass each, a full row four: 1-5 kept passes
+    end in perm whichever buffer the parity starts in."""
+    rng = np.random.default_rng(kept)
+    high = {r: 0 for r in range(13)}
+    sched = [0, 9, 10, 11, 12][:kept] if kept < 5 else [0, 12]
+    for r in sched:
+        high[r] = 1 << 8
+    if kept == 5:
+        high[12] = None
+    cols = _u32_rows(rng, 13, 20000, high)
+    _perm, plan, _np, _at = _radix_on_card(cuda, cols, sched)
+    assert len(plan) == kept
+
+
+@pytest.mark.parametrize("where", ["pads", "first", "middle", "last"])
+def test_radix_tail_block(cuda, where):
+    """The last 40% of the columns are one repeated column: pads (all-ones
+    words and lengths, as pack_cols writes them), or a copy of the
+    prefix's smallest, median or largest key. Only the prefix is sorted and
+    the block lands after its ties, by the last pass."""
+    rng = np.random.default_rng(77)
+    n, rows = 1 << 20, [3, 2, 0, 12, 11, 10, 9]
+    cols = _u32_rows(rng, 13, n, {0: 40, 2: 12, 3: None, 9: 1 << 16,
+                                  10: None, 11: None, 12: None})
+    t = 4 * n // 10
+    if where == "pads":
+        cols[:, n - t:] = merge_gc.pad_template(13)[:, None]
+    else:
+        keys = np.lexsort(tuple(
+            cols[r] ^ np.uint32(0xFFFFFFFF if 2 <= r <= 4 else 0)
+            for r in rows))
+        src = {"first": keys[0], "middle": keys[n // 3],
+               "last": keys[-1]}[where]
+        cols[:, n - t:] = cols[:, src][:, None]
+    perm, _plan, n_prefix, at = _radix_on_card(cuda, cols, rows)
+    assert n_prefix == n - t
+    assert torch.equal(perm[at:at + t].cpu(),
+                       torch.arange(n - t, n, dtype=torch.int32))
+
+
+def test_radix_many_duplicates_stay_stable(cuda):
+    rng = np.random.default_rng(11)
+    cols = _u32_rows(rng, 13, 50000, {r: 3 for r in range(13)})
+    cols[9] |= rng.integers(0, 2, size=50000).astype(np.uint32) << 24
+    _radix_on_card(cuda, cols, [4, 3, 2, 0, 12, 11, 10, 9])
+
+
+def test_radix_inverted_ht_and_wid_rows(cuda):
+    rng = np.random.default_rng(12)
+    cols = _u32_rows(rng, 13, 30000, {2: None, 3: None, 4: 3, 0: 40})
+    cols[2][rng.random(30000) < 0.4] |= np.uint32(0x80000000)
+    cols[2][:500] = 0  # complemented to all-ones, as pad rows
+    _radix_on_card(cuda, cols, [4, 3, 2, 0])
+
+
+def test_radix_sixteen_row_schedule(cuda):
+    rng = np.random.default_rng(16)
+    w = 12
+    cols = _u32_rows(rng, 8 + w, 40000, {r: 5 for r in range(8 + w)})
+    cols[2] = rng.integers(0, 1 << 32, size=40000, dtype=np.uint64
+                           ).astype(np.uint32)
+    rows = merge_gc.full_sort_sequence(w)
+    assert len(rows) == 16
+    _radix_on_card(cuda, cols, rows)
+
+
+def _gc_payload(rng, n, w=2, n_docs=50, n_cols=6, tomb=0.1, ttl=0.0,
+                cutoff=1 << 40, k_pad=1, m=None):
+    """A merged payload u32 [8 + w + 1, n] in internal-key order: doc
+    (word 0, dkl 4), column (word 1; 0 is the root write, key_len 4),
+    ht descending, write id descending; TTLs around the cutoff (expiry
+    at, one below and one above cutoff's physical time); last row a perm
+    below k_pad * m."""
+    doc = rng.integers(0, n_docs, n)
+    col = rng.integers(0, n_cols + 1, n)
+    ht = rng.integers(1 << 30, 1 << 41, n).astype(np.uint64)
+    wid = rng.integers(0, 4, n)
+    order = np.lexsort((-wid, -ht.astype(np.int64), col, doc))
+    doc, col, ht, wid = doc[order], col[order], ht[order], wid[order]
+    p = np.zeros((8 + w + 1, n), dtype=np.uint32)
+    p[0] = np.where(col == 0, 4, 8)
+    p[1] = 4
+    p[2] = ht >> np.uint64(32)
+    p[3] = ht & np.uint64(0xFFFFFFFF)
+    p[4] = wid
+    flags = np.where(rng.random(n) < tomb, FLAG_TOMBSTONE, 0)
+    has = rng.random(n) < ttl
+    flags[has] |= FLAG_HAS_TTL
+    p[5] = flags
+    phys = (ht >> np.uint64(12)).astype(np.int64)
+    ttl_us = (cutoff >> 12) - phys + rng.integers(-1, 2, n)
+    ttl_us = np.where(has & (ttl_us > 0), ttl_us,
+                      rng.integers(1, 1 << 30, n))
+    p[6] = (ttl_us >> 20).astype(np.uint32)
+    p[7] = (ttl_us & 0xFFFFF).astype(np.uint32)
+    p[8] = doc
+    p[9] = col
+    p[8 + w] = rng.integers(0, k_pad * (m or n), n)
+    return p
+
+
+def _gc_on_card(cuda, p, w, params, k_pad=1, m=None, snapshot=False,
+                perm=None):
+    """Kernel B == gc_pack_plain on the same payload (packed, keep, mk),
+    one counted call; returns the kernel's outputs."""
+    n = p.shape[1]
+    x = torch.from_numpy(p.view(np.int32)).to(cuda)
+    r = 8 + w
+    pt = None if perm is None else torch.from_numpy(
+        perm.view(np.int32)).to(cuda)
+    before = merge_gc.gc_pack.launches
+    got = merge_gc.gc_pack(x[:r] if pt is not None else x, r, w, params,
+                           k_pad, m or n, snapshot, pt)
+    assert merge_gc.gc_pack.launches == before + 1
+    want = merge_gc.gc_pack_plain(x, r, w, params, k_pad, m or n, snapshot,
+                                  pt)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape and torch.equal(g, w_)
+    return got
+
+
+def test_gc_pack_segments_across_tiles(cuda):
+    """One full key with 9000 versions (more than 4 tiles of 2048) and one
+    document across every tile: both look-backs chain through tiles that
+    publish only aggregates."""
+    rng = np.random.default_rng(21)
+    n, w = 1 << 15, 2
+    p = _gc_payload(rng, n, w, n_docs=1, n_cols=40)
+    p[9, 1000:10000] = 7        # one column key, 9000 versions
+    p[0, 1000:10000] = 8
+    ht = np.sort(rng.integers(1 << 30, 1 << 41, 9000))[::-1].astype(np.uint64)
+    p[2, 1000:10000] = ht >> np.uint64(32)
+    p[3, 1000:10000] = ht & np.uint64(0xFFFFFFFF)
+    p[0, 500] = 4               # a root write early in the only document
+    p[9, 500] = 0
+    for cutoff in (int(ht[4500]), int(ht[100]), 1 << 42):
+        for is_major in (True, False):
+            _gc_on_card(cuda, p, w, merge_gc.GCParams(cutoff, is_major))
+
+
+def test_gc_pack_thirty_two_positions(cuda):
+    rng = np.random.default_rng(32)
+    p = _gc_payload(rng, 32, n_docs=3)
+    _gc_on_card(cuda, p, 2, merge_gc.GCParams(1 << 40, True))
+    _gc_on_card(cuda, p, 2, merge_gc.GCParams(1 << 40, False), snapshot=True)
+
+
+@pytest.mark.parametrize("is_major", [True, False])
+def test_gc_pack_ttl_expiry_at_the_cutoff_limbs(cuda, is_major):
+    rng = np.random.default_rng(41)
+    cutoff = ((1 << 28) + 12345) << 12
+    p = _gc_payload(rng, 40960, ttl=0.6, cutoff=cutoff)
+    got = _gc_on_card(cuda, p, 2, merge_gc.GCParams(cutoff, is_major))
+    assert 0 < int(got[2].sum()) or is_major
+
+
+@pytest.mark.parametrize("snapshot,retain,perm_apart", [
+    (True, False, False), (False, True, False), (False, False, True),
+    (True, False, True)])
+def test_gc_pack_modes(cuda, snapshot, retain, perm_apart):
+    rng = np.random.default_rng(51)
+    p = _gc_payload(rng, 20480, tomb=0.3, ttl=0.2, cutoff=1 << 40)
+    params = merge_gc.GCParams(1 << 40, True, retain)
+    perm = np.ascontiguousarray(p[-1]) if perm_apart else None
+    _gc_on_card(cuda, p, 2, params, snapshot=snapshot, perm=perm)
+
+
+@pytest.mark.parametrize("k_pad,b", [(8, 3), (64, 6), (1 << 10, 10)])
+def test_gc_pack_source_planes(cuda, k_pad, b):
+    rng = np.random.default_rng(k_pad)
+    m = 4096
+    p = _gc_payload(rng, 8192, k_pad=k_pad, m=m)
+    assert merge_gc.n_src_planes(k_pad) == b
+    packed, _k, _m = _gc_on_card(cuda, p, 2, merge_gc.GCParams(1 << 40, True),
+                                 k_pad, m)
+    assert packed.shape == (8192 // 32, 2 + b)
+
+
+def test_gc_pack_repeated_calls_same_bytes(cuda):
+    """50 calls give the same bytes: the tickets and status words are reset
+    by each call's memset."""
+    rng = np.random.default_rng(50)
+    p = _gc_payload(rng, 1 << 16, tomb=0.2, ttl=0.1, cutoff=1 << 40)
+    first = _gc_on_card(cuda, p, 2, merge_gc.GCParams(1 << 40, True))
+    x = torch.from_numpy(p.view(np.int32)).to(cuda)
+    for _ in range(50):
+        again = merge_gc.gc_pack(x, 10, 2, merge_gc.GCParams(1 << 40, True),
+                                 1, 1 << 16)
+        for g, f in zip(again, first):
+            assert torch.equal(g, f)

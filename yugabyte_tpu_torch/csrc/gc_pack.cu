@@ -12,30 +12,51 @@
 // bits, cols 2.. bit t of perm >> log2(m)), little-endian within a word as
 // pack_bits_u32, plus keep/make-tombstone as one byte per position.
 //
-// Two quantities are segmented scans whose segments span blocks:
+// Two quantities are segmented scans whose segments span tiles:
 //   scan 1: "a version <= cutoff was seen earlier in this full-key
-//            segment" (merge_gc.py:132-138) -> visible_slot;
-//   scan 2: the root-overwrite (ht, write_id) of the last visible root
-//            write in this document segment (merge_gc.py:152-168).
-// Scan 2 needs scan 1's result, so the kernel runs in five launches:
-//   gc_mark     per position: segment starts, cutoff test, TTL expiry (two
-//               32/20-bit limbs, no int64), flag bits -> one byte; per-block
-//               aggregate of scan 1
-//   scan_carry  one CTA scans the block aggregates -> carry into each block
-//   gc_visible  applies scan 1 -> visible; per-block aggregate of scan 2
-//   scan_carry  the same for scan 2
-//   gc_final    applies scan 2 -> covered; keep / make-tombstone / pad mask;
-//               packs 32 consecutive positions per warp with __ballot_sync
+//            segment" (merge_gc.py:132-138) -> visible;
+//   scan 2: the last visible root write in this document segment
+//            (merge_gc.py:152-168), carried as its position.
+// Scan 2 needs scan 1's result. One launch after one memset (tile status
+// words and the ticket), single pass:
+//   - each CTA (256 threads) takes a tile of 2048 positions from a global
+//     atomic ticket, so every tile it looks back on is held by a running
+//     CTA. Warp w owns 256 consecutive positions, lane l the 4 at
+//     w*256 + v*128 + 4l (v = 0, 1): every row is read as 16-byte vectors,
+//     a warp's load covering 512 contiguous bytes;
+//   - the neighbour at i-1 of each row comes from __shfl_up_sync (and lane
+//     31 of the previous vector); only a warp's first position reads it
+//     from global memory (lane 0, one word a row; the neighbouring warp's
+//     line, mostly an L1/L2 hit). same_key and same_doc accumulate row by
+//     row as a bit per position; the flags and ht_hi, ht_lo, write_id of
+//     each position stay in registers, nothing goes back to scratch;
+//   - TTL rows are read only where FLAG_HAS_TTL is set in a vector;
+//   - scan 1 (2 bits) and then scan 2 (2 bits and a 32-bit position) run as
+//     warp-shuffle scans, one pass over the 8 warp totals, and a decoupled
+//     look-back across tiles on flag-tagged 64-bit status words (2-bit
+//     flag, the payload in the same word, so relaxed loads and stores
+//     suffice). Warp 0 looks back 32 tiles at a time. Scan 2 starts once
+//     the tile's scan-1 prefix is known. A root write's (ht, write_id)
+//     is read back by position: the carried one once a tile, a root write
+//     inside the tile only where a covered check needs it;
+//   - keep and make-tombstone leave as 4-byte stores of 4 bytes; the packed
+//     words are built by OR-reducing each lane's 4-bit nibble across the 8
+//     lanes of a 32-position group (shfl_xor), the source-run planes from
+//     perm >> log2(m) loaded as 16-byte vectors.
 // Every position's decision matches the JAX function bit for bit: both
 // scans are associative "reset at segment start" combines, evaluated
-// sequentially inside a thread, by a shared-memory scan across the CTA and
-// by the carry across CTAs.
+// sequentially inside a thread, by shuffles across the warp and the CTA,
+// and by the look-back across tiles. Look-back cannot deadlock: a tile
+// waits only on tiles with earlier tickets.
 //
 // Bound on an H100: memory. The function must read the 8+w payload rows it
 // uses and the perm row once and write the packed words and two bytes per
-// position; the extra traffic of this design is the flag byte written once
-// and read twice, plus the ht/write_id rows re-read only where a root
-// overwrite is in play.
+// position; this design reads each once (the TTL rows only where a vector
+// holds a TTL) plus one word a warp a row and the covered checks'
+// (ht, write_id). Registers are capped at 80 (3 CTAs an SM, a few spilled):
+// measured faster than 114 registers and 2 CTAs, and than 1 or 4 vectors
+// a thread. Left: each CTA's chain of dependent steps (ticket, loads, two
+// look-backs) at 8,192 tiles for 2^24 positions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,30 +69,35 @@ constexpr int kRowKeyLen = 0, kRowDkl = 1, kRowHtHi = 2, kRowHtLo = 3,
 constexpr uint32_t kFlagTombstone = 1, kFlagHasTtl = 4;
 constexpr uint32_t kPadSentinel = 0xFFFFFFFFu;
 
-// per-position flag byte
-constexpr uint8_t kC = 1, kNewSeg = 2, kNewDoc = 4, kRoot = 8, kExpired = 16,
-                  kTomb = 32, kPad = 64, kVisible = 128;
+// per-position flag bits
+constexpr uint32_t kC = 1, kNewSeg = 2, kNewDoc = 4, kRoot = 8,
+                   kExpired = 16, kTomb = 32, kPad = 64, kVisible = 128;
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kChunk = kThreads * kItems;  // positions per CTA
-constexpr int kScanThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 2;                   // 16-byte vectors a thread a row
+constexpr int kWarpPos = kVec * 128;      // positions per warp
+constexpr int kTile = kWarps * kWarpPos;  // positions per CTA
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-struct Agg1 {  // scan 1: (segment start seen, any c since the last start)
-  uint32_t r, v;
-  __device__ static Agg1 identity() { return {0u, 0u}; }
-  __device__ static Agg1 combine(const Agg1& a, const Agg1& b) {
-    return {a.r | b.r, b.r ? b.v : (a.v | b.v)};
+// status words: flag in bits 62-63, the scan's payload below
+constexpr uint64_t kStAgg = 1ull << 62, kStPrefix = 2ull << 62,
+                   kStFlags = 3ull << 62;
+
+// scan 1: bit 1 a segment start seen, bit 0 a version <= cutoff seen since
+// the last start
+struct Scan1 {
+  __device__ static uint64_t combine(uint64_t a, uint64_t b) {
+    return (b & 2u) ? b : (a | b);
   }
 };
 
-struct Agg2 {  // scan 2: last valid (ht_hi, ht_lo, wid) since a doc start
-  uint32_t r, v, hi, lo, wid;
-  __device__ static Agg2 identity() { return {0u, 0u, 0u, 0u, 0u}; }
-  __device__ static Agg2 combine(const Agg2& a, const Agg2& b) {
-    if (b.v) return {a.r | b.r, 1u, b.hi, b.lo, b.wid};
-    if (b.r) return {1u, 0u, 0u, 0u, 0u};
-    return a;
+// scan 2: bit 33 a document start seen, bit 32 a visible root write seen
+// since the last start, bits 0-31 its position (0 when bit 32 is clear)
+constexpr uint64_t kR2 = 1ull << 33, kV2 = 1ull << 32;
+struct Scan2 {
+  __device__ static uint64_t combine(uint64_t a, uint64_t b) {
+    return b ? (b | (a & kR2)) : a;
   }
 };
 
@@ -83,33 +109,30 @@ struct Args {
   uint32_t cut_hi, cut_lo, cphys_hi, cphys_lo;
   int is_major, retain_deletes, snapshot;
   int log2m, b;
-  uint8_t* bits;  // [n]
-  Agg1* agg1;     // [nb]
-  Agg1* carry1;   // [nb]
-  Agg2* agg2;     // [nb]
-  Agg2* carry2;   // [nb]
-  uint32_t* packed;  // [n/32, 2+b]
-  uint8_t* keep;     // [n]
-  uint8_t* mk;       // [n]
+  uint64_t* status1;  // [tiles], zeroed
+  uint64_t* status2;  // [tiles], zeroed
+  unsigned* ticket;   // zeroed
+  uint32_t* packed;   // [n/32, 2+b]
+  uint8_t* keep;      // [n]
+  uint8_t* mk;        // [n]
 };
 
-// Exclusive scan of one value per thread across the CTA (Hillis-Steele in
-// shared memory). `total` receives the combine of all values.
-template <class A>
-__device__ A block_exclusive_scan(A v, A* sh, A& total) {
-  const int t = threadIdx.x;
-  sh[t] = v;
-  __syncthreads();
-  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
-    A x = t >= off ? sh[t - off] : A::identity();
-    __syncthreads();
-    if (t >= off) sh[t] = A::combine(x, sh[t]);
-    __syncthreads();
-  }
-  A excl = t > 0 ? sh[t - 1] : A::identity();
-  total = sh[blockDim.x - 1];
-  __syncthreads();
-  return excl;
+__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t comp(const uint4& x, int k) {
+  return k == 0 ? x.x : (k == 1 ? x.y : (k == 2 ? x.z : x.w));
 }
 
 __device__ __forceinline__ uint32_t doc_mask(int dkl, int j) {
@@ -118,228 +141,388 @@ __device__ __forceinline__ uint32_t doc_mask(int dkl, int j) {
   return nb >= 4 ? 0xFFFFFFFFu : (nb == 0 ? 0u : (0xFFFFFFFFu << ((4 - nb) * 8)));
 }
 
-__device__ __forceinline__ uint32_t row(const Args& a, int r, int64_t i) {
-  return a.s[(int64_t)r * a.n + i];
+template <class Op>
+__device__ __forceinline__ uint64_t warp_inclusive(uint64_t x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint64_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x = Op::combine(y, x);
+  }
+  return x;
 }
 
-__global__ void gc_mark(Args a) {
-  __shared__ Agg1 sh[kThreads];
-  const int64_t base = (int64_t)blockIdx.x * kChunk + threadIdx.x * kItems;
-  Agg1 acc = Agg1::identity();
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    if (i >= a.n) break;
-    const int len = (int)row(a, kRowKeyLen, i);
-    const int dkl = (int)row(a, kRowDkl, i);
-    const uint32_t hi = row(a, kRowHtHi, i), lo = row(a, kRowHtLo, i);
-    const uint32_t fl = row(a, kRowFlags, i);
-    bool new_seg = true, new_doc = true;
-    if (i > 0) {
-      const int plen = (int)row(a, kRowKeyLen, i - 1);
-      const int pdkl = (int)row(a, kRowDkl, i - 1);
-      bool same_key = len == plen, same_doc = dkl == pdkl;
-      for (int j = 0; j < a.w; ++j) {
-        const uint32_t x = row(a, kRowWords + j, i);
-        const uint32_t px = row(a, kRowWords + j, i - 1);
-        same_key = same_key && x == px;
-        same_doc = same_doc && (x & doc_mask(dkl, j)) == (px & doc_mask(pdkl, j));
+// Publishes the tile's aggregate, looks back over earlier tiles 32 at a
+// time until an inclusive prefix, publishes the tile's own; returns the
+// exclusive prefix. Called by every lane of one warp.
+template <class Op>
+__device__ uint64_t look_back(uint64_t* status, int64_t tile, uint64_t agg) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0)
+    st_relaxed(status + tile, (tile == 0 ? kStPrefix : kStAgg) | agg);
+  if (tile == 0) return 0;
+  uint64_t excl = 0;
+  int64_t pred = tile - 1 - lane;
+  while (true) {
+    uint64_t s;
+    do {
+      s = pred >= 0 ? ld_relaxed(status + pred) : kStPrefix;
+    } while (__any_sync(kFull, (s & kStFlags) == 0));
+    const unsigned pm = __ballot_sync(kFull, (s & kStFlags) == kStPrefix);
+    uint64_t x = s & ~kStFlags;
+    if (pm && lane > __ffs(pm) - 1) x = 0;
+    // lane 0 <- lanes 31..0 combined in position order (lane 31 earliest)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint64_t y = __shfl_down_sync(kFull, x, o);
+      if (lane + o < 32) x = Op::combine(y, x);
+    }
+    excl = Op::combine(__shfl_sync(kFull, x, 0), excl);
+    if (pm) break;
+    pred -= 32;
+  }
+  if (lane == 0) st_relaxed(status + tile, kStPrefix | Op::combine(excl, agg));
+  return excl;
+}
+
+// The thread's vectors of row r (zeros past n) and, for lane 0, the value
+// at the warp's first position - 1 (0 at position 0).
+__device__ __forceinline__ void load_row(const Args& a, int r,
+                                         const int64_t (&pv)[kVec], int64_t p0,
+                                         uint4 (&x)[kVec], uint32_t& edge) {
+  const uint32_t* row = a.s + (int64_t)r * a.n;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v)
+    x[v] = pv[v] < a.n ? __ldcs(reinterpret_cast<const uint4*>(row + pv[v]))
+                       : make_uint4(0, 0, 0, 0);
+  edge = ((threadIdx.x & 31) == 0 && p0 > 0 && p0 <= a.n) ? row[p0 - 1] : 0u;
+}
+
+// The same positions' values at i - 1.
+__device__ __forceinline__ void prev_vals(const uint4 (&x)[kVec], uint32_t edge,
+                                          uint4 (&px)[kVec]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const uint32_t up = __shfl_up_sync(kFull, x[v].w, 1);
+    const uint32_t wrap =
+        v > 0 ? __shfl_sync(kFull, x[v > 0 ? v - 1 : 0].w, 31) : edge;
+    px[v] = make_uint4(lane > 0 ? up : wrap, x[v].x, x[v].y, x[v].z);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3) gc_pack_kernel(Args a) {
+  __shared__ uint64_t sh_w[kWarps];
+  __shared__ uint64_t sh_excl;
+  __shared__ uint32_t sh_ov[3];
+  __shared__ int sh_tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) sh_tile = (int)atomicAdd(a.ticket, 1u);
+  __syncthreads();
+  const int64_t tile = sh_tile;
+  const int64_t tbase = tile * kTile;
+  const int64_t p0 = tbase + (int64_t)warp * kWarpPos;
+  int64_t pv[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) pv[v] = p0 + v * 128 + 4 * lane;
+
+  // ---- rows 0-5: per-position bits; then the key words -------------------
+  uint4 dkl[kVec], hi[kVec], lo[kVec], wid[kVec];
+  uint32_t same_key = 0, same_doc = 0;  // bit 4v + k
+  uint32_t m_c = 0, m_root = 0, m_exp = 0, m_tomb = 0, m_pad = 0;
+  {
+    uint4 len[kVec], fl[kVec], pl[kVec], pd[kVec];
+    uint32_t e_len, e_dkl, unused;
+    load_row(a, kRowKeyLen, pv, p0, len, e_len);
+    load_row(a, kRowDkl, pv, p0, dkl, e_dkl);
+    load_row(a, kRowHtHi, pv, p0, hi, unused);
+    load_row(a, kRowHtLo, pv, p0, lo, unused);
+    load_row(a, kRowWid, pv, p0, wid, unused);
+    load_row(a, kRowFlags, pv, p0, fl, unused);
+    prev_vals(len, e_len, pl);
+    prev_vals(dkl, e_dkl, pd);
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      uint4 th = make_uint4(0, 0, 0, 0), tl = th;
+      if ((fl[v].x | fl[v].y | fl[v].z | fl[v].w) & kFlagHasTtl) {
+        th = __ldcs(reinterpret_cast<const uint4*>(a.s + kRowTtlHi * a.n + pv[v]));
+        tl = __ldcs(reinterpret_cast<const uint4*>(a.s + kRowTtlLo * a.n + pv[v]));
       }
-      new_seg = !same_key;
-      new_doc = !same_doc;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t bit = 1u << (4 * v + k);
+        const uint32_t h = comp(hi[v], k), l = comp(lo[v], k);
+        const uint32_t flg = comp(fl[v], k);
+        const uint32_t ln = comp(len[v], k), dk = comp(dkl[v], k);
+        if (ln == comp(pl[v], k)) same_key |= bit;
+        if (dk == comp(pd[v], k)) same_doc |= bit;
+        if (h < a.cut_hi || (h == a.cut_hi && l <= a.cut_lo)) m_c |= bit;
+        if (ln == dk) m_root |= bit;
+        if (ln == kPadSentinel) m_pad |= bit;
+        if (flg & kFlagTombstone) m_tomb |= bit;
+        if (flg & kFlagHasTtl) {
+          uint32_t sum_lo = (l >> 12) + comp(tl, k);
+          const uint32_t carry = sum_lo >> 20;
+          const uint32_t sum_hi = h + comp(th, k) + carry;
+          sum_lo &= 0xFFFFFu;
+          if (sum_hi < a.cphys_hi ||
+              (sum_hi == a.cphys_hi && sum_lo <= a.cphys_lo))
+            m_exp |= bit;
+        }
+      }
     }
-    const bool c = hi < a.cut_hi || (hi == a.cut_hi && lo <= a.cut_lo);
-    bool expired = false;
-    if (fl & kFlagHasTtl) {
-      uint32_t sum_lo = (lo >> 12) + row(a, kRowTtlLo, i);
-      const uint32_t carry = sum_lo >> 20;
-      const uint32_t sum_hi = hi + row(a, kRowTtlHi, i) + carry;
-      sum_lo &= 0xFFFFFu;
-      expired = sum_hi < a.cphys_hi || (sum_hi == a.cphys_hi && sum_lo <= a.cphys_lo);
-    }
-    uint8_t f = 0;
-    f |= c ? kC : 0;
-    f |= new_seg ? kNewSeg : 0;
-    f |= new_doc ? kNewDoc : 0;
-    f |= len == dkl ? kRoot : 0;
-    f |= expired ? kExpired : 0;
-    f |= (fl & kFlagTombstone) ? kTomb : 0;
-    f |= (uint32_t)len == kPadSentinel ? kPad : 0;
-    a.bits[i] = f;
-    acc = Agg1::combine(acc, Agg1{new_seg ? 1u : 0u, c ? 1u : 0u});
   }
-  Agg1 total;
-  block_exclusive_scan(acc, sh, total);
-  if (threadIdx.x == 0) a.agg1[blockIdx.x] = total;
-}
+  {
+    // two rows in flight ahead of the one compared
+    uint4 x[kVec], x1[kVec], x2[kVec];
+    uint32_t ex = 0, ex1 = 0, ex2 = 0;
+    if (a.w > 0) load_row(a, kRowWords, pv, p0, x, ex);
+    if (a.w > 1) load_row(a, kRowWords + 1, pv, p0, x1, ex1);
+    for (int j = 0; j < a.w; ++j) {
+      if (j + 2 < a.w) load_row(a, kRowWords + j + 2, pv, p0, x2, ex2);
+      uint4 px[kVec];
+      prev_vals(x, ex, px);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t diff = comp(x[v], k) ^ comp(px[v], k);
+          const uint32_t bit = 1u << (4 * v + k);
+          if (diff) same_key &= ~bit;
+          if (diff & doc_mask((int)comp(dkl[v], k), j)) same_doc &= ~bit;
+        }
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        x[v] = x1[v];
+        x1[v] = x2[v];
+      }
+      ex = ex1;
+      ex1 = ex2;
+    }
+  }
+  if (p0 == 0 && lane == 0) {  // position 0 starts both
+    same_key &= ~1u;
+    same_doc &= ~1u;
+  }
+  uint32_t f[kVec];  // byte k: flags of position 4v + k
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    f[v] = 0;
+    if (pv[v] < a.n) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t bit = 1u << (4 * v + k);
+        uint32_t b = 0;
+        b |= (m_c & bit) ? kC : 0u;
+        b |= (same_key & bit) ? 0u : kNewSeg;
+        b |= (same_doc & bit) ? 0u : kNewDoc;
+        b |= (m_root & bit) ? kRoot : 0u;
+        b |= (m_exp & bit) ? kExpired : 0u;
+        b |= (m_tomb & bit) ? kTomb : 0u;
+        b |= (m_pad & bit) ? kPad : 0u;
+        f[v] |= b << (8 * k);
+      }
+    }
+  }
 
-template <class A>
-__global__ void scan_carry(const A* agg, A* carry, int64_t nb) {
-  __shared__ A sh[kScanThreads];
-  const int64_t per = (nb + kScanThreads - 1) / kScanThreads;
-  const int64_t s0 = threadIdx.x * per;
-  const int64_t s1 = s0 + per < nb ? s0 + per : nb;
-  A acc = A::identity();
-  for (int64_t i = s0; i < s1; ++i) acc = A::combine(acc, agg[i]);
-  A total;
-  A run = block_exclusive_scan(acc, sh, total);
-  for (int64_t i = s0; i < s1; ++i) {
-    carry[i] = run;
-    run = A::combine(run, agg[i]);
+  // ---- scan 1: visible ---------------------------------------------------
+  uint64_t incl[kVec], tot[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    uint64_t agg = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = f[v] >> (8 * k);
+      agg = Scan1::combine(agg, ((b & kNewSeg) ? 2u : 0u) | (b & kC));
+    }
+    incl[v] = warp_inclusive<Scan1>(agg);
+    tot[v] = __shfl_sync(kFull, incl[v], 31);
   }
-}
-
-__global__ void gc_visible(Args a) {
-  __shared__ Agg1 sh1[kThreads];
-  __shared__ Agg2 sh2[kThreads];
-  const int64_t base = (int64_t)blockIdx.x * kChunk + threadIdx.x * kItems;
-  uint8_t f[kItems];
-  Agg1 acc = Agg1::identity();
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    f[k] = i < a.n ? a.bits[i] : 0;
-    if (i < a.n)
-      acc = Agg1::combine(acc, Agg1{(f[k] & kNewSeg) ? 1u : 0u,
-                                    (f[k] & kC) ? 1u : 0u});
+  uint64_t wt = 0;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) wt = Scan1::combine(wt, tot[v]);
+  if (lane == 0) sh_w[warp] = wt;
+  __syncthreads();
+  uint64_t run = 0, tile_agg = 0;
+#pragma unroll
+  for (int x = 0; x < kWarps; ++x) {
+    if (x == warp) run = tile_agg;
+    tile_agg = Scan1::combine(tile_agg, sh_w[x]);
   }
-  Agg1 total1;
-  Agg1 run = Agg1::combine(a.carry1[blockIdx.x],
-                           block_exclusive_scan(acc, sh1, total1));
-  Agg2 acc2 = Agg2::identity();
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    if (i >= a.n) break;
-    const bool seen_before = !(f[k] & kNewSeg) && run.v;
-    const bool visible = (f[k] & kC) && !seen_before;
-    run = Agg1::combine(run, Agg1{(f[k] & kNewSeg) ? 1u : 0u,
-                                  (f[k] & kC) ? 1u : 0u});
-    if (visible) {
-      f[k] |= kVisible;
-      a.bits[i] = f[k];
-    }
-    const bool ov = visible && (f[k] & kRoot);
-    Agg2 e = {(f[k] & kNewDoc) ? 1u : 0u, 0u, 0u, 0u, 0u};
-    if (ov) {
-      e.v = 1u;
-      e.hi = row(a, kRowHtHi, i);
-      e.lo = row(a, kRowHtLo, i);
-      e.wid = row(a, kRowWid, i);
-    }
-    acc2 = Agg2::combine(acc2, e);
-  }
-  Agg2 total2;
-  block_exclusive_scan(acc2, sh2, total2);
-  if (threadIdx.x == 0) a.agg2[blockIdx.x] = total2;
-}
-
-__global__ void gc_final(Args a) {
-  __shared__ Agg2 sh2[kThreads];
-  __shared__ uint8_t dec[kChunk];   // bit0 keep, bit1 make-tombstone
-  __shared__ uint32_t srcv[kChunk];
-  const int64_t cbase = (int64_t)blockIdx.x * kChunk;
-  const int64_t base = cbase + threadIdx.x * kItems;
-  uint8_t f[kItems];
-  Agg2 e[kItems];
-  Agg2 acc = Agg2::identity();
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    f[k] = i < a.n ? a.bits[i] : 0;
-    e[k] = Agg2{(f[k] & kNewDoc) ? 1u : 0u, 0u, 0u, 0u, 0u};
-    if (i < a.n && (f[k] & kVisible) && (f[k] & kRoot)) {
-      e[k].v = 1u;
-      e[k].hi = row(a, kRowHtHi, i);
-      e[k].lo = row(a, kRowHtLo, i);
-      e[k].wid = row(a, kRowWid, i);
-    }
-    if (i < a.n) acc = Agg2::combine(acc, e[k]);
-  }
-  Agg2 total;
-  Agg2 run = Agg2::combine(a.carry2[blockIdx.x],
-                           block_exclusive_scan(acc, sh2, total));
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    const int li = threadIdx.x * kItems + k;
-    if (i >= a.n) {
-      dec[li] = 0;
-      srcv[li] = 0;
-      continue;
-    }
-    run = Agg2::combine(run, e[k]);  // inclusive, as associative_scan
-    const bool c = f[k] & kC, visible = f[k] & kVisible;
-    const bool is_root = f[k] & kRoot, expired = f[k] & kExpired;
-    const bool tomb = f[k] & kTomb;
-    bool covered = false;
-    if (!is_root && run.v) {
-      const uint32_t hi = row(a, kRowHtHi, i), lo = row(a, kRowHtLo, i);
-      const uint32_t wid = row(a, kRowWid, i);
-      covered = hi < run.hi ||
-                (hi == run.hi && (lo < run.lo || (lo == run.lo && wid < run.wid)));
-    }
-    const bool is_tomb = tomb || (expired && c);
-    bool keep, mk;
-    if (a.snapshot) {
-      keep = visible && !covered && !is_tomb;
-      mk = false;
-    } else {
-      const bool drop_tomb =
-          visible && is_tomb && a.is_major && !a.retain_deletes;
-      keep = (!c || visible) && !covered && !drop_tomb;
-      mk = expired && keep && c && !tomb && !a.is_major;
-    }
-    keep = keep && !(f[k] & kPad);
-    a.keep[i] = keep ? 1 : 0;
-    a.mk[i] = mk ? 1 : 0;
-    dec[li] = (keep ? 1 : 0) | (mk ? 2 : 0);
-    srcv[li] = a.perm[i] >> a.log2m;
+  if (warp == 0) {
+    const uint64_t e = look_back<Scan1>(a.status1, tile, tile_agg);
+    if (lane == 0) sh_excl = e;
   }
   __syncthreads();
-  // pack: one warp ballot per 32 consecutive positions and decision plane
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncols = 2 + a.b;
-  for (int g = warp; g < kChunk / 32; g += kThreads / 32) {
-    const int64_t pos0 = cbase + (int64_t)g * 32;
-    if (pos0 >= a.n) break;  // n is a multiple of 32
-    const uint8_t d = dec[g * 32 + lane];
-    const uint32_t sv = srcv[g * 32 + lane];
-    uint32_t* out = a.packed + (pos0 / 32) * ncols;
-    const uint32_t wk = __ballot_sync(0xFFFFFFFFu, d & 1);
-    const uint32_t wm = __ballot_sync(0xFFFFFFFFu, d & 2);
+  run = Scan1::combine(sh_excl, run);
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    uint64_t le = __shfl_up_sync(kFull, incl[v], 1);
+    uint64_t r = Scan1::combine(run, lane > 0 ? le : 0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = f[v] >> (8 * k);
+      const bool seen_before = !(b & kNewSeg) && (r & 1u);
+      if ((b & kC) && !seen_before) f[v] |= kVisible << (8 * k);
+      r = Scan1::combine(r, ((b & kNewSeg) ? 2u : 0u) | (b & kC));
+    }
+    run = Scan1::combine(run, tot[v]);
+  }
+
+  // ---- scan 2: the last visible root write of the document --------------
+  uint64_t e2[kVec][4];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    uint64_t agg = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = f[v] >> (8 * k);
+      uint64_t e = (b & kNewDoc) ? kR2 : 0;
+      if ((b & kVisible) && (b & kRoot)) e |= kV2 | (uint64_t)(pv[v] + k);
+      e2[v][k] = e;
+      agg = Scan2::combine(agg, e);
+    }
+    incl[v] = warp_inclusive<Scan2>(agg);
+    tot[v] = __shfl_sync(kFull, incl[v], 31);
+  }
+  wt = 0;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) wt = Scan2::combine(wt, tot[v]);
+  if (lane == 0) sh_w[warp] = wt;
+  __syncthreads();
+  run = 0;
+  tile_agg = 0;
+#pragma unroll
+  for (int x = 0; x < kWarps; ++x) {
+    if (x == warp) run = tile_agg;
+    tile_agg = Scan2::combine(tile_agg, sh_w[x]);
+  }
+  if (warp == 0) {
+    const uint64_t e = look_back<Scan2>(a.status2, tile, tile_agg);
     if (lane == 0) {
-      out[0] = wk;
-      out[1] = wm;
+      sh_excl = e;
+      if (e & kV2) {
+        const int64_t p = (uint32_t)e;
+        sh_ov[0] = a.s[kRowHtHi * a.n + p];
+        sh_ov[1] = a.s[kRowHtLo * a.n + p];
+        sh_ov[2] = a.s[kRowWid * a.n + p];
+      }
     }
-    for (int t = 0; t < a.b; ++t) {
-      const uint32_t wt = __ballot_sync(0xFFFFFFFFu, (sv >> t) & 1u);
-      if (lane == 0) out[2 + t] = wt;
+  }
+  __syncthreads();
+  run = Scan2::combine(sh_excl, run);
+
+  // ---- decisions, bytes and packed words ---------------------------------
+  const int ncols = 2 + a.b;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    uint64_t le = __shfl_up_sync(kFull, incl[v], 1);
+    uint64_t r = Scan2::combine(run, lane > 0 ? le : 0);
+    uint32_t kb = 0, mb = 0, kn = 0, mn = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = f[v] >> (8 * k);
+      r = Scan2::combine(r, e2[v][k]);  // inclusive, as associative_scan
+      const bool c = b & kC, visible = b & kVisible;
+      const bool is_root = b & kRoot, expired = b & kExpired;
+      const bool tomb = b & kTomb;
+      bool covered = false;
+      if (!is_root && (r & kV2)) {
+        const int64_t p = (uint32_t)r;
+        uint32_t oh, ol, ow;
+        if (p < tbase) {
+          oh = sh_ov[0];
+          ol = sh_ov[1];
+          ow = sh_ov[2];
+        } else {
+          oh = __ldg(a.s + kRowHtHi * a.n + p);
+          ol = __ldg(a.s + kRowHtLo * a.n + p);
+          ow = __ldg(a.s + kRowWid * a.n + p);
+        }
+        const uint32_t h = comp(hi[v], k), l = comp(lo[v], k);
+        const uint32_t wd = comp(wid[v], k);
+        covered = h < oh || (h == oh && (l < ol || (l == ol && wd < ow)));
+      }
+      const bool is_tomb = tomb || (expired && c);
+      bool keep, mk;
+      if (a.snapshot) {
+        keep = visible && !covered && !is_tomb;
+        mk = false;
+      } else {
+        const bool drop_tomb =
+            visible && is_tomb && a.is_major && !a.retain_deletes;
+        keep = (!c || visible) && !covered && !drop_tomb;
+        mk = expired && keep && c && !tomb && !a.is_major;
+      }
+      keep = keep && !(b & kPad) && pv[v] < a.n;
+      mk = mk && pv[v] < a.n;
+      kb |= (uint32_t)keep << (8 * k);
+      mb |= (uint32_t)mk << (8 * k);
+      kn |= (uint32_t)keep << k;
+      mn |= (uint32_t)mk << k;
     }
+    const bool valid = pv[v] < a.n;  // n % 32 == 0: a 32-group is all in
+    if (valid) {
+      *reinterpret_cast<uint32_t*>(a.keep + pv[v]) = kb;
+      *reinterpret_cast<uint32_t*>(a.mk + pv[v]) = mb;
+    }
+    const uint4 pm = valid ? __ldcs(reinterpret_cast<const uint4*>(a.perm + pv[v]))
+                           : make_uint4(0, 0, 0, 0);
+    const uint32_t src[4] = {pm.x >> a.log2m, pm.y >> a.log2m,
+                             pm.z >> a.log2m, pm.w >> a.log2m};
+    // plane t of the 32-group lanes 8g..8g+7 cover; lane 8g + (t & 7)
+    // stores it
+    uint32_t* out = a.packed + ((pv[v] - 4 * (lane & 7)) / 32) * ncols;
+    for (int t = 0; t < ncols; ++t) {
+      uint32_t nib;
+      if (t == 0) {
+        nib = kn;
+      } else if (t == 1) {
+        nib = mn;
+      } else {
+        const int s = t - 2;
+        nib = ((src[0] >> s) & 1u) | (((src[1] >> s) & 1u) << 1) |
+              (((src[2] >> s) & 1u) << 2) | (((src[3] >> s) & 1u) << 3);
+      }
+      uint32_t word = nib << (4 * (lane & 7));
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      word |= __shfl_xor_sync(kFull, word, 4);
+      if (valid && (lane & 7) == (t & 7)) out[t] = word;
+    }
+    run = Scan2::combine(run, tot[v]);
   }
 }
 
-int64_t num_blocks(int64_t n) { return (n + kChunk - 1) / kChunk; }
-
-size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+int64_t num_tiles(int64_t n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
 extern "C" {
 
-// Scratch bytes the wrapper allocates for a launch over n positions.
+// Scratch bytes the wrapper allocates for a launch over n positions: the
+// status words of both scans, then the ticket.
 int64_t ybt_gc_pack_scratch_bytes(int64_t n) {
-  const int64_t nb = num_blocks(n);
-  return (int64_t)(align16((size_t)n) + 2 * align16(nb * sizeof(Agg1)) +
-                   2 * align16(nb * sizeof(Agg2)));
+  return (2 * num_tiles(n) + 1) * (int64_t)sizeof(uint64_t);
 }
 
-// s: [rows, n] u32 merged payload (row stride n); perm: [n] u32.
-// packed: [n/32, 2+b] u32; keep, mk: [n] bytes; scratch: see above.
-// Returns cudaGetLastError() after the last launch (0 = success).
+// s: [rows, n] u32 merged payload (row stride n), perm: [n] u32, both
+// 16-byte aligned; packed: [n/32, 2+b] u32; keep, mk: [n] bytes (4-byte
+// aligned); scratch: see above, zeroed here. Returns cudaGetLastError()
+// after the launch (0 = success).
 int ybt_gc_pack(const uint32_t* s, const uint32_t* perm, int64_t n, int w,
                 uint32_t cut_hi, uint32_t cut_lo, uint32_t cphys_hi,
                 uint32_t cphys_lo, int is_major, int retain_deletes,
                 int snapshot, int log2m, int b, uint8_t* scratch,
                 uint32_t* packed, uint8_t* keep, uint8_t* mk, void* stream) {
-  if (n <= 0 || n % 32 != 0 || w < 0 || b < 1 || b > 30 || log2m < 0)
+  if (n <= 0 || n % 32 != 0 || n > 0x7FFFFFFF || w < 0 || b < 1 || b > 30 ||
+      log2m < 0 || reinterpret_cast<uintptr_t>(s) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(perm) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(keep) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(mk) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t nb = num_blocks(n);
+  const int64_t tiles = num_tiles(n);
   Args a;
   a.s = s;
   a.perm = perm;
@@ -354,30 +537,18 @@ int ybt_gc_pack(const uint32_t* s, const uint32_t* perm, int64_t n, int w,
   a.snapshot = snapshot;
   a.log2m = log2m;
   a.b = b;
-  uint8_t* p = scratch;
-  a.bits = p;
-  p += align16((size_t)n);
-  a.agg1 = reinterpret_cast<Agg1*>(p);
-  p += align16(nb * sizeof(Agg1));
-  a.carry1 = reinterpret_cast<Agg1*>(p);
-  p += align16(nb * sizeof(Agg1));
-  a.agg2 = reinterpret_cast<Agg2*>(p);
-  p += align16(nb * sizeof(Agg2));
-  a.carry2 = reinterpret_cast<Agg2*>(p);
+  uint64_t* st = reinterpret_cast<uint64_t*>(scratch);
+  a.status1 = st;
+  a.status2 = st + tiles;
+  a.ticket = reinterpret_cast<unsigned*>(st + 2 * tiles);
   a.packed = packed;
   a.keep = keep;
   a.mk = mk;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  gc_mark<<<(unsigned)nb, kThreads, 0, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_carry<Agg1><<<1, kScanThreads, 0, st>>>(a.agg1, a.carry1, nb);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  gc_visible<<<(unsigned)nb, kThreads, 0, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_carry<Agg2><<<1, kScanThreads, 0, st>>>(a.agg2, a.carry2, nb);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  gc_final<<<(unsigned)nb, kThreads, 0, st>>>(a);
+  cudaStream_t stream_ = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, (size_t)ybt_gc_pack_scratch_bytes(n), stream_);
+  if (e != cudaSuccess) return (int)e;
+  gc_pack_kernel<<<(unsigned)tiles, kThreads, 0, stream_>>>(a);
   return (int)cudaGetLastError();
 }
 

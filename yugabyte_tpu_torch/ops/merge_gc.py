@@ -218,7 +218,9 @@ def gc_pack(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B wrapper: GC + decision packing over the merged payload
     (see gc_pack_plain for the contract). CPU tensor: the plain version.
-    CUDA tensor: csrc/gc_pack.cu, counted in `gc_pack.launches`."""
+    CUDA tensor: csrc/gc_pack.cu, one memset and one single-pass launch,
+    counted in `gc_pack.launches`; p_mat and perm must start 16-byte
+    aligned (the kernel reads 16-byte vectors)."""
     if not p_mat.is_cuda:
         return gc_pack_plain(p_mat, r, w, params, k_pad, m, snapshot, perm)
     torch_setup.check_u32_matrix(p_mat, "gc_pack")
@@ -231,6 +233,9 @@ def gc_pack(p_mat: torch.Tensor, r: int, w: int, params: GCParams,
                              or perm.device != p_mat.device):
         raise ValueError("gc_pack: perm must be a contiguous int32 [n] "
                          "tensor beside p_mat")
+    if p_mat.data_ptr() % 16 or (perm is not None and perm.data_ptr() % 16):
+        raise ValueError("gc_pack: p_mat and perm must start 16-byte "
+                         "aligned")
     lib = _lib()
     b = n_src_planes(k_pad)
     dev = p_mat.device
