@@ -76,17 +76,23 @@ Phases (any failure exits non-zero):
      host reference `_visible_entries_host`; both walked in lockstep,
      entry for entry; a range scan at a read time inside the runs' span
      with a lower and a truncated upper bound, equal to the host
-     reference. The scan must launch kernels G, H, I.1, B and I.2. Then
-     its stages run one after the other for a time breakdown;
+     reference. The seq-scans must launch kernels G, H, I.1 and B and no
+     I.2 (an unbounded scan's keep is plane 0 of B's packed buffer); the
+     range scan must launch G, H, I.1, B and I.2 exactly once. Then the
+     seq-scan's stages run one after the other for a time breakdown;
   7. kernels G-I (radix sort, staged concat, sorted payload, bound pack)
      at the seq-scan's shapes == their plain versions, timed beside their
-     bounds and a PyTorch call that computes the same function; G's
+     bounds and a PyTorch call that computes the same function (I.2 with
+     the range scan's bounds, also by torch.profiler's device time, one
+     launch and no copy a call, and beside a bound counted in 32-byte
+     sectors, as E's and J.1's); G's
      statistics launches == their plain versions, and its plan (the
      sorted prefix before the pad block, the 8-bit passes kept and
      dropped per row) in the kernels line;
   8. the query pushdown over a TPC-H lineitem tablet in 4 SSTs: five
      queries each equal to a host oracle, their launch counters, stage
-     breakdowns, kernels J and K == their plain versions;
+     breakdowns, kernels J and K == their plain versions (J.1 also by
+     torch.profiler's device time, one launch and no copy a call);
   9. batched point reads through `storage.db.DB.multi_get` over a
      DeviceSlabCache: the YCSB tablet (the compaction phase's shape) as
      a DB (runs 0-2 bulk-loaded with ingest_packed, run 3 written and
@@ -220,32 +226,59 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn, reps: int) -> list:
+def timed_window(events) -> float:
+    """The device-timeline start of a profiled window of timed calls: the
+    marker kernel (`torch.cuda._sleep`) that `profiled` launches on the
+    stream right before the calls, so that every device event of the calls
+    starts after it; without one, the window's record_function range
+    ("timed_calls") on the device's timeline, else on the host's (the two
+    clocks can disagree by more than a short call lasts)."""
+    from torch.autograd import DeviceType
+    marks = [e.time_range.start for e in events
+             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
+    if marks:
+        return max(marks)
+    ranges = {e.device_type: e.time_range.start for e in events
+              if e.name == "timed_calls"}
+    return ranges.get(DeviceType.CUDA, ranges[DeviceType.CPU])
+
+
+def profiled(fn, reps: int, tries: int = 3) -> list:
     """(name, device microseconds) of every kernel, memset and copy that
     `reps` calls of `fn` run, from torch.profiler: one call before the
     profiler, one sacrificial call inside it (a trace's first events can
-    be lost), then the timed calls, whose device events are those that
-    start inside their record_function range."""
+    be lost), a marker kernel, then the timed calls inside a
+    record_function range, whose device events are those that start after
+    the marker (`timed_window`). A trace that holds no device event in the
+    window is taken again, up to `tries` traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile,
                                 record_function)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        with record_function("timed_calls"):
-            for _ in range(reps):
-                fn()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
-    events = prof.events()
-    t0 = next(e.time_range.start for e in events if e.name == "timed_calls")
-    # the range itself also shows on the device's timeline
-    return [(e.name, e.time_range.elapsed_us()) for e in events
-            if e.device_type == DeviceType.CUDA and e.time_range.start >= t0
-            and e.name != "timed_calls"]
+            torch.cuda._sleep(1000)
+            with record_function("timed_calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = timed_window(events)
+        out = [(e.name, e.time_range.elapsed_us()) for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.time_range.start >= t0 and e.name != "timed_calls"
+               and "spin_kernel" not in e.name]
+        if out:
+            return out
+        seen = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        log(f"profiler trace {attempt + 1}: no device event in the timed "
+            f"window ({len(seen)} device events in all: {seen[:6]})")
+    return []
 
 
 def device_profile(fn, reps: int) -> dict:
@@ -515,8 +548,9 @@ _PATH_KERNELS = {
     "shell": ("merge_path_level", "gc_pack", "staged_concat"),
     "codec": ("merge_path_level", "gc_pack", "block_decode", "survivor_scan",
               "span_gather", "block_encode", "staged_concat"),
-    "scan": ("staged_concat", "radix_sort", "sorted_payload", "gc_pack",
-             "bound_pack"),
+    "scan": ("staged_concat", "radix_sort", "sorted_payload", "gc_pack"),
+    "range_scan": ("staged_concat", "radix_sort", "sorted_payload",
+                   "gc_pack", "bound_pack"),
     "skewed": ("radix_sort", "sorted_payload", "gc_pack"),
 }
 
@@ -728,6 +762,20 @@ def codec_breakdown(readers, cutoff, out_dir, reps, bandwidth,
     return out, tensors
 
 
+def span_gather_sector_bytes(src, start, end, r, n_out_pad) -> int:
+    """Bytes of the 32-byte sectors kernel E must move for one span: the
+    survivor positions pos[start:end] (contiguous), the make-tombstone
+    byte and the r payload words at each position (each sector that holds
+    one counted once), and the [r, n_out_pad] output."""
+    import torch
+    p = src.long()
+    pos_sectors = -(-4 * end // 32) - 4 * start // 32
+    mk_sectors = torch.unique(p // 32).numel()
+    word_sectors = torch.unique(p // 8).numel()
+    return 32 * (pos_sectors + mk_sectors + r * word_sectors) \
+        + n_out_pad * 4 * r
+
+
 def codec_kernel_phase(args, t, launches, bandwidth):
     """Kernels C-F against their plain versions at the codec job's shapes
     (max_abs_err must be 0), timed with CUDA events, beside their bounds
@@ -799,6 +847,12 @@ def codec_kernel_phase(args, t, launches, bandwidth):
           cuda_ms(lambda: run_merge.span_gather_plain(*args_e), 2),
           (end - start) * (4 + 1 + 4 * r) + n_out_pad * 4 * r,
           cuda_ms(lambda: torch.index_select(p_mat[:r], 1, src), 2))
+    e_row = rows[-1]
+    e_row["bound_sectors_ms"] = span_gather_sector_bytes(
+        src, start, end, r, n_out_pad) / bandwidth * 1e3
+    log(f"kernel span_gather: bound in sectors "
+        f"{e_row['bound_sectors_ms']:.4f} ms, "
+        f"{e_row['bound_sectors_ms'] / e_row['ms']:.3f} of its time")
 
     # F: the first output file's gathered cols
     sc = t["span_cols"]
@@ -1802,15 +1856,28 @@ def drain(it):
     return rows, nbytes
 
 
-def counted(make_iter, wrappers, what):
+def check_scan_launches(launches, path, what):
+    """The scan's kernels launched; I.2 exactly once on a range scan and
+    never on a seq-scan (whose keep is plane 0 of B's packed buffer)."""
+    check_launches(launches, path)
+    want = 1 if path == "range_scan" else 0
+    if launches["bound_pack"] != want:
+        raise AssertionError(f"{what}: kernel bound_pack launched "
+                             f"{launches['bound_pack']} times, not {want}")
+
+
+def counted(make_iter, wrappers, what, path, out=None):
     """Iterate make_iter() with every launch counter set to 0 just before;
-    once it is drained, require the scan path's kernels to have launched
-    (the device work runs before the first entry is yielded)."""
+    once it is drained, require the path's kernels to have launched (the
+    device work runs before the first entry is yielded); the counts go
+    into `out` when given."""
     for w in wrappers.values():
         w.launches = 0
     yield from make_iter()
     launches = {k: w.launches for k, w in wrappers.items()}
-    check_launches(launches, "scan")
+    check_scan_launches(launches, path, what)
+    if out is not None:
+        out.update(launches)
     log(f"{what}: launches {launches}")
 
 
@@ -1823,11 +1890,14 @@ def scan_phase(readers, n_rows, device="cuda"):
        every launch counter set to 0 just before and read just after;
     2. the same for the native host reference `_visible_entries_host`;
     3. both walked in lockstep (entry for entry), with the counters set to
-       0 before that seq-scan too and every scan kernel required to launch;
+       0 before that seq-scan too and G, H, I.1 and B required to launch,
+       I.2 not (the unbounded keep is plane 0 of B's packed buffer);
     4. a range scan at a read time inside the runs' span, with a lower and
        a truncated upper bound, in lockstep with the host reference, its
-       counters likewise set to 0 before and checked after (I.2's bounded
-       mask runs on the card within the main run).
+       counters likewise set to 0 before and checked after: I.2's bounded
+       mask runs on the card exactly once within the main run.
+    Returns (summary, the seq-scan's launches, the range scan's, the read
+    time).
     """
     import torch
     from yugabyte_tpu_torch.ops import scan
@@ -1851,7 +1921,7 @@ def scan_phase(readers, n_rows, device="cuda"):
     launches = {k: w.launches for k, w in wrappers.items()}
     out["peak_bytes"] = (torch.cuda.max_memory_allocated()
                          if torch.cuda.is_available() else 0)
-    check_launches(launches, "scan")
+    check_scan_launches(launches, "scan", "seq-scan")
     t0 = time.time()
     h_rows, h_bytes = drain(scan._visible_entries_host(
         [r.read_all() for r in readers], read_ht, None, None))
@@ -1873,15 +1943,16 @@ def scan_phase(readers, n_rows, device="cuda"):
     n = entries_lockstep(
         counted(lambda: scan.visible_entries_sources(srcs, read_ht,
                                                      device=device),
-                wrappers, "seq-scan (lockstep)"),
+                wrappers, "seq-scan (lockstep)", "scan"),
         scan._visible_entries_host(slabs, read_ht, None, None), "seq-scan")
     log(f"seq-scan == host reference, entry for entry ({n} entries)")
     r_ht, lower, upper = scan_bounds(n_rows)
     t0 = time.time()
+    range_launches = {}
     n_range = entries_lockstep(
         counted(lambda: scan.visible_entries_sources(srcs, r_ht, lower,
                                                      upper, device=device),
-                wrappers, "range scan"),
+                wrappers, "range scan", "range_scan", range_launches),
         scan._visible_entries_host(slabs, r_ht, lower, upper), "range scan")
     if n_range == 0:
         raise AssertionError("the range scan found no entry")
@@ -1890,15 +1961,16 @@ def scan_phase(readers, n_rows, device="cuda"):
     log(f"range scan at ht {r_ht >> 12} in [{lower!r}, {upper[:16]!r}...) "
         f"== host reference ({n_range} entries)")
     del srcs, slabs
-    return out, launches, read_ht
+    return out, launches, range_launches, read_ht
 
 
 def scan_breakdown(readers, read_ht, device="cuda"):
     """Seconds of each stage of the seq-scan, run one after the other with
     the same module functions, each ended by a synchronize: read_all, host
-    pack + upload, kernel H (concat), kernel G (radix), kernels I.1 + B +
-    I.2, the decisions down, the host drain. Returns the stages and the
-    tensors the kernel phase checks G, H and I on."""
+    pack + upload, kernel H (concat), kernel G (radix), kernels I.1 + B
+    (the unbounded keep is plane 0 of B's packed buffer, as `_scan_fused`
+    takes it: no I.2), the decisions down, the host drain. Returns the
+    stages and the tensors the kernel phase checks G, H and I on."""
     from yugabyte_tpu_torch.ops import merge_gc, radix, scan
     from yugabyte_tpu_torch.storage.device_cache import concat_staged
 
@@ -1921,13 +1993,12 @@ def scan_breakdown(readers, read_ht, device="cuda"):
     t0 = time.time()
     w = cat.w
     p_mat = radix.sorted_payload(cat.cols_dev, perm)
-    _packed, keep, _mk = merge_gc.gc_pack(
+    packed, keep, _mk = merge_gc.gc_pack(
         p_mat, merge_gc._ROW_WORDS + w, w, merge_gc.GCParams(read_ht, True),
         1, cat.n_pad, snapshot=True)
-    zero = np.zeros(w, dtype=np.uint32)
-    keep_p = scan.bound_pack(p_mat, keep, w, zero, 0, zero, 0, False, False)
+    keep_p = packed[:, 0].contiguous()
     sync()
-    out["gather_gc_mask_s"] = time.time() - t0
+    out["gather_gc_s"] = time.time() - t0
     t0 = time.time()
     perm_h = perm.cpu().numpy()
     keep_h = merge_gc._unpack_bits(keep_p.cpu().numpy(), cat.n_pad) \
@@ -1942,12 +2013,15 @@ def scan_breakdown(readers, read_ht, device="cuda"):
     return out, tensors
 
 
-def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows):
+def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows,
+                      range_launches):
     """Kernels G, H, I.1 and I.2 against their plain versions at the
     seq-scan's shapes (max_abs_err must be 0, perm identical), timed with
     CUDA events beside their bounds and one PyTorch call that computes the
     same function (G: stable torch.sort per row on u32 keys; H: torch.cat
-    plus the template fill; I.1: torch.index_select)."""
+    plus the template fill; I.1: torch.index_select). I.2 runs with the
+    range scan's bounds and counts the range scan's launches
+    (`range_launches`); the seq-scan launches none."""
     import torch
     from yugabyte_tpu_torch.ops import merge_gc, radix, run_merge, scan
 
@@ -2071,44 +2145,67 @@ def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows):
     args_i2 = (p_mat, keep, w, lo_w, lo_l, hi_w, hi_l, True, True, True)
     err = check("bound_pack", scan.bound_pack(*args_i2),
                 scan.bound_pack_plain(*args_i2))
+    nbytes, sectors = bound_pack_bytes(p_mat, keep, w, lo_w, hi_w)
+
+    def i2():
+        return scan.bound_pack(*args_i2)
+    prof = device_profile(i2, args.reps)
     entry("bound_pack", "scan.cu", "yugabyte_tpu/ops/scan.py:59", err,
-          cuda_ms(lambda: scan.bound_pack(*args_i2), args.reps),
-          cuda_ms(lambda: scan.bound_pack_plain(*args_i2), 2),
-          bound_pack_bytes(p_mat, keep, w, lo_w, lo_l, hi_w, hi_l), None)
+          cuda_ms(i2, args.reps),
+          cuda_ms(lambda: scan.bound_pack_plain(*args_i2), 2), nbytes, None,
+          dict(prof, bound_sectors_ms=sectors / bandwidth * 1e3,
+               launches_seq_scan=launches["bound_pack"]))
+    rows[-1]["launches"] = range_launches["bound_pack"]
+    one_launch_no_copy("bound_pack", prof)
+    log(f"kernel I.2 on the device: {prof['device_ms']:.4f} ms (bound "
+        f"{rows[-1]['bound_ms']:.4f}, in sectors "
+        f"{rows[-1]['bound_sectors_ms']:.4f}); {rows[-1]['launches']} launch "
+        f"in the range scan, {launches['bound_pack']} in the seq-scan")
     return rows
 
 
-def bound_pack_bytes(p_mat, keep, w, lo_w, lo_l, hi_w, hi_l) -> int:
-    """Bytes kernel I.2 must move on these inputs: the keep bytes, and for
-    each kept lane the key words up to the first that differs from each
-    bound it is tested against (plus key_len where all are equal); the
-    packed words out. The upper bound is tested only where the lower one
-    passed."""
+def one_launch_no_copy(name, prof):
+    """A wrapper call must launch one kernel and copy nothing."""
+    if prof["launches_per_call"] != 1 or prof["copies_per_call"] \
+            or prof["memsets_per_call"]:
+        raise AssertionError(f"kernel {name}: a call made {prof}, not one "
+                             f"launch and no copy or memset")
+
+
+def sector_bytes(need) -> int:
+    """Bytes of the 32-byte sectors that hold a lane of `need` (bool [rows,
+    n] over rows of 4-byte words, n a multiple of 8): each sector that any
+    lane must read counted once."""
+    rows, n = need.shape
+    return 32 * int(need.reshape(rows, n // 8, 8).any(-1).sum())
+
+
+def bound_pack_bytes(p_mat, keep, w, lo_w, hi_w):
+    """(bytes, sector bytes) kernel I.2 must move on these inputs: the keep
+    bytes, the packed words out, and the rows each kept lane must read: key
+    word j while the lane is tied with a bound it has not failed (the two
+    compares share the leading words, so a word is counted once), key_len
+    where a tie lasts through all w words. Bytes count 4 a word; sector
+    bytes count each 32-byte sector that any lane must read once."""
     import torch
-    from yugabyte_tpu_torch.ops.merge_gc import _ROW_KEY_LEN, _ROW_WORDS, _u
+    from yugabyte_tpu_torch.ops.merge_gc import _ROW_WORDS, _u
     n = p_mat.shape[1]
-    words = _u(p_mat[_ROW_WORDS:_ROW_WORDS + w])
-    s_len = p_mat[_ROW_KEY_LEN].long()
-
-    def cost(bw, blen):
-        differs = words != torch.as_tensor(bw.astype(np.int64),
-                                           device=words.device)[:, None]
-        first = torch.where(differs.any(0), differs.int().argmax(0) + 1,
-                            torch.full_like(s_len, w + 1))
-        lt = torch.zeros(n, dtype=torch.bool, device=words.device)
-        eq = torch.ones(n, dtype=torch.bool, device=words.device)
-        for i in range(w):
-            lt |= eq & (words[i] < int(bw[i]))
-            eq &= words[i] == int(bw[i])
-        lt |= eq & (s_len < blen)
-        return first, lt
-
-    k = keep.bool()
-    first_lo, lt_lo = cost(lo_w, lo_l)
-    first_hi, _ = cost(hi_w, hi_l)
-    words_read = int((first_lo * k).sum()) + int((first_hi * (k & ~lt_lo))
-                                                 .sum())
-    return n + 4 * words_read + n // 8
+    alive = keep.bool().clone()
+    tie_lo, tie_hi = alive.clone(), alive.clone()
+    need = torch.zeros((w + 1, n), dtype=torch.bool, device=p_mat.device)
+    for j in range(w):
+        need[j] = (tie_lo | tie_hi) & alive
+        x = _u(p_mat[_ROW_WORDS + j])
+        lo, hi = int(lo_w[j]), int(hi_w[j])
+        d = tie_lo & (x != lo)
+        alive &= ~(d & (x < lo))
+        tie_lo &= ~d
+        d = tie_hi & (x != hi)
+        alive &= ~(d & (x > hi))
+        tie_hi &= ~d
+    need[w] = (tie_lo | tie_hi) & alive
+    out = n + n // 8
+    return out + 4 * int(need.sum()), out + sector_bytes(need)
 
 
 # ------------------------------------------------------------ the pushdown
@@ -2690,6 +2787,13 @@ def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
              "library_ms": None,
              "timed_on": "filter_rows" if name == "row_pass_pack"
              else "q6_agg"}
+        if name == "row_flags":
+            prof = device_profile(kern, args.reps)
+            one_launch_no_copy(name, prof)
+            e.update(prof, bound_sectors_ms=nbytes["row_flags_sectors"]
+                     / bandwidth * 1e3)
+            log(f"kernel J.1 on the device: {prof['device_ms']:.4f} ms "
+                f"(bound in sectors {e['bound_sectors_ms']:.4f})")
         log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, bound "
             f"{e['bound_ms']:.4f}), {launches[name]} launches in the "
             f"pushdown phase")
@@ -2734,10 +2838,11 @@ def pushdown_bytes(t_agg, t_rows) -> dict:
     and keep; per real lane dkl and the key words through its subkey
     (ceil((dkl + 3) / 4); the lower bound is empty and the upper one
     infinite here, so they add no word), the 16 value bytes of each base
-    entry with a 3-byte subkey, 4 bytes out. J.2: 4 bytes in and out per
-    lane. J.3: 8 bytes in per lane, n/8 out. K: 8 bytes in per lane, the
-    12 payload bytes of each entry that qualifies for a slot, the output
-    words."""
+    entry with a 3-byte subkey, 4 bytes out; also counted in 32-byte
+    sectors (`row_flags_sectors`: each sector of a row that any lane must
+    read once). J.2: 4 bytes in and out per lane. J.3: 8 bytes in per
+    lane, n/8 out. K: 8 bytes in per lane, the 12 payload bytes of each
+    entry that qualifies for a slot, the output words."""
     import torch
     from yugabyte_tpu_torch.ops import pushdown
     from yugabyte_tpu_torch.ops.merge_gc import (_ROW_DKL, _ROW_KEY_LEN,
@@ -2751,6 +2856,11 @@ def pushdown_bytes(t_agg, t_rows) -> dict:
     base3 = ((f >> pushdown.BASE_BIT) & 1).bool() & (kl - dkl == 3)
     j1 = n * 5 + int(real.sum()) * 4 + 4 * int(words[real].sum()) \
         + 16 * int(base3.sum()) + 4 * n
+    w = t_agg["w"]
+    rows_needed = torch.stack(
+        [real] + [real & (words > j) for j in range(w)] + [base3])
+    j1_sectors = n * 5 + sector_bytes(rows_needed) \
+        + 3 * sector_bytes(base3[None]) + 4 * n
     p_op, p_neg = t_agg["p_ops"][1], t_agg["p_ops"][2]
     rowpass = pushdown._row_pass(t_agg["seg"].long(), p_op, p_neg)
     qual = sum(int((((f >> (5 + c)) & 1).bool() & rowpass).sum())
@@ -2758,7 +2868,8 @@ def pushdown_bytes(t_agg, t_rows) -> dict:
     k = 8 * n + 12 * qual + 4 * (1 + 9 * t_agg["c_pad"]) \
         + 16 * t_agg["c_pad"]
     n_rows = t_rows["flags"].shape[0]
-    return {"row_flags": j1, "segment_or": 8 * n,
+    return {"row_flags": j1, "row_flags_sectors": j1_sectors,
+            "segment_or": 8 * n,
             "row_pass_pack": 8 * n_rows + n_rows // 8, "agg_reduce": k}
 
 
@@ -3450,7 +3561,8 @@ def main() -> int:
             args, mesh_kin, launches["mesh_job"], bandwidth)
         del mesh_kin
         torch.cuda.empty_cache()
-        scan_out, launches["scan"], read_ht = scan_phase(readers, args.rows)
+        scan_out, launches["scan"], launches["range_scan"], read_ht = \
+            scan_phase(readers, args.rows)
         stages, scan_tensors = scan_breakdown(readers, read_ht)
         log("seq-scan stages, one after the other: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages.items()))
@@ -3459,7 +3571,8 @@ def main() -> int:
                                  "count than the seq-scan")
         scan_out["stages"] = stages
         scan_rows = scan_kernel_phase(args, scan_tensors, launches["scan"],
-                                      launches["codec"], bandwidth, args.rows)
+                                      launches["codec"], bandwidth, args.rows,
+                                      launches["range_scan"])
         del scan_tensors, readers
         torch.cuda.empty_cache()
         push_out, launches["pushdown"], slabs, (top_ht, _mid) = \

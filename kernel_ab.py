@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D and G of the PyTorch port, timed for several checkouts
-in one run on one GPU.
+"""Kernels A, B, D, G, H, I.2 and J.1 of the PyTorch port, timed for several
+checkouts in one run on one GPU.
 
     python3 kernel_ab.py [--rows N] [--seed S] [--reps R] ROOT [ROOT ...]
 
@@ -18,13 +18,22 @@ and times with CUDA events, --reps launches after a warm-up:
     `torch.nonzero` on the same bytes;
   - kernel G (`radix.radix_sort`) over the tablet as one unsorted matrix
     (`stage_slab(concat_slabs(runs))`, the seq-scan's pruned schedule);
+  - kernel H (`run_merge.staged_concat`): the 4 staged runs into one
+    matrix, and a 2^17-lane window of each into one 2^19-lane chunk (the
+    chunk carve's shape, where the wrapper's host work is the time);
+  - kernel I.2 (`scan.bound_pack`) with the range scan's bounds
+    (chip_smoke's `scan_bounds`, the upper one truncated) over the
+    seq-scan's sorted payload and kernel B's snapshot keep;
+  - kernel J.1 (`pushdown.row_flags`) over the same payload and keep, no
+    bounds, one predicate slot on the column subkey and the sorted value
+    words (`scan.pack_vals`, gathered by kernel I.1);
   - for every wrapper, the host's milliseconds to enqueue one call, and
     the device's milliseconds and launches per call by kernel name
     (torch.profiler): where the enqueue takes longer than the device, the
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
-D's positions, G's perm) go into one sha256 that must match across the
-checkouts. Prints one JSON line per process and the card's name and
+D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
+words) go into one sha256 that must match across the checkouts. Prints one JSON line per process and the card's name and
 power limit.
 Imports nothing of JAX.
 """
@@ -38,6 +47,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def host_ms(fn, reps: int) -> float:
@@ -56,11 +67,12 @@ def host_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int, launches: bool = False) -> dict:
     """Device milliseconds per call by kernel (and memset) name, from
     torch.profiler's CUDA activity: one call before the profiler, one
-    sacrificial call inside it (a trace's first events can be lost), then
-    `reps` timed calls, whose device events are those that start inside
-    their record_function range; with `launches`, {name: [ms, launches
-    per call]}. Kept here, not taken from the root's chip_smoke: an older
-    checkout's chip_smoke has no such helper."""
+    sacrificial call inside it (a trace's first events can be lost), a
+    marker kernel (`torch.cuda._sleep`), then `reps` timed calls inside a
+    record_function range, whose device events are those that start after
+    the marker; with `launches`, {name: [ms, launches per call]}. Kept
+    here, not taken from the root's chip_smoke: an older checkout's
+    chip_smoke has no such helper."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -70,17 +82,25 @@ def device_ms(fn, reps: int, launches: bool = False) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
         with record_function("timed_calls"):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
     events = prof.events()
-    t0 = next(e.time_range.start for e in events if e.name == "timed_calls")
+    # the window starts at the marker on the device's timeline; without
+    # one, at the range there, else on the host's (the host's clock and
+    # the device's can disagree by more than a short call lasts)
+    marks = [e.time_range.start for e in events
+             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
+    ranges = {e.device_type: e.time_range.start for e in events
+              if e.name == "timed_calls"}
+    t0 = max(marks) if marks else ranges.get(DeviceType.CUDA,
+                                             ranges[DeviceType.CPU])
     out = {}
     for e in events:
-        # the range itself also shows on the device's timeline
         if e.device_type == DeviceType.CUDA and e.time_range.start >= t0 \
-                and e.name != "timed_calls":
+                and e.name != "timed_calls" and "spin_kernel" not in e.name:
             ms, n = out.get(e.name[:80], (0.0, 0))
             out[e.name[:80]] = (ms + e.time_range.elapsed_us() / reps / 1e3,
                                 n + 1)
@@ -101,7 +121,8 @@ def child(root: str, rows: int, seed: int, reps: int) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import chip_smoke as cs
-    from yugabyte_tpu_torch.ops import merge_gc, merge_path, radix, run_merge
+    from yugabyte_tpu_torch.ops import (merge_gc, merge_path, pushdown,
+                                       radix, run_merge, scan)
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
 
     if not torch.cuda.is_available():
@@ -135,26 +156,86 @@ def child(root: str, rows: int, seed: int, reps: int) -> dict:
     pos = run_merge.survivor_scan(keep)
     digest.update(pos.cpu().numpy().tobytes())
 
-    def scan():
+    def survivors():
         return run_merge.survivor_scan(keep)
     out = {"root": root, "rp": int(p.shape[0]), "n": int(p.shape[1]),
            "levels": levels, "gc_pack": gc_entry,
-           "survivor_scan_ms": cs.cuda_ms(scan, reps),
-           "survivor_scan_host_ms": host_ms(scan, reps),
-           "survivor_scan_device_ms": device_ms(scan, reps),
+           "survivor_scan_ms": cs.cuda_ms(survivors, reps),
+           "survivor_scan_host_ms": host_ms(survivors, reps),
+           "survivor_scan_device_ms": device_ms(survivors, reps),
            "nonzero_ms": cs.cuda_ms(lambda: torch.nonzero(keep), reps),
            "kept": int(keep.sum())}
     del p, packed, keep, mk, pos, st
     torch.cuda.empty_cache()
 
-    cat = merge_gc.stage_slab(concat_slabs(runs), "cuda")
+    # kernel H: the 4 staged runs into one matrix (the scan's concat), and
+    # windows of 2^17 lanes of each into a 2^19-lane chunk (the carve's
+    # shape): for small calls the wrapper's host work is the time
+    staged = [merge_gc.stage_slab(r, "cuda") for r in runs]
+    parts = [x.cols_dev for x in staged]
+    ns = [x.n for x in staged]
+    rh = parts[0].shape[0]
+    tmpl = merge_gc.pad_template(rh)
+    offs = np.concatenate(([0], np.cumsum(ns)[:-1])).tolist()
+    n_cat = merge_gc.bucket_size(sum(ns))
+    m_c = 1 << 17
+
+    def concat():
+        return run_merge.staged_concat(parts, ns, offs, n_cat, tmpl)
+
+    def carve():
+        return run_merge.staged_concat(
+            parts, [min(m_c, k) for k in ns],
+            [i * m_c for i in range(len(parts))], len(parts) * m_c, tmpl)
+    for fn in (concat, carve):
+        digest.update(fn().cpu().numpy().tobytes())
+    out["staged_concat"] = timed(concat, reps)
+    out["staged_concat_window"] = timed(carve, reps)
+    del staged, parts
+    slab = concat_slabs(runs)
+    del runs
+    cat = merge_gc.stage_slab(slab, "cuda")
     sched = [int(x) for x in cat.sort_rows[:cat.n_sort]]
 
     def sort():
         return radix.radix_sort(cat.cols_dev, sched, len(sched))
-    digest.update(sort().cpu().numpy().tobytes())
+    perm = sort()
+    digest.update(perm.cpu().numpy().tobytes())
     out["radix_sort"] = dict(timed(sort, reps), rows=sched,
                              n=int(cat.cols_dev.shape[1]))
+
+    # I.2 and J.1 over the seq-scan's sorted payload and B's snapshot keep
+    w = cat.w
+    s = radix.sorted_payload(cat.cols_dev, perm)
+    _packed, keep, _mk = merge_gc.gc_pack(
+        s, merge_gc._ROW_WORDS + w, w, params, 1, cat.n_pad, snapshot=True)
+    _r_ht, lower, upper = cs.scan_bounds(rows)
+    lo_w, lo_l = scan._pack_bound(lower, w)
+    hi_w, hi_l = scan._pack_bound(upper[:4 * w], w)
+
+    def i2():
+        return scan.bound_pack(s, keep, w, lo_w, lo_l, hi_w, hi_l, True,
+                               True, True)
+    digest.update(i2().cpu().numpy().tobytes())
+    out["bound_pack"] = timed(i2, reps)
+    vals = merge_gc.u32_to_device(scan.pack_vals(slab, cat.n_pad), "cuda")
+    sv = radix.sorted_payload(vals, perm)
+    del vals, slab
+    zero = np.zeros(w, dtype=np.uint32)
+    bounds = (zero, 0, zero, 0, True, False)
+    # one slot: the column subkey 'K' 00 00, payload > 0x4880.. under two tags
+    p_ops = (np.array([0x4B0000], np.uint32), np.array([5], np.int32),
+             np.zeros(1, np.int32), np.array([0x48], np.uint32),
+             np.array([0x49], np.uint32),
+             np.array([[0x48800000, 0, 0]], np.uint32),
+             np.array([12], np.int32))
+
+    def j1():
+        return pushdown.row_flags(s, keep, sv, w, bounds, p_ops)
+    flags = j1()
+    digest.update(flags.cpu().numpy().tobytes())
+    out["row_flags"] = dict(timed(j1, reps), base=int(
+        ((flags >> pushdown.BASE_BIT) & 1).sum()), pred=int((flags & 1).sum()))
     out["sha256"] = digest.hexdigest()
     return out
 

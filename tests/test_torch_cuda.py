@@ -458,7 +458,9 @@ def test_scan_gather_and_bound_kernels_match_plain(cuda, snapshot):
 
 def test_scan_on_the_card_equals_cpu(cuda, tmp_path):
     """The seq-scan and a bounded scan over SST files on the card launch
-    G, H, I and B and yield the CPU scan's entries."""
+    G, H, I.1 and B and yield the CPU scan's entries; I.2 launches exactly
+    once on the bounded scan and never on the seq-scan (its keep is plane
+    0 of B's packed buffer)."""
     from yugabyte_tpu_torch.ops import radix, scan
     from yugabyte_tpu_torch.storage.sst import (Frontier, SSTReader,
                                                 SSTWriter)
@@ -473,18 +475,20 @@ def test_scan_on_the_card_equals_cpu(cuda, tmp_path):
         SSTWriter(p).write(slab, Frontier())
         paths.append(p)
     counters = [radix.radix_sort, run_merge.staged_concat,
-                radix.sorted_payload, merge_gc.gc_pack, scan.bound_pack]
+                radix.sorted_payload, merge_gc.gc_pack]
     lower = b"S\x00\x00\x00\x03"
     upper = b"S\x00\x00\x00\x0c" + b"\x00" * 40  # truncated on the device
-    for read_ht, lo, hi in (((1 << 21) << 12, None, None),
-                            ((1 << 19) << 12, lower, upper)):
+    for read_ht, lo, hi, i2 in (((1 << 21) << 12, None, None, 0),
+                                ((1 << 19) << 12, lower, upper, 1)):
         before = [c.launches for c in counters]
+        i2_before = scan.bound_pack.launches
         out = {}
         for dev in ("cuda", "cpu"):
             srcs = [scan.SlabSource(SSTReader(p).read_all()) for p in paths]
             out[dev] = list(scan.visible_entries_sources(srcs, read_ht, lo,
                                                          hi, device=dev))
         assert all(c.launches > b for c, b in zip(counters, before))
+        assert scan.bound_pack.launches == i2_before + i2
         assert out["cuda"] == out["cpu"] and out["cpu"]
 
 
@@ -1399,3 +1403,291 @@ def test_gc_pack_repeated_calls_same_bytes(cuda):
                                  1, 1 << 16)
         for g, f in zip(again, first):
             assert torch.equal(g, f)
+
+
+# ------------------------------ kernels I.2 and J.1 at the tiling's edges
+
+_SUBKEYS = (0x4B0001, 0x4B0002, 0x4A0001, 0x4B0003)   # 'K' / 'J' + id
+_TAGS = (0x48, 0x49, 0x4A, 0x05)
+
+
+def _doc_matrix(rng, n, w, doc_lens, keep_mode="random", n_pads=0,
+                n_neg=0):
+    """A sorted-payload matrix s [8 + w, n] (u32 bits) of documents of the
+    given lengths, then n_pads pad lanes: each document a doc key of dkl
+    bytes from a 4-letter alphabet (neighbouring documents differ, bounds
+    tie on leading words), each lane a bare doc key, a 3-byte column
+    subkey or a 5-byte one; n_neg real lanes hold a negative int32
+    key_len and zero words. Returns (s, keep, the key bytes of each lane)."""
+    stride = 4 * w
+    real = n - n_pads
+    keys = np.zeros((n, stride), np.uint8)
+    klen = np.zeros(n, np.int64)
+    dkl = np.zeros(n, np.int64)
+    choices = [d for d in (2, 5, 8, 13, 23) if d + 5 <= stride] \
+        or [max(0, stride - 3)]
+    i, prev = 0, None
+    for length in doc_lens:
+        if i >= real:
+            break
+        length = min(length, real - i)
+        while True:
+            d = int(rng.choice(choices))
+            doc = rng.integers(0x40, 0x44, size=d).astype(np.uint8)
+            if prev is None or prev != (d, doc.tobytes()):
+                break
+        prev = (d, doc.tobytes())
+        keys[i:i + length, :d] = doc
+        dkl[i:i + length] = d
+        for t in range(i, i + length):
+            kind = int(rng.integers(0, 4))
+            if kind == 0 or d + 3 > stride:
+                klen[t] = d
+            else:
+                sub = _SUBKEYS[int(rng.integers(0, len(_SUBKEYS)))]
+                keys[t, d:d + 3] = [(sub >> 16) & 0xFF, (sub >> 8) & 0xFF,
+                                    sub & 0xFF]
+                klen[t] = d + 3
+                if kind == 3 and d + 5 <= stride:
+                    keys[t, d + 3:d + 5] = rng.integers(0, 4, size=2)
+                    klen[t] = d + 5
+        i += length
+    neg = rng.choice(real, size=min(n_neg, real), replace=False)
+    keys[neg] = 0
+    klen[neg] = 0x80000005
+    words = keys.reshape(n, w, 4).astype(np.uint32)
+    words = (words[:, :, 0] << 24) | (words[:, :, 1] << 16) \
+        | (words[:, :, 2] << 8) | words[:, :, 3]
+    s = rng.integers(0, 1 << 32, size=(8 + w, n), dtype=np.uint64) \
+        .astype(np.uint32)
+    s[0], s[1], s[8:] = klen.astype(np.uint32), dkl.astype(np.uint32), \
+        words.T
+    s[0, real:] = s[1, real:] = merge_gc.PAD_SENTINEL
+    s[8:, real:] = 0xFFFFFFFF
+    keep = {"random": rng.random(n) < 0.7, "none": np.zeros(n, bool),
+            "all": np.ones(n, bool)}[keep_mode]
+    key_bytes = [keys[t, :int(klen[t]) if klen[t] <= stride else 0]
+                 .tobytes() for t in range(n)]
+    return s, keep, key_bytes
+
+
+def _on_card(cuda, s, keep):
+    return (torch.from_numpy(np.ascontiguousarray(s).view(np.int32)).to(cuda),
+            torch.from_numpy(keep).to(cuda))
+
+
+def _vals(rng, n):
+    """Sorted value words [4, n]: payload lengths 0-12, words from a small
+    set (compares tie), a payload tag in the first byte."""
+    sv = rng.choice(np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                             np.uint32), size=(4, n))
+    sv[0] = rng.integers(0, 13, size=n)
+    tags = np.array(_TAGS, np.uint32)[rng.integers(0, len(_TAGS), size=n)]
+    sv[1] = (tags << 24) | (sv[1] & 0xFFFFFF)
+    return sv
+
+
+def _slot_ops(rng, p, c):
+    """p predicate slots (every operator code, negated or not) and c
+    aggregate slots on the matrix's subkeys and tags."""
+    p_sub = np.array([_SUBKEYS[k % 4] for k in range(p)], np.uint32)
+    p_op = np.array([1 + (k * 2 + int(rng.integers(0, 2))) % 6
+                     for k in range(p)], np.int32)
+    p_neg = np.array([k % 2 for k in range(p)], np.int32)
+    p_ta = np.array([_TAGS[k % 2] for k in range(p)], np.uint32)
+    p_tb = np.array([_TAGS[2] for _ in range(p)], np.uint32)
+    p_words = rng.choice(np.array([0, 1, 0x80000000, 0xFFFFFFFF], np.uint32),
+                         size=(p, 3))
+    p_len = rng.integers(0, 13, size=p).astype(np.int32)
+    a_ops = (np.array([_SUBKEYS[k] for k in range(c)], np.uint32),
+             np.array([_TAGS[0]] * c, np.uint32),
+             np.array([_TAGS[1]] * c, np.uint32))
+    return (p_sub, p_op, p_neg, p_ta, p_tb, p_words, p_len), a_ops
+
+
+def _flag_bounds(key_bytes, w, rng):
+    """J.1's bound operands: empty / infinite, a lower bound equal to a
+    lane's key, an upper bound equal to one, both, and a truncated upper
+    bound (keys equal to it kept)."""
+    from yugabyte_tpu_torch.ops import scan
+    real = sorted({k for k in key_bytes if k and k[0] != 0xFF})
+    lo_k = real[len(real) // 4]
+    hi_k = real[(3 * len(real)) // 4]
+    lo_w, lo_l = scan._pack_bound(lo_k, w)
+    hi_w, hi_l = scan._pack_bound(hi_k, w)
+    zero = np.zeros(w, np.uint32)
+    return [(zero, 0, zero, 0, True, False),
+            (lo_w, lo_l, zero, 0, True, False),
+            (zero, 0, hi_w, hi_l, False, False),
+            (lo_w, lo_l, hi_w, hi_l, False, False),
+            (lo_w, lo_l, hi_w, hi_l, False, True)]
+
+
+def _row_flags_match(cuda, s, keep, sv, w, bounds, p_ops, a_ops):
+    from yugabyte_tpu_torch.ops import pushdown
+    before = pushdown.row_flags.launches
+    got = pushdown.row_flags(s, keep, sv, w, bounds, p_ops, a_ops)
+    assert pushdown.row_flags.launches == before + 1
+    want = pushdown.row_flags_plain(s, keep, sv, w, bounds, p_ops, a_ops)
+    assert torch.equal(got, want)
+    return got
+
+
+def test_row_flags_documents_cross_thread_warp_and_cta(cuda):
+    """J.1 against its plain version on documents that start inside a
+    thread's 4 lanes and run across a thread, a warp (128 lanes) and a CTA
+    (1024 lanes) boundary: lanes 126..1030 are one document; with every
+    slot count, value words or none, and every bound kind."""
+    from yugabyte_tpu_torch.ops import pushdown
+    rng = np.random.default_rng(101)
+    n, w = 4096 + 512, 8
+    lens = [126, 905, 1, 3, 4, 5, 127, 129, 1023, 1025] + \
+        list(rng.integers(1, 40, size=400))
+    s_h, keep_h, key_bytes = _doc_matrix(rng, n, w, lens, n_pads=300)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    sv = torch.from_numpy(_vals(rng, n).view(np.int32)).to(cuda)
+    for bounds in _flag_bounds(key_bytes, w, rng):
+        for p, c in ((0, 0), (1, 1), (4, 2), (2, 0)):
+            p_ops, a_ops = _slot_ops(rng, p, c)
+            flags = _row_flags_match(cuda, s, keep, sv, w, bounds, p_ops,
+                                     a_ops if c else None)
+            _row_flags_match(cuda, s, keep, None, w, bounds, p_ops, None)
+    starts = ((flags.cpu().numpy() >> pushdown.NEW_DOC_BIT) & 1).astype(bool)
+    assert starts[126] and not starts[127:1031].any() and starts[1031]
+
+
+@pytest.mark.parametrize("n", [32, 96, 1024 + 32, 3 * 1024 + 96])
+@pytest.mark.parametrize("keep_mode", ["none", "all", "random"])
+def test_row_flags_at_tile_edges(cuda, n, keep_mode):
+    """J.1 at n = 32 and n not a multiple of a CTA's 1024 lanes, with
+    all-false, all-true and random keep, against its plain version."""
+    rng = np.random.default_rng(n)
+    w = 4
+    s_h, keep_h, key_bytes = _doc_matrix(
+        rng, n, w, list(rng.integers(1, 9, size=n)), keep_mode,
+        n_pads=n // 8, n_neg=1)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    sv = torch.from_numpy(_vals(rng, n).view(np.int32)).to(cuda)
+    p_ops, a_ops = _slot_ops(rng, 4, 2)
+    for bounds in _flag_bounds(key_bytes, w, rng):
+        _row_flags_match(cuda, s, keep, sv, w, bounds, p_ops, a_ops)
+
+
+@pytest.mark.parametrize("w", [1, 2, 128, 129])
+def test_row_flags_key_stride_edges(cuda, w):
+    """J.1 at w = 1 (subkey bytes past the stride read as 0), and at the
+    by-value cap (128 words) and above it (the bounds on the card)."""
+    from yugabyte_tpu_torch.ops import key_bounds
+    assert key_bounds.BOUND_CAP == 128
+    rng = np.random.default_rng(w)
+    n = 2048
+    s_h, keep_h, key_bytes = _doc_matrix(
+        rng, n, w, list(rng.integers(1, 30, size=n)), n_pads=64)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    sv = torch.from_numpy(_vals(rng, n).view(np.int32)).to(cuda)
+    p_ops, a_ops = _slot_ops(rng, 3, 2)
+    for bounds in _flag_bounds(key_bytes, w, rng):
+        _row_flags_match(cuda, s, keep, sv, w, bounds, p_ops, a_ops)
+
+
+def _pack_bounds_cases(key_bytes, w):
+    """I.2's (lo_w, lo_l, hi_w, hi_l, has_lower, has_upper, trunc): bounds
+    equal to lanes' keys, each alone and both, a truncated upper bound
+    equal to a full-stride key, and an empty lower bound."""
+    from yugabyte_tpu_torch.ops import scan
+    real = sorted({k for k in key_bytes if k and k[0] != 0xFF})
+    lo_k, hi_k = real[len(real) // 5], real[(4 * len(real)) // 5]
+    full = max(real, key=len)
+    lo = scan._pack_bound(lo_k, w)
+    hi = scan._pack_bound(hi_k, w)
+    fu = scan._pack_bound(full, w)
+    zero = (np.zeros(w, np.uint32), 0)
+    return [(*lo, *hi, True, True, False), (*lo, *hi, True, True, True),
+            (*lo, *zero, True, False, False), (*zero, *hi, False, True, True),
+            (*zero, *hi, False, True, False), (*fu, *fu, True, True, True),
+            (*zero, *zero, True, False, False),
+            (*zero, *zero, False, False, False)]
+
+
+def _bound_pack_match(cuda, s, keep, w, case):
+    from yugabyte_tpu_torch.ops import scan
+    lo_w, lo_l, hi_w, hi_l, has_lo, has_hi, trunc = case
+    args = (s, keep, w, lo_w, lo_l, hi_w, hi_l, has_lo, has_hi, trunc)
+    before = scan.bound_pack.launches
+    got = scan.bound_pack(*args)
+    assert scan.bound_pack.launches == before + 1
+    assert torch.equal(got, scan.bound_pack_plain(*args))
+
+
+@pytest.mark.parametrize("n", [32, 512 + 32, 4096 + 32, 3 * 4096 + 480])
+@pytest.mark.parametrize("keep_mode", ["none", "all", "random"])
+def test_bound_pack_at_tile_edges(cuda, n, keep_mode):
+    """I.2 at n = 32, n not a multiple of a warp's 512 lanes or a CTA's
+    4096, all-false / all-true / random keep, bounds equal to keys and a
+    truncated upper bound, against its plain version."""
+    rng = np.random.default_rng(n + 7)
+    w = 8
+    s_h, keep_h, key_bytes = _doc_matrix(
+        rng, n, w, list(rng.integers(1, 20, size=n)), keep_mode,
+        n_pads=n // 4, n_neg=2)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    for case in _pack_bounds_cases(key_bytes, w):
+        _bound_pack_match(cuda, s, keep, w, case)
+
+
+@pytest.mark.parametrize("w", [1, 128, 129])
+def test_bound_pack_key_stride_edges(cuda, w):
+    """I.2 at w = 1, at the by-value cap and above it."""
+    rng = np.random.default_rng(w + 3)
+    n = 8192
+    s_h, keep_h, key_bytes = _doc_matrix(
+        rng, n, w, list(rng.integers(1, 30, size=n)), n_pads=100, n_neg=3)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    for case in _pack_bounds_cases(key_bytes, w):
+        _bound_pack_match(cuda, s, keep, w, case)
+
+
+def _device_activity(fn, reps=3):
+    """(kernel launches, memcpys and memsets) per call of fn in
+    torch.profiler's trace: a sacrificial call first (a trace's first
+    events can be lost), a marker kernel (`torch.cuda._sleep`), then
+    `reps` calls, whose device events start after the marker."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    t0 = max(e.time_range.start for e in device if "spin_kernel" in e.name)
+    names = [e.name for e in device if e.time_range.start >= t0
+             and "spin_kernel" not in e.name]
+    copies = [x for x in names if x.startswith("Memcpy")
+              or x.startswith("Memset")]
+    return (len(names) - len(copies)) / reps, len(copies) / reps
+
+
+def test_bound_pack_and_row_flags_one_kernel_no_copy(cuda):
+    """A call of each wrapper is one kernel on the card's timeline and no
+    host-to-device copy: the bounds ride in the launch's parameters."""
+    from yugabyte_tpu_torch.ops import pushdown, scan
+    rng = np.random.default_rng(5)
+    n, w = 1 << 16, 8
+    s_h, keep_h, key_bytes = _doc_matrix(
+        rng, n, w, list(rng.integers(1, 20, size=n)), n_pads=1000)
+    s, keep = _on_card(cuda, s_h, keep_h)
+    sv = torch.from_numpy(_vals(rng, n).view(np.int32)).to(cuda)
+    lo_w, lo_l, hi_w, hi_l, *_ = _pack_bounds_cases(key_bytes, w)[1]
+    p_ops, a_ops = _slot_ops(rng, 2, 1)
+    bounds = _flag_bounds(key_bytes, w, rng)[4]
+    for fn in (lambda: scan.bound_pack(s, keep, w, lo_w, lo_l, hi_w, hi_l,
+                                       True, True, True),
+               lambda: pushdown.row_flags(s, keep, sv, w, bounds, p_ops,
+                                          a_ops)):
+        assert _device_activity(fn) == (1, 0)

@@ -31,7 +31,7 @@ from yugabyte_tpu.ops import scan as ref_scan
 from yugabyte_tpu.ops.slabs import FLAG_DEEP, pack_kvs
 from yugabyte_tpu_torch.common import schema as port_schema
 from yugabyte_tpu_torch.docdb import scan_spec
-from yugabyte_tpu_torch.ops import merge_gc, pushdown, scan
+from yugabyte_tpu_torch.ops import key_bounds, merge_gc, pushdown, scan
 from yugabyte_tpu_torch.ops.slabs import slab_from_arrays
 from yugabyte_tpu_torch.storage import device_cache
 
@@ -632,3 +632,76 @@ def test_segment_or_crosses_documents_exactly():
         bit = ref_scan._segment_any(jnp.asarray((flags >> b) & 1 == 1),
                                     new_seg, end_seg)
         assert np.array_equal((got.numpy() >> b) & 1 == 1, np.asarray(bit))
+
+
+# ------------------------------------- the bounds as kernels I.2 and J.1 take them
+
+
+def _bound_words(kb):
+    """The (lo_words, lo_len, hi_words, hi_len) a by-value struct holds."""
+    words = np.ctypeslib.as_array(kb.words)[:2 * kb.w].copy()
+    return words[:kb.w], kb.lo_len, words[kb.w:], kb.hi_len
+
+
+@pytest.mark.parametrize("w", [1, 2, 8, 64, key_bounds.BOUND_CAP])
+@pytest.mark.parametrize("kind", ["empty", "zeros", "ones", "random"])
+def test_key_bounds_by_value_round_trip(w, kind):
+    """Every bound a key stride of w words can hold (any u32 words, any
+    length from 0 to 4w bytes, both bounds set or empty) rides in the
+    kernels' by-value struct and reads back unchanged, up to the cap."""
+    rng = np.random.default_rng(w)
+    for lo_l, hi_l in ((0, 0), (1, 4 * w), (4 * w, 4 * w - 1),
+                       (int(rng.integers(0, 4 * w + 1)), 3)):
+        if kind == "empty":
+            lo, lo_l = np.zeros(w, np.uint32), 0
+            hi = np.zeros(w, np.uint32)
+        elif kind == "zeros":
+            lo, hi = np.zeros(w, np.uint32), np.zeros(w, np.uint32)
+        elif kind == "ones":
+            lo = np.full(w, 0xFFFFFFFF, np.uint32)
+            hi = np.full(w, 0xFFFFFFFF, np.uint32)
+        else:
+            lo = rng.integers(0, 1 << 32, size=w, dtype=np.uint64) \
+                .astype(np.uint32)
+            hi = rng.integers(0, 1 << 32, size=w, dtype=np.uint64) \
+                .astype(np.uint32)
+        kb, dev_words = key_bounds.key_bounds(lo, lo_l, hi, hi_l, w)
+        assert dev_words is None and not kb.dev and kb.w == w
+        got_lo, got_lo_l, got_hi, got_hi_l = _bound_words(kb)
+        assert np.array_equal(got_lo, lo) and np.array_equal(got_hi, hi)
+        assert (got_lo_l, got_hi_l) == (lo_l, hi_l)
+        # the words past 2w stay zero
+        assert not np.ctypeslib.as_array(kb.words)[2 * w:].any()
+
+
+def test_key_bounds_from_the_scan_round_trip():
+    """The scan's own packing (`_pack_bound`, a key of up to the stride)
+    round-trips through the struct; a wrong word count is refused."""
+    w = 8
+    for key in (b"", b"S", b"Suser00001234\x00\x00!K\x00\x01",
+                b"\xff" * (4 * w)):
+        words, length = scan._pack_bound(key or None, w)
+        kb, _ = key_bounds.key_bounds(words, length, words, length, w)
+        got = _bound_words(kb)
+        assert np.array_equal(got[0], words) and got[1] == length
+        assert np.array_equal(got[2], words) and got[3] == length
+    with pytest.raises(ValueError):
+        key_bounds.key_bounds(np.zeros(3, np.uint32), 0,
+                              np.zeros(4, np.uint32), 0, 4)
+
+
+def test_key_bounds_fit_a_launch():
+    """The struct holds both bounds' words up to the cap and fits, with
+    J.1's operand struct and its other arguments, in a launch's 4 KB of
+    parameters; the words sit where csrc/key_bounds.cuh puts them."""
+    import ctypes
+    kb = key_bounds.KeyBounds
+    assert kb.words.offset == 0
+    assert kb.dev.offset == 8 * key_bounds.BOUND_CAP
+    assert ctypes.sizeof(kb) == 8 * key_bounds.BOUND_CAP + 24
+    # J.1's operand struct holds, per slot, two 64-bit keys and six words,
+    # per aggregate slot three words, and the two slot counts
+    ops_bytes = pushdown.MAX_PRED * (2 * 8 + 6 * 4) \
+        + pushdown.MAX_AGG * 3 * 4 + 8
+    assert ctypes.sizeof(kb) + ops_bytes + 8 * 8 <= 4096
+

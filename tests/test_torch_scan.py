@@ -366,6 +366,42 @@ def test_scan_keeps_no_pad_row_where_the_reference_does():
         t_raw.sum()
 
 
+@pytest.mark.parametrize("name", CASES)
+def test_unbounded_scan_takes_b_plane_zero(name):
+    """An unbounded `_scan_fused` launches no I.2: its packed keep is plane
+    0 of kernel B's packed buffer. That equals I.2's plain version without
+    bounds over the same sort_and_gc outputs, and the JAX `_scan_fused`
+    masked by perm < n, at every read time."""
+    runs = _runs(name, 21)
+    ref_st, port_st = _staged_pair(runs)
+    w = port_st.w
+    zero = np.zeros(w, dtype=np.uint32)
+    for read_ht in READ_HTS:
+        perm, keep_p = ref_scan._scan_fused(
+            ref_st.cols_dev, jnp.asarray(ref_st.sort_rows),
+            jnp.int32(ref_st.n_sort),
+            *[jnp.uint32(x) for x in _limbs(read_ht)], jnp.asarray(zero),
+            jnp.int32(0), jnp.asarray(zero), jnp.int32(0), w=w,
+            has_lower=False, has_upper=False)
+        perm = np.asarray(perm)
+        want = ref_mg._unpack_bits(np.asarray(keep_p), ref_st.n_pad) \
+            & (perm < ref_st.n)
+        before = scan.bound_pack.launches
+        t_perm, t_keep_p = scan._scan_fused(
+            port_st.cols_dev, port_st.sort_rows, port_st.n_sort, read_ht,
+            zero, 0, zero, 0, w, False, False)
+        assert scan.bound_pack.launches == before
+        assert t_keep_p.is_contiguous() and t_keep_p.dtype == torch.int32
+        assert np.array_equal(t_perm.numpy(), perm)
+        assert np.array_equal(
+            merge_gc._unpack_bits(t_keep_p.numpy(), port_st.n_pad), want)
+        _perm, keep, _mk, p_mat, _packed = merge_gc.sort_and_gc(
+            port_st.cols_dev, merge_gc.GCParams(read_ht, True), w,
+            port_st.sort_rows, port_st.n_sort, snapshot=True)
+        assert torch.equal(t_keep_p, scan.bound_pack_plain(
+            p_mat, keep, w, zero, 0, zero, 0, False, False))
+
+
 def _host_entries(runs, read_ht, lower, upper):
     return list(scan._visible_entries_host([_port_slab(s) for s in runs],
                                            read_ht, lower, upper))

@@ -38,15 +38,22 @@
 //     block reduction, then integer atomics: the result is deterministic.
 //
 // Bound on an H100: memory. J.1 reads key_len, dkl, the key words up to
-// the subkey bytes, keep and the value words, and writes 4 bytes per
-// entry; J.2 reads and writes 4 bytes per entry (plus a 16-byte aggregate
+// the subkey bytes (and the words a bound compare needs; the bounds:
+// key_bounds.cuh), keep and the value words, and writes 4 bytes per
+// entry; the first design (one lane a thread) also spent its time
+// re-reading words and issuing compares, so this one keeps lanes, words
+// and compares in registers (see row_flags_kernel); J.2 reads and writes 4 bytes per entry (plus a 16-byte aggregate
 // pair per 1024 entries); J.3 reads 8 bytes per entry and writes n/8; K
 // reads 8 bytes per entry plus 12 value bytes per qualifying entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_bounds.cuh"
+
 namespace {
+
+using key_bounds::KeyBounds;
 
 constexpr int kRowKeyLen = 0, kRowDkl = 1, kRowWords = 8;
 constexpr uint32_t kPadSentinel = 0xFFFFFFFFu;
@@ -60,11 +67,15 @@ constexpr int kItems = 4;
 constexpr int kChunk = kThreads * kItems;  // entries per tile of J.2
 constexpr int kScanThreads = 1024;
 
-// Predicate and aggregate operands (passed by value).
+// Predicate and aggregate operands (passed by value). p_hi / p_lo: slot
+// k's compare operand as two 64-bit keys, (word 0, word 1) and (word 2,
+// length biased by 2^31), so that the (words, int32 length) order is two
+// unsigned compares; p_acc: the outcomes slot k's operator accepts (bit 0
+// below, bit 1 equal, bit 2 above).
 struct Ops {
-  uint32_t p_sub[kMaxPred], p_op[kMaxPred], p_neg[kMaxPred];
-  uint32_t p_ta[kMaxPred], p_tb[kMaxPred], p_words[kMaxPred][kValWords];
-  int32_t p_len[kMaxPred];
+  uint64_t p_hi[kMaxPred], p_lo[kMaxPred];
+  uint32_t p_sub[kMaxPred], p_op[kMaxPred], p_neg[kMaxPred], p_acc[kMaxPred];
+  uint32_t p_ta[kMaxPred], p_tb[kMaxPred];
   uint32_t a_sub[kMaxAgg], a_ta[kMaxAgg], a_tb[kMaxAgg];
   int p, c;
 };
@@ -82,9 +93,12 @@ Ops unpack_ops(const uint32_t* h, int p, int c) {
     o.p_neg[k] = h[2 * kMaxPred + k];
     o.p_ta[k] = h[3 * kMaxPred + k];
     o.p_tb[k] = h[4 * kMaxPred + k];
-    o.p_len[k] = (int32_t)h[5 * kMaxPred + k];
-    for (int j = 0; j < kValWords; ++j)
-      o.p_words[k][j] = h[6 * kMaxPred + k * kValWords + j];
+    const uint32_t* words = h + 6 * kMaxPred + k * kValWords;
+    o.p_hi[k] = ((uint64_t)words[0] << 32) | words[1];
+    o.p_lo[k] = ((uint64_t)words[2] << 32) | (h[5 * kMaxPred + k] ^ 0x80000000u);
+    // 1 =, 2 !=, 3 <, 4 <=, 5 >, else >= (ops/scan.py's operator codes)
+    static const uint32_t kAccept[6] = {6u, 2u, 5u, 1u, 3u, 4u};
+    o.p_acc[k] = o.p_op[k] < 6 ? kAccept[o.p_op[k]] : 6u;
   }
   const int a0 = 6 * kMaxPred + kMaxPred * kValWords;
   for (int k = 0; k < kMaxAgg; ++k) {
@@ -108,101 +122,198 @@ __device__ __forceinline__ uint32_t doc_mask(int32_t dkl, int j) {
   return nb >= 4 ? 0xFFFFFFFFu : (nb == 0 ? 0u : (0xFFFFFFFFu << ((4 - nb) * 8)));
 }
 
-// Byte of the packed big-endian key at byte offset off; 0 outside the w
-// words (scan.py:470).
-__device__ __forceinline__ uint32_t key_byte_at(const uint32_t* s, int64_t n,
-                                                int w, int64_t i, int32_t off) {
-  if (off < 0 || (off >> 2) >= w) return 0u;
-  return (at(s, n, kRowWords + (off >> 2), i) >> ((3 - (off & 3)) * 8)) & 0xFFu;
-}
+constexpr int kFlagLanes = 4;                  // J.1 lanes a thread
+constexpr int kFlagWarpLanes = 32 * kFlagLanes;
+constexpr int kRowBatch = 2;   // key-word rows a thread loads before using
 
-// (key < bound, key == bound) over (key words, key_len as int32).
-__device__ void cmp_key(const uint32_t* s, int64_t n, int w, int64_t i,
-                        const uint32_t* bw, int32_t blen, bool& lt, bool& eq) {
-  for (int j = 0; j < w; ++j) {
-    const uint32_t x = at(s, n, kRowWords + j, i);
-    if (x != bw[j]) {
-      lt = x < bw[j];
-      eq = false;
-      return;
+// J.1. Each thread takes 4 consecutive lanes and reads every row it needs
+// as one 16-byte vector: key_len, dkl, keep (one u32), the key words only
+// through the last document-key word any of its lanes needs (new_doc) or
+// a word a candidate (kept by B, real) is still tied with a bound on, the
+// two words holding a candidate's 3-byte subkey (one u32 each, mostly a
+// cache hit), and the 4 value rows only where a base lane has a 3-byte
+// subkey. The document-key rows are loaded kRowBatch at a time before any
+// is used (measured on q6_agg's tensors, an H100: 2 beat 1 and 4, whose
+// registers cost occupancy); the rows only a bound compare needs follow
+// one at a time while a lane is tied. new_doc compares lane i with lane
+// i-1 from registers: the thread's own previous lane, the previous
+// thread's last lane by __shfl_up_sync, and for a warp's first lane a halo
+// word loaded with its batch. Beyond word ceil(dkl/4) doc_mask is 0 on
+// both sides of an equal dkl, so the compare stops there. kLo / kHi: a
+// lower bound that is not empty, an upper bound that is not infinite;
+// without them no bound compare runs (the empty lower bound still settles
+// the lanes whose key_len is negative as int32, which the compare with an
+// empty key would drop when all their words are zero). A predicate slot's
+// compare is two 64-bit compares against operands packed on the host
+// (Ops::p_hi, p_lo) and its operator a 3-bit accept mask. Flags leave as
+// one 16-byte store.
+template <bool kLo, bool kHi>
+__global__ void __launch_bounds__(kThreads)
+row_flags_kernel(const uint32_t* __restrict__ s, int64_t n, int w,
+                 const uint8_t* __restrict__ keep,
+                 const uint32_t* __restrict__ sv,
+                 const __grid_constant__ KeyBounds b, int up_trunc,
+                 const __grid_constant__ Ops o, uint32_t* __restrict__ flags) {
+  extern __shared__ uint32_t sb[];  // lower words, then upper words
+  if (kLo || kHi) key_bounds::stage(b, sb);
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int64_t step = ((int64_t)gridDim.x * kThreads >> 5) * kFlagWarpLanes;
+  const bool test_vals = sv != nullptr && (o.p > 0 || o.c > 0);
+  for (int64_t base0 = warp * kFlagWarpLanes; base0 < n; base0 += step) {
+    const int64_t i = base0 + (int64_t)lane * kFlagLanes;
+    const bool in = i < n;  // n is a multiple of 32: all 4 lanes are in
+    uint32_t len[4] = {0u, 0u, 0u, 0u}, dkl[4] = {0u, 0u, 0u, 0u}, kp = 0u;
+    if (in) {
+      key_bounds::unpack4(key_bounds::ld4(s, n, kRowKeyLen, i), len);
+      key_bounds::unpack4(key_bounds::ld4(s, n, kRowDkl, i), dkl);
+      kp = __ldg(reinterpret_cast<const uint32_t*>(keep + i));
     }
-  }
-  const int32_t len = (int32_t)at(s, n, kRowKeyLen, i);
-  lt = len < blen;
-  eq = len == blen;
-}
-
-__global__ void row_flags_kernel(const uint32_t* __restrict__ s, int64_t n,
-                                 int w, const uint8_t* __restrict__ keep,
-                                 const uint32_t* __restrict__ sv,
-                                 const uint32_t* __restrict__ bounds,
-                                 int32_t lo_len, int32_t hi_len, int up_inf,
-                                 int up_trunc, Ops o,
-                                 uint32_t* __restrict__ flags) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t len_u = at(s, n, kRowKeyLen, i);
-  const int32_t len = (int32_t)len_u;
-  const int32_t dkl = (int32_t)at(s, n, kRowDkl, i);
-  bool lo_lt, lo_eq, hi_lt, hi_eq;
-  cmp_key(s, n, w, i, bounds, lo_len, lo_lt, lo_eq);
-  cmp_key(s, n, w, i, bounds + w, hi_len, hi_lt, hi_eq);
-  const bool in_hi = up_inf || (up_trunc ? (hi_lt || hi_eq) : hi_lt);
-  const bool base = keep[i] && len_u != kPadSentinel && !lo_lt && in_hi;
-  bool new_doc = true;
-  if (i > 0) {
-    const int32_t pdkl = (int32_t)at(s, n, kRowDkl, i - 1);
-    bool same = dkl == pdkl;
-    for (int j = 0; j < w && same; ++j)
-      same = (at(s, n, kRowWords + j, i) & doc_mask(dkl, j)) ==
-             (at(s, n, kRowWords + j, i - 1) & doc_mask(pdkl, j));
-    new_doc = !same;
-  }
-  const int32_t sub_len = (int32_t)(len_u - (uint32_t)dkl);
-  const uint32_t b0 = key_byte_at(s, n, w, i, dkl);
-  const uint32_t b1 = key_byte_at(s, n, w, i, dkl + 1);
-  const uint32_t b2 = key_byte_at(s, n, w, i, dkl + 2);
-  const uint32_t sub3 = (b0 << 16) | (b1 << 8) | b2;
-  const bool is_len3 = sub_len == 3;
-  const bool is_colkey = is_len3 && (b0 == kTagColumnId || b0 == kTagSysColumnId);
-  uint32_t f = 0;
-  if (base && (len == dkl || is_colkey)) f |= kLiveBit;
-  if (base) f |= kBaseBit;
-  if (new_doc) f |= kNewDocBit;
-  if (sv != nullptr && base && is_len3) {
-    const int32_t v_len = (int32_t)at(sv, n, 0, i);
-    uint32_t v[kValWords];
-    for (int j = 0; j < kValWords; ++j) v[j] = at(sv, n, 1 + j, i);
-    const uint32_t tag = v[0] >> 24;
-    for (int k = 0; k < o.p; ++k) {
-      if (sub3 != o.p_sub[k] || (tag != o.p_ta[k] && tag != o.p_tb[k])) continue;
-      bool lt = false, eq = true;
-      for (int j = 0; j < kValWords && eq; ++j) {
-        if (v[j] != o.p_words[k][j]) {
-          lt = v[j] < o.p_words[k][j];
-          eq = false;
+    uint32_t pdkl = __shfl_up_sync(full, dkl[3], 1);
+    if (lane == 0 && in && i > 0) pdkl = at(s, n, kRowDkl, i - 1);
+    // per lane bits: same (dkl equal to the previous lane's, not lane 0),
+    // cand (kept by B and real), len3 (cand with a 3-byte subkey),
+    // negl (cand with key_len < 0 as int32)
+    uint32_t same = 0u, cand = 0u, len3 = 0u, negl = 0u;
+    // per lane: nd the words holding doc-key bytes, last_m the mask of the
+    // last of them; wa / wb the words holding the subkey's first and last
+    // byte (dkl >> 2, (dkl + 2) >> 2; -1 below the key)
+    int nd[4], wa[4], wb[4];
+    uint32_t last_m[4];
+    int nload = 0;  // key-word rows this thread reads for new_doc
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t bit = 1u << e;
+      const int32_t d = (int32_t)dkl[e];
+      nd[e] = d > 0 ? min(w, (d + 3) >> 2) : 0;
+      last_m[e] = nd[e] > 0 ? doc_mask(d, nd[e] - 1) : 0u;
+      wa[e] = wb[e] = -1;
+      nload = max(nload, nd[e]);
+      if (!in) continue;
+      if (i + e > 0 && dkl[e] == (e ? dkl[e - 1] : pdkl)) same |= bit;
+      if (((kp >> (8 * e)) & 0xFFu) && len[e] != kPadSentinel) {
+        cand |= bit;
+        if ((int32_t)len[e] < 0) negl |= bit;
+        if ((int32_t)(len[e] - dkl[e]) == 3) {
+          len3 |= bit;
+          wa[e] = d >> 2;
+          wb[e] = (int)(((int64_t)d + 2) >> 2);
         }
       }
-      if (eq) {
-        lt = v_len < o.p_len[k];
-        eq = v_len == o.p_len[k];
-      }
-      bool m;
-      switch (o.p_op[k]) {
-        case 1: m = eq; break;
-        case 2: m = !eq; break;
-        case 3: m = lt; break;
-        case 4: m = lt || eq; break;
-        case 5: m = !(lt || eq); break;
-        default: m = !lt; break;
-      }
-      if (m) f |= 1u << k;
     }
-    for (int c = 0; c < o.c; ++c)
-      if (sub3 == o.a_sub[c] && (tag == o.a_ta[c] || tag == o.a_tb[c]))
-        f |= 1u << (5 + c);
+    // the words holding each 3-byte subkey (0 below the key or past the w
+    // words)
+    uint32_t sa[4] = {0u, 0u, 0u, 0u}, sz[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!((len3 >> e) & 1u)) continue;
+      if (wa[e] >= 0 && wa[e] < w) sa[e] = __ldg(s + (int64_t)(kRowWords + wa[e]) * n + i + e);
+      if (wb[e] >= 0 && wb[e] < w)
+        sz[e] = wb[e] == wa[e] ? sa[e] : __ldg(s + (int64_t)(kRowWords + wb[e]) * n + i + e);
+    }
+    uint32_t tie_lo = kLo ? cand : negl, tie_hi = kHi ? cand : 0u;
+    uint32_t pass = cand;   // cand lanes inside [lower, upper) so far
+    uint32_t diff = 0u;     // lanes whose document words differ from i-1's
+    const int nload_w = (int)__reduce_max_sync(full, (unsigned)nload);
+    for (int j = 0; j < nload_w; j += kRowBatch) {
+      const uint32_t tied0 = (tie_lo | tie_hi) & pass;
+      uint32_t vb[kRowBatch][4], halo[kRowBatch];
+#pragma unroll
+      for (int q = 0; q < kRowBatch; ++q) {
+        const int jj = j + q;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (jj < nload_w && (jj < nload || tied0))
+          x = key_bounds::ld4(s, n, kRowWords + jj, i);
+        key_bounds::unpack4(x, vb[q]);
+        halo[q] = lane == 0 && (same & 1u) && jj < nd[0]
+                      ? at(s, n, kRowWords + jj, i - 1) : 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < kRowBatch; ++q) {
+        const int jj = j + q;
+        if (jj >= nload_w) break;  // warp-uniform
+        uint32_t pv = __shfl_up_sync(full, vb[q][3], 1);
+        if (lane == 0) pv = halo[q];
+        const uint32_t* v = vb[q];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t bit = 1u << e;
+          if ((same & bit) && jj < nd[e] &&
+              ((v[e] ^ (e ? v[e - 1] : pv)) &
+               (jj + 1 < nd[e] ? 0xFFFFFFFFu : last_m[e])))
+            diff |= bit;
+        }
+        const uint32_t tied = (tie_lo | tie_hi) & pass;
+        if (tied)
+          key_bounds::compare_row<4>(tied, vb[q], kLo ? sb[jj] : 0u,
+                                     kHi ? sb[w + jj] : 0u, tie_lo, tie_hi,
+                                     pass);
+      }
+    }
+    // the words only a bound compare still needs, one row at a time
+    for (int j = nload_w; j < w; ++j) {
+      const uint32_t tied = (tie_lo | tie_hi) & pass;
+      if (!tied) break;
+      uint32_t v[4];
+      key_bounds::unpack4(key_bounds::ld4(s, n, kRowWords + j, i), v);
+      key_bounds::compare_row<4>(tied, v, kLo ? sb[j] : 0u,
+                                 kHi ? sb[w + j] : 0u, tie_lo, tie_hi, pass);
+    }
+    const uint32_t tied = (tie_lo | tie_hi) & pass;
+    if (tied)
+      key_bounds::compare_len<4>(tied, len, kLo ? b.lo_len : 0, b.hi_len,
+                                 up_trunc != 0, tie_lo, tie_hi, pass);
+    const uint32_t base = cand & pass;
+    // the value rows, where a base lane has a 3-byte subkey a slot may test
+    uint32_t vl[4] = {0u, 0u, 0u, 0u}, v0[4] = {0u, 0u, 0u, 0u},
+             v1[4] = {0u, 0u, 0u, 0u}, v2[4] = {0u, 0u, 0u, 0u};
+    if (test_vals && (base & len3)) {
+      key_bounds::unpack4(key_bounds::ld4(sv, n, 0, i), vl);
+      key_bounds::unpack4(key_bounds::ld4(sv, n, 1, i), v0);
+      key_bounds::unpack4(key_bounds::ld4(sv, n, 2, i), v1);
+      key_bounds::unpack4(key_bounds::ld4(sv, n, 3, i), v2);
+    }
+    uint32_t f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t bit = 1u << e;
+      // the subkey's 3 bytes: bytes dkl & 3 .. +2 of the two words sa:sz
+      // (a byte below the key or past the w words reads 0)
+      const uint64_t pair = ((uint64_t)sa[e] << 32) | sz[e];
+      const uint32_t sub =
+          (uint32_t)(pair >> (8 * (5 - ((int32_t)dkl[e] & 3)))) & 0xFFFFFFu;
+      const uint32_t b0 = sub >> 16;
+      const bool is_colkey = (len3 & bit) && (b0 == kTagColumnId || b0 == kTagSysColumnId);
+      uint32_t x = 0u;
+      if (base & bit) {
+        x |= kBaseBit;
+        if (len[e] == dkl[e] || is_colkey) x |= kLiveBit;
+      }
+      if (!(same & bit) || (diff & bit)) x |= kNewDocBit;
+      if (test_vals && (base & len3 & bit)) {
+        const uint32_t tag = v0[e] >> 24;
+        const uint64_t key_hi = ((uint64_t)v0[e] << 32) | v1[e];
+        const uint64_t key_lo = ((uint64_t)v2[e] << 32) | (vl[e] ^ 0x80000000u);
+#pragma unroll
+        for (int k = 0; k < kMaxPred; ++k) {
+          const bool hit = k < o.p && sub == o.p_sub[k] &&
+                           (tag == o.p_ta[k] || tag == o.p_tb[k]);
+          const int cls = key_hi != o.p_hi[k] ? (key_hi < o.p_hi[k] ? 0 : 2)
+                          : key_lo != o.p_lo[k] ? (key_lo < o.p_lo[k] ? 0 : 2)
+                                                : 1;
+          if (hit && ((o.p_acc[k] >> cls) & 1u)) x |= 1u << k;
+        }
+#pragma unroll
+        for (int c = 0; c < kMaxAgg; ++c)
+          if (c < o.c && sub == o.a_sub[c] &&
+              (tag == o.a_ta[c] || tag == o.a_tb[c]))
+            x |= 1u << (5 + c);
+      }
+      f[e] = x;
+    }
+    if (in) *reinterpret_cast<uint4*>(flags + i) = make_uint4(f[0], f[1], f[2], f[3]);
   }
-  flags[i] = f;
 }
 
 // ---------------------------------------------------------------- J.2
@@ -434,6 +545,26 @@ __global__ void agg_reduce_kernel(const uint32_t* __restrict__ flags,
 }
 
 unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+template <bool kLo, bool kHi>
+int launch_row_flags(const uint32_t* s, int64_t n, int w, const uint8_t* keep,
+                     const uint32_t* sv, const KeyBounds& b, int up_trunc,
+                     const Ops& o, uint32_t* flags, cudaStream_t st) {
+  const int64_t ctas = (n + (int64_t)kThreads * kFlagLanes - 1) /
+                       ((int64_t)kThreads * kFlagLanes);
+  const size_t smem = (kLo || kHi) ? 2 * sizeof(uint32_t) * (size_t)w : 0;
+  static int per_sm = 0;
+  static size_t per_sm_smem = 0;
+  if (per_sm == 0 || per_sm_smem != smem) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, row_flags_kernel<kLo, kHi>, kThreads, smem);
+    per_sm_smem = smem;
+  }
+  row_flags_kernel<kLo, kHi>
+      <<<key_bounds::sm_grid(per_sm, ctas), kThreads, smem, st>>>(
+          s, n, w, keep, sv, b, up_trunc, o, flags);
+  return (int)cudaGetLastError();
+}
 int64_t num_tiles(int64_t n) { return (n + kChunk - 1) / kChunk; }
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
@@ -445,19 +576,32 @@ extern "C" {
 
 int ybt_pushdown_ops_len() { return kOpsLen; }
 
-// J.1. s: [>= 8 + w, n] u32; keep: [n] bytes; sv: [>= 4, n] u32 or null
-// (no value words: predicate and aggregate bits stay 0); bounds: [2, w]
-// u32 (lower words, then upper words) on the device; host_ops: kOpsLen
-// u32 on the host; flags: [n] u32 out. Returns cudaGetLastError().
+int ybt_key_bounds_size() { return (int)sizeof(KeyBounds); }
+
+// J.1. s: [>= 8 + w, n] u32, 16-byte aligned; keep: [n] bytes, 4-byte
+// aligned; sv: [>= 4, n] u32, 16-byte aligned, or null (no value words:
+// predicate and aggregate bits stay 0); bounds: a host KeyBounds (copied
+// into the launch's parameters; its `dev` words, when w > kBoundCap, on the
+// card); lo_empty: the lower bound is empty (length 0, zero words);
+// host_ops: kOpsLen u32 on the host; flags: [n] u32 out, 16-byte aligned;
+// n a multiple of 32. Returns cudaGetLastError().
 int ybt_row_flags(const uint32_t* s, int64_t n, int w, const uint8_t* keep,
-                  const uint32_t* sv, const uint32_t* bounds, int lo_len,
-                  int hi_len, int up_inf, int up_trunc, const uint32_t* host_ops,
-                  int p, int c, uint32_t* flags, void* stream) {
-  if (n <= 0 || w <= 0 || !ops_ok(p, c)) return (int)cudaErrorInvalidValue;
-  row_flags_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      s, n, w, keep, sv, bounds, lo_len, hi_len, up_inf, up_trunc,
-      unpack_ops(host_ops, p, c), flags);
-  return (int)cudaGetLastError();
+                  const uint32_t* sv, const KeyBounds* bounds, int lo_empty,
+                  int up_inf, int up_trunc, const uint32_t* host_ops, int p,
+                  int c, uint32_t* flags, void* stream) {
+  if (n <= 0 || n % 32 != 0 || w <= 0 || !ops_ok(p, c) || bounds == nullptr ||
+      bounds->w != w || (w > key_bounds::kBoundCap && bounds->dev == nullptr) ||
+      2 * sizeof(uint32_t) * (size_t)w > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const Ops o = unpack_ops(host_ops, p, c);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!lo_empty && !up_inf)
+    return launch_row_flags<true, true>(s, n, w, keep, sv, *bounds, up_trunc, o, flags, st);
+  if (!lo_empty)
+    return launch_row_flags<true, false>(s, n, w, keep, sv, *bounds, up_trunc, o, flags, st);
+  if (!up_inf)
+    return launch_row_flags<false, true>(s, n, w, keep, sv, *bounds, up_trunc, o, flags, st);
+  return launch_row_flags<false, false>(s, n, w, keep, sv, *bounds, up_trunc, o, flags, st);
 }
 
 // Scratch bytes J.2 needs over n entries.

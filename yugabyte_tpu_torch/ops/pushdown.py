@@ -38,9 +38,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from yugabyte_tpu_torch.ops import key_bounds
 from yugabyte_tpu_torch.ops.merge_gc import (
     _ROW_DKL, _ROW_KEY_LEN, _ROW_WORDS, _U32, PAD_SENTINEL, _u,
-    pack_bits_u32, u32_to_device)
+    pack_bits_u32)
 from yugabyte_tpu_torch.utils import torch_setup
 
 VAL_WORDS = 3
@@ -267,9 +268,13 @@ def _lib():
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.ybt_pushdown_ops_len.restype = ci
         lib.ybt_pushdown_ops_len.argtypes = []
+        lib.ybt_key_bounds_size.restype = ci
+        lib.ybt_key_bounds_size.argtypes = []
+        key_bounds.check_layout(lib)
         lib.ybt_row_flags.restype = ci
-        lib.ybt_row_flags.argtypes = [vp, i64, ci, vp, vp, vp, ci, ci, ci, ci,
-                                      u32p, ci, ci, vp, vp]
+        lib.ybt_row_flags.argtypes = [vp, i64, ci, vp, vp,
+                                      ctypes.POINTER(key_bounds.KeyBounds),
+                                      ci, ci, ci, u32p, ci, ci, vp, vp]
         lib.ybt_segment_or_scratch_bytes.restype = i64
         lib.ybt_segment_or_scratch_bytes.argtypes = [i64]
         lib.ybt_segment_or.restype = ci
@@ -313,8 +318,10 @@ def row_flags(s: torch.Tensor, keep: torch.Tensor,
               sv: Optional[torch.Tensor], w: int, bounds: Bounds, p_ops,
               a_ops=None) -> torch.Tensor:
     """Kernel J.1 wrapper (see row_flags_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/pushdown.cu, counted in
-    `row_flags.launches`."""
+    version. CUDA tensor: csrc/pushdown.cu, one launch with the bounds in
+    its parameters (ops/key_bounds.py), counted in `row_flags.launches`;
+    n a multiple of 32, s and sv 16-byte aligned, keep 4-byte aligned
+    (the kernel reads 16-byte vectors)."""
     if not s.is_cuda:
         return row_flags_plain(s, keep, sv, w, bounds, p_ops, a_ops)
     n = s.shape[1]
@@ -324,18 +331,23 @@ def row_flags(s: torch.Tensor, keep: torch.Tensor,
         _check_rows(sv, 1 + VAL_WORDS, n, "row_flags sv")
     p = len(p_ops[1])
     c = 0 if a_ops is None else len(a_ops[0])
-    if p > MAX_PRED or c > MAX_AGG:
-        raise ValueError(f"row_flags: {p} predicate / {c} aggregate slots")
+    if p > MAX_PRED or c > MAX_AGG or n % 32:
+        raise ValueError(f"row_flags: {p} predicate / {c} aggregate slots, "
+                         f"n={n} (a multiple of 32)")
+    if s.data_ptr() % 16 or keep.data_ptr() % 4 \
+            or (sv is not None and sv.data_ptr() % 16):
+        raise ValueError("row_flags: s and sv must start 16-byte aligned, "
+                         "keep 4-byte aligned")
     lo_w, lo_l, hi_w, hi_l, up_inf, up_trunc = bounds
+    lo_empty = int(lo_l) == 0 and not np.asarray(lo_w, np.uint32).any()
     dev = s.device
-    bdev = u32_to_device(np.stack([np.asarray(lo_w, np.uint32),
-                                   np.asarray(hi_w, np.uint32)]), dev)
+    kb, _dev_words = key_bounds.key_bounds(lo_w, lo_l, hi_w, hi_l, w, dev)
     flags = torch.empty(n, dtype=torch.int32, device=dev)
     rc = _lib().ybt_row_flags(
         s.data_ptr(), n, w, keep.data_ptr(),
-        None if sv is None else sv.data_ptr(), bdev.data_ptr(), int(lo_l),
-        int(hi_l), int(up_inf), int(up_trunc), _host_ops(p_ops, a_ops), p, c,
-        flags.data_ptr(), torch_setup.stream_ptr(dev))
+        None if sv is None else sv.data_ptr(), ctypes.byref(kb),
+        int(lo_empty), int(up_inf), int(up_trunc), _host_ops(p_ops, a_ops),
+        p, c, flags.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "row_flags")
     row_flags.launches += 1
     return flags

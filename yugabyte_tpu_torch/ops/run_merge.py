@@ -36,7 +36,7 @@ import ctypes
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,13 +287,28 @@ def _concat():
     return _concat_lib
 
 
+# kernel H's pad templates on the card, by (template words, device)
+_templates: Dict[Tuple[bytes, str], torch.Tensor] = {}
+
+
+def _template_on(template: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = np.ascontiguousarray(template, dtype=np.uint32)
+    key = (t.tobytes(), str(dev))
+    if key not in _templates:
+        _templates[key] = u32_to_device(t, dev)
+    return _templates[key]
+
+
 def _concat_launch(desc: List[List[int]], n_out: int, template: np.ndarray,
                    dev: torch.device, what: str) -> torch.Tensor:
     """One launch of kernel H over descriptors (pointer at the part's
-    first lane, row stride, n, output offset, rows), offsets increasing."""
+    first lane, row stride, n, output offset, rows), offsets increasing.
+    The descriptors go up as one pinned, non-blocking copy; the template
+    is uploaded once per (template, device)."""
     r = len(template)
-    desc_dev = torch.tensor(desc, dtype=torch.int64).to(dev)
-    tmpl = u32_to_device(template, dev)
+    desc_dev = torch.tensor(desc, dtype=torch.int64, pin_memory=True).to(
+        dev, non_blocking=True)
+    tmpl = _template_on(template, dev)
     out = torch.empty((r, n_out), dtype=torch.int32, device=dev)
     rc = _concat().ybt_staged_concat(
         desc_dev.data_ptr(), len(desc), r, n_out, tmpl.data_ptr(),

@@ -13,8 +13,9 @@ the scan resolves a whole key range in one device pass over every input:
      surviving version per key, the one visible at the read time, with
      tombstones, TTL-expired values and root-overwrite-covered entries
      dropped;
-  4. the lexicographic range mask over the sorted key words, packed
-     (kernel I.2, `bound_pack`).
+  4. for a bounded scan, the lexicographic range mask over the sorted key
+     words, packed (kernel I.2, `bound_pack`); an unbounded scan takes
+     kernel B's packed keep as it is.
 
 The host downloads perm and the packed keep and gathers the surviving
 (key, value) pairs from the slabs: values never cross to the device.
@@ -42,7 +43,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from yugabyte_tpu_torch.ops import pushdown, radix
+from yugabyte_tpu_torch.ops import key_bounds, pushdown, radix
 from yugabyte_tpu_torch.ops.merge_gc import (
     _ROW_KEY_LEN, _ROW_WORDS, GCParams, StagedCols, _u, _unpack_bits,
     bucket_size, gc_pack, pack_bits_u32, sort_and_gc, u32_to_device)
@@ -102,10 +103,13 @@ def _lib():
     global _scan_lib
     if _scan_lib is None:
         lib = torch_setup.load_cuda_lib("scan.cu")
+        lib.ybt_key_bounds_size.restype = ctypes.c_int
+        lib.ybt_key_bounds_size.argtypes = []
+        key_bounds.check_layout(lib)
         lib.ybt_bound_pack.restype = ctypes.c_int
         lib.ybt_bound_pack.argtypes = (
             [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p] + [ctypes.c_int] * 5
+             ctypes.POINTER(key_bounds.KeyBounds)] + [ctypes.c_int] * 3
             + [ctypes.c_void_p, ctypes.c_void_p])
         _scan_lib = lib
     return _scan_lib
@@ -116,7 +120,10 @@ def bound_pack(p_mat: torch.Tensor, keep: torch.Tensor, w: int,
                hi_len: int, has_lower: bool, has_upper: bool,
                upper_truncated: bool = False) -> torch.Tensor:
     """Kernel I.2 wrapper (see bound_pack_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/scan.cu, counted in `bound_pack.launches`."""
+    version. CUDA tensor: csrc/scan.cu, one launch with the bounds in its
+    parameters (ops/key_bounds.py), counted in `bound_pack.launches`;
+    p_mat and keep must start 16-byte aligned (the kernel reads 16-byte
+    vectors)."""
     if not p_mat.is_cuda:
         return bound_pack_plain(p_mat, keep, w, lo_words, lo_len, hi_words,
                                 hi_len, has_lower, has_upper, upper_truncated)
@@ -126,14 +133,17 @@ def bound_pack(p_mat: torch.Tensor, keep: torch.Tensor, w: int,
             or keep.shape != (n,) or not keep.is_contiguous():
         raise ValueError(f"bound_pack: bad shapes p_mat {tuple(p_mat.shape)},"
                          f" keep {tuple(keep.shape)} for w={w}")
+    if p_mat.data_ptr() % 16 or keep.data_ptr() % 16:
+        raise ValueError("bound_pack: p_mat and keep must start 16-byte "
+                         "aligned")
     dev = p_mat.device
-    bounds = u32_to_device(np.stack([np.asarray(lo_words, np.uint32),
-                                     np.asarray(hi_words, np.uint32)]), dev)
+    kb, _dev_words = key_bounds.key_bounds(lo_words, lo_len, hi_words,
+                                           hi_len, w, dev)
     packed = torch.empty(n // 32, dtype=torch.int32, device=dev)
     rc = _lib().ybt_bound_pack(
-        p_mat.data_ptr(), n, w, keep.data_ptr(), bounds.data_ptr(),
-        int(lo_len), int(hi_len), int(has_lower), int(has_upper),
-        int(upper_truncated), packed.data_ptr(), torch_setup.stream_ptr(dev))
+        p_mat.data_ptr(), n, w, keep.data_ptr(), ctypes.byref(kb),
+        int(has_lower), int(has_upper), int(upper_truncated),
+        packed.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "bound_pack")
     bound_pack.launches += 1
     return packed
@@ -152,12 +162,17 @@ def _scan_fused(cols: torch.Tensor, sort_rows, n_sort: int,
                 has_upper: bool, upper_truncated: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(perm int32 [n_pad], packed keep int32 [n_pad/32]) of the snapshot
-    scan over one cols matrix: kernels G, I.1, B (snapshot) and I.2. Pad
-    rows are never kept (the JAX function keeps the first pad row when
-    there is no upper bound; scan_visible masks it with perm < n)."""
-    perm, keep, _mk, p_mat, _packed = sort_and_gc(
+    scan over one cols matrix: kernels G, I.1, B (snapshot) and, for a
+    bounded scan, I.2. Without bounds the answer is plane 0 of kernel B's
+    packed buffer (B's keep of real rows, packed as I.2 would pack it), so
+    no I.2 runs. Pad rows are never kept (the JAX function keeps the first
+    pad row when there is no upper bound; scan_visible masks it with
+    perm < n)."""
+    perm, keep, _mk, p_mat, packed = sort_and_gc(
         cols, GCParams(read_ht_value, True), w, sort_rows, n_sort,
         snapshot=True)
+    if not (has_lower or has_upper):
+        return perm, packed[:, 0].contiguous()
     keep_p = bound_pack(p_mat, keep, w, lo_words, lo_len, hi_words, hi_len,
                         has_lower, has_upper, upper_truncated)
     return perm, keep_p

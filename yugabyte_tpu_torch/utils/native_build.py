@@ -66,11 +66,18 @@ def build_native_lib(src_name: str, lib_name: str,
     return lib
 
 
+def _cuda_srcs(src_name: str):
+    """A .cu file and the csrc headers (*.cuh) it may include."""
+    return [os.path.join(CSRC_DIR, src_name)] + sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh"))
+
+
 def build_cuda_lib(src_name: str) -> str:
     """Compile csrc/<src_name> (a .cu file) into lib<stem>.so if stale."""
     lib = os.path.join(BUILD_DIR, "lib" + src_name.rsplit(".", 1)[0] + ".so")
     with _lock:
-        if _stale(lib, [os.path.join(CSRC_DIR, src_name)]):
+        if _stale(lib, _cuda_srcs(src_name)):
             os.makedirs(BUILD_DIR, exist_ok=True)
             subprocess.run(_cuda_cmd(src_name, lib), check=True)
     return lib
@@ -102,7 +109,7 @@ def build_all(cuda: bool = True) -> Dict[str, str]:
         for src in CUDA_SOURCES:
             lib = os.path.join(BUILD_DIR, "lib" + src.rsplit(".", 1)[0]
                                + ".so")
-            if _stale(lib, [os.path.join(CSRC_DIR, src)]):
+            if _stale(lib, _cuda_srcs(src)):
                 jobs.append((src, _cuda_cmd(src, lib)))
     out: Dict[str, str] = {}
     with _lock:
