@@ -36,6 +36,22 @@ Phases (any failure exits non-zero):
      at the codec job's shapes == their plain versions, timed with CUDA
      events beside their bounds and, for D and E, a PyTorch call that
      computes the same function;
+ 5a. the resident chain over the same inputs: the 4 runs staged into a
+     DeviceSlabCache at level 0 and exported into a run cache (flush
+     write-through); L0->L1 with the cache and input_ids on the codec
+     route (no run cache: A, B, D, E, F, H, P4, no C) and on the shell
+     route (every input run-cached: A, B, D, E, H, P4, no file read, no
+     host decode), files == the native job's, outputs installed at level
+     1; L1->L2 warm over the shell job's first two outputs (no key-column
+     upload, no host block decode, no shell file ingest by the port's
+     counters) beside the native and the cold job; a range scan over
+     ResidentSources of the L1 outputs == the host reference; the digest
+     check at sample 1.0 on sampled entries; zero pins after every job.
+     After the skewed pick (5b) the same pick runs with the cache (the
+     resident L1 file + the 4 flushes: H, G, I.1, B, outputs at level 2),
+     and after the pushdown (8) q1_agg and q6_agg run over the lineitem
+     SSTs as ResidentSources staged with their value words, beside the
+     SlabSource calls;
  5b. chunked subcompactions through the router `storage.compaction.
      run_compaction_job(device="cuda")` over the same inputs, on the
      codec and the shell route, each an unchunked job and then a chunked
@@ -3481,6 +3497,444 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
     return rows
 
 
+# --------------------------------------------------------------------------
+# The resident chain: flush write-through, chained L0->L1->L2 compaction
+# with the device slab cache and the run cache, the skewed pick and the
+# reads over resident sources.
+
+
+def _chain_wrappers():
+    """The main-path wrappers plus P4 (the learned-index fit of each
+    write-through span)."""
+    from yugabyte_tpu_torch.ops import point_read
+    return {**_wrappers(), "index_fit": point_read.index_fit}
+
+
+# per chained job: the kernels it must launch, and those it must not
+_CHAIN_KERNELS = {
+    "l0_l1_codec": (("merge_path_level", "gc_pack", "survivor_scan",
+                     "span_gather", "block_encode", "staged_concat",
+                     "index_fit"), ("block_decode",)),
+    "l0_l1_shell": (("merge_path_level", "gc_pack", "survivor_scan",
+                     "span_gather", "staged_concat", "index_fit"),
+                    ("block_decode", "block_encode")),
+    "l1_l2_warm": (("merge_path_level", "gc_pack", "survivor_scan",
+                    "span_gather", "staged_concat", "index_fit"),
+                   ("block_decode", "block_encode")),
+    "skewed_resident": (("staged_concat", "radix_sort", "sorted_payload",
+                         "gc_pack"), ("merge_path_level",)),
+}
+
+
+def chain_counters() -> dict:
+    """The port's own process counters: host block decodes (SSTReader),
+    key-column uploads (stage_slab, stage_runs_from_slabs, the codec's raw
+    column upload) and native-shell file ingests."""
+    from yugabyte_tpu_torch.ops import merge_gc
+    from yugabyte_tpu_torch.storage import compaction, sst
+    return {"host_block_decodes": sst.blocks_decoded(),
+            "key_col_uploads": merge_gc.key_col_uploads(),
+            "shell_file_ingests": compaction.ingest_decodes()}
+
+
+def chain_job(tag, fn, wrappers, cache):
+    """Run one chained job with every launch counter set to 0 just before
+    and read just after: (result, seconds, launches, counter deltas).
+    Checks the job's kernels (_CHAIN_KERNELS) and that no pin is left."""
+    for w in wrappers.values():
+        w.launches = 0
+    c0 = chain_counters()
+    t0 = time.time()
+    res = fn()
+    sync()
+    secs = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    counts = {k: v - c0[k] for k, v in chain_counters().items()}
+    if tag in _CHAIN_KERNELS:
+        need, absent = _CHAIN_KERNELS[tag]
+        for k in need:
+            if launches[k] <= 0:
+                raise AssertionError(f"{tag}: kernel {k} was not launched")
+        for k in absent:
+            if launches[k]:
+                raise AssertionError(f"{tag}: kernel {k} launched "
+                                     f"{launches[k]} times")
+    if cache is not None and cache.pinned_count():
+        raise AssertionError(f"{tag}: {cache.pinned_count()} pins left")
+    return res, secs, launches, counts
+
+
+def profile_top(fn, n: int) -> dict:
+    """Host seconds of one call of fn under cProfile (the calling thread;
+    a helper thread shows as the join that waits for it) and its n
+    functions with the most cumulative seconds."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.time()
+    prof.enable()
+    fn()
+    sync()
+    prof.disable()
+    secs = time.time() - t0
+    rows = sorted(((v[3], v[2], f"{os.path.basename(k[0])}:{k[1]}:{k[2]}")
+                   for k, v in pstats.Stats(prof).stats.items()),
+                  reverse=True)
+    return {"seconds": secs, "top_cumulative_s": [
+        [name, cum, tot] for cum, tot, name in rows[:n]]}
+
+
+def same_data(a, b, what):
+    """The data files of two jobs byte for byte (a job with a cache fits
+    the learned index into its base files; the native job does not)."""
+    if (a.rows_in, a.rows_out) != (b.rows_in, b.rows_out) \
+            or len(a.outputs) != len(b.outputs) or not a.outputs:
+        raise AssertionError(f"{what}: jobs disagree on rows/files")
+    for (_, pa, _), (_, pb, _) in zip(a.outputs, b.outputs):
+        with open(pa + ".sblock.0", "rb") as f1, \
+                open(pb + ".sblock.0", "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{what}: {os.path.basename(pa)} "
+                                     f"differs")
+
+
+def check_installed(cache, result, level, what):
+    for fid, _p, props in result.outputs:
+        if cache.level_of(fid) != level or cache.get(fid).n != \
+                props.n_entries:
+            raise AssertionError(f"{what}: output {fid} is not installed "
+                                 f"at level {level}")
+
+
+def verify_entries(cache, samples, what):
+    """The digest check at sample 1.0 on (fid, base path) samples: each
+    entry's cols == a host re-stage of its SST."""
+    from yugabyte_tpu_torch.storage import integrity
+    from yugabyte_tpu_torch.utils import flags
+    old = flags.get_flag("resident_digest_sample")
+    flags.set_flag("resident_digest_sample", 1.0)
+    try:
+        for fid, base in samples:
+            if not integrity.maybe_verify_resident_entry(cache.get(fid),
+                                                         base):
+                raise AssertionError(f"{what}: entry {fid} differs from a "
+                                     f"host re-stage of {base}")
+    finally:
+        flags.set_flag("resident_digest_sample", old)
+
+
+def resident_chain_phase(args, runs, readers, workdir, card, device="cuda"):
+    """The resident chain over the compaction phase's 4 input SSTs (the
+    10M-row tablet, w = 8, 64-byte values):
+
+    1. flush write-through: the 4 runs staged into a DeviceSlabCache at
+       level 0 (from the slabs written, as flush does) and exported into
+       a run cache (export_reader);
+    2. L0->L1 twice over the same inputs: the codec route (no run cache:
+       the inputs come from the slab cache, no kernel C) and the shell
+       route (every input run-cached: no file read, no host decode);
+       files == the native job's, each output installed under its id at
+       level 1; rows/s beside the native job's in this call;
+    3. L1->L2 warm: the shell job's first two outputs (resident and
+       run-cached) through the device-native job: no key-column upload,
+       no host block decode, no shell file ingest (the port's counters),
+       files == the native job's; rows/s beside native and the same job
+       cold (no caches);
+    4. the range scan of section 6's bounds over ResidentSources of the
+       codec job's L1 outputs, in lockstep with the host reference, with
+       no key-column upload and only survivor blocks decoded;
+    5. the digest check at sample 1.0 on a sample of entries; no pin is
+       left after any job; peak device memory.
+    Every launch counter is set to 0 just before each job and read just
+    after. Returns (summary, per-job launches, the chain state)."""
+    import torch
+    from yugabyte_tpu_torch.ops import scan
+    from yugabyte_tpu_torch.storage import compaction, integrity
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.run_cache import (NamespacedRunCache,
+                                                      NativeRunCache,
+                                                      export_reader)
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    from yugabyte_tpu_torch.utils import flags
+
+    # the sampled digest check decodes the file it checks: off inside the
+    # counted windows, on at 1.0 for the explicit checks (verify_entries)
+    old_sample = flags.get_flag("resident_digest_sample")
+    flags.set_flag("resident_digest_sample", 0.0)
+    cutoff = history_cutoff(args.rows)
+    wrappers = _chain_wrappers()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    cache = DeviceSlabCache(device, capacity_bytes=32 << 30)
+    rc = NamespacedRunCache(NativeRunCache(capacity_bytes=32 << 30), "chain")
+    out = {"card": card}
+    launches = {}
+    ids_l0 = list(range(len(readers)))
+    t0 = time.time()
+    for fid, slab in zip(ids_l0, runs):
+        cache.stage(fid, slab, level=0)
+    sync()
+    out["flush_stage_s"] = time.time() - t0
+    t0 = time.time()
+    for fid, r in zip(ids_l0, readers):
+        export_reader(rc, fid, r)
+    out["flush_export_s"] = time.time() - t0
+    rows = sum(r.props.n_entries for r in readers)
+    n_id = iter(range(5000, 10 ** 6))
+
+    def run(tag, inputs, ids, run_cache, cache_=cache):
+        d = os.path.join(workdir, f"chain_{tag}")
+        os.makedirs(d)
+        if tag.startswith("native"):
+            return lambda: compaction._run_native_job(
+                inputs, d, lambda: next(n_id), cutoff, True, False, None)
+        return lambda: compaction.run_compaction_job_device_native(
+            inputs, d, lambda: next(n_id), cutoff, True, device=device,
+            device_cache=cache_, input_ids=ids, run_cache=run_cache)
+
+    res = {}
+    for tag, inputs, ids, run_cache, cache_ in (
+            ("native_l0_l1", readers, None, None, None),
+            ("l0_l1_codec", readers, ids_l0, None, cache),
+            ("l0_l1_shell", readers, ids_l0, rc, cache)):
+        r, secs, launches[tag], counts = chain_job(
+            tag, run(tag, inputs, ids, run_cache, cache_), wrappers, cache_)
+        res[tag] = r
+        out[tag] = {"seconds": secs, "rows_per_s": rows / secs,
+                    "rows_out": r.rows_out, "files": len(r.outputs),
+                    "counters": counts}
+        if cache_ is not None:
+            same_data(r, res["native_l0_l1"], f"{tag} vs native")
+            check_installed(cache, r, 1, tag)
+        log(f"chain {tag}: {rows} rows -> {r.rows_out} rows, "
+            f"{len(r.outputs)} files, {secs:.2f}s ({rows / secs:,.0f} "
+            f"rows/s); counters {counts}; launches "
+            f"{ {k: v for k, v in launches[tag].items() if v} } [{card}]")
+    if out["l0_l1_shell"]["counters"] != {"host_block_decodes": 0,
+                                          "key_col_uploads": 0,
+                                          "shell_file_ingests": 0}:
+        raise AssertionError("the run-cached L0->L1 job decoded or "
+                             "uploaded: " + str(out["l0_l1_shell"]))
+    if not all(rc.contains(f) for f, _p, _pr in res["l0_l1_shell"].outputs):
+        raise AssertionError("the shell route did not export its outputs")
+
+    l1 = res["l0_l1_shell"].outputs[:2]
+    l1_readers = [SSTReader(p) for _f, p, _pr in l1]
+    l1_ids = [f for f, _p, _pr in l1]
+    rows2 = sum(r.props.n_entries for r in l1_readers)
+    for tag, ids, run_cache, cache_ in (
+            ("native_l1_l2", None, None, None),
+            ("l1_l2_warm", l1_ids, rc, cache),
+            ("l1_l2_cold", None, None, None)):
+        r, secs, launches[tag], counts = chain_job(
+            tag, run(tag, l1_readers, ids, run_cache, cache_), wrappers,
+            cache_)
+        res[tag] = r
+        out[tag] = {"seconds": secs, "rows_per_s": rows2 / secs,
+                    "rows_out": r.rows_out, "files": len(r.outputs),
+                    "counters": counts}
+        if tag != "native_l1_l2":
+            same_data(r, res["native_l1_l2"], f"{tag} vs native")
+        log(f"chain {tag}: {rows2} rows in {l1_ids} -> {r.rows_out} rows, "
+            f"{secs:.2f}s ({rows2 / secs:,.0f} rows/s); counters {counts}; "
+            f"launches { {k: v for k, v in launches[tag].items() if v} } "
+            f"[{card}]")
+    if out["l1_l2_warm"]["counters"] != {"host_block_decodes": 0,
+                                         "key_col_uploads": 0,
+                                         "shell_file_ingests": 0}:
+        raise AssertionError("the warm L1->L2 job decoded or uploaded: "
+                             + str(out["l1_l2_warm"]))
+    check_installed(cache, res["l1_l2_warm"], 2, "l1_l2_warm")
+    # where the warm job's host time goes: the same job once more under
+    # cProfile (its outputs under fresh ids)
+    out["l1_l2_warm_profile"] = profile_top(
+        run("l1_l2_warm_profiled", l1_readers, l1_ids, rc), 16)
+    log("warm L1->L2 under cProfile: " + json.dumps(
+        out["l1_l2_warm_profile"]))
+
+    # the range scan over the codec job's resident L1 outputs
+    _r_ht, lower, upper = scan_bounds(args.rows)
+    codec_l1 = res["l0_l1_codec"].outputs
+    s_readers = [SSTReader(p) for _f, p, _pr in codec_l1]
+    slabs = [r.read_all() for r in s_readers]
+    srcs = [scan.ResidentSource(r, cache.get(f))
+            for (f, _p, _pr), r in zip(codec_l1, s_readers)]
+    c0 = chain_counters()
+    t0 = time.time()
+    range_launches = {}
+    n = entries_lockstep(
+        counted(lambda: scan.visible_entries_sources(srcs, cutoff, lower,
+                                                     upper, device=device),
+                wrappers, "resident range scan", "range_scan",
+                range_launches),
+        scan._visible_entries_host(slabs, cutoff, lower, upper),
+        "resident range scan")
+    counts = {k: v - c0[k] for k, v in chain_counters().items()}
+    decoded = sum(s.decoded_blocks for s in srcs)
+    launches["resident_range_scan"] = range_launches
+    if n == 0 or counts["key_col_uploads"] or \
+            counts["host_block_decodes"] != decoded:
+        raise AssertionError(f"resident range scan: {n} entries, counters "
+                             f"{counts}, {decoded} survivor blocks")
+    out["resident_range_scan"] = {
+        "entries": n, "seconds_with_host_reference": time.time() - t0,
+        "decoded_blocks": decoded,
+        "blocks": sum(r.n_blocks for r in s_readers), "counters": counts}
+    log(f"resident range scan over {len(srcs)} L1 files == host reference "
+        f"({n} entries); decoded {decoded} of "
+        f"{out['resident_range_scan']['blocks']} blocks; no key-column "
+        f"upload")
+    del slabs, srcs
+
+    verify_entries(cache, [(codec_l1[0][0], codec_l1[0][1]),
+                           (res["l1_l2_warm"].outputs[0][0],
+                            res["l1_l2_warm"].outputs[0][1])],
+                   "resident chain")
+    snap = integrity.resident_digest_snapshot()
+    if snap["mismatches"]:
+        raise AssertionError(f"resident digest mismatches: {snap}")
+    out["digest"] = snap
+    out["cache"] = cache.snapshot()
+    out["run_cache_bytes"] = rc._shared.used_bytes
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.cuda.is_available() else 0)
+    flags.set_flag("resident_digest_sample", old_sample)
+    for r in l1_readers + s_readers:
+        r.close()
+    log(f"resident chain: warm L1->L2 {out['l1_l2_warm']['rows_per_s']:,.0f}"
+        f" rows/s, cold {out['l1_l2_cold']['rows_per_s']:,.0f}, native "
+        f"{out['native_l1_l2']['rows_per_s']:,.0f}; L0->L1 codec "
+        f"{out['l0_l1_codec']['rows_per_s']:,.0f}, shell "
+        f"{out['l0_l1_shell']['rows_per_s']:,.0f}, native "
+        f"{out['native_l0_l1']['rows_per_s']:,.0f}; peak "
+        f"{out['peak_bytes']} bytes [{card}]")
+    state = {"cache": cache, "rc": rc, "l1_first": codec_l1[0][:2]}
+    return out, launches, state
+
+
+def resident_skewed_phase(args, state, skew_paths, workdir, card,
+                          device="cuda"):
+    """The skewed pick with the cache: the codec chain's first L1 file
+    (resident at level 1, the same bytes as the skewed phase's base file)
+    plus the skewed phase's 4 L0 flushes of --skew-rows updates, staged
+    at level 0 as flush does, through the router's Python path with the
+    cache (kernels H, G, I.1, B over the concatenated resident cols):
+    files == the native job's, no key column uploaded for an input (one
+    upload per output: the Python path's write-through re-stages its
+    output slabs), every output installed at level 2, one entry == a
+    host re-stage of its SST. Returns (summary, launches)."""
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    cache = state["cache"]
+    base_fid, base_path = state["l1_first"]
+    for suffix in ("", ".sblock.0"):
+        with open(base_path + suffix, "rb") as f1, \
+                open(skew_paths[0] + suffix, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("the chain's L1 file differs from the "
+                                     "skewed pick's base file")
+    readers = [SSTReader(base_path)] + [SSTReader(p) for p in skew_paths[1:]]
+    ids = [base_fid] + [9000 + i for i in range(len(skew_paths) - 1)]
+    for fid, r in zip(ids[1:], readers[1:]):
+        cache.stage(fid, r.read_all(), level=0)
+    cutoff = skewed_cutoff(args)
+    wrappers = _chain_wrappers()
+    n_id = iter(range(20000, 30000))
+    res = {}
+    out = {}
+    for tag in ("native", "skewed_resident"):
+        d = os.path.join(workdir, f"chain_skewed_{tag}")
+        os.makedirs(d)
+        if tag == "native":
+            fn = (lambda d=d: compaction._run_native_job(
+                readers, d, lambda: next(n_id), cutoff, True, False, None))
+        else:
+            fn = (lambda d=d: compaction.run_compaction_job(
+                readers, d, lambda: next(n_id), cutoff, True, device=device,
+                device_cache=cache, input_ids=ids))
+        res[tag], secs, launches, counts = chain_job(
+            tag, fn, wrappers, cache if tag != "native" else None)
+        out[tag] = {"seconds": secs, "counters": counts,
+                    "rows_per_s": sum(r.props.n_entries
+                                      for r in readers) / secs}
+    r = res["skewed_resident"]
+    same_files(r, res["native"], "resident skewed pick vs native")
+    check_installed(cache, r, 2, "resident skewed pick")
+    if out["skewed_resident"]["counters"]["key_col_uploads"] != \
+            len(r.outputs):
+        raise AssertionError(f"resident skewed pick uploaded inputs: "
+                             f"{out['skewed_resident']}")
+    verify_entries(cache, [r.outputs[0][:2]], "resident skewed pick")
+    out.update(rows_out=r.rows_out, files=len(r.outputs), launches=launches)
+    log(f"resident skewed pick: {r.rows_out} rows, {len(r.outputs)} files "
+        f"== native; {out['skewed_resident']['rows_per_s']:,.0f} rows/s, "
+        f"native {out['native']['rows_per_s']:,.0f}; counters "
+        f"{out['skewed_resident']['counters']}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    for rd in readers:
+        rd.close()
+    return out, launches
+
+
+def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
+                            device="cuda"):
+    """q1_agg and q6_agg over the lineitem SSTs as ResidentSources: the
+    files staged into a DeviceSlabCache with include_vals=True (flush
+    write-through with the value words), then each query timed over the
+    SlabSources (pack + upload inside) and over the resident sources, one
+    after the other in this call; the answers equal each other and the
+    pushdown phase's; the resident call uploads no key column and
+    launches the multi-source kernels. Returns (summary, launches)."""
+    from yugabyte_tpu_torch.ops import scan
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    cache = DeviceSlabCache(device, capacity_bytes=32 << 30)
+    t0 = time.time()
+    for i, s in enumerate(slabs):
+        cache.stage(i, s, include_vals=True)
+    sync()
+    out = {"stage_with_vals_s": time.time() - t0}
+    readers = [SSTReader(os.path.join(workdir, "lineitem", f"{i:06d}.sst"))
+               for i in range(len(slabs))]
+    queries = pushdown_queries(lineitem_schema())
+    wrappers = {**_wrappers(), **_pushdown_wrappers()}
+    launches = {}
+    for qname in ("q1_agg", "q6_agg"):
+        mode, spec = queries[qname]
+        t0 = time.time()
+        want = scan.aggregate_sources(
+            [scan.SlabSource(s, sorted_source=True) for s in slabs], top_ht,
+            spec, device=device)
+        sync()
+        t_slab = time.time() - t0
+        for w in wrappers.values():
+            w.launches = 0
+        c0 = chain_counters()
+        t0 = time.time()
+        got = scan.aggregate_sources(
+            [scan.ResidentSource(r, cache.get(i))
+             for i, r in enumerate(readers)], top_ht, spec, device=device)
+        sync()
+        t_res = time.time() - t0
+        counts = {k: v - c0[k] for k, v in chain_counters().items()}
+        launches[qname] = {k: w.launches for k, w in wrappers.items()}
+        check_pushdown_launches(launches[qname], mode, False,
+                                f"resident {qname}")
+        if got != want or got["rows"] != push_out[qname]["answer"]["rows"]:
+            raise AssertionError(f"resident {qname}: the answer differs")
+        if counts["key_col_uploads"] or counts["host_block_decodes"]:
+            raise AssertionError(f"resident {qname} uploaded or decoded: "
+                                 f"{counts}")
+        out[qname] = {"resident_s": t_res, "slab_source_s": t_slab,
+                      "rows": got["rows"], "counters": counts}
+        log(f"resident {qname} == SlabSource answer ({got['rows']} rows): "
+            f"{t_res:.3f}s resident, {t_slab:.3f}s over SlabSources; "
+            f"counters {counts} [{card}]")
+    for r in readers:
+        r.close()
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -3539,11 +3993,13 @@ def main() -> int:
     try:
         comp, launches, tensors, readers = compaction_phase(
             runs, workdir, args.reps, bandwidth)
-        del runs
         codec_rows = codec_kernel_phase(args, tensors, launches["codec"],
                                         bandwidth)
         del tensors
         torch.cuda.empty_cache()
+        chain_out, chain_launches, chain_state = resident_chain_phase(
+            args, runs, readers, workdir, card)
+        del runs
         chunk_out, launches["chunked"], kin, base_file = chunked_phase(
             args, readers, workdir)
         chunk_rows = chunk_kernel_phase(args, kin, launches["chunked"],
@@ -3553,6 +4009,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         chunk_out["skewed"], launches["skewed"], errs_skewed, skew_paths = \
             skewed_phase(args, base_file, workdir)
+        chain_out["skewed"], chain_launches["skewed_resident"] = \
+            resident_skewed_phase(args, chain_state, skew_paths, workdir,
+                                  card)
+        del chain_state
         torch.cuda.empty_cache()
         mesh_out, mesh_launches, mesh_kin = mesh_phase(
             args, readers, skew_paths, workdir, comp, card)
@@ -3591,7 +4051,12 @@ def main() -> int:
             want["stages"] = stages
             log(f"{qname} stages, one after the other: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in stages.items()))
+        chain_out["pushdown"], push_launches = resident_pushdown_phase(
+            args, workdir, slabs, push_out, top_ht, card)
+        for qname, counts in push_launches.items():
+            chain_launches[f"resident_{qname}"] = counts
         del slabs
+        torch.cuda.empty_cache()
         push_rows, h_vals = pushdown_kernel_phase(
             args, push_t["q6_agg"], push_t["filter_rows"],
             launches["pushdown"], bandwidth)
@@ -3642,7 +4107,14 @@ def main() -> int:
                 entry[f"max_abs_err_{tag}"] = errs[name_k]
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            errs[name_k])
+    for entry in ([a, b] + codec_rows + chunk_rows + mesh_rows + scan_rows
+                  + push_rows + point_rows):
+        # launches per resident-chain job (kernels that job can run)
+        for tag, counts in chain_launches.items():
+            if entry["name"] in counts:
+                entry[f"launches_chain_{tag}"] = counts[entry["name"]]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
+               "resident_chain": chain_out,
                "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
                "pushdown": push_out,
                "point_read": point_out, "seconds": time.time() - t_start}

@@ -26,6 +26,9 @@ from yugabyte_tpu.storage.sst import Frontier, SSTReader, SSTWriter
 from yugabyte_tpu.utils import flags as ref_flags
 from yugabyte_tpu_torch.parallel.mesh import make_mesh
 from yugabyte_tpu_torch.storage import compaction as port_compaction
+from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+from yugabyte_tpu_torch.storage.run_cache import (NamespacedRunCache,
+                                                  NativeRunCache)
 from yugabyte_tpu_torch.storage.sst import SSTReader as PortSSTReader
 from yugabyte_tpu_torch.utils import flags as port_flags
 from yugabyte_tpu_torch.utils import env as port_env
@@ -160,8 +163,9 @@ def test_byte_identical_multi_file_split(tmp_path):
 
 def test_outside_the_slice_raises(tmp_path):
     """A skewed pick, once refused, now re-enters the router's radix
-    route; the caches and an encrypted Env still raise, naming their
-    ROADMAP items."""
+    route; a device cache with input_ids, once refused, now stages the
+    miss and writes the outputs through at level 1 with no pin left; an
+    encrypted Env still raises, naming its ROADMAP queue A item."""
     rng = np.random.default_rng(29)
     skewed = [_mk_run(rng, n, key_space=3000) for n in (3000, 40, 40, 40, 40)]
     paths = _write_inputs(str(tmp_path), skewed)
@@ -172,10 +176,14 @@ def test_outside_the_slice_raises(tmp_path):
         readers, str(tmp_path / "skewed"), lambda: next(ids), CUTOFF, True,
         device="cpu")
     assert res.rows_in == 3160 and res.outputs
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_compaction.run_compaction_job_device_native(
-            readers[:1], str(tmp_path), lambda: next(ids), CUTOFF, True,
-            device="cpu", device_cache=object())
+    cache = DeviceSlabCache("cpu")
+    (tmp_path / "cached").mkdir()
+    res = port_compaction.run_compaction_job_device_native(
+        readers[:1], str(tmp_path / "cached"), lambda: next(ids), CUTOFF,
+        True, device="cpu", device_cache=cache, input_ids=[7])
+    assert res.outputs and cache.contains(7) and cache.pinned_count() == 0
+    assert [cache.level_of(fid) for fid, _p, _pr in res.outputs] == \
+        [1] * len(res.outputs)
 
     class _Encrypted(port_env.Env):
         encrypted = True
@@ -184,7 +192,7 @@ def test_outside_the_slice_raises(tmp_path):
     port_env.set_env(_Encrypted())
     try:
         with pytest.raises(NotImplementedError, match="encrypted Env: "
-                           "ROADMAP item 5"):
+                           "ROADMAP queue A: the encrypted Env"):
             port_compaction.run_compaction_job_device_native(
                 readers[:1], str(tmp_path), lambda: next(ids), CUTOFF, True,
                 device="cpu")
@@ -391,18 +399,32 @@ def test_router_unported_arguments_raise(tmp_path):
             readers, str(tmp_path), iter(range(9, 99)).__next__, CUTOFF,
             True, device="cpu", **kw)
 
-    for kw, item in (({"device_cache": object()}, 4),
-                     ({"input_ids": [1]}, 4), ({"run_cache": object()}, 4),
-                     ({"mesh": make_mesh(2, devices=["cpu"] * 2),
-                       "device_cache": object()}, 4),
-                     ({"offload_policy": object()}, 6),
-                     ({"cancel": object()}, 9)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    health = "ROADMAP queue A: health-board routing"
+    entry = "ROADMAP queue A: the DB's remaining entry points"
+    # the caches, once refused, are taken: the input is staged into the
+    # cache (input_ids alone has nothing to stage into), the outputs
+    # written through at level 1 on a mesh too
+    for kw in ({"device_cache": DeviceSlabCache("cpu"), "input_ids": [1]},
+               {"input_ids": [1]},
+               {"run_cache": NamespacedRunCache(NativeRunCache(1 << 26),
+                                                "t"), "input_ids": [1]},
+               {"mesh": make_mesh(2, devices=["cpu"] * 2),
+                "device_cache": DeviceSlabCache("cpu"), "input_ids": [1]}):
+        res = job(**kw)
+        cache = kw.get("device_cache")
+        assert res.outputs and res.rows_in == 300
+        if cache is not None:
+            assert cache.level_of(1) == 0 and cache.pinned_count() == 0
+            assert all(cache.level_of(fid) == 1 for fid, _p, _pr in
+                       res.outputs)
+    for kw, title in (({"offload_policy": object()}, health),
+                      ({"cancel": object()}, entry)):
+        with pytest.raises(NotImplementedError, match=title):
             job(**kw)
     key = "compaction_rate_bytes_per_sec"
     port_flags.set_flag(key, 1 << 20)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(NotImplementedError, match=entry):
             job()
     finally:
         port_flags.set_flag(key, 0)
@@ -413,7 +435,8 @@ def test_router_unported_arguments_raise(tmp_path):
     old = port_env.get_env()
     port_env.set_env(_Encrypted())
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A: the encrypted Env"):
             job()
     finally:
         port_env.set_env(old)

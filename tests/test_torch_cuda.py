@@ -1691,3 +1691,161 @@ def test_bound_pack_and_row_flags_one_kernel_no_copy(cuda):
                lambda: pushdown.row_flags(s, keep, sv, w, bounds, p_ops,
                                           a_ops)):
         assert _device_activity(fn) == (1, 0)
+
+
+# ------------------------------------------------ the resident chain (D, E)
+
+
+def _chain_runs(seed, k, n, key_space):
+    """k sorted runs whose hybrid times are one permutation over all rows
+    (no internal key repeats across runs), with 16-byte values."""
+    rng = np.random.default_rng(seed)
+    runs = [_make_run(rng, n, key_space) for _ in range(k)]
+    hts = (rng.permutation(k * n).astype(np.uint64) + 1) << 12
+    out = []
+    for g, s in enumerate(runs):
+        ht = hts[g * n:(g + 1) * n]
+        order = np.lexsort((~s.write_id, ~ht, s.key_len) + tuple(
+            s.key_words[:, j] for j in range(2, -1, -1)))
+        out.append(KVSlab(
+            key_words=s.key_words[order], key_len=s.key_len[order],
+            doc_key_len=s.doc_key_len[order],
+            ht_hi=(ht[order] >> 32).astype(np.uint32),
+            ht_lo=(ht[order] & 0xFFFFFFFF).astype(np.uint32),
+            write_id=s.write_id[order], flags=s.flags[order],
+            ttl_ms=s.ttl_ms[order], value_idx=np.arange(n, dtype=np.int32),
+            values=ValueArray(
+                rng.integers(0, 256, size=16 * n, dtype=np.uint8),
+                np.arange(n + 1, dtype=np.int64) * 16)))
+    return out
+
+
+def _chain_files(tmp_path, runs):
+    from yugabyte_tpu_torch.storage.sst import SSTWriter
+    paths = []
+    for i, s in enumerate(runs):
+        paths.append(str(tmp_path / f"in{i:03d}.sst"))
+        SSTWriter(paths[-1]).write(s)
+    return paths
+
+
+def _chain_job(paths, out_dir, ids, first, device, cache, run_cache=None):
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    out_dir.mkdir()
+    it = iter(range(first, first + 500))
+    return compaction.run_compaction_job_device_native(
+        [SSTReader(p) for p in paths], str(out_dir), lambda: next(it),
+        10_000_000 << 12, True, device=device, device_cache=cache,
+        input_ids=ids, run_cache=run_cache)
+
+
+def _bytes(outputs):
+    out = []
+    for _f, base, _p in outputs:
+        for p in (base, base + ".sblock.0"):
+            with open(p, "rb") as f:
+                out.append(f.read())
+    return out
+
+
+@pytest.mark.parametrize("codec", ["1", "0"])
+def test_resident_installer_spans_match_plain(cuda, tmp_path, monkeypatch,
+                                              codec):
+    """The installer's spans on the card (kernel D once, kernel E per
+    output file) equal the plain versions' spans of the same job on the
+    CPU, entry for entry, and the files are the same; each span is
+    installed at level 1 and no pin is left."""
+    from yugabyte_tpu_torch.storage import compaction  # noqa: F401 (flags)
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    from yugabyte_tpu_torch.utils import flags
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", codec)
+    paths = _chain_files(tmp_path, _chain_runs(61, 3, 5000, 9000))
+    old = flags.get_flag("compaction_max_output_entries_per_sst")
+    flags.set_flag("compaction_max_output_entries_per_sst", 3000)
+    res = {}
+    try:
+        for i, dev in enumerate(("cuda", "cpu")):
+            cache = DeviceSlabCache(dev)
+            for fid, p in enumerate(paths):
+                cache.stage(fid, SSTReader(p).read_all())
+            d0 = run_merge.survivor_scan.launches
+            e0 = run_merge.span_gather.launches
+            r = _chain_job(paths, tmp_path / f"job{i}", [0, 1, 2], 100, dev,
+                           cache)
+            res[dev] = (r, cache, run_merge.survivor_scan.launches - d0,
+                        run_merge.span_gather.launches - e0)
+    finally:
+        flags.set_flag("compaction_max_output_entries_per_sst", old)
+    (card, c_cache, d, e), (cpu, p_cache, _d, _e) = res["cuda"], res["cpu"]
+    assert len(card.outputs) >= 2 and _bytes(card.outputs) == \
+        _bytes(cpu.outputs)
+    assert d == 1 and e == len(card.outputs)
+    for fid, _b, _p in card.outputs:
+        got, want = c_cache.get(fid), p_cache.get(fid)
+        assert (got.n, got.n_pad, got.w) == (want.n, want.n_pad, want.w)
+        assert torch.equal(got.cols_dev.cpu(), want.cols_dev)
+        assert c_cache.level_of(fid) == 1
+    assert c_cache.pinned_count() == 0
+
+
+def test_stage_from_raw_on_card_matches_stage(cuda, tmp_path):
+    """stage_from_raw (kernel C on the card) == stage of read_all, bit
+    for bit, with the same column stats."""
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import SSTReader, SSTWriter
+    runs = _chain_runs(62, 2, 20000, 30000)
+    cache = DeviceSlabCache("cuda")
+    for i, s in enumerate(runs):
+        p = str(tmp_path / f"{i}.sst")
+        SSTWriter(p, block_entries=1000).write(s)
+        r = SSTReader(p)
+        raw = cache.stage_from_raw(("raw", i), block_codec.parse_raw_file(
+            r.read_raw(), r.block_handles))
+        host = cache.stage(("host", i), r.read_all())
+        assert torch.equal(raw.cols_dev, host.cols_dev)
+        assert (raw.n, raw.n_pad, raw.w) == (host.n, host.n_pad, host.w)
+        assert np.array_equal(raw.col_const, host.col_const)
+
+
+@pytest.mark.parametrize("route", ["codec", "run_cached"])
+def test_warm_chain_equals_cold_on_card(cuda, tmp_path, monkeypatch, route):
+    """A warm chained L1 -> L2 job on the card (inputs resident, and on
+    the run-cached route in the run cache) writes the cold job's files,
+    file for file, with no key-column upload, no host block decode (and
+    on the run-cached route no shell ingest)."""
+    from yugabyte_tpu_torch.storage import compaction, sst
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.run_cache import (NamespacedRunCache,
+                                                      NativeRunCache,
+                                                      export_reader)
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    paths = _chain_files(tmp_path, _chain_runs(63, 4, 6000, 8000))
+    cache = DeviceSlabCache("cuda")
+    rc = (NamespacedRunCache(NativeRunCache(1 << 30), "t")
+          if route == "run_cached" else None)
+    for fid, p in enumerate(paths):
+        cache.stage(fid, SSTReader(p).read_all())
+        if rc is not None:
+            export_reader(rc, fid, SSTReader(p))
+    a = _chain_job(paths[:2], tmp_path / "a", [0, 1], 100, "cuda", cache, rc)
+    b = _chain_job(paths[2:], tmp_path / "b", [2, 3], 200, "cuda", cache, rc)
+    l1 = a.outputs + b.outputs
+    l1_paths = [p for _f, p, _pr in l1]
+    before = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
+              compaction.ingest_decodes())
+    warm = _chain_job(l1_paths, tmp_path / "warm", [f for f, _p, _pr in l1],
+                      300, "cuda", cache, rc)
+    after = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
+             compaction.ingest_decodes())
+    cold_cache = DeviceSlabCache("cuda")
+    cold = _chain_job(l1_paths, tmp_path / "cold", [f for f, _p, _pr in l1],
+                      300, "cuda", cold_cache)
+    assert warm.rows_out == cold.rows_out
+    assert _bytes(warm.outputs) == _bytes(cold.outputs)
+    assert after[:2] == before[:2]
+    if route == "run_cached":
+        assert after[2] == before[2]
+    assert all(cache.level_of(f) == 2 for f, _p, _pr in warm.outputs)
+    assert cache.pinned_count() == 0

@@ -338,14 +338,44 @@ def test_dist_native_device_must_match_the_mesh(tmp_path):
 
 
 def test_dist_native_unported_arguments_raise(tmp_path):
+    """A device cache and input_ids, once refused, are taken: each output
+    file's span is gathered from the sharded outputs and installed under
+    its id one level above the deepest input, equal to a host re-stage of
+    the file, with the files still those of the native job; cancel still
+    raises, naming its ROADMAP queue A item."""
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
     paths, cutoff = _ycsb_tablet(str(tmp_path / "in"), 2000, 7)
-    for kw, item in (({"device_cache": object()}, 4),
-                     ({"input_ids": [1, 2, 3, 4]}, 4),
-                     ({"cancel": object()}, 9)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            compaction.run_compaction_job_dist_native(
-                [SSTReader(p) for p in paths], str(tmp_path), lambda: 1,
-                cutoff, True, mesh=_mesh(2), **kw)
+    cache = DeviceSlabCache("cpu")
+    for fid, p in enumerate(paths):
+        cache.stage(fid, SSTReader(p).read_all(), level=fid % 2)
+    outs = {}
+    for tag in ("dist", "native"):
+        (tmp_path / tag).mkdir()
+        ids = iter(range(100, 1000))
+        readers = [SSTReader(p) for p in paths]
+        if tag == "dist":
+            res = compaction.run_compaction_job_dist_native(
+                readers, str(tmp_path / tag), lambda: next(ids), cutoff,
+                True, mesh=_mesh(2), device_cache=cache,
+                input_ids=list(range(len(paths))))
+        else:
+            res = compaction._run_native_job(
+                readers, str(tmp_path / tag), lambda: next(ids), cutoff,
+                True, False, None)
+        outs[tag] = (res, _files(res.outputs))
+    assert outs["dist"][1] == outs["native"][1] and outs["dist"][1]
+    for fid, base, props in outs["dist"][0].outputs:
+        assert cache.level_of(fid) == 2
+        st = cache.get(fid)
+        host = merge_gc.stage_slab(SSTReader(base).read_all(), "cpu")
+        assert st.n == host.n == props.n_entries
+        assert torch.equal(st.cols_dev[:, :st.n], host.cols_dev[:, :st.n])
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue A: the DB's remaining entry "
+                       "points"):
+        compaction.run_compaction_job_dist_native(
+            [SSTReader(p) for p in paths], str(tmp_path), lambda: 1,
+            cutoff, True, mesh=_mesh(2), cancel=object())
 
 
 # ---------------------------------------- kernels M1-M3 against per_shard

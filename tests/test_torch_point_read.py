@@ -581,20 +581,57 @@ def test_each_package_opens_the_others_tablet(tmp_path):
         port_opens_ref.close()
 
 
-def test_cache_parts_not_ported_raise():
+def test_cache_parts_not_ported_raise(tmp_path):
+    """The device cache's second half, once refused: stage_from_raw
+    (kernel C over the raw blocks) equals stage of read_all, bit for bit
+    and with the same column stats; the value words ride along with
+    include_vals=True and attach_vals grows an entry with its accounting;
+    a ShardPartition stages under its shard's namespace on its device;
+    the process staging pool hands out and takes back its arrays."""
+    from yugabyte_tpu_torch.ops import block_codec, scan
     from yugabyte_tpu_torch.storage import device_cache as dc
+    from yugabyte_tpu_torch.storage.sst import SSTWriter
     cache = DeviceSlabCache("cpu")
-    slab = port_pack_kvs([(_key(1), 5 << 44, b"x")])
-    for call in (lambda: cache.stage_from_raw(("ns", 1), None),
-                 lambda: cache.attach_vals(("ns", 1), None),
-                 lambda: cache.stage(("ns", 1), slab, include_vals=True),
-                 lambda: dc.ShardPartition(cache, "ns", 0),
-                 dc.host_staging_pool):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            call()
-    st = cache.stage(("ns", 1), slab, for_read=True)
-    assert cache.get(("ns", 1)) is st and cache.read_stages == 1
-    assert cache.snapshot()["used_bytes"] == st.nbytes
+    slab = port_pack_kvs([(_key(i, col=i % 2 == 1), (5 + i) << 44,
+                           b"$" + bytes([i % 251]) * (i % 9))
+                          for i in range(300)])
+    path = str(tmp_path / "000001.sst")
+    SSTWriter(path, block_entries=64).write(slab)
+    r = SSTReader(path)
+    raw = cache.stage_from_raw(("ns", 1), block_codec.parse_raw_file(
+        r.read_raw(), r.block_handles), level=1)
+    host = stage_slab(r.read_all(), "cpu")
+    assert torch.equal(raw.cols_dev, host.cols_dev)
+    assert (raw.n, raw.n_pad, raw.w) == (host.n, host.n_pad, host.w)
+    assert np.array_equal(raw.col_const, host.col_const)
+    assert cache.get(("ns", 1)) is raw and cache.level_of(("ns", 1)) == 1
+    used = cache.snapshot()["used_bytes"]
+    vals = u32_to_device(scan.pack_vals(r.read_all(), raw.n_pad), "cpu")
+    cache.attach_vals(("ns", 1), vals)
+    assert cache.get(("ns", 1)).vals_dev is vals
+    assert cache.snapshot()["used_bytes"] == used + vals.numel() * 4
+    cache.attach_vals(("ns", 9), vals)             # absent: a no-op
+    st = cache.stage(("ns", 2), slab, include_vals=True)
+    assert torch.equal(st.vals_dev, u32_to_device(
+        scan.pack_vals(slab, st.n_pad), "cpu"))
+    assert cache.snapshot()["used_bytes"] == \
+        used + vals.numel() * 4 + st.nbytes
+    part = dc.ShardPartition(cache, "db", 3, device="cpu")
+    sp = part.stage(7, slab, level=2)
+    assert cache.get(("db/shard3", 7)) is sp and part.level_of(7) == 2
+    assert part.device.type == "cpu" and part.shard == 3
+    pool = dc.host_staging_pool()
+    assert pool is dc.host_staging_pool()
+    before = pool.outstanding()
+    arr = pool.acquire((4, 64))
+    assert arr.shape == (4, 64) and pool.outstanding() == before + 1
+    pool.release(arr)
+    assert pool.acquire((4, 64)) is arr
+    pool.forget(arr)
+    assert pool.outstanding() == before
+    st = cache.stage(("ns", 3), slab, for_read=True)
+    assert cache.get(("ns", 3)) is st and cache.read_stages == 1
+    r.close()
 
 
 def test_cache_evicts_shallow_levels_first_and_never_pinned():
@@ -618,7 +655,9 @@ def test_cache_evicts_shallow_levels_first_and_never_pinned():
 
 
 def test_db_without_cuda_and_unported_parts_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue A: the DB's remaining entry "
+                       "points"):
         DB(str(tmp_path / "a"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -632,7 +671,7 @@ def test_db_without_cuda_and_unported_parts_raise(tmp_path):
     try:
         for call in (db.compact_all, db.maybe_schedule_compaction,
                      lambda: db.scan_visible(1)):
-            with pytest.raises(NotImplementedError, match="ROADMAP item"):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
                 call()
     finally:
         db.close()

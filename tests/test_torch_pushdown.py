@@ -430,13 +430,49 @@ def test_pushdown_unsupported_reasons():
         scan.aggregate_sources(src, read_ht, port_spec, device="cpu")
 
 
-def test_resident_source_raises():
-    class ResidentSource:
-        n = 1
-    _r, port_spec = _spec([("v", "<", 1)])
-    for fn in (scan.filtered_entries_sources, scan.aggregate_sources):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fn([ResidentSource()], 1, port_spec, device="cpu")
+def test_resident_source_raises(tmp_path):
+    """ResidentSource inputs (SSTs whose cols and value words the device
+    cache holds, staged with include_vals=True) answer both pushdown
+    scans exactly as SlabSource inputs and the JAX package, on the
+    multi-source and the presorted route, with pad rows masked; a
+    resident source without value words raises PushdownUnsupported("vals")
+    for a query that reads values, and serves one that does not."""
+    from yugabyte_tpu_torch.storage.sst import SSTReader, SSTWriter
+    runs, ends = _runs(31)
+    cache = device_cache.DeviceSlabCache("cpu")
+    readers = []
+    for i, s in enumerate(runs):
+        path = str(tmp_path / f"{i:06d}.sst")
+        SSTWriter(path).write(_port_slab(s))
+        readers.append(SSTReader(path))
+        cache.stage(i, readers[-1].read_all(), include_vals=True)
+    res = [scan.ResidentSource(r, cache.get(i)) for i, r in enumerate(readers)]
+    preds, aggs = [("v", "<", 100), ("w", ">", -60)], [("count", None),
+                                                        ("sum", "v")]
+    ref_f, port_f = _spec(preds)
+    ref_a, port_a = _spec(preds, aggs)
+    ref_src, port_src = _sources(runs)
+    for k in (len(runs), 1):
+        for read_ht in _read_hts(ends):
+            want = list(ref_scan.filtered_entries_sources(
+                ref_src[:k], read_ht, ref_f))
+            assert list(scan.filtered_entries_sources(
+                res[:k], read_ht, port_f, device="cpu")) == want == list(
+                scan.filtered_entries_sources(port_src[:k], read_ht, port_f,
+                                              device="cpu"))
+            want = ref_scan.aggregate_sources(ref_src[:k], read_ht, ref_a)
+            assert scan.aggregate_sources(res[:k], read_ht, port_a,
+                                          device="cpu") == want
+    bare = device_cache.DeviceSlabCache("cpu")
+    st = bare.stage(0, readers[0].read_all())
+    no_vals = [scan.ResidentSource(readers[0], st)]
+    with pytest.raises(scan_spec.PushdownUnsupported, match="vals"):
+        scan.aggregate_sources(no_vals, ends[-1], port_a, device="cpu")
+    ref_c, port_c = _spec([], [("count", None)])
+    assert scan.aggregate_sources(no_vals, ends[-1], port_c, device="cpu") \
+        == ref_scan.aggregate_sources(ref_src[:1], ends[-1], ref_c)
+    for r in readers:
+        r.close()
 
 
 # ---------------------------------------- the compiled query and operands

@@ -460,18 +460,48 @@ def test_scan_over_port_sst_files(tmp_path):
     assert got
 
 
-def test_calls_outside_the_slice_raise():
-    class ResidentSource:
-        n = 1
+def test_calls_outside_the_slice_raise(tmp_path):
+    """ResidentSource inputs (SSTs the device cache holds) scan to the
+    SlabSource scan, the JAX package's scan of the same files and the
+    host path, alone, mixed with slab sources and under bounds; a narrow
+    range decodes only its survivors' blocks; empty source lists answer
+    nothing."""
     from yugabyte_tpu_torch.docdb.scan_spec import ScanSpec
-    with pytest.raises(NotImplementedError, match="later slice"):
-        list(scan.visible_entries_sources([ResidentSource()], 1))
-    # the query pushdown is ported (tests/test_torch_pushdown.py); the
-    # device cache's inputs are not
-    with pytest.raises(NotImplementedError, match="later slice"):
-        scan.filtered_entries_sources([ResidentSource()], 1, ScanSpec())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        scan.aggregate_sources([ResidentSource()], 1, ScanSpec())
+    runs = _runs("tombstones", 41) + _runs("ttl", 42)
+    cache = device_cache.DeviceSlabCache("cpu")
+    readers = []
+    for i, s in enumerate(runs):
+        p = str(tmp_path / f"{i:06d}.sst")
+        PortSSTWriter(p, block_entries=64).write(_port_slab(s), Frontier())
+        readers.append(PortSSTReader(p))
+        cache.stage(i, readers[-1].read_all())
+    for read_ht in READ_HTS:
+        for lower, upper in _bounds(runs)[:5]:
+            res = [scan.ResidentSource(r, cache.get(i))
+                   for i, r in enumerate(readers)]
+            mixed = res[:2] + [scan.SlabSource(r.read_all())
+                               for r in readers[2:]]
+            want = list(ref_scan.visible_entries_sources(
+                [ref_scan.SlabSource(SSTReader(r.base_path).read_all(),
+                                     sorted_source=True) for r in readers],
+                read_ht, lower, upper))
+            for srcs in (res, mixed):
+                assert list(scan.visible_entries_sources(
+                    srcs, read_ht, lower, upper, device="cpu")) == want
+            assert want == list(scan._visible_entries_host(
+                [r.read_all() for r in readers], read_ht, lower, upper))
+    # a narrow range over one resident file decodes one or two blocks
+    one = scan.ResidentSource(readers[0], cache.get(0))
+    keys = sorted({k for k, _v, _h in scan.visible_entries_sources(
+        [scan.SlabSource(readers[0].read_all())], READ_HTS[-1],
+        device="cpu")})
+    lo, hi = keys[len(keys) // 2], keys[len(keys) // 2 + 3]
+    got = list(scan.visible_entries_sources([one], READ_HTS[-1], lo, hi,
+                                            device="cpu"))
+    assert [k for k, _v, _h in got] == [k for k in keys if lo <= k < hi]
+    assert 1 <= one.decoded_blocks <= 2 < readers[0].n_blocks
     assert list(scan.filtered_entries_sources([], 1, ScanSpec())) == []
     assert scan.aggregate_sources([], 1, ScanSpec()) == {"rows": 0,
                                                          "cols": {}}
+    for r in readers:
+        r.close()

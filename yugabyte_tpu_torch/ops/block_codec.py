@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from yugabyte_tpu_torch.ops.merge_gc import (
-    _ROW_FLAGS, _ROW_WORDS, _U32, StagedCols, _u, bucket_size, to_u32_bits,
-    u32_to_device)
+    _ROW_FLAGS, _ROW_WORDS, _U32, StagedCols, _u, bucket_size,
+    count_key_col_upload, to_u32_bits, u32_to_device)
 from yugabyte_tpu_torch.ops.point_read import (
     _FNV_OFFSET_HI, _FNV_OFFSET_LO, _mul64_by_prime)
 from yugabyte_tpu_torch.storage import block_format
@@ -324,6 +324,7 @@ def decode_file_to_staged(rfb: RawFileBlocks, device=None) -> StagedCols:
     if rfb.n == 0:
         raise BlockCodecUnsupported("empty file has nothing to stage")
     cols_in, n_pad, w_pad = raw_cols(rfb)
+    count_key_col_upload()
     cols, is_const, first = block_decode(u32_to_device(cols_in, dev), rfb.n)
     return StagedCols(cols, rfb.n, n_pad, w_pad, is_const.cpu().numpy(),
                       first.cpu().numpy().view(np.uint32))

@@ -32,6 +32,7 @@ kernel I.1 (ops/radix.py) gathers the sorted payload, kernel B decides.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -79,6 +80,25 @@ def u32_to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host uint32 array -> int32 device tensor with the same bits."""
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32)
                             .view(np.int32)).to(device)
+
+
+# host->device uploads of key columns (stage_slab, run_merge.
+# stage_runs_from_slabs, the codec's raw column regions), process-wide: a
+# job whose inputs are all resident must add none
+_upload_lock = threading.Lock()
+_key_col_uploads = 0   # guarded-by: _upload_lock
+
+
+def key_col_uploads() -> int:
+    """Key-column uploads so far in this process."""
+    with _upload_lock:
+        return _key_col_uploads
+
+
+def count_key_col_upload() -> None:
+    global _key_col_uploads
+    with _upload_lock:
+        _key_col_uploads += 1
 
 
 def gc_over_sorted(s: torch.Tensor, w: int, cutoff_hi: int, cutoff_lo: int,
@@ -365,7 +385,9 @@ class StagedCols:
 
     sort_rows / n_sort: the radix schedule of the scan and of
     merge_and_gc_device (build_sort_schedule over col_const; the full
-    schedule when the stats are absent)."""
+    schedule when the stats are absent). vals_dev: the pushdown's value
+    words (ops/scan.pack_vals, int32 [1+VAL_WORDS, n_pad]) when the cache
+    staged them beside the cols."""
     cols_dev: torch.Tensor
     n: int
     n_pad: int
@@ -374,11 +396,15 @@ class StagedCols:
     col_first: Optional[np.ndarray] = None   # first value per row
     sort_rows: Optional[np.ndarray] = None
     n_sort: int = 0
+    vals_dev: Optional[torch.Tensor] = None
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the staged matrix (the cache's accounting)."""
-        return self.cols_dev.numel() * 4
+        """Device bytes of the staged matrices (the cache's accounting)."""
+        n = self.cols_dev.numel() * 4
+        if self.vals_dev is not None:
+            n += self.vals_dev.numel() * 4
+        return n
 
     def __post_init__(self):
         if self.sort_rows is None:
@@ -393,6 +419,7 @@ def stage_slab(slab: KVSlab, device=None) -> StagedCols:
     dev = torch_setup.resolve_device(device)
     cols, n, n_pad, w = pack_cols(slab)
     is_const, first = column_stats(cols, n)
+    count_key_col_upload()
     return StagedCols(u32_to_device(cols, dev), n, n_pad, w, is_const, first)
 
 

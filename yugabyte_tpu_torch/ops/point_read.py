@@ -27,7 +27,8 @@ or raises. Each wrapper counts its launches in `<wrapper>.launches`.
 Host wrappers (`pack_query_batch`, `bloom_device_words`, `hash_batch`,
 `probe_bloom`, `locate_batch`, `fit_learned_index_device`) follow the
 JAX module; `probe_bloom` and `locate_batch` download their result per
-SST, as the JAX ones do. Not ported yet (ROADMAP item 6):
+SST, as the JAX ones do. Not ported yet (ROADMAP queue A: health-board
+routing and device-fault containment):
 `device_faults.maybe_fault`, `record_kernel_dispatch`,
 `prewarm_point_read`, `point_read_snapshot`; `point_read_metrics()` is a
 dict of plain module counters.
@@ -70,7 +71,8 @@ _METRICS = {"batches": 0, "keys": 0, "bloom_skips": 0, "learned_hits": 0,
 
 def point_read_metrics() -> dict:
     """Process-wide batched-read counters (plain ints; the JAX package's
-    registry metrics come with ROADMAP item 6): batches and keys through
+    registry metrics come with ROADMAP queue A: health-board routing and
+    device-fault containment): batches and keys through
     the device path, per-SST locates skipped by the bloom, locates seeded
     by a learned index, and keys re-resolved exactly after a learned-index
     misprediction."""

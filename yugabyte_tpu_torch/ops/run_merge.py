@@ -220,10 +220,13 @@ def _layout(ns: Sequence[int]) -> Tuple[int, int]:
 
 def stage_runs_from_slabs(slabs: Sequence[KVSlab], device=None,
                           pack_runs: bool = True) -> StagedRuns:
-    """Pack K sorted slabs into the run-major layout on the host and upload
-    it once (cuda unless the caller passes device='cpu').
+    """Pack K sorted slabs into the run-major layout on the host (in a
+    device_cache.HostStagingPool array) and upload it once (cuda unless
+    the caller passes device='cpu').
 
     pack_runs: greedily pack small runs into shared m-slots first."""
+    from yugabyte_tpu_torch.ops.merge_gc import count_key_col_upload
+    from yugabyte_tpu_torch.storage.device_cache import host_staging_pool
     dev = torch_setup.resolve_device(device)
     live = [s for s in slabs if s.n]
     run_maps = None
@@ -232,17 +235,35 @@ def stage_runs_from_slabs(slabs: Sequence[KVSlab], device=None,
     k_pad, m = _layout([s.n for s in live])
     w = quantize_width(max(int(s.width_words) for s in live))
     r = _ROW_WORDS + w
-    cols = np.empty((r, k_pad * m), dtype=np.uint32)
-    cols[:] = pad_template(r)[:, None]
-    stats = []
-    for i, s in enumerate(live):
-        sub, n_s, _, _ = pack_cols(s, n_pad_override=s.n, w_pad_override=w)
-        cols[:, i * m: i * m + n_s] = sub
-        stats.append(column_stats(sub, n_s))
-    cmp_rows, n_cmp = _cmp_schedule(w, _merge_const_stats(stats, r))
-    return StagedRuns(u32_to_device(cols, dev), m, k_pad, w,
-                      [s.n for s in live], cmp_rows, n_cmp,
-                      run_maps=run_maps)
+    # the host matrix comes from the staging pool: pinned pages on a card,
+    # recycled once the upload has copied them
+    pool = host_staging_pool()
+    pinned = dev.type == "cuda"
+    cols = pool.acquire((r, k_pad * m), pinned=pinned)
+    try:
+        cols[:] = pad_template(r)[:, None]
+        stats = []
+        for i, s in enumerate(live):
+            sub, n_s, _, _ = pack_cols(s, n_pad_override=s.n,
+                                       w_pad_override=w)
+            cols[:, i * m: i * m + n_s] = sub
+            stats.append(column_stats(sub, n_s))
+        cmp_rows, n_cmp = _cmp_schedule(w, _merge_const_stats(stats, r))
+    except BaseException:
+        # no upload started, so nothing can alias these pages: recycle
+        pool.release(cols, pinned=pinned)
+        raise
+    count_key_col_upload()
+    cols_dev = u32_to_device(cols, dev)
+    if pinned:
+        # the copy owns its bytes once it completes: wait for it, then
+        # recycle the pages for the next job's stage A
+        torch.cuda.current_stream(dev).synchronize()
+        pool.release(cols, pinned=True)
+    else:
+        pool.forget(cols)   # the CPU tensor aliases the array
+    return StagedRuns(cols_dev, m, k_pad, w, [s.n for s in live], cmp_rows,
+                      n_cmp, run_maps=run_maps)
 
 
 # --------------------------------------------------------------------------
@@ -861,7 +882,8 @@ class _ChunkedMergeGCHandle:
     products that to_parent_products builds on the device from the chunks'
     merged payloads: `_p_mat` [r+1, n_pad], `_keep_dev`, `_mk_dev`. A
     device error propagates; the JAX package's re-carve retry and its
-    fused download are not ported (ROADMAP item 6)."""
+    fused download are not ported (ROADMAP queue A: health-board routing
+    and device-fault containment)."""
 
     def __init__(self, handles, metas, staged: StagedRuns):
         self._handles = handles          # one per chunk, in key order

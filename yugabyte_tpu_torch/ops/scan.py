@@ -30,9 +30,12 @@ per document and reduce. A single sorted source (`SlabSource(...,
 sorted_source=True)`, an SST) takes the presorted route: no G, no I.1,
 kernel B over its own cols.
 
-Ported: `SlabSource` inputs (memtables, SSTs read with `read_all`).
-Not ported yet: `ResidentSource` (the device slab cache); it raises
-NotImplementedError.
+Inputs are `SlabSource`s (memtables, SSTs read with `read_all`) and
+`ResidentSource`s: an SST whose staged cols (and, for the pushdown, value
+words) the device slab cache holds. A resident input is neither decoded
+nor uploaded to stage the scan; the entries of its survivors are read
+block by block from the file (`decoded_blocks` counts the blocks). Pad
+rows are masked (perm < n) on every route.
 """
 
 from __future__ import annotations
@@ -208,6 +211,8 @@ class SlabSource:
     sorted source takes the pushdown's presorted route (no merge sort and
     no permutation gather)."""
 
+    staged = None   # a slab source is staged by the scan that reads it
+
     def __init__(self, slab: KVSlab, sorted_source: bool = False):
         self.slab = slab
         self.n = slab.n
@@ -222,30 +227,74 @@ class SlabSource:
         return sl.key_bytes(i), sl.values[int(sl.value_idx[i])], ht
 
 
+class ResidentSource:
+    """Scan input served from the device slab cache: the device filter
+    runs over the RESIDENT cols matrix (no host decode and no upload to
+    stage it), and the keys and values of SURVIVORS are read lazily from
+    the SST reader's blocks, so a block is decoded only when it holds a
+    visible entry (a narrow range touches one block of a resident file).
+
+    Caller contract: the file holds no deep documents (the resident path
+    is depth-2 only: check reader.props.has_deep)."""
+
+    def __init__(self, reader, staged: StagedCols):
+        self.slab = None
+        self.reader = reader
+        self.staged = staged
+        self.n = staged.n
+        self.sorted_source = True   # SSTs are sorted by construction
+        # per-block first-row offsets: the block handles record their
+        # entry counts (storage/sst.py index format)
+        self._row_offs = np.concatenate(
+            ([0], np.cumsum([h[2] for h in reader.block_handles])))
+        self._blk_idx = -1
+        self._blk = None
+        self.decoded_blocks = 0   # survivor-block decodes of this source
+
+    def to_slab(self) -> KVSlab:
+        return self.reader.read_all()
+
+    def entry(self, i: int) -> Tuple[bytes, bytes, int]:
+        b = int(np.searchsorted(self._row_offs, i, side="right") - 1)
+        if b != self._blk_idx:
+            self._blk = self.reader.read_block(b)
+            self._blk_idx = b
+            self.decoded_blocks += 1
+        sl = self._blk
+        j = i - int(self._row_offs[b])
+        ht = (int(sl.ht_hi[j]) << 32) | int(sl.ht_lo[j])
+        return sl.key_bytes(j), sl.values[int(sl.value_idx[j])], ht
+
+
 def visible_entries_sources(sources, read_ht_value: int,
                             lower_key: Optional[bytes] = None,
                             upper_key: Optional[bytes] = None,
                             device=None
                             ) -> Iterator[Tuple[bytes, bytes, int]]:
     """Yield (key_prefix, value_bytes, ht_value) for every entry visible
-    at read_ht in [lower_key, upper_key), in key order, over SlabSource
-    inputs (on `device`: cuda unless the caller passes device='cpu')."""
+    at read_ht in [lower_key, upper_key), in key order, over a mixed list
+    of SlabSource / ResidentSource inputs (slabs staged on `device`: cuda
+    unless the caller passes device='cpu'; resident inputs are used where
+    they lie)."""
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
     from yugabyte_tpu_torch.storage.device_cache import concat_staged
 
-    _check_sources(sources, "visible_entries_sources")
     live = [s for s in sources if s.n]
     if not live:
         return
-    if any(bool((s.slab.flags & FLAG_DEEP).any()) for s in live):
+    if any(s.slab is not None and bool((s.slab.flags & FLAG_DEEP).any())
+           for s in live):
         # Deep documents: the device snapshot mode is depth-2 only —
-        # resolve visibility on the host with the full overwrite stack.
+        # resolve visibility on the host with the full overwrite stack
+        # (a resident source is depth-2, but the host path needs every
+        # input as a slab)
         yield from _visible_entries_host([s.to_slab() for s in live],
                                          read_ht_value, lower_key,
                                          upper_key)
         return
-    staged_list = [stage_slab(s.slab, device) for s in live]
+    staged_list = [s.staged if s.staged is not None
+                   else stage_slab(s.slab, device) for s in live]
     staged = (staged_list[0] if len(staged_list) == 1
               else concat_staged(staged_list))
     del staged_list
@@ -262,16 +311,7 @@ def visible_entries_sources(sources, read_ht_value: int,
     yield from survivor_entries(live, perm, keep, lo_exact, hi_exact)
 
 
-def _check_sources(sources, what: str) -> None:
-    for s in sources:
-        if not isinstance(s, SlabSource):
-            raise NotImplementedError(
-                f"{what}: {type(s).__name__} inputs (the device slab cache) "
-                f"belong to a later slice of the port; this slice scans "
-                f"SlabSource inputs")
-
-
-def survivor_entries(live: Sequence[SlabSource], perm: np.ndarray,
+def survivor_entries(live: Sequence, perm: np.ndarray,
                      keep: np.ndarray, lo_exact: Optional[bytes] = None,
                      hi_exact: Optional[bytes] = None
                      ) -> Iterator[Tuple[bytes, bytes, int]]:
@@ -541,16 +581,16 @@ def _bound_operands(staged: StagedCols, lower_key, upper_key):
 
 
 def _stage_pushdown(sources, spec, device):
-    """Stage (cols, vals) for the source list: one merged matrix pair,
-    row-aligned. Raises PushdownUnsupported on deep documents, slot
-    overflow, a source without a host slab to stage values from, or an
-    oversized batch (callers serve the query on the host)."""
+    """Stage (cols, vals) for a mixed source list: one merged matrix
+    pair, row-aligned, resident inputs (their cols and value words) used
+    where they lie on the device. Raises PushdownUnsupported on deep
+    documents, slot overflow, a resident source without value words, or
+    an oversized batch (callers serve the query on the host)."""
     from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
     from yugabyte_tpu_torch.storage.device_cache import concat_staged
 
-    _check_sources(sources, "query pushdown")
     live = [s for s in sources if s.n]
     if not live:
         return None, None, [], False
@@ -561,17 +601,23 @@ def _stage_pushdown(sources, spec, device):
         raise PushdownUnsupported("predicates")
     if spec.agg_cids and agg_slot_bucket(len(spec.agg_cids)) is None:
         raise PushdownUnsupported("agg_width")
-    if spec.needs_vals and any(s.slab is None for s in live):
+    if spec.needs_vals and any(
+            s.slab is None and getattr(s.staged, "vals_dev", None) is None
+            for s in live):
+        # a resident source without staged value words: the caller stages
+        # it with include_vals=True (or attach_vals) first
         raise PushdownUnsupported("vals")
     if bucket_size(sum(s.n for s in live)) > PUSHDOWN_MAX_NPAD:
         raise PushdownUnsupported("batch_size")
-    staged_list = [stage_slab(s.slab, device) for s in live]
+    staged_list = [s.staged if s.staged is not None
+                   else stage_slab(s.slab, device) for s in live]
     staged = (staged_list[0] if len(staged_list) == 1
               else concat_staged(staged_list))
     vals = None
     if spec.needs_vals:
-        vals_list = [u32_to_device(pack_vals(s.slab, st.n_pad),
-                                   st.cols_dev.device)
+        vals_list = [st.vals_dev if st.vals_dev is not None
+                     else u32_to_device(pack_vals(s.slab, st.n_pad),
+                                        st.cols_dev.device)
                      for s, st in zip(live, staged_list)]
         vals = concat_vals(vals_list, [st.n for st in staged_list],
                            staged.n_pad)
@@ -586,8 +632,9 @@ def filtered_entries_sources(sources, read_ht_value: int, spec,
                              ) -> Iterator[Tuple[bytes, bytes, int]]:
     """Pushdown twin of visible_entries_sources: the visible entries of
     exactly the rows satisfying spec.predicates (the wire filter contract:
-    a NULL or absent column passes `!=`), in key order, over SlabSource
-    inputs (on `device`: cuda unless the caller passes device='cpu'). The
+    a NULL or absent column passes `!=`), in key order, over SlabSource /
+    ResidentSource inputs (slabs staged on `device`: cuda unless the
+    caller passes device='cpu'). The
     device work and its decision download happen EAGERLY, before the
     first entry is yielded."""
     staged, vals, live, presorted = _stage_pushdown(sources, spec, device)

@@ -43,7 +43,7 @@ Each kernel wrapper runs its plain PyTorch version on a CPU tensor and
 launches csrc/dist.cu on a CUDA tensor, or raises; it never falls back.
 Not ported: `prewarm_dist_compact` (no prewarm operation in the port yet),
 the pipeline and dispatch metrics and the fault-injection sites (ROADMAP
-item 6).
+queue A: health-board routing and device-fault containment).
 """
 
 from __future__ import annotations
@@ -85,7 +85,8 @@ _U32 = 0xFFFFFFFF
 
 # distributed-compaction attempts re-launched at doubled per-destination
 # capacity after a bucket overflow (the JAX package's registry counter of
-# the same name; the port's metrics registry is ROADMAP item 6)
+# the same name; the port's metrics registry comes with ROADMAP queue A:
+# health-board routing and device-fault containment)
 dist_compact_overflow_retry_total = 0
 _retry_lock = threading.Lock()   # the pool's thread runs jobs too
 

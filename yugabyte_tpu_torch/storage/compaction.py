@@ -1,9 +1,8 @@
 """The compaction job: device merge+GC decisions and the byte paths around it.
 
-Counterpart of yugabyte_tpu/storage/compaction.py, with no HBM slab cache
-and no run cache. `run_compaction_job` (compaction.py:174 there) is the
-router, argument for argument as the JAX package's, except that the
-port's device=None is the card:
+Counterpart of yugabyte_tpu/storage/compaction.py. `run_compaction_job`
+(compaction.py:174 there) is the router, argument for argument as the
+JAX package's, except that the port's device=None is the card:
 
   combined path: an explicit device ("cuda" or "cpu"), the native engine
           available, no YBTPU_FORCE_RADIX and no deep input go to
@@ -53,22 +52,38 @@ Both paths write output files byte-identical to the stock native
 CompactionJob (`_run_native_job`) and to the JAX package's job over the
 same inputs.
 
+The resident chain (JAX compaction.py:770-1160): with a device slab cache
+and `input_ids`, inputs the cache holds skip staging (no read, no
+upload), misses stage into the cache (`stage`, or `stage_from_raw` on the
+codec route), and every input is pinned for the whole attempt. Each
+output file's survivor span is gathered on the card (kernel D once a
+job, kernel E per span) and installed under the output id at one level
+above the deepest input as the file hits disk (`_ResidentSpanInstaller`;
+a sampled digest check, storage/integrity.py, drops a divergent entry);
+the learned index of each output is fit on the card over the same span
+(P4). With a run cache (storage/run_cache.py) holding every input, the
+native shell ingests the retained decoded runs (no file read, no block
+decode) and the job takes the shell route; the shell route exports its
+outputs into the run cache, so the next job over them starts warm.
+
 `run_compaction_job_dist_native` (compaction.py:1433 there) is the mesh
 path: the native shell ingests the input bytes on its own thread while
 `read_all` + `concat_slabs` + the distributed step
 (parallel/dist_compact.distributed_compact_with_outputs: kernels M1-M3,
-G, I.1, B) run, then _StreamingNativeWriter writes the outputs.
+G, I.1, B) run, then _StreamingNativeWriter writes the outputs; with a
+device cache `_DistResidentInstaller` installs each output's span from
+the sharded outputs (DistOutputs.gather_span: H once, D once, E a span).
 `run_compaction_job_with_decisions` (:1626 there) is stage C of a pooled
 wave slot (parallel/dist_compact.pooled_merge_gc): outputs from decisions
 computed elsewhere.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-the device slab cache, `input_ids` and the native run cache (item 4: their
-write-through installers, the mesh's included, and the resident chain),
-the offload policy (item 6), cancellation and the compaction rate limiter
-(item 9), an encrypted Env (item 5). The bucket-health routing, the
-device-fault containment that re-runs natively and the sampled shadow
-verifier are items 6 and 7: here a device error propagates.
+Not ported yet, each raising NotImplementedError naming its ROADMAP
+queue A item: the offload policy (health-board routing and device-fault
+containment), cancellation and the compaction rate limiter (the DB's
+remaining entry points), an encrypted Env (the encrypted Env and
+FaultInjectionEnv). The bucket-health routing, the device-fault
+containment that re-runs natively and the sampled shadow verifier are
+queue A items too: here a device error propagates.
 """
 
 from __future__ import annotations
@@ -91,7 +106,8 @@ flags.define_flag("compaction_max_output_entries_per_sst", 2_000_000,
                   "split compaction output files at this row count")
 flags.define_flag("compaction_rate_bytes_per_sec", 0,
                   "token-bucket cap on compaction output bytes/sec; "
-                  "0 = unlimited (the limiter is ROADMAP item 9)")
+                  "0 = unlimited (the limiter is ROADMAP queue A: the "
+                  "DB's remaining entry points)")
 flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "jobs at or above this many input rows fan their "
                   "subcompactions across the device mesh when one is "
@@ -99,32 +115,68 @@ flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "compaction_job.cc:330 GenSubcompactionBoundaries)")
 
 
-def _check_ported(device_cache=None, input_ids=None, run_cache=None,
-                  offload_policy=None, cancel=None) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every
-    argument and setting of the JAX package's job that the port does not
-    have yet."""
+_TITLE_HEALTH = "ROADMAP queue A: health-board routing and device-fault " \
+    "containment"
+_TITLE_DB = "ROADMAP queue A: the DB's remaining entry points"
+_TITLE_ENV = "ROADMAP queue A: the encrypted Env and FaultInjectionEnv"
+
+
+def _check_ported(offload_policy=None, cancel=None) -> None:
+    """Raise NotImplementedError, naming the ROADMAP queue A item, for
+    every argument and setting of the JAX package's job that the port
+    does not have yet."""
     from yugabyte_tpu_torch.utils.env import get_env
-    if device_cache is not None or input_ids is not None \
-            or run_cache is not None:
-        raise NotImplementedError(
-            "device slab cache / input_ids / native run cache: ROADMAP "
-            "item 4 (storage/device_cache, storage/run_cache and the "
-            "resident-span installer over the survivor-gather kernels)")
     if offload_policy is not None:
-        raise NotImplementedError(
-            "offload_policy: the bucket-health board is ROADMAP item 6")
+        raise NotImplementedError(f"offload_policy: {_TITLE_HEALTH}")
     if cancel is not None:
         raise NotImplementedError(
-            "cancel: compaction cancellation is ROADMAP item 9")
+            f"cancel: compaction cancellation is {_TITLE_DB}")
     if flags.get_flag("compaction_rate_bytes_per_sec") > 0:
         raise NotImplementedError(
-            "compaction_rate_bytes_per_sec: the compaction rate limiter is "
-            "ROADMAP item 9")
+            f"compaction_rate_bytes_per_sec: the compaction rate limiter is "
+            f"{_TITLE_DB}")
     if get_env().encrypted:
         raise NotImplementedError(
-            "compaction under an encrypted Env: ROADMAP item 5 (the JAX "
-            "package's encrypted Env needs the cryptography package)")
+            f"compaction under an encrypted Env: {_TITLE_ENV} (the JAX "
+            f"package's encrypted Env needs the cryptography package)")
+
+
+# native-shell file ingests (each input read and decoded from its SST by
+# the C++ shell), process-wide: a warm chained job ingests every input
+# from the run cache and must add none
+_ingest_lock = threading.Lock()
+_ingest_decodes = 0   # guarded-by: _ingest_lock
+
+
+def ingest_decodes() -> int:
+    """Native-shell file ingests so far in this process."""
+    with _ingest_lock:
+        return _ingest_decodes
+
+
+def _count_ingest_decode() -> None:
+    global _ingest_decodes
+    with _ingest_lock:
+        _ingest_decodes += 1
+
+
+def _realign_ids(all_inputs, input_ids, inputs):
+    """Cache ids re-aligned to a filtered input list: a whole-file drop
+    earlier in the list must not shift every later reader onto its
+    neighbor's staged columns."""
+    if input_ids is None:
+        return None
+    id_of = {id(r): fid for r, fid in zip(all_inputs, input_ids)}
+    return [id_of[id(r)] for r in inputs]
+
+
+def _out_level(device_cache, input_ids) -> int:
+    """Residency level of a job's outputs: one above the deepest input
+    (the chained L0->L1->L2 eviction policy keeps deep outputs resident
+    over shallow short-lived ones)."""
+    in_levels = [device_cache.level_of(fid)
+                 for fid in (input_ids or []) if fid is not None]
+    return 1 + max([lv for lv in in_levels if lv is not None], default=0)
 
 
 def _wants_distributed(mesh, n_rows: int) -> bool:
@@ -190,9 +242,15 @@ class _StreamingNativeWriter:
 
     def __init__(self, job, out_dir: str, new_file_id, fr,
                  block_entries: Optional[int], has_deep: bool = False,
-                 on_span=None):
+                 on_span=None, lindex_for_span=None):
         self._job = job
+        # (fid, base_path, start, end) after each span's SST exists on
+        # disk: the write-through installer hooks here
         self._on_span = on_span
+        # (start, end) -> Optional[lindex dict], before the span's base
+        # file is assembled: the learned index fit over the span's cols
+        # while they are on the card
+        self._lindex_for_span = lindex_for_span
         self._out_dir = out_dir
         self._new_file_id = new_file_id
         self._fr = fr
@@ -215,9 +273,11 @@ class _StreamingNativeWriter:
             start, end, data_file_name(base_path), self._block_entries,
             compress=sst_compression_enabled(),
             tombstone_value=self._tombstone_value)
+        lindex = (self._lindex_for_span(start, end)
+                  if self._lindex_for_span is not None else None)
         props = write_base_file(base_path, index, end - start, hashes,
                                 fk, lk, self._fr, size,
-                                has_deep=self._has_deep)
+                                has_deep=self._has_deep, lindex=lindex)
         self.outputs.append((fid, base_path, props))
         self.ranges.append((start, end))
         if self._on_span is not None:
@@ -294,14 +354,16 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     new_file_id: callable returning the next file id. device: "cuda",
     "cpu" (the kernels' plain PyTorch versions; the tests) or "native"
     (the native CompactionJob); None takes the Python path on the card.
-    Without a GPU, "cuda" and None raise. mesh: a parallel.mesh.Mesh —
-    jobs at or above distributed_compaction_min_rows fan their
-    subcompactions across its shards (parallel/dist_compact.py).
-    device_cache, input_ids, run_cache, offload_policy and cancel raise
-    NotImplementedError (see _check_ported)."""
-    _check_ported(device_cache, input_ids, run_cache, offload_policy,
-                  cancel)
+    Without a GPU, "cuda" and None raise. device_cache + input_ids: input
+    key columns come from (or are staged into) the device slab cache and
+    the outputs are written through to it; run_cache: the native run
+    cache of the device-native job. mesh: a parallel.mesh.Mesh — jobs at
+    or above distributed_compaction_min_rows fan their subcompactions
+    across its shards (parallel/dist_compact.py). offload_policy and
+    cancel raise NotImplementedError (see _check_ported)."""
+    _check_ported(offload_policy, cancel)
     all_inputs = list(inputs)
+    orig_input_ids = list(input_ids) if input_ids is not None else None
     if device is not None and device != "native" and not _no_combined:
         # the production path: device decisions + the codec or the C++
         # byte shell, for depth-2 inputs without the radix override; the
@@ -317,14 +379,17 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
                 return run_compaction_job_dist_native(
                     all_inputs, out_dir, new_file_id, history_cutoff_ht,
                     is_major, retain_deletes, device=device,
-                    block_entries=block_entries, mesh=mesh)
+                    block_entries=block_entries, device_cache=device_cache,
+                    input_ids=orig_input_ids, mesh=mesh)
             return run_compaction_job_device_native(
                 all_inputs, out_dir, new_file_id, history_cutoff_ht,
                 is_major, retain_deletes, device=device,
-                block_entries=block_entries)
+                block_entries=block_entries, device_cache=device_cache,
+                input_ids=orig_input_ids, run_cache=run_cache)
     inputs, dropped = filter_expired_inputs(
         all_inputs, history_cutoff_ht, is_major, retain_deletes)
     dropped_rows = sum(r.props.n_entries for r in dropped)
+    input_ids = _realign_ids(all_inputs, input_ids, inputs)
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
     if device == "native":
@@ -337,7 +402,9 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
             result.rows_in += dropped_rows
             return result
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP, concat_slabs
-    slabs = [s for s in (r.read_all() for r in inputs) if s.n]
+    slabs = [r.read_all() for r in inputs]
+    keep_idx = [i for i, s in enumerate(slabs) if s.n]
+    slabs = [slabs[i] for i in keep_idx]
     if not slabs:
         return CompactionResult([], 0, 0)
     merged = concat_slabs(slabs)
@@ -362,6 +429,28 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
         _cols, keep_d, mk_d, src_idx = distributed_compact(merged, params,
                                                            mesh)
         perm, keep, make_tomb = src_idx, keep_d, mk_d
+    elif device_cache is not None and input_ids is not None:
+        # resident inputs: cache hits skip the pack and the upload, misses
+        # stage into the cache
+        from yugabyte_tpu_torch.ops import run_merge
+        staged_list = []
+        for fid, slab in zip([input_ids[i] for i in keep_idx], slabs):
+            st = device_cache.get(fid)
+            if st is None:
+                st = device_cache.stage(fid, slab)
+            staged_list.append(st)
+        if (run_merge.run_layout_inflation([s.n for s in slabs]) > 2.0
+                or run_merge.force_radix()):
+            # one huge run + small ones: the radix re-sort over the
+            # concatenated resident cols (kernels H, G, I.1, B)
+            from yugabyte_tpu_torch.ops.merge_gc import merge_and_gc_device
+            from yugabyte_tpu_torch.storage.device_cache import concat_staged
+            perm, keep, make_tomb = merge_and_gc_device(
+                merged, params, staged=concat_staged(staged_list))
+        else:
+            perm, keep, make_tomb = run_merge.launch_merge_gc(
+                run_merge.stage_runs_from_staged(staged_list),
+                params).result()
     else:
         # the run-aware device merge; merge_and_gc_runs takes the radix
         # re-sort itself when the run layout would inflate
@@ -377,6 +466,8 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
                           history_cutoff_ht)
     max_rows = flags.get_flag("compaction_max_output_entries_per_sst")
     tombstone_value = Value.tombstone().encode()
+    out_level = (_out_level(device_cache, input_ids)
+                 if device_cache is not None else 0)
     outputs: List[Tuple[int, str, SSTProps]] = []
     for start in range(0, rows_out, max_rows):
         end = min(start + max_rows, rows_out)
@@ -388,6 +479,10 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
         props = SSTWriter(base_path, block_entries=block_entries,
                           fit_lindex=False).write(out_slab, fr)
         outputs.append((fid, base_path, props))
+        if device_cache is not None:
+            # write-through for the next pick, one level above the
+            # deepest input
+            device_cache.stage(fid, out_slab, level=out_level)
     return CompactionResult(outputs, merged.n + dropped_rows, rows_out,
                             tombstones_written=int(
                                 np.count_nonzero(tomb_flags)))
@@ -417,69 +512,212 @@ def run_compaction_job_device_native(
         history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool = False, device=None,
         block_entries: Optional[int] = None, device_cache=None,
+        input_ids: Optional[Sequence[int]] = None,
         run_cache=None) -> CompactionResult:
     """The production hot path: CUDA decisions, with the device block
     codec (the default) or the native byte shell (YBTPU_DEVICE_CODEC=0,
-    or a job the codec cannot take) around them.
+    a job the codec cannot take, or a job whose every input the run cache
+    holds) around them.
 
     device: 'cuda' (the default) or 'cpu' (the kernels' plain PyTorch
     versions; the tests). Without a GPU and without device='cpu' it
     raises. A skewed pick (run-layout inflation past 2x) or a deep input
     re-enters run_compaction_job's Python path (the radix re-sort, or the
-    native merge). device_cache and run_cache raise NotImplementedError
-    (ROADMAP item 4)."""
+    native merge). device_cache + input_ids: the resident chain (see the
+    module docstring); run_cache: the native run cache."""
     from yugabyte_tpu_torch.ops import block_codec, run_merge
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
     dev = resolve_device(device)
-    _check_ported(device_cache=device_cache, run_cache=run_cache)
+    _check_ported()
     all_inputs = list(inputs)
+    orig_input_ids = list(input_ids) if input_ids is not None else None
     inputs, dropped = filter_expired_inputs(
         all_inputs, history_cutoff_ht, is_major, retain_deletes)
     dropped_rows = sum(r.props.n_entries for r in dropped)
     inputs = [r for r in inputs if r.props.n_entries]
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
+    input_ids = _realign_ids(all_inputs, input_ids, inputs)
     if (any(r.props.has_deep for r in all_inputs)
             or run_merge.run_layout_inflation(
                 [r.props.n_entries for r in inputs]) > 2.0):
         # deep documents take the native merge's overwrite stack; skewed
         # run sizes would pad every run to the largest bucket on the
-        # device: the radix re-sort instead (same outputs)
+        # device: the radix re-sort instead (same outputs; the original
+        # input list with its original id pairing)
         return run_compaction_job(all_inputs, out_dir, new_file_id,
                                   history_cutoff_ht, is_major,
                                   retain_deletes, device=device,
                                   block_entries=block_entries,
+                                  device_cache=device_cache,
+                                  input_ids=orig_input_ids,
                                   _no_combined=True)
-    if block_codec.codec_enabled():
+    # The device codec takes the cold byte path: when the run cache holds
+    # every input the shell ingests with zero decode (and its export keeps
+    # the chain warm), so the shell keeps those jobs
+    all_run_cached = bool(
+        run_cache is not None and input_ids is not None
+        and all(run_cache.contains(fid) for fid in input_ids))
+    if block_codec.codec_enabled() and not all_run_cached:
         try:
             return _device_codec_attempt(
-                inputs, all_inputs, dropped_rows, out_dir, new_file_id,
-                history_cutoff_ht, is_major, retain_deletes, dev,
-                block_entries)
+                inputs, all_inputs, input_ids, dropped_rows, out_dir,
+                new_file_id, history_cutoff_ht, is_major, retain_deletes,
+                dev, block_entries, device_cache)
         except block_codec.BlockCodecUnsupported:
             pass   # the native byte shell takes the job
     return _device_native_attempt(
-        inputs, all_inputs, dropped_rows, out_dir, new_file_id,
-        history_cutoff_ht, is_major, retain_deletes, dev, block_entries)
+        inputs, all_inputs, input_ids, dropped_rows, out_dir, new_file_id,
+        history_cutoff_ht, is_major, retain_deletes, dev, block_entries,
+        device_cache, run_cache)
+
+
+class _ResidentSpanInstaller:
+    """Write-through installer of the resident chain: as each output
+    file's SST hits disk, its survivor span is gathered on the card from
+    the merge's products (kernel D once a job, kernel E a span: key
+    columns never leave the device) and installed into the slab cache
+    under the OUTPUT file id, so the entry corresponds to the file just
+    written. A sampled digest check (storage/integrity.py) re-derives the
+    entry from the written bytes; a divergent entry is dropped, never
+    installed.
+
+    A chunked handle has no parent-domain products until its decision
+    stream is fully drained, so spans written mid-stream buffer and
+    install in finish()."""
+
+    def __init__(self, device_cache, level: int):
+        self.device_cache = device_cache
+        self.level = level
+        self.handle = None          # set once the merge is launched
+        self.installed: List[int] = []
+        self._pending: List[Tuple[int, str, int, int]] = []
+        self._pos_all = None
+        self._span_cache: dict = {}   # (start, end) -> StagedCols
+
+    def _ready(self) -> bool:
+        """True once the handle holds parent-domain device products
+        (building them from a fully drained chunked stream if needed)."""
+        from yugabyte_tpu_torch.ops.run_merge import _ChunkedMergeGCHandle
+        h = self.handle
+        if h is None:
+            return False
+        if h._p_mat is not None:
+            return True
+        if isinstance(h, _ChunkedMergeGCHandle) and h._result is not None:
+            h.to_parent_products()   # the chunked stream fully drained
+            return h._p_mat is not None
+        return False
+
+    def _gather_span(self, start: int, end: int):
+        from yugabyte_tpu_torch.ops import run_merge
+        st = self._span_cache.pop((start, end), None)
+        if st is not None:
+            return st
+        if self._pos_all is None:   # one survivor scan per job
+            self._pos_all = run_merge.survivor_positions(self.handle)
+        return run_merge.gather_staged_output_span(
+            self.handle, self._pos_all, start, end)
+
+    def lindex_for_span(self, start: int, end: int):
+        """Learned-index fit (kernel P4) over the span's gathered cols,
+        cached so the install that follows gathers nothing again. None
+        when the flag is off or the handle is mid-stream (chunked spans
+        written before their decisions drained carry no model: it is
+        advisory)."""
+        from yugabyte_tpu_torch.ops import point_read
+        if not flags.get_flag("sst_learned_index") or not self._ready():
+            return None
+        st = self._gather_span(start, end)
+        self._span_cache[(start, end)] = st
+        return point_read.fit_learned_index_device(st)
+
+    def on_span(self, fid: int, base_path: str, start: int, end: int
+                ) -> None:
+        if self.handle is None:
+            return
+        if not self._ready():
+            self._pending.append((fid, base_path, start, end))
+            return
+        self._install(fid, base_path, start, end)
+
+    def _install(self, fid: int, base_path: str, start: int, end: int
+                 ) -> None:
+        from yugabyte_tpu_torch.storage import integrity
+        st = self._gather_span(start, end)
+        if not integrity.maybe_verify_resident_entry(st, base_path):
+            return  # digest mismatch: the next reader re-stages from bytes
+        self.device_cache.put(fid, st, level=self.level)
+        self.installed.append(fid)
+
+    def finish(self) -> None:
+        """Install the spans a chunked stream had to defer."""
+        if self.handle is None or not self._pending:
+            return
+        if not self._ready():
+            return
+        pending, self._pending = self._pending, []
+        for fid, base_path, start, end in pending:
+            self._install(fid, base_path, start, end)
+
+    def unwind(self) -> None:
+        """Failure unwind: every entry this attempt installed describes a
+        file the unwind just deleted; drop them so the cache never
+        outlives its SSTs."""
+        for fid in self.installed:
+            self.device_cache.drop(fid)
+        self.installed = []
+
+
+def _unwind_attempt(state: dict) -> None:
+    """The clean unwind of a failed attempt: delete every output file its
+    writer wrote and drop every cache entry its installer installed."""
+    _remove_outputs(state["writer"])
+    if state["installer"] is not None:
+        state["installer"].unwind()
+
+
+def _release_pins(state: dict, device_cache) -> None:
+    """Zero leaked pins on every exit path: the inputs an attempt pinned
+    against eviction are released, a failed attempt's included."""
+    if device_cache is not None:
+        for fid in state["pins"]:
+            device_cache.unpin(fid)
 
 
 def _device_native_attempt(
-        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
-        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
-        device, block_entries) -> CompactionResult:
+        inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
+        new_file_id, history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool, device, block_entries, device_cache=None,
+        run_cache=None) -> CompactionResult:
     """One attempt of the pipelined device+native job. UNWINDS CLEANLY on
-    any failure: every output file it wrote is deleted before the
-    exception propagates."""
-    state = {"writer": None}
+    any failure: every output file it wrote is deleted and every cache
+    entry it installed dropped before the exception propagates, and the
+    inputs it pinned are unpinned on every exit."""
+    # cached-run ids, in INPUT ORDER (the device survivor indexes are
+    # run-major over exactly this order), all or nothing: a partial hit
+    # pays the file path for every input. contains() first, so a partial
+    # hit neither counts hits nor promotes entries it never consumes;
+    # probed before the ingest thread starts
+    cached_ids = None
+    if run_cache is not None and input_ids is not None \
+            and all(run_cache.contains(fid) for fid in input_ids):
+        ids = [run_cache.get(fid) for fid in input_ids]
+        if all(i is not None for i in ids):
+            cached_ids = ids
+    state = {"writer": None, "installer": None, "pins": []}
     try:
         return _device_native_body(
-            inputs, all_inputs, dropped_rows, out_dir, new_file_id,
-            history_cutoff_ht, is_major, retain_deletes, device,
-            block_entries, state)
+            inputs, all_inputs, input_ids, dropped_rows, out_dir,
+            new_file_id, history_cutoff_ht, is_major, retain_deletes,
+            device, block_entries, device_cache, run_cache, cached_ids,
+            state)
     except BaseException:
-        _remove_outputs(state["writer"])
+        _unwind_attempt(state)
         raise
+    finally:
+        _release_pins(state, device_cache)
 
 
 def _remove_outputs(writer) -> None:
@@ -499,26 +737,59 @@ def _remove_files(outputs) -> None:
                 pass
 
 
+def _stage_input(fid, device_cache, state: dict, stage_miss):
+    """One input of stage B: a resident input comes straight from the
+    cache; a miss is staged by stage_miss(fid) (fid None without a cache
+    id). A resident input is pinned for the whole attempt (released in
+    its finally): capacity eviction can never race the merge off it."""
+    cached = device_cache is not None and fid is not None
+    st = device_cache.get(fid) if cached else None
+    if st is None:
+        st = stage_miss(fid if cached else None)
+    if cached and device_cache.pin(fid):
+        state["pins"].append(fid)
+    return st
+
+
 def _device_native_body(
-        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
-        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
-        device, block_entries, state: dict) -> CompactionResult:
+        inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
+        new_file_id, history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool, device, block_entries, device_cache,
+        run_cache, cached_ids, state: dict) -> CompactionResult:
     from yugabyte_tpu_torch.ops import run_merge
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
     from yugabyte_tpu_torch.storage import native_engine
 
+    tombstone_value = Value.tombstone().encode()
     with native_engine.NativeCompactionJob() as job:
-        # -- stage A (host): the native shell ingests the input bytes on
-        # its own thread (file reads, block decode and CRC release the
-        # GIL), overlapping the staging + kernel launches below
+        # -- stage A (host): the native shell ingests the inputs on its
+        # own thread (file reads, block decode and CRC release the GIL),
+        # overlapping the staging + kernel launches below; with every
+        # input in the run cache it ingests the retained decoded runs
         ingest = {"rows_in": None, "err": None}
 
         def _ingest_inputs():
             try:
-                for r in inputs:
-                    with open(r.data_path, "rb") as f:
-                        job.add_input(f.read(), r.block_handles)
-                ingest["rows_in"] = job.prepare()
+                pinned = False
+                if cached_ids is not None:
+                    try:
+                        # add_cached pins each run; an entry evicted since
+                        # the probe raises, and the job takes the file
+                        # path (stray pinned runs are ignored by prepare()
+                        # and freed with the job)
+                        for rid in cached_ids:
+                            job.add_cached(rid)
+                        pinned = True
+                    except KeyError:
+                        pinned = False
+                if pinned:
+                    ingest["rows_in"] = job.prepare_cached()
+                else:
+                    for r in inputs:
+                        with open(r.data_path, "rb") as f:
+                            job.add_input(f.read(), r.block_handles)
+                        _count_ingest_decode()
+                    ingest["rows_in"] = job.prepare()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 ingest["err"] = e
 
@@ -527,26 +798,37 @@ def _device_native_body(
                                          daemon=True)
         ingest_thread.start()
         try:
-            # -- stage B: decode the inputs' key columns on host threads,
-            # upload each, re-lay them run-major on the card and enqueue
-            # the merge + GC kernels
+            # -- stage B: resident inputs come from the slab cache; the
+            # misses' key columns decode on host threads and upload, then
+            # the inputs are re-laid run-major on the card and the merge +
+            # GC kernels enqueued
+            misses = [i for i, fid in enumerate(
+                input_ids or [None] * len(inputs))
+                if not (device_cache is not None and fid is not None
+                        and device_cache.contains(fid))]
             slabs: dict = {}
 
             def _read(i):
                 slabs[i] = inputs[i].read_all()
 
             readers = [threading.Thread(target=_read, args=(i,), daemon=True)
-                       for i in range(len(inputs))]
+                       for i in misses]
             for t in readers:
                 t.start()
             for t in readers:
                 t.join()
-            staged_list = []
-            for i, r in enumerate(inputs):
-                slab = slabs.get(i)
+
+            def _stage_miss(i, fid):
+                slab = slabs.pop(i, None)
                 if slab is None:   # a reader thread failed: surface it here
-                    slab = r.read_all()
-                staged_list.append(stage_slab(slab, device))
+                    slab = inputs[i].read_all()
+                return (device_cache.stage(fid, slab) if fid is not None
+                        else stage_slab(slab, device))
+
+            staged_list = [
+                _stage_input(fid, device_cache, state,
+                             lambda f, i=i: _stage_miss(i, f))
+                for i, fid in enumerate(input_ids or [None] * len(inputs))]
             staged_runs = run_merge.stage_runs_from_staged(staged_list)
             params = GCParams(history_cutoff_ht, is_major, retain_deletes)
             handle = run_merge.launch_merge_gc(staged_runs, params)
@@ -559,12 +841,22 @@ def _device_native_body(
         rows_in = ingest["rows_in"]
 
         # -- stage C: stream the decisions into the shell and write every
-        # output file whose survivor span is complete
+        # output file whose survivor span is complete; with a cache each
+        # file's span installs as the file hits disk
         fr = _merge_frontiers([r.props.frontier for r in all_inputs],
                               history_cutoff_ht)
+        installer = None
+        if device_cache is not None:
+            installer = _ResidentSpanInstaller(
+                device_cache, _out_level(device_cache, input_ids))
+            installer.handle = handle
+            state["installer"] = installer
         writer = _StreamingNativeWriter(
             job, out_dir, new_file_id, fr, block_entries,
-            has_deep=any(r.props.has_deep for r in inputs))
+            has_deep=any(r.props.has_deep for r in inputs),
+            on_span=installer.on_span if installer is not None else None,
+            lindex_for_span=(installer.lindex_for_span
+                             if installer is not None else None))
         state["writer"] = writer
         tombstones_written = 0
         for perm_c, keep_c, mk_c in handle.result_iter():
@@ -574,7 +866,19 @@ def _device_native_body(
             job.append_survivors(surv, mk_surv)
             writer.feed(job.n_survivors)
         rows_out = job.n_survivors
-        outputs, _ranges = writer.finish(rows_out)
+        outputs, ranges = writer.finish(rows_out)
+        if run_cache is not None:
+            # run-cache write-through: the exported survivors are
+            # byte-equivalent to re-decoding the files just written, so
+            # the next compaction over these outputs starts all-cached
+            for (fid, _base, _props), (start, end) in zip(outputs, ranges):
+                rid = job.export_run(start, end, tombstone_value)
+                run_cache.put(fid, rid,
+                              native_engine.runcache_entry_bytes(rid))
+    if installer is not None:
+        # the spans a chunked stream deferred install here; an unchunked
+        # job installed each span as its file hit disk
+        installer.finish()
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=tombstones_written)
 
@@ -587,11 +891,13 @@ class _DeviceCodecWriter:
     File splits, tombstone rewrite and base assembly are those of
     _StreamingNativeWriter, so codec and shell jobs write byte-identical
     files over identical survivor ranges. Each span's cols are gathered
-    on the card (kernels D and E) and encoded there (kernel F)."""
+    on the card once (kernels D and E) and shared three ways: the encode
+    (kernel F), the learned-index fit (P4) and the write-through
+    install."""
 
     def __init__(self, handle, values, w_out: int, out_dir: str,
                  new_file_id, fr, block_entries: Optional[int],
-                 has_deep: bool = False):
+                 has_deep: bool = False, installer=None):
         self._handle = handle
         self._values = values          # every input's value rows, in order
         self._w_out = w_out
@@ -599,6 +905,7 @@ class _DeviceCodecWriter:
         self._new_file_id = new_file_id
         self._fr = fr
         self._has_deep = has_deep
+        self._installer = installer
         self._block_entries = (block_entries if block_entries is not None
                                else flags.get_flag("sst_block_entries"))
         self._max_rows = flags.get_flag(
@@ -606,17 +913,29 @@ class _DeviceCodecWriter:
         self._tombstone_value = Value.tombstone().encode()
         self._pos_all = None
         self.outputs: List[Tuple[int, str, SSTProps]] = []
+        self.ranges: List[Tuple[int, int]] = []
+
+    def _gather_span(self, start: int, end: int):
+        from yugabyte_tpu_torch.ops import run_merge
+        inst = self._installer
+        if inst is not None:
+            st = inst._gather_span(start, end)
+            # prefill the installer's span cache: the fit and the install
+            # after the write reuse this gather
+            inst._span_cache[(start, end)] = st
+            return st, inst.lindex_for_span(start, end)
+        if self._pos_all is None:   # one survivor scan serves every span
+            self._pos_all = run_merge.survivor_positions(self._handle)
+        return run_merge.gather_staged_output_span(
+            self._handle, self._pos_all, start, end), None
 
     def _write_span(self, surv: np.ndarray, mk: np.ndarray,
                     start: int, end: int) -> None:
-        from yugabyte_tpu_torch.ops import block_codec, run_merge
+        from yugabyte_tpu_torch.ops import block_codec
         from yugabyte_tpu_torch.storage.sst import (
             data_file_name, sst_compression_enabled, write_base_file)
         from yugabyte_tpu_torch.utils.env import get_env
-        if self._pos_all is None:   # one survivor scan serves every span
-            self._pos_all = run_merge.survivor_positions(self._handle)
-        st = run_merge.gather_staged_output_span(
-            self._handle, self._pos_all, start, end)
+        st, lindex = self._gather_span(start, end)
         vals = self._values.gather(surv[start:end],
                                    replace_mask=mk[start:end],
                                    replacement=self._tombstone_value)
@@ -639,8 +958,11 @@ class _DeviceCodecWriter:
             df.close()
         props = write_base_file(base_path, index, end - start, hashes,
                                 fk, lk, self._fr, size,
-                                has_deep=self._has_deep)
+                                has_deep=self._has_deep, lindex=lindex)
         self.outputs.append((fid, base_path, props))
+        self.ranges.append((start, end))
+        if self._installer is not None:
+            self._installer.on_span(fid, base_path, start, end)
 
     def write_all(self, surv: np.ndarray, mk: np.ndarray, rows_out: int
                   ) -> List[Tuple[int, str, SSTProps]]:
@@ -653,45 +975,55 @@ class _DeviceCodecWriter:
 
 
 def _device_codec_attempt(
-        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
-        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
-        device, block_entries) -> CompactionResult:
+        inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
+        new_file_id, history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool, device, block_entries,
+        device_cache=None) -> CompactionResult:
     """One attempt of the shell-free device-codec job (decode, merge and
     encode on the card; the host CRC-checks raw bytes, splices values and
-    writes files). Unwinds like _device_native_attempt: every output file
-    it wrote is deleted before the exception propagates, so a
+    writes files). Unwinds like _device_native_attempt: partial outputs
+    deleted, installed entries dropped, zero leaked pins, so a
     BlockCodecUnsupported leaves nothing behind for the shell path."""
-    state = {"writer": None}
+    state = {"writer": None, "installer": None, "pins": []}
     try:
         return _device_codec_body(
-            inputs, all_inputs, dropped_rows, out_dir, new_file_id,
-            history_cutoff_ht, is_major, retain_deletes, device,
-            block_entries, state)
+            inputs, all_inputs, input_ids, dropped_rows, out_dir,
+            new_file_id, history_cutoff_ht, is_major, retain_deletes,
+            device, block_entries, device_cache, state)
     except BaseException:
-        _remove_outputs(state["writer"])
+        _unwind_attempt(state)
         raise
+    finally:
+        _release_pins(state, device_cache)
 
 
 def _device_codec_body(
-        inputs, all_inputs, dropped_rows: int, out_dir: str, new_file_id,
-        history_cutoff_ht: int, is_major: bool, retain_deletes: bool,
-        device, block_entries, state: dict) -> CompactionResult:
+        inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
+        new_file_id, history_cutoff_ht: int, is_major: bool,
+        retain_deletes: bool, device, block_entries, device_cache,
+        state: dict) -> CompactionResult:
     from yugabyte_tpu_torch.ops import block_codec, run_merge
     from yugabyte_tpu_torch.ops.slabs import ValueArray
 
     # -- stage A: raw-byte ingest. One file read, per-block CRC check and
     # zero-copy value slicing per input; key columns decode on the card
-    # (kernel C), so no host block decode runs
+    # (kernel C) unless the slab cache already holds them, so no host
+    # block decode runs
     staged_list = []
     values_parts = []
     rows_in = 0
     w_out = 1
-    for r in inputs:
+    for r, fid in zip(inputs, input_ids or [None] * len(inputs)):
         rfb = block_codec.parse_raw_file(r.read_raw(), r.block_handles)
         values_parts.extend(rfb.value_parts)
         rows_in += rfb.n
         w_out = max(w_out, rfb.w)
-        staged_list.append(block_codec.decode_file_to_staged(rfb, device))
+        staged_list.append(_stage_input(
+            fid, device_cache, state,
+            lambda f, rfb=rfb: (device_cache.stage_from_raw(f, rfb)
+                                if f is not None else
+                                block_codec.decode_file_to_staged(
+                                    rfb, device))))
     values = ValueArray.concat(values_parts)
 
     # -- stage B: the same merge + GC launch as the shell path. The
@@ -713,13 +1045,49 @@ def _device_codec_body(
     # -- stage C: device gather + encode, host value splice, per span
     fr = _merge_frontiers([r.props.frontier for r in all_inputs],
                           history_cutoff_ht)
+    installer = None
+    if device_cache is not None:
+        installer = _ResidentSpanInstaller(
+            device_cache, _out_level(device_cache, input_ids))
+        installer.handle = handle
+        state["installer"] = installer
     writer = _DeviceCodecWriter(
         handle, values, w_out, out_dir, new_file_id, fr, block_entries,
-        has_deep=any(r.props.has_deep for r in inputs))
+        has_deep=any(r.props.has_deep for r in inputs), installer=installer)
     state["writer"] = writer
     outputs = writer.write_all(surv, mk, rows_out)
+    if installer is not None:
+        installer.finish()
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=int(np.count_nonzero(mk)))
+
+
+class _DistResidentInstaller:
+    """Write-through installer of the mesh job: as each output file's SST
+    hits disk, its survivor span is gathered from the SHARDED device
+    outputs (parallel/dist_compact.DistOutputs.gather_span: the merged
+    cols never come back to the host) and installed under the output id,
+    digest-sampled like the single-device installer."""
+
+    def __init__(self, device_cache, level: int, outputs_dev):
+        self.device_cache = device_cache
+        self.level = level
+        self._outputs = outputs_dev
+        self.installed: List[int] = []
+
+    def on_span(self, fid: int, base_path: str, start: int, end: int
+                ) -> None:
+        from yugabyte_tpu_torch.storage import integrity
+        st = self._outputs.gather_span(start, end)
+        if not integrity.maybe_verify_resident_entry(st, base_path):
+            return  # digest mismatch: the next reader re-stages from bytes
+        self.device_cache.put(fid, st, level=self.level)
+        self.installed.append(fid)
+
+    def unwind(self) -> None:
+        for fid in self.installed:
+            self.device_cache.drop(fid)
+        self.installed = []
 
 
 def run_compaction_job_dist_native(
@@ -738,20 +1106,21 @@ def run_compaction_job_dist_native(
     the decision-sized arrays come down (the merged cols stay on the
     mesh's devices); _StreamingNativeWriter writes the outputs, with the
     split and tombstone rules of the single-device job, so the files are
-    byte-identical to it. The shards run on the mesh's devices; a
-    `device` given must be of their type ("cuda" for a mesh of cards,
-    "cpu" for a CPU mesh), or the job raises. device_cache, input_ids
-    (item 4: `_DistResidentInstaller` waits for the cache write-through)
-    and cancel (item 9) raise NotImplementedError; a device error
-    propagates, and every output file written is deleted first."""
+    byte-identical to it. With a device cache, each output's span is
+    gathered from the sharded outputs and installed under its id
+    (_DistResidentInstaller) at one level above the deepest input. The
+    shards run on the mesh's devices; a `device` given must be of their
+    type ("cuda" for a mesh of cards, "cpu" for a CPU mesh), or the job
+    raises. cancel raises NotImplementedError (see _check_ported); a
+    device error propagates, and every output file written is deleted
+    and every entry installed dropped first."""
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.parallel.dist_compact import (
         distributed_compact_with_outputs)
     from yugabyte_tpu_torch.storage import native_engine
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
-    _check_ported(device_cache=device_cache, input_ids=input_ids,
-                  cancel=cancel)
+    _check_ported(cancel=cancel)
     if device is not None:
         kind = resolve_device(device).type
         if any(d.type != kind for d in mesh.devices.flat):
@@ -765,8 +1134,9 @@ def run_compaction_job_dist_native(
     inputs = [r for r in inputs if r.props.n_entries]
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
+    input_ids = _realign_ids(all_inputs, input_ids, inputs)
     params = GCParams(history_cutoff_ht, is_major, retain_deletes)
-    state = {"writer": None}
+    state = {"writer": None, "installer": None}
     try:
         with native_engine.NativeCompactionJob() as job:
             ingest = {"rows_in": None, "err": None}
@@ -776,6 +1146,7 @@ def run_compaction_job_dist_native(
                     for r in inputs:
                         with open(r.data_path, "rb") as f:
                             job.add_input(f.read(), r.block_handles)
+                        _count_ingest_decode()
                     ingest["rows_in"] = job.prepare()
                 except BaseException as e:  # noqa: BLE001 — re-raised below
                     ingest["err"] = e
@@ -787,9 +1158,9 @@ def run_compaction_job_dist_native(
             try:
                 merged = concat_slabs([s for s in (r.read_all()
                                                    for r in inputs) if s.n])
-                keep, mk, src_idx, _outputs = \
+                keep, mk, src_idx, outputs_dev = \
                     distributed_compact_with_outputs(merged, params, mesh)
-                del merged, _outputs
+                del merged
             finally:
                 # the thread calls into the C++ job; it MUST finish
                 # before any unwind can free the job
@@ -802,13 +1173,23 @@ def run_compaction_job_dist_native(
             rows_out = int(surv.shape[0])
             fr = _merge_frontiers([r.props.frontier for r in all_inputs],
                                   history_cutoff_ht)
-            writer = _StreamingNativeWriter(job, out_dir, new_file_id, fr,
-                                            block_entries, has_deep=False)
+            installer = None
+            if device_cache is not None:
+                installer = _DistResidentInstaller(
+                    device_cache, _out_level(device_cache, input_ids),
+                    outputs_dev)
+                state["installer"] = installer
+            else:
+                del outputs_dev
+            writer = _StreamingNativeWriter(
+                job, out_dir, new_file_id, fr, block_entries, has_deep=False,
+                on_span=installer.on_span if installer is not None
+                else None)
             state["writer"] = writer
             job.set_survivors(surv, mk_surv)
             outputs, _ranges = writer.finish(job.n_survivors)
     except BaseException:
-        _remove_outputs(state["writer"])
+        _unwind_attempt(state)
         raise
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=int(np.count_nonzero(mk_surv)))
@@ -831,7 +1212,7 @@ def run_compaction_job_with_decisions(
     slabs: their read_all() slabs (the Python writer's input); surv indexes
     the concatenation of the live slabs in input order, in merged order.
     on_span(fid, base_path, start, end) runs after each output file.
-    cancel raises NotImplementedError (ROADMAP item 9)."""
+    cancel raises NotImplementedError (see _check_ported)."""
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.storage import native_engine
 
@@ -847,6 +1228,7 @@ def run_compaction_job_with_decisions(
             for r in inputs:
                 with open(r.data_path, "rb") as f:
                     job.add_input(f.read(), r.block_handles)
+                _count_ingest_decode()
             job.prepare()
             job.set_survivors(surv, mk_surv)
             writer = _StreamingNativeWriter(

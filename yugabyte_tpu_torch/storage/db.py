@@ -21,15 +21,21 @@ and a stale resident entry is restaged: on a DB with a device, the SST
 half of every key is resolved there, never on the host behind the
 caller's back.
 
+A DB with a device cache also keeps a run cache (storage/run_cache.py):
+flush exports each new L0 file's decoded run into it, so the first
+compaction over the file starts zero-decode; the obsolete-file purge and
+`close` drop both caches' entries.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: compaction scheduling (`auto_compact=True`, `compact_all`,
-`maybe_schedule_compaction`) and the scans (`scan_visible`,
-`scan_filtered`, `scan_aggregate`, `scan_native`): item 9; the
-health-board gate and device-fault containment of `_multi_get_device`:
-item 6 — here a kernel error propagates to the caller; the background-
-error slot and its retry, and the read-corruption routing: item 6;
-`scrub`: item 7; `checkpoint`: item 9. The run cache and
-`pre_flush_hook` come with items 4 and 10.
+queue A item: compaction scheduling (`auto_compact=True`, `compact_all`,
+`maybe_schedule_compaction`), the scans (`scan_visible`,
+`scan_filtered`, `scan_aggregate`, `scan_native`) and `checkpoint`: the
+DB's remaining entry points; the health-board gate and device-fault
+containment of `_multi_get_device`, the background-error slot and its
+retry, and the read-corruption routing: health-board routing and
+device-fault containment (here a kernel error propagates to the caller);
+`scrub`: the sampled shadow verifier. `pre_flush_hook` comes with the
+device-free rest.
 """
 
 from __future__ import annotations
@@ -72,9 +78,14 @@ flags.define_flag("point_read_learned_index", True,
 _CHUNK = 1024   # keys per device chunk (the larger batch bucket)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+_ENTRY_POINTS = "the DB's remaining entry points"
+_HEALTH = "health-board routing and device-fault containment"
+_SHADOW = "the sampled shadow verifier"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"DB.{what} is not ported yet (ROADMAP item {item})")
+        f"DB.{what} is not ported yet (ROADMAP queue A: {item})")
 
 
 @dataclass
@@ -98,7 +109,8 @@ class DB:
         if self.opts.auto_compact:
             raise NotImplementedError(
                 "DBOptions(auto_compact=True): compaction scheduling is not "
-                "ported yet (ROADMAP item 9); pass auto_compact=False")
+                f"ported yet (ROADMAP queue A: {_ENTRY_POINTS}); pass "
+                "auto_compact=False")
         self._device = self._device_cache = None
         if self.opts.device == "native":
             if self.opts.device_cache is not None:
@@ -119,6 +131,19 @@ class DB:
             self._device_cache = (
                 NamespacedSlabCache(cache, os.path.abspath(db_dir))
                 if isinstance(cache, DeviceSlabCache) else cache)
+        # the host packed-run cache: flush outputs retained decoded so the
+        # device-native compaction over them skips read + decode. Only
+        # that job reads it, so a DB without a device path pays nothing
+        # for it (the JAX DB's guard, db.py:195-196 there, in the port's
+        # meaning of DBOptions.device: any device but "native")
+        self._run_cache = None
+        if self._device_cache is not None and self.opts.device != "native":
+            from yugabyte_tpu_torch.storage.run_cache import (
+                NamespacedRunCache, shared_run_cache)
+            shared = shared_run_cache()
+            if shared is not None:
+                self._run_cache = NamespacedRunCache(
+                    shared, os.path.abspath(db_dir))
         os.makedirs(db_dir, exist_ok=True)
         self.versions = VersionSet(db_dir)
         self.versions.recover()
@@ -226,7 +251,8 @@ class DB:
         result; the SST write runs unlocked while reads serve from the
         immutable memtable. On failure the un-flushed entries go back
         into the live memtable, partial outputs are removed, and the
-        error propagates (the background-error slot is ROADMAP item 6).
+        error propagates (the background-error slot is ROADMAP queue A:
+        health-board routing and device-fault containment).
         """
         with self._lock:
             if self._imm is not None:
@@ -254,7 +280,8 @@ class DB:
                     write_sst_from_packed)
                 props = write_sst_from_packed(
                     path, *packed, frontier=frontier,
-                    block_entries=self.opts.block_entries)
+                    block_entries=self.opts.block_entries,
+                    run_cache=self._run_cache, file_id=fid)
                 if self._device_cache is not None:
                     slab = imm.to_slab()
             else:
@@ -285,8 +312,8 @@ class DB:
                 installed = fid is not None and fid in self.versions.files
             if path is not None and not installed:
                 _delete_sst_files(path)
-                if self._device_cache is not None and fid is not None:
-                    self._device_cache.drop(fid)
+                if fid is not None:
+                    self._drop_cached(fid)
             raise
         return fid
 
@@ -471,7 +498,7 @@ class DB:
     def _multi_get_device(self, keys, read_ht, doc_key_lens=None):
         """The batched device path. A kernel error propagates (the
         reference's health-board gate and fault containment are ROADMAP
-        item 6)."""
+        queue A: health-board routing and device-fault containment)."""
         # memtable snapshot BEFORE the reader set (see _get_inner)
         with self._lock:
             mems = [self.mem] + ([self._imm] if self._imm is not None
@@ -672,38 +699,47 @@ class DB:
 
     # ------------------------------------------------------- not ported yet
     def scan_visible(self, *args, **kwargs):
-        raise _not_ported("scan_visible", 9)
+        raise _not_ported("scan_visible", _ENTRY_POINTS)
 
     def scan_filtered(self, *args, **kwargs):
-        raise _not_ported("scan_filtered", 9)
+        raise _not_ported("scan_filtered", _ENTRY_POINTS)
 
     def scan_aggregate(self, *args, **kwargs):
-        raise _not_ported("scan_aggregate", 9)
+        raise _not_ported("scan_aggregate", _ENTRY_POINTS)
 
     def scan_native(self, *args, **kwargs):
-        raise _not_ported("scan_native", 9)
+        raise _not_ported("scan_native", _ENTRY_POINTS)
 
     def maybe_schedule_compaction(self) -> bool:
-        raise _not_ported("maybe_schedule_compaction", 9)
+        raise _not_ported("maybe_schedule_compaction", _ENTRY_POINTS)
 
     def compact_all(self) -> None:
-        raise _not_ported("compact_all", 9)
+        raise _not_ported("compact_all", _ENTRY_POINTS)
 
     def retry_background_work(self) -> bool:
-        raise _not_ported("retry_background_work", 6)
+        raise _not_ported("retry_background_work", _HEALTH)
 
     def scrub(self, *args, **kwargs) -> dict:
-        raise _not_ported("scrub", 7)
+        raise _not_ported("scrub", _SHADOW)
 
     def checkpoint(self, out_dir: str) -> None:
-        raise _not_ported("checkpoint", 9)
+        raise _not_ported("checkpoint", _ENTRY_POINTS)
 
     # ------------------------------------------------------------ lifecycle
+    def _drop_cached(self, fid: int) -> None:
+        """Drop a file's entries from both caches (its file is gone or
+        never installed)."""
+        if self._device_cache is not None:
+            self._device_cache.drop(fid)
+        if self._run_cache is not None:
+            self._run_cache.drop(fid)
+
     def _purge_obsolete_unlocked(self) -> None:
         for fid in [f for f in self._obsolete if not self._pins.get(f)]:
             r = self._obsolete.pop(fid)
             r.close()
             _delete_sst_files(r.base_path)
+            self._drop_cached(fid)
 
     def close(self) -> None:
         with self._lock:
@@ -722,6 +758,8 @@ class DB:
             if self._device_cache is not None and \
                     hasattr(self._device_cache, "drop_all"):
                 self._device_cache.drop_all()  # free this DB's residency
+            if self._run_cache is not None:
+                self._run_cache.drop_all()
 
     @property
     def n_live_files(self) -> int:

@@ -1,25 +1,29 @@
 """Device-resident slab cache: SST key columns kept on the card.
 
-Counterpart of yugabyte_tpu/storage/device_cache.py (:40-360 and the two
-functions at the end). The cache keeps *staged key-column matrices*
-(ops/merge_gc.StagedCols, int32 [8+w, n_pad]) in device memory so that a
-read or a compaction over a resident file skips the host decode and the
-upload. Flush writes through (storage/db.py); the batched point read
-stages a file on a miss (`stage(..., for_read=True)`).
+Counterpart of yugabyte_tpu/storage/device_cache.py. The cache keeps
+*staged key-column matrices* (ops/merge_gc.StagedCols, int32 [8+w, n_pad])
+in device memory so that a read or a compaction over a resident file
+skips the host decode and the upload. Flush writes through
+(storage/db.py); compaction writes through too: each output file's
+survivor span is gathered on the card (kernels D and E) and installed
+under the output id as the file hits disk (storage/compaction.
+_ResidentSpanInstaller), so a chained L0->L1->L2 job starts resident. The
+batched point read stages a file on a miss (`stage(..., for_read=True)`);
+the device codec's miss path decodes raw blocks on the card
+(`stage_from_raw`, kernel C).
 
 Residency is a multi-level set, not a flat LRU: entries carry the LSM
-level of the file they stage, capacity eviction prefers the shallow
-levels (LRU within a level), and entries pinned by an in-flight job are
-never evicted. Values stay on the host.
+level of the file they stage (flush outputs are level 0, a compaction
+output one above its deepest input), capacity eviction prefers the
+shallow levels (LRU within a level), and entries pinned by an in-flight
+job are never evicted. Values stay on the host, except the pushdown's
+small value-word matrix (`stage(include_vals=True)`, `attach_vals`).
 
 `DeviceSlabCache(device=None)` resolves through
 `torch_setup.resolve_device`: `cuda`, or the CPU only when the caller
-passes `device="cpu"`.
-
-Not ported yet (ROADMAP item 4): `ShardPartition`, `HostStagingPool`,
-the value words (`attach_vals`, `stage(include_vals=True)`),
-`stage_from_raw`, and the compaction write-through that installs
-resident outputs. Each of the first four raises NotImplementedError.
+passes `device="cpu"`. `ShardPartition` is a per-mesh-shard view whose
+staging commits to that shard's device; `HostStagingPool` recycles the
+host arrays of run_merge.stage_runs_from_slabs (pinned on a card).
 """
 
 from __future__ import annotations
@@ -44,17 +48,15 @@ flags.define_flag("device_cache_capacity_bytes", 4 << 30,
 
 CacheKey = Tuple[str, int]  # (namespace, file_id) — file ids are per-DB
 
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP item 4: the device "
-               "cache's second half)")
-
-
 @dataclass
 class _Resident:
     """One cache entry: the staged columns plus residency metadata."""
     staged: StagedCols
     level: int = 0      # LSM level of the staged file (0 = flush output)
     pins: int = 0       # in-flight jobs reading this entry
-    bytes: int = 0      # nbytes recorded in _used
+    bytes: int = 0      # nbytes RECORDED in _used (value-word staging
+    #                     grows an entry in place; eviction must subtract
+    #                     what was added, not what is there now)
 
 
 class DeviceSlabCache:
@@ -71,7 +73,8 @@ class DeviceSlabCache:
             OrderedDict()                  # guarded-by: _lock
         self._used = 0                     # guarded-by: _lock
         # per-instance ints (tests diff fresh caches); the JAX package's
-        # registry counters come with the metrics registry (ROADMAP item 6)
+        # registry counters come with the metrics registry (ROADMAP queue
+        # A: health-board routing and device-fault containment)
         self.hits = 0                      # guarded-by: _lock
         self.misses = 0                    # guarded-by: _lock
         self.evictions = 0                 # guarded-by: _lock
@@ -92,6 +95,13 @@ class DeviceSlabCache:
         with self._lock:
             return key in self._map
 
+    def level_of(self, key: CacheKey) -> Optional[int]:
+        """Resident entry's LSM level, or None when absent (metrics-neutral:
+        compaction derives its output level from the input levels)."""
+        with self._lock:
+            ent = self._map.get(key)
+            return None if ent is None else ent.level
+
     # ------------------------------------------------------------- pinning
     def pin(self, key: CacheKey) -> bool:
         """Pin an entry for an in-flight job: capacity eviction skips it.
@@ -109,6 +119,12 @@ class DeviceSlabCache:
             if ent is not None and ent.pins > 0:
                 ent.pins -= 1
 
+    def pinned_count(self) -> int:
+        """Entries with at least one pin: drains to zero after every job,
+        a failed one included."""
+        with self._lock:
+            return sum(1 for e in self._map.values() if e.pins > 0)
+
     # ----------------------------------------------------------- mutation
     def put(self, key: CacheKey, staged: StagedCols, level: int = 0) -> None:
         with self._lock:
@@ -125,7 +141,18 @@ class DeviceSlabCache:
             self._evict_unlocked(protect=key)
 
     def attach_vals(self, key: CacheKey, vals_dev) -> None:
-        raise NotImplementedError(_NOT_PORTED.format(what="attach_vals"))
+        """Attach staged value words to a resident entry (the pushdown's
+        write-through): the entry grows in place and the growth is
+        accounted so eviction stays balanced. A missing key is a no-op."""
+        with self._lock:
+            ent = self._map.get(key)
+            if ent is None:
+                return
+            ent.staged.vals_dev = vals_dev
+            delta = ent.staged.nbytes - ent.bytes
+            ent.bytes += delta
+            self._used += delta
+            self._evict_unlocked(protect=key)
 
     def _evict_unlocked(self, protect: Optional[CacheKey] = None) -> None:
         """Capacity eviction, shallow levels first, LRU within a level.
@@ -161,16 +188,27 @@ class DeviceSlabCache:
 
     def stage_from_raw(self, key: CacheKey, rfb,
                        level: int = 0) -> StagedCols:
-        raise NotImplementedError(_NOT_PORTED.format(what="stage_from_raw"))
+        """Raw-block staging (the device codec's miss path): decode one
+        parsed file's raw block regions on the card (ops/block_codec.
+        decode_file_to_staged, kernel C) and install the cols. No host
+        block decode runs."""
+        from yugabyte_tpu_torch.ops.block_codec import decode_file_to_staged
+        staged = decode_file_to_staged(rfb, self.device)
+        self.put(key, staged, level=level)
+        return staged
 
     def stage(self, key: CacheKey, slab: KVSlab,
               level: int = 0, for_read: bool = False,
               include_vals: bool = False, device=None) -> StagedCols:
+        dev = device if device is not None else self.device
+        staged = stage_slab(slab, dev)
         if include_vals:
-            raise NotImplementedError(
-                _NOT_PORTED.format(what="stage(include_vals=True)"))
-        staged = stage_slab(slab, device if device is not None
-                            else self.device)
+            # the pushdown's write-through: the value words ride along so
+            # the next filtered / aggregating scan is fully resident
+            from yugabyte_tpu_torch.ops.merge_gc import u32_to_device
+            from yugabyte_tpu_torch.ops.scan import pack_vals
+            staged.vals_dev = u32_to_device(pack_vals(slab, staged.n_pad),
+                                            staged.cols_dev.device)
         self.put(key, staged, level=level)
         if for_read:
             # a read had to decode and upload what write-through was
@@ -215,17 +253,31 @@ class NamespacedSlabCache:
     def device(self):
         return self._shared.device
 
+    @property
+    def hits(self):
+        return self._shared.hits
+
+    @property
+    def misses(self):
+        return self._shared.misses
+
     def get(self, file_id: int):
         return self._shared.get((self.namespace, file_id))
 
     def contains(self, file_id: int) -> bool:
         return self._shared.contains((self.namespace, file_id))
 
+    def level_of(self, file_id: int) -> Optional[int]:
+        return self._shared.level_of((self.namespace, file_id))
+
     def pin(self, file_id: int) -> bool:
         return self._shared.pin((self.namespace, file_id))
 
     def unpin(self, file_id: int) -> None:
         self._shared.unpin((self.namespace, file_id))
+
+    def pinned_count(self) -> int:
+        return self._shared.pinned_count()
 
     def put(self, file_id: int, staged: StagedCols, level: int = 0) -> None:
         self._shared.put((self.namespace, file_id), staged, level=level)
@@ -253,22 +305,113 @@ class NamespacedSlabCache:
 
 
 class ShardPartition(NamespacedSlabCache):
-    """Per-mesh-shard partition of the shared cache (not ported yet)."""
+    """Per-mesh-shard partition of the shared cache: keys carry the shard
+    in the namespace (``<ns>/shard<i>``) and staging commits to that
+    shard's device, so a pooled tablet's resident chain lives on the mesh
+    slot that compacts it. Pins, eviction, levels and counters are the
+    shared cache's; only key spelling and device placement change."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(what="ShardPartition"))
+    def __init__(self, shared: DeviceSlabCache, namespace: str,
+                 shard: int, device=None):
+        super().__init__(shared, f"{namespace}/shard{shard}")
+        self.shard = shard
+        self._device = (torch_setup.resolve_device(device)
+                        if device is not None else None)
+
+    @property
+    def device(self):
+        return self._device if self._device is not None \
+            else self._shared.device
+
+    def stage(self, file_id: int, slab: KVSlab,
+              level: int = 0, for_read: bool = False,
+              include_vals: bool = False) -> StagedCols:
+        return self._shared.stage((self.namespace, file_id), slab,
+                                  level=level, for_read=for_read,
+                                  include_vals=include_vals,
+                                  device=self._device)
 
 
 class HostStagingPool:
-    """Reusable host staging arrays of the compaction pipeline (not
-    ported yet)."""
+    """Reusable host staging arrays of run_merge.stage_runs_from_slabs
+    (stage A packs the run-major cols matrix into one before the upload).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(what="HostStagingPool"))
+    Shape buckets make reuse effective: the jobs of a tablet mostly stage
+    the same [r, k_pad*m] shape, so after warm-up the host allocates
+    nothing. For a card the arrays are views of pinned torch host
+    buffers (`pinned=True`), which the upload reads directly; for the
+    CPU they are plain numpy arrays.
+
+    A caller releases an array only once the upload has COPIED it (a
+    card); a CPU upload aliases the host memory, so its caller `forget`s
+    the array instead and it is garbage-collected."""
+
+    def __init__(self, max_per_shape: int = 2, max_bytes: int = 1 << 30):
+        self._free: dict = {}              # guarded-by: _lock
+        self._bytes = 0                    # guarded-by: _lock
+        # ids of arrays acquired and not yet released or forgotten: after
+        # every job, a failed one included, this drains back to 0
+        self._leases: set = set()          # guarded-by: _lock
+        self._max_per_shape = max_per_shape
+        self._max_bytes = max_bytes
+        self._lock = threading.Lock()
+
+    def acquire(self, shape: Tuple[int, int], dtype=np.uint32,
+                pinned: bool = False) -> np.ndarray:
+        key = (tuple(shape), np.dtype(dtype).str, pinned)
+        with self._lock:
+            bucket = self._free.get(key)
+            if bucket:
+                arr = bucket.pop()
+                self._bytes -= arr.nbytes
+                self._leases.add(id(arr))
+                return arr
+        if pinned:
+            import torch
+            # the numpy view keeps its pinned torch buffer alive
+            nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            arr = buf.numpy().view(dtype).reshape(shape)
+        else:
+            arr = np.empty(shape, dtype=dtype)
+        with self._lock:
+            self._leases.add(id(arr))
+        return arr
+
+    def release(self, arr: np.ndarray, pinned: bool = False) -> None:
+        key = (arr.shape, arr.dtype.str, pinned)
+        with self._lock:
+            self._leases.discard(id(arr))
+            bucket = self._free.setdefault(key, [])
+            if (len(bucket) < self._max_per_shape
+                    and self._bytes + arr.nbytes <= self._max_bytes):
+                bucket.append(arr)
+                self._bytes += arr.nbytes
+
+    def forget(self, arr: np.ndarray) -> None:
+        """End a lease WITHOUT recycling the memory: a CPU upload aliases
+        the array, so it is handed off for garbage collection. Not a
+        leak: the lease is accounted done."""
+        with self._lock:
+            self._leases.discard(id(arr))
+
+    def outstanding(self) -> int:
+        """Leases neither released nor forgotten."""
+        with self._lock:
+            return len(self._leases)
+
+
+_staging_pool: Optional[HostStagingPool] = None  # guarded-by: _staging_pool_lock
+_staging_pool_lock = threading.Lock()
 
 
 def host_staging_pool() -> HostStagingPool:
-    return HostStagingPool()
+    """Process-wide staging pool (one per process, like the slab cache)."""
+    global _staging_pool
+    with _staging_pool_lock:
+        if _staging_pool is None:
+            _staging_pool = HostStagingPool()
+        return _staging_pool
 
 
 def merged_column_stats(staged_list: Sequence[StagedCols], w: int

@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 import zlib
 from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Tuple
@@ -47,6 +48,22 @@ _sst_flags.define_flag("sst_compression", "none",
 _sst_flags.define_flag("sst_bloom_bits_per_key", 10,
                        "doc-key bloom filter density (ref "
                        "BlockBasedTableOptions::filter_policy)")
+_sst_flags.define_flag("sst_learned_index", True,
+                       "fit a learned per-SST index at write time "
+                       "(storage/learned_index.py) and persist it in the "
+                       "properties block; ADVISORY ONLY — readers verify "
+                       "predictions and fall back to the exact seek")
+
+# host block decodes (SSTReader.read_block cache misses), process-wide: a
+# warm chained compaction must add none
+_decode_lock = threading.Lock()
+_blocks_decoded = 0   # guarded-by: _decode_lock
+
+
+def blocks_decoded() -> int:
+    """Host block decodes so far in this process (every SSTReader)."""
+    with _decode_lock:
+        return _blocks_decoded
 
 
 def sst_compression_enabled() -> bool:
@@ -195,8 +212,9 @@ class SSTWriter:
         # the learned per-SST index (storage/learned_index.py), advisory:
         # readers verify its predictions
         from yugabyte_tpu_torch.storage import learned_index
-        lindex = learned_index.fit_from_slab(slab) if self.fit_lindex \
-            else None
+        lindex = (learned_index.fit_from_slab(slab)
+                  if self.fit_lindex
+                  and _sst_flags.get_flag("sst_learned_index") else None)
         return write_base_file(
             self.base_path, index_items, n, hashes,
             key_at(0) if n else b"", key_at(n - 1) if n else b"",
@@ -210,14 +228,17 @@ def write_sst_from_packed(base_path: str, keys_blob: bytes, key_offs,
                           ht, wid, vals_blob: bytes, val_offs,
                           frontier: Optional[Frontier] = None,
                           block_entries: Optional[int] = None,
-                          compress: Optional[bool] = None) -> SSTProps:
+                          compress: Optional[bool] = None,
+                          run_cache=None,
+                          file_id: Optional[int] = None) -> SSTProps:
     """Native-encoded SST from one packed run (the flush / bulk-load hot
     path, ref: db/flush_job.cc WriteLevel0Table + memtable.cc iteration).
     Block encode, bloom hashing and doc-key parsing run in C++
     (ce_job_add_raw → ce_job_sort_all → ce_job_write_output); Python
     assembles the base file as usual. Caller guarantees native_engine is
-    available. The JAX package's run-cache write-through is not ported
-    (ROADMAP item 4)."""
+    available. run_cache + file_id: the flush-side run-cache write-through
+    (storage/run_cache.py), so the first compaction over this file starts
+    zero-decode."""
     from yugabyte_tpu_torch.storage import native_engine
     if block_entries is None:
         block_entries = _sst_flags.get_flag("sst_block_entries")
@@ -233,16 +254,22 @@ def write_sst_from_packed(base_path: str, keys_blob: bytes, key_offs,
         size, index, hashes, first_key, last_key = job.write_output(
             0, n, data_path, block_entries, compress, b"X")
         max_expire_us, has_deep = job.props()
+        if run_cache is not None and file_id is not None and n:
+            rid = job.export_run(0, n, b"X")
+            run_cache.put(file_id, rid,
+                          native_engine.runcache_entry_bytes(rid))
     ht_arr = np.asarray(ht, dtype=np.uint64)
     fr = frontier or Frontier()
     if n and fr.ht_min == 0 and fr.ht_max == 0:
         fr.ht_min = int(ht_arr.min())
         fr.ht_max = int(ht_arr.max())
-    # the packed run may arrive unsorted (bulk ingest) — the fit's key
-    # coordinate is a monotone transform of memcmp order, so sorting the
-    # coordinates reproduces the written-order sequence
-    from yugabyte_tpu_torch.storage import learned_index
-    lindex = learned_index.fit_from_packed_keys(keys_blob, key_offs)
+    lindex = None
+    if _sst_flags.get_flag("sst_learned_index"):
+        # the packed run may arrive unsorted (bulk ingest) — the fit's key
+        # coordinate is a monotone transform of memcmp order, so sorting
+        # the coordinates reproduces the written-order sequence
+        from yugabyte_tpu_torch.storage import learned_index
+        lindex = learned_index.fit_from_packed_keys(keys_blob, key_offs)
     return write_base_file(base_path, index, n, hashes, first_key, last_key,
                            fr, size, max_expire_us=max_expire_us,
                            has_deep=has_deep, lindex=lindex)
@@ -363,8 +390,11 @@ class SSTReader:
             cached = self.block_cache.get((self.base_path, block_idx))
             if cached is not None:
                 return cached
+        global _blocks_decoded
         off, size, _ = self.block_handles[block_idx]
         slab = block_format.decode_block(self._data.pread(size, off))
+        with _decode_lock:
+            _blocks_decoded += 1
         if self.block_cache is not None:
             self.block_cache.put((self.base_path, block_idx), slab, size)
         return slab
