@@ -242,35 +242,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_window(events) -> float:
-    """The device-timeline start of a profiled window of timed calls: the
-    marker kernel (`torch.cuda._sleep`) that `profiled` launches on the
-    stream right before the calls, so that every device event of the calls
-    starts after it; without one, the window's record_function range
-    ("timed_calls") on the device's timeline, else on the host's (the two
-    clocks can disagree by more than a short call lasts)."""
-    from torch.autograd import DeviceType
-    marks = [e.time_range.start for e in events
-             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
-    if marks:
-        return max(marks)
-    ranges = {e.device_type: e.time_range.start for e in events
-              if e.name == "timed_calls"}
-    return ranges.get(DeviceType.CUDA, ranges[DeviceType.CPU])
-
-
 def profiled(fn, reps: int, tries: int = 3) -> list:
     """(name, device microseconds) of every kernel, memset and copy that
     `reps` calls of `fn` run, from torch.profiler: one call before the
     profiler, one sacrificial call inside it (a trace's first events can
-    be lost), a marker kernel, then the timed calls inside a
-    record_function range, whose device events are those that start after
-    the marker (`timed_window`). A trace that holds no device event in the
-    window is taken again, up to `tries` traces."""
+    be lost), then the timed calls between two marker kernels
+    (`torch.cuda._sleep`) on the same stream, whose device events are those
+    that start between the markers (the host's and the device's clocks
+    can disagree by more than a short call lasts). A trace that lost a
+    marker, holds no device event between them or a count that is not a
+    multiple of `reps` is taken again, up to `tries` traces: the profiler
+    has been seen to drop a trace's events."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import (ProfilerActivity, profile,
-                                record_function)
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
@@ -279,21 +264,23 @@ def profiled(fn, reps: int, tries: int = 3) -> list:
             fn()
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
-            with record_function("timed_calls"):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-        events = prof.events()
-        t0 = timed_window(events)
-        out = [(e.name, e.time_range.elapsed_us()) for e in events
-               if e.device_type == DeviceType.CUDA
-               and e.time_range.start >= t0 and e.name != "timed_calls"
-               and "spin_kernel" not in e.name]
-        if out:
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = sorted(e.time_range.start for e in events
+                       if "spin_kernel" in e.name)
+        out = []
+        if len(marks) == 2:
+            out = [(e.name, e.time_range.elapsed_us()) for e in events
+                   if marks[0] < e.time_range.start < marks[1]
+                   and "spin_kernel" not in e.name]
+        if out and len(out) % reps == 0:
             return out
-        seen = [e.name for e in events if e.device_type == DeviceType.CUDA]
-        log(f"profiler trace {attempt + 1}: no device event in the timed "
-            f"window ({len(seen)} device events in all: {seen[:6]})")
+        log(f"profiler trace {attempt + 1}: {len(marks)} of 2 markers, "
+            f"{len(out)} device events between them ({len(events)} in all: "
+            f"{[e.name for e in events][:6]})")
     return []
 
 
@@ -2180,12 +2167,13 @@ def scan_kernel_phase(args, t, launches, codec_launches, bandwidth, n_rows,
     return rows
 
 
-def one_launch_no_copy(name, prof):
-    """A wrapper call must launch one kernel and copy nothing."""
+def one_launch_no_copy(name, prof, memsets=0):
+    """A wrapper call must launch one kernel, copy nothing and make
+    `memsets` memsets."""
     if prof["launches_per_call"] != 1 or prof["copies_per_call"] \
-            or prof["memsets_per_call"]:
+            or prof["memsets_per_call"] != memsets:
         raise AssertionError(f"kernel {name}: a call made {prof}, not one "
-                             f"launch and no copy or memset")
+                             f"launch, no copy and {memsets} memsets")
 
 
 def sector_bytes(need) -> int:
@@ -2739,7 +2727,9 @@ def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
     """Kernels J.1, J.2, J.3 and K against their plain versions on the
     card, bit for bit, on q6_agg's and filter_rows' tensors; timed with
     CUDA events on q6_agg's (J.3 on filter_rows') beside their bounds:
-    the bytes each must move on these inputs. No single PyTorch call
+    the bytes each must move on these inputs; J.1, J.2 and K also on the
+    device (torch.profiler: J.1 and K one launch a call, J.2 one launch
+    after one memset). No single PyTorch call
     computes any of them (library_ms null). Also H's vals launch (the zero
     template) at the phase's shapes, beside torch.cat + a zero fill."""
     import torch
@@ -2803,13 +2793,17 @@ def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
              "library_ms": None,
              "timed_on": "filter_rows" if name == "row_pass_pack"
              else "q6_agg"}
-        if name == "row_flags":
+        if name != "row_pass_pack":
+            # J.1 and K one launch a call, J.2 one launch after one memset
             prof = device_profile(kern, args.reps)
-            one_launch_no_copy(name, prof)
-            e.update(prof, bound_sectors_ms=nbytes["row_flags_sectors"]
-                     / bandwidth * 1e3)
-            log(f"kernel J.1 on the device: {prof['device_ms']:.4f} ms "
-                f"(bound in sectors {e['bound_sectors_ms']:.4f})")
+            one_launch_no_copy(name, prof, int(name == "segment_or"))
+            e.update(prof)
+            if name == "row_flags":
+                e["bound_sectors_ms"] = nbytes["row_flags_sectors"] \
+                    / bandwidth * 1e3
+            log(f"kernel {name} on the device: {prof['device_ms']:.4f} ms "
+                f"({prof['launches_per_call']} launches, "
+                f"{prof['memsets_per_call']} memsets a call)")
         log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, bound "
             f"{e['bound_ms']:.4f}), {launches[name]} launches in the "
             f"pushdown phase")
@@ -3876,15 +3870,43 @@ def resident_skewed_phase(args, state, skew_paths, workdir, card,
     return out, launches
 
 
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel name without namespace, template
+    arguments and parameters; "Memset" or "Memcpy" for those."""
+    if name.startswith(("Memset", "Memcpy")):
+        return name.split(" ")[0]
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    for cut in ("(", "<"):
+        name = name.split(cut)[0]
+    return name.split("::")[-1]
+
+
+def resident_device_breakdown(call, wall_s: float) -> dict:
+    """torch.profiler's device time of one call by kernel name (H, G, I.1,
+    B, J.1, J.2, K, memsets and copies: {name: [ms, launches]}), their sum
+    and its share of the call's wall time `wall_s`."""
+    kernels = {}
+    for name, us in profiled(call, 1):
+        ms, k = kernels.get(kernel_name(name), (0.0, 0))
+        kernels[kernel_name(name)] = (ms + us / 1e3, k + 1)
+    dev_ms = sum(ms for ms, _k in kernels.values())
+    return {"device_ms": dev_ms, "device_share": dev_ms / 1e3 / wall_s,
+            "device_kernels": {k: list(v) for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])}}
+
+
 def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
                             device="cuda"):
     """q1_agg and q6_agg over the lineitem SSTs as ResidentSources: the
     files staged into a DeviceSlabCache with include_vals=True (flush
-    write-through with the value words), then each query timed over the
-    SlabSources (pack + upload inside) and over the resident sources, one
-    after the other in this call; the answers equal each other and the
-    pushdown phase's; the resident call uploads no key column and
-    launches the multi-source kernels. Returns (summary, launches)."""
+    write-through with the value words), then each query once over the
+    SlabSources (pack + upload inside) and over the resident sources:
+    the first resident call counted (it uploads no key column and
+    launches the multi-source kernels), then --reps warm calls timed (the
+    median) and one on the device by kernel name (torch.profiler), all in
+    this call; the answers equal each other and the pushdown phase's.
+    Returns (summary, launches)."""
     from yugabyte_tpu_torch.ops import scan
     from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
     from yugabyte_tpu_torch.storage.sst import SSTReader
@@ -3899,6 +3921,8 @@ def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
     queries = pushdown_queries(lineitem_schema())
     wrappers = {**_wrappers(), **_pushdown_wrappers()}
     launches = {}
+    srcs = [scan.ResidentSource(r, cache.get(i))
+            for i, r in enumerate(readers)]
     for qname in ("q1_agg", "q6_agg"):
         mode, spec = queries[qname]
         t0 = time.time()
@@ -3907,15 +3931,13 @@ def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
             spec, device=device)
         sync()
         t_slab = time.time() - t0
+
+        def call():
+            return scan.aggregate_sources(srcs, top_ht, spec, device=device)
         for w in wrappers.values():
             w.launches = 0
         c0 = chain_counters()
-        t0 = time.time()
-        got = scan.aggregate_sources(
-            [scan.ResidentSource(r, cache.get(i))
-             for i, r in enumerate(readers)], top_ht, spec, device=device)
-        sync()
-        t_res = time.time() - t0
+        got = call()
         counts = {k: v - c0[k] for k, v in chain_counters().items()}
         launches[qname] = {k: w.launches for k, w in wrappers.items()}
         check_pushdown_launches(launches[qname], mode, False,
@@ -3925,11 +3947,25 @@ def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
         if counts["key_col_uploads"] or counts["host_block_decodes"]:
             raise AssertionError(f"resident {qname} uploaded or decoded: "
                                  f"{counts}")
-        out[qname] = {"resident_s": t_res, "slab_source_s": t_slab,
-                      "rows": got["rows"], "counters": counts}
+        # warm calls: the median wall time; one call on the device
+        walls = []
+        for _ in range(args.reps):
+            t0 = time.time()
+            again = call()   # its answer is on the host: a synchronize
+            walls.append(time.time() - t0)
+            if again != want:
+                raise AssertionError(f"resident {qname}: a warm call's "
+                                     f"answer differs")
+        t_res = float(np.median(walls))
+        res = {"resident_s": t_res, "resident_walls_s": walls,
+               "slab_source_s": t_slab, "rows": got["rows"],
+               "counters": counts, **resident_device_breakdown(call, t_res)}
+        out[qname] = res
         log(f"resident {qname} == SlabSource answer ({got['rows']} rows): "
-            f"{t_res:.3f}s resident, {t_slab:.3f}s over SlabSources; "
-            f"counters {counts} [{card}]")
+            f"{t_res:.4f}s resident (median of {args.reps}), {t_slab:.3f}s "
+            f"over SlabSources; counters {counts}; device "
+            f"{res['device_ms']:.4f} ms a call (share "
+            f"{res['device_share']:.3f}): {res['device_kernels']} [{card}]")
     for r in readers:
         r.close()
     return out, launches

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D, G, H, I.2 and J.1 of the PyTorch port, timed for several
-checkouts in one run on one GPU.
+"""Kernels A, B, D, G, H, I.2, J.1, J.2 and K of the PyTorch port and the
+resident aggregates, timed for several checkouts in one run on one GPU.
 
-    python3 kernel_ab.py [--rows N] [--seed S] [--reps R] ROOT [ROOT ...]
+    python3 kernel_ab.py [--rows N] [--sf-orders M] [--seed S] [--reps R]
+        ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository (`.` for this one). Each is
 timed in its own process, in the order given, so that two versions of a
@@ -25,16 +26,27 @@ and times with CUDA events, --reps launches after a warm-up:
     (chip_smoke's `scan_bounds`, the upper one truncated) over the
     seq-scan's sorted payload and kernel B's snapshot keep;
   - kernel J.1 (`pushdown.row_flags`) over the same payload and keep, no
-    bounds, one predicate slot on the column subkey and the sorted value
-    words (`scan.pack_vals`, gathered by kernel I.1);
+    bounds, one predicate slot and one aggregate slot on the column subkey
+    and the sorted value words (`scan.pack_vals`, gathered by kernel I.1);
+  - kernel J.2 (`pushdown.segment_or`) on J.1's flags, and on the same
+    flags with every start but lane 0's cleared (one segment over every
+    tile, whose writes fall to the last tile's CTA);
+  - kernel K (`pushdown.agg_reduce`) with the aggregate slot over J.1's
+    flags, J.2's output and the sorted value words;
+  - the resident aggregates: q1_agg and q6_agg (chip_smoke's TPC-H
+    lineitem tablet, --sf-orders, in 4 SSTs staged with their value words
+    into a DeviceSlabCache) over `ResidentSource`s: the median wall time
+    of --reps calls and the device time and launches of one call by
+    kernel name, memsets and copies included;
   - for every wrapper, the host's milliseconds to enqueue one call, and
     the device's milliseconds and launches per call by kernel name
     (torch.profiler): where the enqueue takes longer than the device, the
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
 D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
-words) go into one sha256 that must match across the checkouts. Prints one JSON line per process and the card's name and
-power limit.
+words, J.2's outputs, K's accumulators, the resident answers) go into one
+sha256 that must match across the checkouts. Prints one JSON line per
+process and the card's name and power limit.
 Imports nothing of JAX.
 """
 
@@ -44,8 +56,11 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,7 +132,61 @@ def timed(fn, reps: int) -> dict:
             "device": dev}
 
 
-def child(root: str, rows: int, seed: int, reps: int) -> dict:
+def resident(sf_orders: int, seed: int, reps: int, digest) -> dict:
+    """q1_agg and q6_agg over the lineitem SSTs as ResidentSources (see the
+    module docstring): per query the median wall seconds of `reps` warm
+    calls, the device milliseconds and launches of one call by kernel
+    name, and the device's share of the call."""
+    import torch
+    import chip_smoke as cs
+    from yugabyte_tpu_torch.ops import scan
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+
+    rows = cs.lineitem_rows(sf_orders, seed)
+    runs, top_ht, _mid = cs.lineitem_runs(rows, cs.lineitem_ops(rows, seed),
+                                          seed)
+    del rows
+    workdir = tempfile.mkdtemp(prefix="kernel_ab_")
+    try:
+        readers = cs.write_inputs(runs, workdir)
+        del runs
+        cache = DeviceSlabCache("cuda", capacity_bytes=32 << 30)
+        for i, r in enumerate(readers):
+            cache.stage(i, r.read_all(), include_vals=True)
+        srcs = [scan.ResidentSource(r, cache.get(i))
+                for i, r in enumerate(readers)]
+        queries = cs.pushdown_queries(cs.lineitem_schema())
+        out = {}
+        for q in ("q1_agg", "q6_agg"):
+            spec = queries[q][1]
+
+            def call():
+                return scan.aggregate_sources(srcs, top_ht, spec,
+                                              device="cuda")
+            answer = call()
+            digest.update(json.dumps(answer, sort_keys=True,
+                                     default=str).encode())
+            wall = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+            dev = device_ms(call, 1, launches=True)
+            dev_ms = sum(v[0] for v in dev.values())
+            med = statistics.median(wall)
+            out[q] = {"rows": answer["rows"], "median_s": med,
+                      "wall_s": wall, "device_ms": dev_ms,
+                      "device_share": dev_ms / 1e3 / med, "device": dev}
+        for r in readers:
+            r.close()
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def child(root: str, rows: int, seed: int, reps: int,
+          sf_orders: int) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import chip_smoke as cs
@@ -223,19 +292,46 @@ def child(root: str, rows: int, seed: int, reps: int) -> dict:
     del vals, slab
     zero = np.zeros(w, dtype=np.uint32)
     bounds = (zero, 0, zero, 0, True, False)
-    # one slot: the column subkey 'K' 00 00, payload > 0x4880.. under two tags
+    # one slot: the column subkey 'K' 00 00, payload > 0x4880.. under two
+    # tags; one aggregate slot on the same column and tags
     p_ops = (np.array([0x4B0000], np.uint32), np.array([5], np.int32),
              np.zeros(1, np.int32), np.array([0x48], np.uint32),
              np.array([0x49], np.uint32),
              np.array([[0x48800000, 0, 0]], np.uint32),
              np.array([12], np.int32))
+    a_ops = (np.array([0x4B0000], np.uint32), np.array([0x48], np.uint32),
+             np.array([0x49], np.uint32))
 
     def j1():
-        return pushdown.row_flags(s, keep, sv, w, bounds, p_ops)
+        return pushdown.row_flags(s, keep, sv, w, bounds, p_ops, a_ops)
     flags = j1()
     digest.update(flags.cpu().numpy().tobytes())
     out["row_flags"] = dict(timed(j1, reps), base=int(
-        ((flags >> pushdown.BASE_BIT) & 1).sum()), pred=int((flags & 1).sum()))
+        ((flags >> pushdown.BASE_BIT) & 1).sum()), pred=int((flags & 1).sum()),
+        agg=int(((flags >> 5) & 1).sum()))
+    del s, keep
+    one = flags & ~(1 << pushdown.NEW_DOC_BIT)   # lane 0 starts on its own
+
+    def j2():
+        return pushdown.segment_or(flags)
+
+    def j2_one():
+        return pushdown.segment_or(one)
+    seg = j2()
+    digest.update(seg.cpu().numpy().tobytes())
+    digest.update(j2_one().cpu().numpy().tobytes())
+    out["segment_or"] = dict(timed(j2, reps), starts=int(
+        ((flags >> pushdown.NEW_DOC_BIT) & 1).sum()))
+    out["segment_or_one_segment"] = timed(j2_one, reps)
+
+    def k():
+        return pushdown.agg_reduce(flags, seg, sv, p_ops[1], p_ops[2], 1, 1)
+    for x in k():
+        digest.update(x.cpu().numpy().tobytes())
+    out["agg_reduce"] = timed(k, reps)
+    del flags, one, seg, sv
+    torch.cuda.empty_cache()
+    out["resident"] = resident(sf_orders, seed, reps, digest)
     out["sha256"] = digest.hexdigest()
     return out
 
@@ -244,21 +340,24 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--rows", type=int, default=10_000_000)
+    ap.add_argument("--sf-orders", type=int, default=1_500_000,
+                    help="TPC-H orders of the resident aggregates' lineitem "
+                    "tablet (chip_smoke's; 1,500,000 = SF1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.roots[0], args.rows, args.seed,
-                               args.reps)), flush=True)
+                               args.reps, args.sf_orders)), flush=True)
         return 0
     results = []
     for root in args.roots:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
              "--rows", str(args.rows), "--seed", str(args.seed), "--reps",
-             str(args.reps), root], capture_output=True, text=True,
-            check=False, timeout=900)
+             str(args.reps), "--sf-orders", str(args.sf_orders), root],
+            capture_output=True, text=True, check=False, timeout=900)
         sys.stderr.write(out.stderr)
         if out.returncode != 0:
             print(f"kernel_ab: {root} failed ({out.returncode})",

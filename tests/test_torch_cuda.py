@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from yugabyte_tpu_torch.ops import block_codec, merge_gc, merge_path, run_merge
+from yugabyte_tpu_torch.ops import (block_codec, merge_gc, merge_path, pushdown,
+                                   run_merge)
 from yugabyte_tpu_torch.ops.slabs import (FLAG_HAS_TTL, FLAG_TOMBSTONE,
                                           KVSlab, ValueArray)
 
@@ -1691,6 +1692,151 @@ def test_bound_pack_and_row_flags_one_kernel_no_copy(cuda):
                lambda: pushdown.row_flags(s, keep, sv, w, bounds, p_ops,
                                           a_ops)):
         assert _device_activity(fn) == (1, 0)
+
+
+
+# ------------------------------------------- J.2 and K at their edges
+
+
+_J2_LAYOUTS = ["dense", "sparse", "every_lane", "tile_edges", "tile_plus_one",
+               "one_segment", "no_first_start", "ends_at_last"]
+
+
+def _j2_flags(layout, n, seed=0):
+    """Flag words of J.2's adversarial layouts (int32): random bits 0-7 and
+    the start bit 8 where the layout puts it: segments ending exactly at
+    tile edges (`tile_edges`), a tile's first entry ending a segment begun
+    in an earlier tile (`tile_plus_one`), one segment over every tile, a
+    first lane with no start, a last segment crossing a tile edge to lane
+    n - 1 (tests/test_torch_pushdown.py holds the same layouts on the CPU
+    against the JAX package)."""
+    tile = pushdown.SEGMENT_OR_TILE
+    rng = np.random.default_rng(seed)
+    flags = rng.integers(0, 1 << 8, size=n, dtype=np.int64)
+    if layout == "dense":
+        starts = rng.random(n) < 0.3
+    elif layout == "sparse":
+        starts = rng.random(n) < 2e-3
+    elif layout == "every_lane":
+        starts = np.ones(n, bool)
+    elif layout in ("tile_edges", "tile_plus_one"):
+        starts = rng.random(n) < 0.01
+        starts[(1 if layout == "tile_plus_one" else 0)::tile] = True
+    elif layout == "one_segment":
+        starts = np.zeros(n, bool)
+        starts[0] = True
+    elif layout == "no_first_start":
+        starts = rng.random(n) < 0.01
+        starts[0] = False
+    else:  # ends_at_last
+        starts = rng.random(n) < 0.05
+        last = max(0, n - tile - 7)
+        starts[last:] = False
+        starts[last] = True
+    return (flags | (starts.astype(np.int64) << 8)).astype(np.int32)
+
+
+_J2_N = 3 * pushdown.SEGMENT_OR_TILE + 5
+
+
+@pytest.mark.parametrize("layout,n", [(name, _J2_N) for name in _J2_LAYOUTS]
+                         + [("one_segment", 1 << 22), ("ends_at_last", 1 << 22),
+                            ("dense", 32), ("sparse", 32), ("one_segment", 4),
+                            ("tile_edges", 5 * pushdown.SEGMENT_OR_TILE),
+                            ("tile_edges", 33 * pushdown.SEGMENT_OR_TILE + 1),
+                            ("sparse", 70 * pushdown.SEGMENT_OR_TILE),
+                            ("dense", 1 << 24), ("sparse", 70001)])
+def test_segment_or_layouts(cuda, layout, n):
+    """J.2 (one launch a call) == its plain version on each layout, at n =
+    32, n not a multiple of the tile (nor of 4), one segment over 2^22
+    lanes, tails over more than one group of 32 tiles and 2^24 lanes."""
+    x = torch.from_numpy(_j2_flags(layout, n)).to(cuda)
+    before = pushdown.segment_or.launches
+    got = pushdown.segment_or(x)
+    assert pushdown.segment_or.launches == before + 1
+    assert torch.equal(got, pushdown.segment_or_plain(x))
+
+
+def _k_inputs(rng, n, mode, cuda):
+    """flags, seg and sv for kernel K: `random` bits; `none` no entry
+    qualifies for a slot; `all` every row passes and every entry
+    qualifies; `limbs` value words at 0 and 0xFFFFFFFF (the payload limbs
+    at both ends); `wrap` every entry qualifying with payload bytes 0xFF
+    (at 2^25 entries each byte sum wraps u32). Returns (flags, seg, sv,
+    p_op, p_neg)."""
+    flags = rng.integers(0, 1 << 9, size=n, dtype=np.int64)
+    seg = rng.integers(0, 1 << 5, size=n, dtype=np.int64)
+    sv = rng.integers(0, 1 << 32, size=(4, n), dtype=np.uint64)
+    p_op, p_neg = np.array([1, 3, 0], np.int32), np.array([0, 1, 0], np.int32)
+    if mode == "none":
+        flags &= ~np.int64(0x60)
+    elif mode in ("all", "wrap"):
+        flags |= 0x160
+        seg |= 1 << 4
+        p_op = np.zeros(2, np.int32)
+    if mode == "limbs":
+        sv = np.where(rng.random((4, n)) < 0.5, 0, 0xFFFFFFFF).astype(np.uint64)
+    elif mode == "wrap":
+        sv[:] = 0xFFFFFFFF
+    t = [torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(cuda)
+         for a in (flags, seg, sv)]
+    return (*t, p_op, p_neg)
+
+
+@pytest.mark.parametrize("mode,n,c,c_pad", [
+    ("random", 1 << 20, 0, 1), ("random", 1 << 20, 1, 1),
+    ("random", 1 << 20, 1, 2), ("random", 1 << 20, 2, 2),
+    ("random", 32, 2, 2), ("random", 4, 1, 2), ("random", (1 << 20) + 4, 2, 2),
+    ("none", 1 << 20, 1, 1), ("none", 1 << 20, 2, 2), ("all", 1 << 20, 2, 2),
+    ("all", 1 << 20, 0, 2), ("limbs", 1 << 20, 1, 1), ("limbs", 1 << 20, 2, 2),
+    ("wrap", 1 << 25, 1, 1)])
+def test_agg_reduce_edges(cuda, mode, n, c, c_pad):
+    """K (one launch a call) == its plain version: 0, 1 and 2 slots (c_pad
+    above c leaves zero slots), no qualifying entry (min and max keep
+    their identities), every entry qualifying, limbs at 0 and 0xFFFFFFFF,
+    byte sums wrapping u32, n = 4, 32 and not a multiple of a CTA's step."""
+    rng = np.random.default_rng(n + 10 * c + c_pad)
+    flags, seg, sv, p_op, p_neg = _k_inputs(rng, n, mode, cuda)
+    before = pushdown.agg_reduce.launches
+    got = pushdown.agg_reduce(flags, seg, sv, p_op, p_neg, c, c_pad)
+    assert pushdown.agg_reduce.launches == before + 1
+    want = pushdown.agg_reduce_plain(flags, seg, sv, p_op, p_neg, c, c_pad)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    acc, ext = (x.cpu().numpy() for x in got)
+    if mode == "none" and c:
+        assert (ext[0:2 * c:2] == -1).all() and (ext[1:2 * c:2] == 0).all()
+    if mode == "wrap":
+        assert (acc[2:10].view(np.uint32).astype(np.int64)
+                == (n * 255) & 0xFFFFFFFF).all()
+
+
+def test_agg_reduce_deterministic(cuda):
+    """20 launches of K on one input give one result, the plain one."""
+    rng = np.random.default_rng(20)
+    flags, seg, sv, p_op, p_neg = _k_inputs(rng, 1 << 22, "random", cuda)
+    want = pushdown.agg_reduce_plain(flags, seg, sv, p_op, p_neg, 2, 2)
+    for _ in range(20):
+        got = pushdown.agg_reduce(flags, seg, sv, p_op, p_neg, 2, 2)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+def test_segment_or_and_agg_reduce_launches(cuda):
+    """On the card's timeline a J.2 call is one kernel after one memset,
+    a K call one kernel; unaligned inputs and a ragged n raise."""
+    rng = np.random.default_rng(21)
+    flags, seg, sv, p_op, p_neg = _k_inputs(rng, 1 << 20, "random", cuda)
+    assert _device_activity(lambda: pushdown.segment_or(flags)) == (1, 1)
+    assert _device_activity(lambda: pushdown.agg_reduce(
+        flags, seg, sv, p_op, p_neg, 2, 2)) == (1, 0)
+    with pytest.raises(ValueError):
+        pushdown.segment_or(flags[1:33])
+    with pytest.raises(ValueError):
+        pushdown.agg_reduce(flags[1:33], seg[:32], sv[:, :32].contiguous(),
+                            p_op, p_neg, 1, 1)
+    with pytest.raises(ValueError):
+        pushdown.agg_reduce(flags[:30], seg[:30], sv[:, :30].contiguous(),
+                            p_op, p_neg, 1, 1)
 
 
 # ------------------------------------------------ the resident chain (D, E)

@@ -16,6 +16,7 @@ NULLs, flushed into sorted runs; made from a seed.
 import operator
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -741,3 +742,229 @@ def test_key_bounds_fit_a_launch():
         + pushdown.MAX_AGG * 3 * 4 + 8
     assert ctypes.sizeof(kb) + ops_bytes + 8 * 8 <= 4096
 
+
+# ------------------- kernel J.2: its layouts, its tile decomposition, its host side
+
+_J2_TILE = pushdown.SEGMENT_OR_TILE
+_J2_N = 3 * _J2_TILE + 5            # neither a multiple of the tile nor of 4
+_J2_LAYOUTS = ["dense", "sparse", "every_lane", "tile_edges", "tile_plus_one",
+               "one_segment", "no_first_start", "ends_at_last"]
+
+
+def _j2_flags(layout: str, n: int, tile: int, seed: int = 0) -> np.ndarray:
+    """Flag words (int64) of J.2's adversarial layouts: random bits 0-7 (the
+    OR'ed bits 0-4 and bits J.2 ignores) and the start bit 8 where the
+    layout puts it: segments ending exactly at tile edges (`tile_edges`),
+    a tile's first entry ending a segment begun in an earlier tile
+    (`tile_plus_one`), one segment over every tile, a first lane with no
+    start, and a last segment crossing a tile edge to lane n - 1."""
+    rng = np.random.default_rng(seed)
+    flags = rng.integers(0, 1 << 8, size=n, dtype=np.int64)
+    if layout == "dense":
+        starts = rng.random(n) < 0.3
+    elif layout == "sparse":
+        starts = rng.random(n) < 2e-3
+    elif layout == "every_lane":
+        starts = np.ones(n, bool)
+    elif layout in ("tile_edges", "tile_plus_one"):
+        starts = rng.random(n) < 0.01
+        starts[(1 if layout == "tile_plus_one" else 0)::tile] = True
+    elif layout == "one_segment":
+        starts = np.zeros(n, bool)
+        starts[0] = True
+    elif layout == "no_first_start":
+        starts = rng.random(n) < 0.01
+        starts[0] = False
+    else:  # ends_at_last
+        starts = rng.random(n) < 0.05
+        last = max(0, n - tile - 7)
+        starts[last:] = False
+        starts[last] = True
+    return flags | (starts.astype(np.int64) << pushdown.NEW_DOC_BIT)
+
+
+_segment_any_bits = jax.jit(jax.vmap(ref_scan._segment_any,
+                                     in_axes=(0, None, None)))
+
+
+def _jax_segment_or(flags: np.ndarray) -> np.ndarray:
+    """Bits 0-4 of each entry's output by the JAX `_segment_any`, one call
+    for all five bits (new_doc as the JAX `_doc_segments` gives it: lane 0
+    always starts)."""
+    starts = (flags >> pushdown.NEW_DOC_BIT) & 1 == 1
+    starts[0] = True
+    bits = np.stack([(flags >> b) & 1 == 1 for b in range(5)])
+    got = np.asarray(_segment_any_bits(jnp.asarray(bits), jnp.asarray(starts),
+                                       jnp.asarray(np.append(starts[1:],
+                                                             True))))
+    return sum(got[b].astype(np.int64) << b for b in range(5))
+
+
+@pytest.mark.parametrize("layout,n", [(name, _J2_N) for name in _J2_LAYOUTS]
+                         + [("dense", 32), ("one_segment", 32)])
+def test_segment_or_layouts_match_jax(layout, n):
+    """The J.2 wrapper on CPU tensors (its plain version) equals the JAX
+    `_segment_any` on each adversarial layout."""
+    flags = _j2_flags(layout, n, _J2_TILE)
+    got = pushdown.segment_or(torch.from_numpy(flags).to(torch.int32))
+    assert np.array_equal(got.numpy().astype(np.int64), _jax_segment_or(flags))
+
+
+def _segment_or_model(flags: np.ndarray, tile: int):
+    """A model of kernel J.2's decomposition (csrc/pushdown.cu
+    segment_or_kernel): main CTAs over the tiles in ticket order, the
+    forward OR chained with the carry (the OR since the last start); each
+    entry with a segment end after it inside its tile written with the
+    forward OR at the nearest such end; the tile's record (the nearest end
+    from its first entry, where its tail starts); then the tail CTAs from
+    the last tile down, chaining the nearest end beyond each tile, each
+    writing its tile's tail. Returns the output and the number of writes
+    of each entry."""
+    n = len(flags)
+    f = flags & 0x1F
+    starts = (flags >> pushdown.NEW_DOC_BIT) & 1 == 1
+    starts[0] = True
+    ends = np.append(starts[1:], True)
+    out = np.zeros(n, np.int64)
+    writes = np.zeros(n, np.int64)
+    records = []
+    v = 0                           # the forward carry
+    for t0 in range(0, n, tile):
+        t1 = min(t0 + tile, n)
+        fwd = np.zeros(t1 - t0, np.int64)
+        for i in range(t0, t1):
+            v = (0 if starts[i] else v) | int(f[i])
+            fwd[i - t0] = v
+        near, tail = None, t0       # the nearest end; the tail's start
+        for i in range(t1 - 1, t0 - 1, -1):
+            if ends[i]:
+                if near is None:
+                    tail = i + 1
+                near = fwd[i - t0]
+            if near is not None:
+                out[i] = near
+                writes[i] += 1
+        records.append((near, tail, t1))
+    after = None                    # the nearest end beyond the tile
+    for near, tail, t1 in reversed(records):
+        out[tail:t1] = -1 if after is None else after
+        writes[tail:t1] += 1
+        after = near if near is not None else after
+    return out, writes
+
+
+@pytest.mark.parametrize("tile", [64, _J2_TILE])
+@pytest.mark.parametrize("layout", _J2_LAYOUTS)
+def test_segment_or_tile_model(layout, tile):
+    """J.2's decomposition over tiles (the main CTAs' writes, the tail
+    CTAs' chain over the tiles' records) gives the plain version's output
+    and writes every entry exactly once, at the kernel's tile and at a
+    small one where most segments cross tiles."""
+    flags = _j2_flags(layout, _J2_N, tile, seed=1)
+    out, writes = _segment_or_model(flags, tile)
+    want = pushdown.segment_or_plain(torch.from_numpy(flags).to(torch.int32))
+    assert np.array_equal(out, want.numpy().astype(np.int64))
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("n", [1, 4, 32, _J2_TILE - 1, _J2_TILE, _J2_TILE + 1,
+                               _J2_N, 1 << 24])
+def test_segment_or_layout(n):
+    """The wrapper's one allocation: the output from word 0, rounded up to
+    16 bytes, then per tile three 64-bit words (two status words and a
+    record) and the ticket, 8-byte aligned (csrc/pushdown.cu
+    ybt_segment_or)."""
+    out_words, words = pushdown.segment_or_layout(n)
+    assert out_words >= n and out_words % 4 == 0 and out_words - n < 4
+    tiles = -(-n // _J2_TILE)
+    assert words - out_words == 2 * (3 * tiles + 1)
+
+
+def test_segment_or_tile_mirrors_the_source():
+    """SEGMENT_OR_TILE is csrc/pushdown.cu's kSegTile (its warps times its
+    vectors of 4 lanes times 32 lanes), a multiple of 4 (the back-writes'
+    16-byte stores start at a tile edge)."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(pushdown.__file__), os.pardir,
+                            "csrc", "pushdown.cu")).read()
+    threads = int(re.search(r"kSegThreads = (\d+);", src).group(1))
+    vec = int(re.search(r"kSegVec = (\d+);", src).group(1))
+    assert threads // 32 * vec * 128 == _J2_TILE
+    assert _J2_TILE % 4 == 0
+
+
+# ------------------------------- kernel K: its layouts and its host side
+
+
+@pytest.mark.parametrize("p", [0, 1, 2, 3, 4])
+def test_verdict_masks_are_row_pass(p):
+    """K's row verdict, (seg & need) == want, is `_row_pass` for every
+    operator / negation choice of p slots (0 an inactive slot) and every
+    value of the five OR'ed bits."""
+    seg = torch.arange(32)
+    for code in np.ndindex(*([2] * p)):
+        for neg in np.ndindex(*([2] * p)):
+            p_op = np.array(code, np.int32) * 3
+            need, want = pushdown.verdict_masks(p_op, np.array(neg))
+            assert torch.equal((seg & need) == want,
+                               pushdown._row_pass(seg, p_op, np.array(neg)))
+
+
+def _agg_runs(layout: str, seed: int, n_rows: int = 80):
+    """Two sorted runs of INSERTs (the second overwrites a third of the
+    rows) whose v / w values K's edge cases need: `none` both NULL in
+    every row (no entry qualifies for an aggregate slot), `all` every row
+    with both set, `limbs` v only at the biased payload's extremes (limbs
+    0 and 0xFFFFFFFF: -2^63, -1, 0, 2^63 - 1) and w at +-99."""
+    rng = random.Random(seed)
+    pick = {"none": lambda: None,
+            "all": lambda: rng.randint(-500, 500),
+            "limbs": lambda: rng.choice([-(2 ** 63), -1, 0, 2 ** 63 - 1])}[
+        layout]
+    runs, ends, t = [], [], 0
+    for g in range(2):
+        entries = []
+        for i in range(n_rows if g == 0 else n_rows // 3):
+            t += 1
+            ht = (_BASE_US + _STEP_US * t) << 12
+            op = QLWriteOp(WriteOpKind.INSERT, _dk(f"h{i % 9}", i),
+                           {"v": pick(),
+                            "w": None if layout == "none"
+                            else rng.choice([-99, 99]),
+                            "b": rng.random() < 0.5, "s": None})
+            for wid, (k, v) in enumerate(op.to_kv_pairs(SCHEMA)):
+                entries.append((k, (ht << 32) | wid, v))
+        entries.sort(key=lambda e: (e[0], -e[1]))
+        runs.append(pack_kvs(entries))
+        ends.append((_BASE_US + _STEP_US * t) << 12)
+    return runs, ends
+
+
+_K_AGGS = {0: [("count", None)],
+           1: [("count", None), ("sum", "v"), ("min", "v"), ("max", "v")],
+           2: [("sum", "v"), ("max", "v"), ("min", "w"), ("sum", "w")]}
+
+
+@pytest.mark.parametrize("c", [0, 1, 2])
+@pytest.mark.parametrize("case", ["none", "all", "limbs"])
+def test_agg_reduce_layouts_match_jax(case, c):
+    """Kernel K's edge cases through the aggregating scan on CPU tensors
+    (the plain J.1, J.2 and K) against the JAX `_scan_agg_fused` and the
+    host rows: no qualifying entry (min and max keep their identities),
+    every entry qualifying, payload limbs at 0 and 0xFFFFFFFF; 0, 1 and 2
+    aggregate slots (count(*) alone reads no value words: K's c = 0)."""
+    runs, ends = _agg_runs(case, seed=7 + c)
+    aggs = _K_AGGS[c]
+    ref_spec, port_spec = _spec((), aggs)
+    assert len(port_spec.agg_cids) == c
+    ref_src, port_src = _sources(runs)
+    read_ht = ends[-1]
+    want = ref_scan.aggregate_sources(ref_src, read_ht, ref_spec)
+    got = scan.aggregate_sources(port_src, read_ht, port_spec, device="cpu")
+    assert got == want
+    assert _as_host(got, aggs) == _host_agg(runs, read_ht, (), aggs)
+    assert got["rows"] == 80
+    if c and case == "none":
+        assert all(st["nonnull"] == 0 and st["min"] is None
+                   for st in got["cols"].values())

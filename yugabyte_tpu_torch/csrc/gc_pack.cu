@@ -33,12 +33,13 @@
 //   - TTL rows are read only where FLAG_HAS_TTL is set in a vector;
 //   - scan 1 (2 bits) and then scan 2 (2 bits and a 32-bit position) run as
 //     warp-shuffle scans, one pass over the 8 warp totals, and a decoupled
-//     look-back across tiles on flag-tagged 64-bit status words (2-bit
-//     flag, the payload in the same word, so relaxed loads and stores
-//     suffice). Warp 0 looks back 32 tiles at a time. Scan 2 starts once
-//     the tile's scan-1 prefix is known. A root write's (ht, write_id)
-//     is read back by position: the carried one once a tile, a root write
-//     inside the tile only where a covered check needs it;
+//     look-back across tiles (tile_chain.cuh) on flag-tagged 64-bit
+//     status words (2-bit flag, the payload in the same word, so relaxed
+//     loads and stores suffice). Warp 0 looks back 32 tiles at a time.
+//     Scan 2 starts once the tile's scan-1 prefix is known. A root write's
+//     (ht, write_id) is read back by position: the carried one once a
+//     tile, a root write inside the tile only where a covered check needs
+//     it;
 //   - keep and make-tombstone leave as 4-byte stores of 4 bytes; the packed
 //     words are built by OR-reducing each lane's 4-bit nibble across the 8
 //     lanes of a 32-position group (shfl_xor), the source-run planes from
@@ -61,7 +62,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_chain.cuh"
+
 namespace {
+
+using tile_chain::kFull;
+using tile_chain::look_back;
+using tile_chain::warp_inclusive;
 
 constexpr int kRowKeyLen = 0, kRowDkl = 1, kRowHtHi = 2, kRowHtLo = 3,
               kRowWid = 4, kRowFlags = 5, kRowTtlHi = 6, kRowTtlLo = 7,
@@ -78,11 +85,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 2;                   // 16-byte vectors a thread a row
 constexpr int kWarpPos = kVec * 128;      // positions per warp
 constexpr int kTile = kWarps * kWarpPos;  // positions per CTA
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// status words: flag in bits 62-63, the scan's payload below
-constexpr uint64_t kStAgg = 1ull << 62, kStPrefix = 2ull << 62,
-                   kStFlags = 3ull << 62;
 
 // scan 1: bit 1 a segment start seen, bit 0 a version <= cutoff seen since
 // the last start
@@ -117,20 +119,6 @@ struct Args {
   uint8_t* mk;        // [n]
 };
 
-__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 __device__ __forceinline__ uint32_t comp(const uint4& x, int k) {
   return k == 0 ? x.x : (k == 1 ? x.y : (k == 2 ? x.z : x.w));
 }
@@ -139,50 +127,6 @@ __device__ __forceinline__ uint32_t doc_mask(int dkl, int j) {
   int nb = dkl - 4 * j;
   nb = nb < 0 ? 0 : (nb > 4 ? 4 : nb);
   return nb >= 4 ? 0xFFFFFFFFu : (nb == 0 ? 0u : (0xFFFFFFFFu << ((4 - nb) * 8)));
-}
-
-template <class Op>
-__device__ __forceinline__ uint64_t warp_inclusive(uint64_t x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint64_t y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x = Op::combine(y, x);
-  }
-  return x;
-}
-
-// Publishes the tile's aggregate, looks back over earlier tiles 32 at a
-// time until an inclusive prefix, publishes the tile's own; returns the
-// exclusive prefix. Called by every lane of one warp.
-template <class Op>
-__device__ uint64_t look_back(uint64_t* status, int64_t tile, uint64_t agg) {
-  const int lane = threadIdx.x & 31;
-  if (lane == 0)
-    st_relaxed(status + tile, (tile == 0 ? kStPrefix : kStAgg) | agg);
-  if (tile == 0) return 0;
-  uint64_t excl = 0;
-  int64_t pred = tile - 1 - lane;
-  while (true) {
-    uint64_t s;
-    do {
-      s = pred >= 0 ? ld_relaxed(status + pred) : kStPrefix;
-    } while (__any_sync(kFull, (s & kStFlags) == 0));
-    const unsigned pm = __ballot_sync(kFull, (s & kStFlags) == kStPrefix);
-    uint64_t x = s & ~kStFlags;
-    if (pm && lane > __ffs(pm) - 1) x = 0;
-    // lane 0 <- lanes 31..0 combined in position order (lane 31 earliest)
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint64_t y = __shfl_down_sync(kFull, x, o);
-      if (lane + o < 32) x = Op::combine(y, x);
-    }
-    excl = Op::combine(__shfl_sync(kFull, x, 0), excl);
-    if (pm) break;
-    pred -= 32;
-  }
-  if (lane == 0) st_relaxed(status + tile, kStPrefix | Op::combine(excl, agg));
-  return excl;
 }
 
 // The thread's vectors of row r (zeros past n) and, for lane 0, the value

@@ -52,6 +52,8 @@ _SEG_BITS = 5                       # bits 0-4 are OR'ed over a document
 _ACC_PER_SLOT = 9                   # nonnull, 8 byte sums
 _TAG_COLUMN_ID = 0x4B               # ValueType.kColumnId
 _TAG_SYS_COLUMN_ID = 0x4A           # ValueType.kSystemColumnId
+# entries a CTA of kernel J.2 takes (csrc/pushdown.cu kSegTile)
+SEGMENT_OR_TILE = 2048
 
 Bounds = Tuple[np.ndarray, int, np.ndarray, int, bool, bool]
 
@@ -275,17 +277,22 @@ def _lib():
         lib.ybt_row_flags.argtypes = [vp, i64, ci, vp, vp,
                                       ctypes.POINTER(key_bounds.KeyBounds),
                                       ci, ci, ci, u32p, ci, ci, vp, vp]
-        lib.ybt_segment_or_scratch_bytes.restype = i64
-        lib.ybt_segment_or_scratch_bytes.argtypes = [i64]
+        lib.ybt_segment_or_tile.restype = ci
+        lib.ybt_segment_or_tile.argtypes = []
         lib.ybt_segment_or.restype = ci
         lib.ybt_segment_or.argtypes = [vp, i64, vp, vp, vp]
         lib.ybt_row_pass_pack.restype = ci
         lib.ybt_row_pass_pack.argtypes = [vp, vp, i64, u32p, ci, vp, vp]
+        lib.ybt_agg_reduce_scratch_bytes.restype = i64
+        lib.ybt_agg_reduce_scratch_bytes.argtypes = []
         lib.ybt_agg_reduce.restype = ci
-        lib.ybt_agg_reduce.argtypes = [vp, vp, vp, i64, u32p, ci, ci, ci, vp,
-                                       vp, vp]
+        lib.ybt_agg_reduce.argtypes = [vp, vp, vp, i64, ctypes.c_uint32,
+                                       ctypes.c_uint32, ci, ci, vp, vp, vp,
+                                       vp]
         if lib.ybt_pushdown_ops_len() != len(_ops_array(_EMPTY_P)):
             raise RuntimeError("pushdown.cu: operand layout differs")
+        if lib.ybt_segment_or_tile() != SEGMENT_OR_TILE:
+            raise RuntimeError("pushdown.cu: J.2's tile differs")
         _lib_cache = lib
     return _lib_cache
 
@@ -356,24 +363,35 @@ def row_flags(s: torch.Tensor, keep: torch.Tensor,
 row_flags.launches = 0
 
 
+def segment_or_layout(n: int) -> Tuple[int, int]:
+    """Kernel J.2's one allocation over n entries, in int32 words: the
+    output rounded up to 16 bytes, then the scratch the kernel zeroes
+    (three 64-bit words per SEGMENT_OR_TILE entries: the forward chain's
+    status, the tail chain's status and the tile's record; then the
+    ticket). Returns (words before the scratch, words in all)."""
+    out = -(-n // 4) * 4
+    return out, out + 2 * (3 * -(-n // SEGMENT_OR_TILE) + 1)
+
+
 def segment_or(flags: torch.Tensor) -> torch.Tensor:
     """Kernel J.2 wrapper (see segment_or_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/pushdown.cu (three launches, counted as one
-    call in `segment_or.launches`)."""
+    version. CUDA tensor: csrc/pushdown.cu, one launch after one memset of
+    its scratch, counted in `segment_or.launches`; flags 16-byte aligned."""
     if not flags.is_cuda:
         return segment_or_plain(flags)
     n = flags.shape[0]
     _check_vec(flags, n, torch.int32, "segment_or")
-    lib = _lib()
+    if flags.data_ptr() % 16:
+        raise ValueError("segment_or: flags must start 16-byte aligned")
     dev = flags.device
-    scratch = torch.empty(int(lib.ybt_segment_or_scratch_bytes(n)),
-                          dtype=torch.uint8, device=dev)
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.ybt_segment_or(flags.data_ptr(), n, scratch.data_ptr(),
-                            out.data_ptr(), torch_setup.stream_ptr(dev))
+    out_words, words = segment_or_layout(n)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    rc = _lib().ybt_segment_or(flags.data_ptr(), n, ptr + 4 * out_words, ptr,
+                               torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "segment_or")
     segment_or.launches += 1
-    return out
+    return buf[:n]
 
 
 segment_or.launches = 0
@@ -412,12 +430,41 @@ def _pred_only(p_op, p_neg):
     return (z, p_op, p_neg, z, z, np.zeros((p, VAL_WORDS), np.uint32), z)
 
 
+def verdict_masks(p_op, p_neg) -> Tuple[int, int]:
+    """Kernel K's row verdict as one masked compare: a row passes when
+    (seg & need) == want, which is `_row_pass` (need: the active slots,
+    want: those whose segment bit must be set, where p_neg is clear)."""
+    need = want = 0
+    for k, (code, neg) in enumerate(zip(p_op, p_neg)):
+        if int(code):
+            need |= 1 << k
+            if not int(neg):
+                want |= 1 << k
+    return need, want
+
+
+# K's scratch, one zeroed buffer per (device, stream): the completion
+# ticket, which each launch leaves at 0, and the CTAs' partials
+_agg_scratch = {}
+
+
+def _agg_scratch_for(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch_setup.stream_ptr(dev))
+    buf = _agg_scratch.get(key)
+    if buf is None:
+        buf = torch.zeros(int(_lib().ybt_agg_reduce_scratch_bytes()),
+                          dtype=torch.uint8, device=dev)
+        _agg_scratch[key] = buf
+    return buf
+
+
 def agg_reduce(flags: torch.Tensor, seg_or: torch.Tensor,
                sv: Optional[torch.Tensor], p_op, p_neg, c: int,
                c_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K wrapper (see agg_reduce_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/pushdown.cu (an init launch and the
-    reduction, counted as one call in `agg_reduce.launches`)."""
+    version. CUDA tensor: csrc/pushdown.cu, one launch, counted in
+    `agg_reduce.launches`; n a multiple of 4, flags, seg_or and sv 16-byte
+    aligned (the kernel reads 16-byte vectors)."""
     if not flags.is_cuda:
         return agg_reduce_plain(flags, seg_or, sv, p_op, p_neg, c, c_pad)
     n = flags.shape[0]
@@ -425,18 +472,22 @@ def agg_reduce(flags: torch.Tensor, seg_or: torch.Tensor,
     _check_vec(seg_or, n, torch.int32, "agg_reduce seg_or")
     if c:
         _check_rows(sv, 1 + VAL_WORDS, n, "agg_reduce sv")
-    if len(p_op) > MAX_PRED or not 0 <= c <= c_pad <= MAX_AGG:
+    if len(p_op) > MAX_PRED or not 0 <= c <= c_pad <= MAX_AGG or n % 4:
         raise ValueError(f"agg_reduce: {len(p_op)} predicate slots, c={c}, "
-                         f"c_pad={c_pad}")
+                         f"c_pad={c_pad}, n={n} (a multiple of 4)")
+    if flags.data_ptr() % 16 or seg_or.data_ptr() % 16 \
+            or (c and sv.data_ptr() % 16):
+        raise ValueError("agg_reduce: flags, seg_or and sv must start "
+                         "16-byte aligned")
     dev = flags.device
     acc = torch.empty(1 + _ACC_PER_SLOT * c_pad, dtype=torch.int32,
                       device=dev)
     ext = torch.empty(2 * c_pad, dtype=torch.int64, device=dev)
+    need, want = verdict_masks(p_op, p_neg)
     rc = _lib().ybt_agg_reduce(
-        flags.data_ptr(), seg_or.data_ptr(),
-        sv.data_ptr() if c else None, n, _host_ops(_pred_only(p_op, p_neg)),
-        len(p_op), c, c_pad, acc.data_ptr(), ext.data_ptr(),
-        torch_setup.stream_ptr(dev))
+        flags.data_ptr(), seg_or.data_ptr(), sv.data_ptr() if c else None, n,
+        need, want, c, c_pad, _agg_scratch_for(dev).data_ptr(),
+        acc.data_ptr(), ext.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "agg_reduce")
     agg_reduce.launches += 1
     return acc, ext
