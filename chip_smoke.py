@@ -117,10 +117,16 @@ Phases (any failure exits non-zero):
      reads at a mid read time, 32 small calls, reads with the learned
      index off, and learned-index reads over the lineitem SSTs opened as
      a DB. Every answer equals the native per-key path's, a sample equals
-     sequential gets; P1 launches once per chunk, P2 once per chunk and
-     SST, P3 in exact and learned-index mode (no lineitem key
-     mispredicted); P4 on every SST equals its persisted model. Stage breakdowns of one warm chunk per DB; kernels
-     P1-P4 == their plain versions, timed beside their bounds;
+     sequential gets; P1, P2 over every SST (`bloom_probe_files`) and
+     P3 + the fold (`locate_fold`) launch once per chunk, the per-file
+     P2 and P3 never; P3 in exact and learned-index mode (no lineitem key
+     mispredicted); each call's chunks replayed through the per-file
+     launches and the host fold give the same folds and counters; P4 on
+     every SST equals its persisted model. Stage breakdowns of one warm
+     chunk per DB; kernels P1-P4 and P2 / P3 over every file == their
+     plain versions, timed beside their bounds (P3's beside its floor:
+     one launch and its dependent-load chain at an HBM load latency
+     measured on the card);
  10. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
@@ -242,25 +248,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn, reps: int, tries: int = 3) -> list:
+def profiled(fn, reps: int, tries: int = 6, lead: int = 512) -> list:
     """(name, device microseconds) of every kernel, memset and copy that
     `reps` calls of `fn` run, from torch.profiler: one call before the
-    profiler, one sacrificial call inside it (a trace's first events can
-    be lost), then the timed calls between two marker kernels
-    (`torch.cuda._sleep`) on the same stream, whose device events are those
-    that start between the markers (the host's and the device's clocks
-    can disagree by more than a short call lasts). A trace that lost a
-    marker, holds no device event between them or a count that is not a
-    multiple of `reps` is taken again, up to `tries` traces: the profiler
-    has been seen to drop a trace's events."""
+    profiler; inside it, `lead` one-element adds and one sacrificial call,
+    then the timed calls between two marker kernels (`torch.cuda._sleep`)
+    on the same stream, whose device events are those that start between
+    the markers (the host's and the device's clocks can disagree by more
+    than a short call lasts). In a long process a trace has been seen to
+    lose its first 20-40 device events (the sacrificial call, the opening
+    marker and, for a short `fn`, every timed call), and a wait before the
+    first launch did not help: the adds are there to be lost instead. A
+    trace that lost a marker, holds no device event between them or a
+    count that is not a multiple of `reps` is taken again, up to `tries`
+    traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                pad.add_(1)
             fn()
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
@@ -271,15 +283,22 @@ def profiled(fn, reps: int, tries: int = 3) -> list:
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         marks = sorted(e.time_range.start for e in events
                        if "spin_kernel" in e.name)
+        kept_lead = sum(e.name.startswith("void at::native::") and
+                        e.time_range.start < (marks or [float("inf")])[0]
+                        for e in events)
         out = []
         if len(marks) == 2:
             out = [(e.name, e.time_range.elapsed_us()) for e in events
                    if marks[0] < e.time_range.start < marks[1]
                    and "spin_kernel" not in e.name]
         if out and len(out) % reps == 0:
+            if kept_lead < lead:
+                log(f"profiler trace {attempt + 1}: {lead - kept_lead} of "
+                    f"{lead} lead events lost, the window whole")
             return out
         log(f"profiler trace {attempt + 1}: {len(marks)} of 2 markers, "
-            f"{len(out)} device events between them ({len(events)} in all: "
+            f"{len(out)} device events between them, {kept_lead} of {lead} "
+            f"lead events ({len(events)} in all: "
             f"{[e.name for e in events][:6]})")
     return []
 
@@ -3052,47 +3071,150 @@ def lineitem_point_keys(db, n: int, seed: int) -> list:
 
 def _point_wrappers():
     from yugabyte_tpu_torch.ops import point_read
-    return {"fnv64": point_read.fnv64, "bloom_probe": point_read.bloom_probe,
+    return {"fnv64": point_read.fnv64,
+            "bloom_probe_files": point_read.bloom_probe_files,
+            "locate_fold": point_read.locate_fold,
+            "bloom_probe": point_read.bloom_probe,
             "locate_gather": point_read.locate_gather,
             "index_fit": point_read.index_fit}
+
+
+_POINT_COUNTERS = ("bloom_skips", "learned_hits", "learned_fallbacks")
 
 
 def point_reads(db, keys, read_ht, batch: int, what: str):
     """multi_get over keys in calls of `batch`, every launch counter set
     to 0 just before and read just after; each call's seconds, ended by
-    the call's own downloads. Returns (results, seconds, launches,
-    {learned-index locates, keys a model mispredicted (each resolved by
-    an exact P3 relaunch)})."""
+    the call's own downloads. Then every chunk of those calls replayed,
+    uncounted, through the per-file launches (`per_file_chunk`): its
+    fold equals the one `_device_chunk` gives, and the counters
+    (bloom_skips, learned_hits, learned_fallbacks) summed over the
+    replay equal the calls'. Returns (results, seconds, launches,
+    {learned-index locates, keys a model mispredicted (each re-sought
+    exactly inside P3's launch)})."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
     from yugabyte_tpu_torch.ops import point_read
     wrappers = _point_wrappers()
     for w in wrappers.values():
         w.launches = 0
     m = point_read.point_read_metrics()
-    before = {k: m[k] for k in ("learned_hits", "learned_fallbacks")}
+    before = {k: m[k] for k in _POINT_COUNTERS}
     res, secs = [], []
     for s in range(0, len(keys), batch):
         t0 = time.time()
         res.extend(db.multi_get(keys[s:s + batch], read_ht))
         secs.append(time.time() - t0)
     launches = {k: w.launches for k, w in wrappers.items()}
-    learned = {k: m[k] - v for k, v in before.items()}
+    counters = {k: m[k] - v for k, v in before.items()}
+    replay_per_file(db, [keys[s:s + batch]
+                         for s in range(0, len(keys), batch)],
+                    read_ht, counters, what)
+    learned = {k: counters[k] for k in ("learned_hits", "learned_fallbacks")}
     log(f"{what}: {len(keys)} keys in {len(secs)} calls, "
-        f"{sum(secs):.3f}s; launches {launches}; learned-index locates "
-        f"{learned['learned_hits']}, mispredicted keys "
-        f"{learned['learned_fallbacks']}")
+        f"{sum(secs):.3f}s; launches {launches}; counters {counters}, equal "
+        f"to the per-file launches' on the same chunks, and so are the "
+        f"folds")
     return res, secs, launches, learned
 
 
+def replay_per_file(db, calls, read_ht, counters, what: str) -> None:
+    """Every chunk of `calls` (key lists, one multi_get each) through
+    `_device_chunk` and through the per-file launches (`per_file_chunk`),
+    uncounted: the two folds agree on every real lane, and the per-file
+    counters summed over the chunks equal `counters`, the calls' own."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    ht = read_ht if isinstance(read_ht, HybridTime) else HybridTime(read_ht)
+    staged_by = db._stage_live(list(db._readers.items()))
+    replay = {k: 0 for k in _POINT_COUNTERS}
+    for call in calls:
+        for c in range(0, len(call), 1024):
+            chunk = call[c:c + 1024]
+            got = db._device_chunk(chunk, None, ht, staged_by)
+            want, counts = per_file_chunk(db, chunk, ht, staged_by)
+            for k in _POINT_COUNTERS:
+                replay[k] += counts[k]
+            same_fold(got, want, len(chunk), what)
+    if replay != counters:
+        raise AssertionError(f"{what}: counters {counters} != the per-file "
+                             f"launches' {replay} on the same calls")
+
+
+def per_file_chunk(db, chunk, read_ht, staged_by):
+    """The batched read's device stage as it ran before P2 and P3 ran
+    over every file: per live SST one P2 (`bloom_probe`) and its
+    download, per located SST one P3 (`locate_gather`) and its download,
+    an exact P3 relaunch where the learned index mispredicted a real
+    lane, and the newest-wins fold on the host. Returns (fold arrays (ht
+    u64, wid, row, file, hit) or None, counters)."""
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.utils import flags
+    table = db._file_table(staged_by)
+    hw, dk, qbuf, ql = db._pack_chunk(chunk, None, table)
+    h1, h2 = pr.fnv64(hw, dk)
+    b, b_pad = len(chunk), ql.shape[0]
+    rhi, rlo = read_ht.value >> 32, read_ht.value & 0xFFFFFFFF
+    counts = {k: 0 for k in _POINT_COUNTERS}
+    best = None
+    for fi, f in enumerate(table.files):
+        if f.bloom is not None and not \
+                pr.bloom_probe(h1, h2, *f.bloom).cpu().numpy()[:b].any():
+            counts["bloom_skips"] += 1
+            continue
+        qw = table.file_queries(qbuf, f, b_pad)
+        model = (f.model if flags.get_flag("point_read_learned_index")
+                 else None)
+        idx, hit, hh, hl, wid, miss = (x.cpu().numpy() for x in
+                                       pr.locate_gather(f.cols, f.n, qw, ql,
+                                                        rhi, rlo, model, f.w))
+        if model is not None:
+            counts["learned_hits"] += 1
+            n_miss = int(miss[:b].sum())
+            if n_miss:
+                counts["learned_fallbacks"] += n_miss
+                exact = [x.cpu().numpy() for x in pr.locate_gather(
+                    f.cols, f.n, qw, ql, rhi, rlo, None, f.w)]
+                idx, hit, hh, hl, wid = (
+                    np.where(miss, e, m_) for m_, e in
+                    zip((idx, hit, hh, hl, wid), exact[:5]))
+        ht = ((hh.view(np.uint32).astype(np.uint64) << np.uint64(32))
+              | hl.view(np.uint32).astype(np.uint64))
+        wid = wid.view(np.uint32)
+        if best is None:
+            best = [np.zeros(b_pad, np.uint64), np.zeros(b_pad, np.uint32),
+                    np.zeros(b_pad, np.int64), np.zeros(b_pad, np.int64),
+                    np.zeros(b_pad, bool)]
+        upd = hit & (~best[4] | (ht > best[0])
+                     | ((ht == best[0]) & (wid > best[1])))
+        best[0] = np.where(upd, ht, best[0])
+        best[1] = np.where(upd, wid, best[1])
+        best[2] = np.where(upd, idx.astype(np.int64), best[2])
+        best[3] = np.where(upd, fi, best[3])
+        best[4] = best[4] | hit
+    return best, counts
+
+
+def same_fold(got, want, b: int, what: str) -> None:
+    """Two folds (None: no file located) agree on the first b lanes."""
+    if got is None or want is None:
+        if got is not want:
+            raise AssertionError(f"{what}: one fold located no file")
+        return
+    for name, g, x in zip(("ht", "wid", "row", "file", "hit"), got, want):
+        if not np.array_equal(g[:b], x[:b]):
+            raise AssertionError(f"{what}: the fold's {name} differs from "
+                                 f"the per-file launches'")
+
+
 def check_point_launches(launches, chunks: int, files: int, what: str):
-    """P1 once per chunk, P2 once per chunk and file, P3 at least once;
-    no P4 on the read path."""
-    want = {"fnv64": chunks, "bloom_probe": chunks * files}
-    for k, v in want.items():
-        if launches[k] != v:
-            raise AssertionError(f"{what}: {k} launched {launches[k]} "
-                                 f"times, not {v}")
-    if launches["locate_gather"] < 1 or launches["index_fit"]:
-        raise AssertionError(f"{what}: launches {launches}")
+    """P1, P2 over every file and P3 + the fold once per chunk, whatever
+    the number of live SSTs (`files`); no per-file P2 or P3 and no P4 on
+    the read path."""
+    want = {"fnv64": chunks, "bloom_probe_files": chunks,
+            "locate_fold": chunks, "bloom_probe": 0, "locate_gather": 0,
+            "index_fit": 0}
+    if files < 1 or {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {launches} over {files} "
+                             f"SSTs, not {want}")
 
 
 def same_answers(got, db, keys, read_ht, what: str) -> float:
@@ -3122,6 +3244,7 @@ def point_read_phase(args, workdir, lineitem_dir, device="cuda"):
     the native per-key path's; a sample equals sequential gets."""
     import torch
     from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    from yugabyte_tpu_torch.ops import point_read
     from yugabyte_tpu_torch.utils import flags
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
@@ -3186,11 +3309,15 @@ def point_read_phase(args, workdir, lineitem_dir, device="cuda"):
     wrappers = _point_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    m = point_read.point_read_metrics()
+    before = {k: m[k] for k in _POINT_COUNTERS}
     t0 = time.time()
     got = [db.multi_get(ks, top) for ks in small_keys]
     small_s = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     check_point_launches(launches, 32, files, "small calls")
+    replay_per_file(db, small_keys, top,
+                    {k: m[k] - v for k, v in before.items()}, "small calls")
     for ks, g in zip(small_keys, got):
         same_answers(g, db, ks, top_ht, "small calls")
     out["small"] = {"calls": 32, "keys": int(sizes.sum()), "s": small_s}
@@ -3274,44 +3401,48 @@ def point_fit_check(*dbs):
 def point_breakdown(db, chunk, read_ht):
     """Seconds of each stage of one warm 1024-key chunk, run one after
     the other through the DB's own steps of `_multi_get_device` (the
-    loop of `_device_chunk` unrolled), each ended by its download or a
+    body of `_device_chunk` unrolled), each ended by its download or a
     synchronize: host pack (`_pack_chunk`: _doc_key_len,
-    pack_query_batch, uploads), P1 (`hash_batch`), P2 + download per SST
-    (`probe_bloom`), P3 + download per SST (`_locate_file`, with its fold
-    of the file's hits), combine (the memtable probe, `_mem_probe_many`)
-    and the winners' value fetch (`_combine_device_chunk`). Returns the
-    stages, the answers and the tensors of the kernel checks."""
+    pack_query_batch per width, one upload), P1 (`fnv64`), the P2 launch
+    over every SST (`bloom_probe_files`), P3 + the fold over every
+    located SST (`locate_fold`) with its one download and the counters,
+    combine (the memtable probe, `_mem_probe_many`) and the winners'
+    value fetch (`_combine_device_chunk`). Returns the stages, the
+    answers and the tensors of the kernel checks."""
     from yugabyte_tpu_torch.ops import point_read as pr
-    from yugabyte_tpu_torch.storage import learned_index
+    from yugabyte_tpu_torch.utils import flags
     staged_by = db._stage_live(list(db._readers.items()))
     mems = [m for m in db._mem_snapshot() if not m.empty]
     st_t = {}
     b = len(chunk)
     t0 = time.time()
-    hw, dk, packs = db._pack_chunk(chunk, None, staged_by)
+    table = db._file_table(staged_by)
+    hw, dk, qbuf, ql = db._pack_chunk(chunk, None, table)
     sync()
     st_t["host_pack_s"] = time.time() - t0
     t0 = time.time()
-    h1, h2 = pr.hash_batch(hw, dk, hw.device)
+    h1, h2 = pr.fnv64(hw, dk)
     sync()
     st_t["p1_s"] = time.time() - t0
-    t = {"qwords_hash": hw, "dkls": dk, "h1": h1, "h2": h2,
-         "blooms": [], "locates": []}
-    st_t["p2_download_s"], st_t["p3_download_s"] = [], []
-    best = None
-    for fi, (_fid, r, st) in enumerate(staged_by):
-        t0 = time.time()
-        maybe = pr.probe_bloom(r, h1, h2)
-        st_t["p2_download_s"].append(time.time() - t0)
-        t["blooms"].append(pr.bloom_device_words(r, hw.device))
-        if maybe is not None and not maybe[:b].any():
-            st_t["p3_download_s"].append(0.0)
-            continue
-        t0 = time.time()
-        best = db._locate_file(packs[st.w], r, st, read_ht, b, fi, best)
-        st_t["p3_download_s"].append(time.time() - t0)
-        t["locates"].append((st, *packs[st.w], learned_index.model_operands(
-            r.props.lindex, st.n)))
+    t0 = time.time()
+    _maybe, located = pr.bloom_probe_files(h1, h2, table, b)
+    sync()
+    st_t["p2_s"] = time.time() - t0
+    t0 = time.time()
+    model_on = flags.get_flag("point_read_learned_index")
+    rd = read_ht.value
+    out = pr.locate_fold(table, qbuf, ql, b, rd >> 32, rd & 0xFFFFFFFF,
+                         model_on, located)
+    best, loc, _misses = pr.fold_arrays(out.cpu().numpy(), ql.shape[0],
+                                        len(table.files))
+    best = best if loc.any() else None
+    st_t["p3_fold_download_s"] = time.time() - t0
+    t = {"qwords_hash": hw, "dkls": dk, "h1": h1, "h2": h2, "b": b,
+         "table": table, "qbuf": qbuf, "ql": ql, "located": located,
+         "model_on": model_on, "blooms": [f.bloom for f in table.files],
+         "locates": [(f.cols, f.n, table.file_queries(qbuf, f, ql.shape[0]),
+                      ql, f.model, f.w)
+                     for f, on in zip(table.files, loc) if on]}
     t0 = time.time()
     mem_hits = db._mem_probe_many(mems, chunk, read_ht)
     st_t["combine_s"] = time.time() - t0
@@ -3319,9 +3450,26 @@ def point_breakdown(db, chunk, read_ht):
     res = [None] * b
     db._combine_device_chunk(chunk, 0, mem_hits, staged_by, best, res)
     st_t["value_fetch_s"] = time.time() - t0
-    t["read_ht"] = read_ht.value
+    t["read_ht"] = rd
     t["staged"] = [st for _fid, _r, st in staged_by]
     return st_t, res, t
+
+
+def bloom_words_touched(h1, h2, bloom) -> int:
+    """Distinct words of one filter that the probes of every lane read,
+    each lane up to its first zero bit."""
+    import torch
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.ops.merge_gc import _u
+    words, m_bits, k = bloom
+    h1, h2 = _u(h1), _u(h2)
+    alive = torch.ones_like(h1, dtype=torch.bool)
+    touched = []
+    for i in range(min(k, pr._K_MAX)):
+        pos = (h1 + i * h2) % m_bits
+        touched.append((pos >> 5)[alive])
+        alive &= ((_u(words)[pos >> 5] >> (pos & 31)) & 1) == 1
+    return int(torch.cat(touched).unique().numel())
 
 
 def point_bytes(t, calls):
@@ -3329,29 +3477,98 @@ def point_bytes(t, calls):
     once and each output written once. P1: per lane its key words up to
     its doc-key length, the length, 8 bytes out. P2: per lane h1 and h2,
     the distinct filter words the probes read up to each lane's first
-    zero bit, 1 byte out. P3: see locate_bytes. P4: the two coordinate
-    rows of the n real entries, 17 x 8 + 8 bytes out."""
-    import torch
-    from yugabyte_tpu_torch.ops import point_read as pr
-    from yugabyte_tpu_torch.ops.merge_gc import _u
+    zero bit, 1 byte out; over every file, those words of every filter
+    and a maybe byte per lane and file plus a flag per file out. P3: see
+    locate_bytes and fold_bytes. P4: the two coordinate rows of the n
+    real entries, 17 x 8 + 8 bytes out."""
     w = t["qwords_hash"].shape[1]
     dk = t["dkls"].long().clamp(0, 4 * w)
     p1 = int((4 * ((dk + 3) // 4)).sum()) + 12 * dk.numel()
-    words, m_bits, k = next(filter(None, t["blooms"]))
-    h1, h2 = _u(t["h1"]), _u(t["h2"])
-    alive = torch.ones_like(h1, dtype=torch.bool)
-    touched = []
-    for i in range(min(k, pr._K_MAX)):
-        pos = (h1 + i * h2) % m_bits
-        touched.append((pos >> 5)[alive])
-        alive &= ((_u(words)[pos >> 5] >> (pos & 31)) & 1) == 1
-    p2 = 9 * h1.numel() + 4 * int(torch.cat(touched).unique().numel())
+    bloom = next(filter(None, t["blooms"]))
+    b_pad = t["h1"].numel()
+    p2 = 9 * b_pad + 4 * bloom_words_touched(t["h1"], t["h2"], bloom)
+    nf = len(t["blooms"])
+    p2_files = 8 * b_pad + nf * (b_pad + 1) + 4 * sum(
+        bloom_words_touched(t["h1"], t["h2"], bl)
+        for bl in t["blooms"] if bl is not None)
     p3, chain = locate_bytes(*calls["locate_gather"])
     p3_model, chain_model = locate_bytes(*calls["locate_gather_model"])
-    return {"fnv64": p1, "bloom_probe": p2, "locate_gather": p3,
-            "locate_gather_model": p3_model,
+    fold, fold_chain = fold_bytes(*calls["locate_fold"])
+    fold_model, fold_chain_model = fold_bytes(*calls["locate_fold_model"])
+    return {"fnv64": p1, "bloom_probe": p2, "bloom_probe_files": p2_files,
+            "locate_gather": p3, "locate_gather_model": p3_model,
+            "locate_fold": fold, "locate_fold_model": fold_model,
             "index_fit": 8 * calls["index_fit"][1] + 144,
-            "chain": chain, "chain_model": chain_model}
+            "chain": chain, "chain_model": chain_model,
+            "fold_chain": fold_chain, "fold_chain_model": fold_chain_model}
+
+
+def fold_bytes(table, qbuf, ql, b, rhi, rlo, model_on, located):
+    """P3 + the fold over every located file (locate_fold's arguments):
+    the bytes of locate_bytes on each located file, less the per-file
+    lengths and outputs, plus the lengths once, the files' flags, and the
+    [5, b_pad] result and two counters a file out; the chain is the
+    longest of the files' (they run side by side)."""
+    b_pad = ql.shape[0]
+    nbytes, chains = 0, []
+    for f, on in zip(table.files, located.tolist()):
+        if not on:
+            continue
+        fb, ch = locate_bytes(f.cols, f.n, table.file_queries(qbuf, f, b_pad),
+                              ql, rhi, rlo, f.model if model_on else None,
+                              f.w)
+        nbytes += fb - 4 * b_pad - 18 * b_pad
+        chains.append(ch)
+    nf = len(table.files)
+    nbytes += 4 * b_pad + nf + 20 * b_pad + 8 * nf
+    chain = max(chains, key=lambda c: c["chain_loads_max"])
+    return nbytes, chain
+
+
+def hbm_load_ns(staged, reps: int) -> dict:
+    """Nanoseconds of one dependent load from HBM on this card, from P3
+    (`locate_gather`, exact mode) on one lane: each launch timed alone by
+    CUDA events after a 256 MiB memset that evicts the 50 MB L2 and a
+    spin kernel that keeps the card busy while the host enqueues the
+    launch (so the events time the kernel, not the wrapper), over the
+    tablet's largest staged SST (the key of its middle entry) and over a
+    one-entry matrix (its first column); the difference of the medians
+    over the difference of the two chains' distinct 32-byte sectors
+    (locate_bytes: the chain's loads that go to HBM). The launch's own
+    time is the intercept: the one-entry call less its sectors at that
+    latency."""
+    import torch
+    from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.ops.merge_gc import _ROW_WORDS
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    big = max(staged, key=lambda st: st.n)
+    out = {}
+    for name, cols, n in (("big", big.cols_dev, big.n),
+                          ("one", big.cols_dev[:, :1].contiguous(), 1)):
+        j = n // 2
+        q = cols[_ROW_WORDS:, j][None].contiguous()
+        ql = cols[0, j:j + 1].contiguous()
+        args = (cols, n, q, ql, 0xFFFFFFFF, 0xFFFFFFFF, None, big.w)
+        _nb, chain = locate_bytes(*args)
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            pr.locate_gather(*args)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[name] = (float(np.median(times)), chain["chain_sectors_max"],
+                     chain["chain_loads_max"])
+    (t_big, s_big, l_big), (t_one, s_one, l_one) = out["big"], out["one"]
+    ns = (t_big - t_one) * 1e6 / max(1, s_big - s_one)
+    return {"hbm_load_ns": ns, "launch_ms": t_one - s_one * ns / 1e6,
+            "one_lane_ms": {"big": t_big, "one": t_one},
+            "one_lane_sectors": {"big": s_big, "one": s_one},
+            "one_lane_loads": {"big": l_big, "one": l_one}}
 
 
 def locate_bytes(cols, n, qw, ql, rhi, rlo, model, w):
@@ -3372,14 +3589,24 @@ def locate_bytes(cols, n, qw, ql, rhi, rlo, model, w):
     trace = []
     pr.locate_gather_plain(cols, n, qw, ql, rhi, rlo, model, w, trace=trace)
     b, n_pad = qw.shape[0], cols.shape[1]
-    cells = []
+    cells, sectors = [], []
     loads = torch.zeros(b, dtype=torch.int64, device=cols.device)
     qwords = torch.zeros(b, dtype=torch.int64, device=cols.device)
+    rows = torch.arange(cols.shape[0], device=cols.device)
     for col, read in trace:
         lane, row = read.nonzero(as_tuple=True)
         cells.append(row * n_pad + col[lane])
+        # each read cell's 32-byte sector, -1 where the lane reads none
+        sectors.append(torch.where(
+            read, (rows[None] * n_pad + col[:, None]) // 8, -1))
         loads += read.sum(1)
         qwords = torch.maximum(qwords, read[:, _ROW_WORDS:].sum(1))
+    # per lane the distinct sectors of its chain: the loads that can miss
+    # the caches (a later load of a sector the chain read hits them)
+    sec = torch.sort(torch.cat(sectors, 1), dim=1).values
+    fresh = (sec >= 0) & torch.cat(
+        [torch.ones_like(sec[:, :1], dtype=torch.bool),
+         sec[:, 1:] != sec[:, :-1]], 1)
     if model is not None:
         qwords = torch.clamp(qwords, min=min(max(int(model[3]), 0), w - 2)
                              + 2)
@@ -3390,19 +3617,27 @@ def locate_bytes(cols, n, qw, ql, rhi, rlo, model, w):
     return nbytes, {"probes": probes,
                     "chain_loads_mean": float(loads.double().mean()),
                     "chain_loads_max": int(loads.max()),
+                    "chain_sectors_max": int(fresh.sum(1).max()),
                     "loads_per_probe_mean": float(
                         (loads - trace[-1][1].sum(1)).double().mean()
                         / probes)}
 
 
 def point_kernel_phase(args, t, t_li, launches, bandwidth):
-    """P1-P4 against their plain versions on the card, bit for bit, on
-    the point-read phase's tensors: P1 on the breakdown chunk's hash
-    batch, P2 on every SST's filter, P3 on every located SST of the YCSB
-    chunk (exact mode) and of the lineitem chunk (learned-index mode), P4
-    on every staged YCSB and lineitem SST. Timed with CUDA events beside
-    their bounds (bytes over the card's rate); no single PyTorch call
-    computes any of them (library_ms null)."""
+    """P1-P4 and P2 / P3 over every file against their plain versions on
+    the card, bit for bit, on the point-read phase's tensors: P1 on the
+    breakdown chunk's hash batch, P2 on every SST's filter, P3 on every
+    located SST of the YCSB chunk (exact mode) and of the lineitem chunk
+    (learned-index mode), P2 and P3 + the fold over every file on both
+    chunks (the model on and off), P4 on every staged YCSB and lineitem
+    SST. Timed with CUDA events and torch.profiler's device time beside
+    their bounds (bytes over the card's rate); P3 over every file also
+    beside its floor, one launch and its longest dependent-load chain at
+    the HBM load latency measured here (hbm_load_ns). No single PyTorch
+    call computes any of them (library_ms null). The path's rows are P1,
+    P2 and P3 over every file and P4; the per-file P2 and P3, which the
+    path no longer launches, are checked and timed inside them
+    (`per_file`)."""
     import torch
     from yugabyte_tpu_torch.ops import point_read as pr
 
@@ -3417,8 +3652,9 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                                  f"(max_abs_err {err})")
         return err
 
-    errs = {k: 0 for k in ("fnv64", "bloom_probe", "locate_gather",
-                           "index_fit")}
+    names = ("fnv64", "bloom_probe", "locate_gather", "index_fit",
+             "bloom_probe_files", "locate_fold")
+    errs = {k: 0 for k in names}
     calls = {}
     for tt in (t, t_li):
         args1 = (tt["qwords_hash"], tt["dkls"])
@@ -3430,63 +3666,130 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
             errs["bloom_probe"] = max(errs["bloom_probe"], same(
                 pr.bloom_probe(*a), pr.bloom_probe_plain(*a), "P2"))
             calls.setdefault("bloom_probe", a)
-        for st, qw, ql, model in tt["locates"]:
-            rd = tt["read_ht"]
+        rd = tt["read_ht"]
+        for cols, n, qw, ql, model, w in tt["locates"]:
             # exact mode on every located SST; learned-index mode where
             # the file has a model
             for m in {id(None): None, id(model): model}.values():
-                a = (st.cols_dev, st.n, qw, ql, rd >> 32, rd & 0xFFFFFFFF,
-                     m, st.w)
+                a = (cols, n, qw, ql, rd >> 32, rd & 0xFFFFFFFF, m, w)
                 errs["locate_gather"] = max(errs["locate_gather"], same(
                     pr.locate_gather(*a), pr.locate_gather_plain(*a), "P3"))
                 calls.setdefault("locate_gather" if m is None
                                  else "locate_gather_model", a)
+        a2 = (tt["h1"], tt["h2"], tt["table"], tt["b"])
+        errs["bloom_probe_files"] = max(errs["bloom_probe_files"], same(
+            pr.bloom_probe_files(*a2), pr.bloom_probe_files_plain(*a2),
+            "P2 over every file"))
+        calls.setdefault("bloom_probe_files", a2)
+        for model_on in (True, False):
+            a3 = (tt["table"], tt["qbuf"], tt["ql"], tt["b"], rd >> 32,
+                  rd & 0xFFFFFFFF, model_on, tt["located"])
+            errs["locate_fold"] = max(errs["locate_fold"], same(
+                pr.locate_fold(*a3), pr.locate_fold_plain(*a3),
+                "P3 + the fold over every file"))
+            uses = model_on and any(f.model is not None
+                                    for f in tt["table"].files)
+            calls.setdefault("locate_fold_model" if uses else "locate_fold",
+                             a3)
         for st in tt["staged"]:
             a4 = (st.cols_dev, st.n, st.w)
             errs["index_fit"] = max(errs["index_fit"], same(
                 pr.index_fit(*a4), pr.index_fit_plain(*a4), "P4"))
             calls.setdefault("index_fit", a4)
-    if "locate_gather" not in calls or "locate_gather_model" not in calls:
-        raise AssertionError("P3 was not checked in both modes")
-    log("kernels P1-P4 == their plain versions on the point-read phase's "
-        "tensors (P3 in exact and learned-index mode)")
+    for need in ("locate_gather", "locate_gather_model", "locate_fold",
+                 "locate_fold_model"):
+        if need not in calls:
+            raise AssertionError(f"{need} was not checked")
+    log("kernels P1-P4 and P2 / P3 over every file == their plain versions "
+        "on the point-read phase's tensors (P3 in exact and learned-index "
+        "mode)")
     nbytes = point_bytes(t, calls)
     kern = {"fnv64": pr.fnv64, "bloom_probe": pr.bloom_probe,
             "locate_gather": pr.locate_gather,
             "locate_gather_model": pr.locate_gather,
-            "index_fit": pr.index_fit}
+            "index_fit": pr.index_fit,
+            "bloom_probe_files": pr.bloom_probe_files,
+            "locate_fold": pr.locate_fold,
+            "locate_fold_model": pr.locate_fold}
     plain = {"fnv64": pr.fnv64_plain, "bloom_probe": pr.bloom_probe_plain,
              "locate_gather": pr.locate_gather_plain,
              "locate_gather_model": pr.locate_gather_plain,
-             "index_fit": pr.index_fit_plain}
+             "index_fit": pr.index_fit_plain,
+             "bloom_probe_files": pr.bloom_probe_files_plain,
+             "locate_fold": pr.locate_fold_plain,
+             "locate_fold_model": pr.locate_fold_plain}
     times = {k: (cuda_ms(lambda k=k: kern[k](*calls[k]), args.reps),
                  cuda_ms(lambda k=k: plain[k](*calls[k]), 2))
              for k in kern}
+    dev = {k: device_profile(lambda k=k: kern[k](*calls[k]), args.reps)
+           for k in ("bloom_probe_files", "locate_fold", "locate_fold_model")}
+    lat = hbm_load_ns(t["staged"], 3 * args.reps)
+    log(f"HBM load latency {lat['hbm_load_ns']:.1f} ns, launch "
+        f"{lat['launch_ms']:.4f} ms (one lane: {lat['one_lane_ms']}, chain "
+        f"sectors {lat['one_lane_sectors']}, loads {lat['one_lane_loads']})")
     replaces = {"fnv64": "yugabyte_tpu/ops/point_read.py:150",
                 "bloom_probe": "yugabyte_tpu/ops/point_read.py:171",
                 "locate_gather": "yugabyte_tpu/ops/point_read.py:317",
                 "index_fit": "yugabyte_tpu/ops/point_read.py:257"}
-    rows = []
-    for name in ("fnv64", "bloom_probe", "locate_gather", "index_fit"):
+    replaces["bloom_probe_files"] = replaces["bloom_probe"]
+    replaces["locate_fold"] = replaces["locate_gather"]
+
+    def entry(name):
         ms, plain_ms = times[name]
-        e = {"name": name, "route": "cuda",
-             "source": "yugabyte_tpu_torch/csrc/point_read.cu",
-             "replaces": replaces[name], "launches": launches[name],
-             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": nbytes[name] / bandwidth * 1e3, "bound_by": "bytes",
-             "library_ms": None}
-        if name == "locate_gather":
-            mm, mp = times["locate_gather_model"]
-            e.update({"chain": nbytes["chain"], "ms_model": mm,
-                      "plain_ms_model": mp,
-                      "bound_ms_model": nbytes["locate_gather_model"]
-                      / bandwidth * 1e3,
-                      "chain_model": nbytes["chain_model"]})
-        log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, "
-            f"bound {e['bound_ms']:.6f}), {launches[name]} launches"
-            + (f"; model mode {e['ms_model']:.4f} ms, chains "
-               f"{e['chain']} / {e['chain_model']}"
-               if name == "locate_gather" else ""))
+        return {"name": name, "route": "cuda",
+                "source": "yugabyte_tpu_torch/csrc/point_read.cu",
+                "replaces": replaces[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes[name] / bandwidth * 1e3,
+                "bound_by": "bytes", "library_ms": None}
+
+    rows = []
+    for name in ("fnv64", "bloom_probe_files", "locate_fold", "index_fit"):
+        e = entry(name)
+        if name == "bloom_probe_files":
+            e["device_ms"] = dev[name]["device_ms"]
+            e["launches_per_call"] = dev[name]["launches_per_call"]
+            e["per_file"] = entry("bloom_probe")
+            e["files"] = len(t["blooms"])
+        if name == "locate_fold":
+            mm, mp = times["locate_fold_model"]
+            pf = entry("locate_gather")
+            pm, pp = times["locate_gather_model"]
+            pf.update({"chain": nbytes["chain"], "ms_model": pm,
+                       "plain_ms_model": pp,
+                       "bound_ms_model": nbytes["locate_gather_model"]
+                       / bandwidth * 1e3,
+                       "chain_model": nbytes["chain_model"]})
+            ns = lat["hbm_load_ns"]
+            e.update({
+                "device_ms": dev[name]["device_ms"],
+                "launches_per_call": dev[name]["launches_per_call"],
+                "chain": nbytes["fold_chain"], "ms_model": mm,
+                "plain_ms_model": mp,
+                "device_ms_model": dev["locate_fold_model"]["device_ms"],
+                "bound_ms_model": nbytes["locate_fold_model"]
+                / bandwidth * 1e3,
+                "chain_model": nbytes["fold_chain_model"],
+                "hbm_load_ns": ns, "launch_ms": lat["launch_ms"],
+                "floor_ms": lat["launch_ms"]
+                + nbytes["fold_chain"]["chain_loads_max"] * ns / 1e6,
+                "floor_ms_model": lat["launch_ms"]
+                + nbytes["fold_chain_model"]["chain_loads_max"] * ns / 1e6,
+                "floor_ms_sectors": lat["launch_ms"]
+                + nbytes["fold_chain"]["chain_sectors_max"] * ns / 1e6,
+                "hbm_probe": lat, "located": int(t["located"].sum()),
+                "files": len(t["table"].files), "per_file": pf})
+        log(f"kernel {name}: equal; {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.6f}), "
+            f"{e['launches']} launches"
+            + (f"; device {e['device_ms']:.4f} ms, model mode "
+               f"{e['ms_model']:.4f} ms, floor {e['floor_ms']:.4f} / "
+               f"{e['floor_ms_model']:.4f} ms, chains {e['chain']} / "
+               f"{e['chain_model']}; per file {e['per_file']['ms']:.4f} ms"
+               if name == "locate_fold" else "")
+            + (f"; device {e['device_ms']:.4f} ms; per file "
+               f"{e['per_file']['ms']:.4f} ms"
+               if name == "bloom_probe_files" else ""))
         rows.append(e)
     return rows
 

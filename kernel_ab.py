@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D, G, H, I.2, J.1, J.2 and K of the PyTorch port and the
-resident aggregates, timed for several checkouts in one run on one GPU.
+"""Kernels A, B, D, G, H, I.2, J.1, J.2 and K of the PyTorch port, the
+resident aggregates and the point read's P2 and P3, timed for several
+checkouts in one run on one GPU.
 
     python3 kernel_ab.py [--rows N] [--sf-orders M] [--seed S] [--reps R]
         ROOT [ROOT ...]
@@ -38,13 +39,22 @@ and times with CUDA events, --reps launches after a warm-up:
     into a DeviceSlabCache) over `ResidentSource`s: the median wall time
     of --reps calls and the device time and launches of one call by
     kernel name, memsets and copies included;
+  - the batched point read's device stage (`DB._device_chunk`: P1, then
+    P2 and P3 with the newest-wins fold) on one warm 1024-key chunk over
+    chip_smoke's YCSB point DB (--rows rows in 4 SSTs, exact mode) and
+    over the lineitem SSTs opened as a DB (learned-index mode): the
+    median wall time of --reps chunks (each ended by its downloads) and
+    the device time and launches of one chunk by kernel name, with P2's
+    and P3's summed (a checkout whose P2 and P3 run per SST launches
+    them once a file);
   - for every wrapper, the host's milliseconds to enqueue one call, and
     the device's milliseconds and launches per call by kernel name
     (torch.profiler): where the enqueue takes longer than the device, the
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
 D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
-words, J.2's outputs, K's accumulators, the resident answers) go into one
+words, J.2's outputs, K's accumulators, the resident answers, the point
+read chunks' folds) go into one
 sha256 that must match across the checkouts. Prints one JSON line per
 process and the card's name and power limit.
 Imports nothing of JAX.
@@ -132,6 +142,59 @@ def timed(fn, reps: int) -> dict:
             "device": dev}
 
 
+def point_chunk(db, keys, read_ht, reps: int, digest) -> dict:
+    """The device stage of one warm chunk (`DB._device_chunk`) over the
+    DB's live SSTs: its fold into the digest, the median wall
+    milliseconds of `reps` chunks, and the device milliseconds and
+    launches of one chunk by kernel name, P2 ("bloom") and P3 ("locate")
+    summed."""
+    import torch
+    db.multi_get(keys, read_ht)                  # stages every file
+    staged_by = db._stage_live(list(db._readers.items()))
+
+    def stage():
+        return db._device_chunk(keys, None, read_ht, staged_by)
+    best = stage()
+    for x, dt in zip(best, (np.uint64, np.uint32, np.int64, np.int64,
+                            np.bool_)):
+        digest.update(np.ascontiguousarray(x, dtype=dt).tobytes())
+    wall = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        stage()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    dev = device_ms(stage, reps, launches=True)
+    out = {"files": len(staged_by), "hits": int(best[4].sum()),
+           "wall_ms": statistics.median(wall), "device": dev}
+    for tag, key in (("p2", "bloom"), ("p3", "locate")):
+        mine = [v for k, v in dev.items() if key in k]
+        out[f"{tag}_device_ms"] = sum(v[0] for v in mine)
+        out[f"{tag}_launches"] = sum(v[1] for v in mine)
+    return out
+
+
+def point_read(rows: int, seed: int, reps: int, digest) -> dict:
+    """point_chunk over chip_smoke's YCSB point DB and a YCSB-C chunk of
+    1024 scrambled-zipfian keys at the top read time (exact mode: the
+    files of a 10M-row tablet carry no learned index)."""
+    import types
+    import chip_smoke as cs
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    workdir = tempfile.mkdtemp(prefix="kernel_ab_pt_")
+    try:
+        args = types.SimpleNamespace(rows=rows, seed=seed, point_reads=4096)
+        db, summary, top_ht, _mid = cs.ycsb_point_db(args, workdir, "cuda")
+        rng = np.random.default_rng(seed + 70)
+        keys = [bytes(k) for k in cs.ycsb_keys(cs.scrambled_zipfian(
+            1024, summary["key_space"], rng))]
+        out = point_chunk(db, keys, HybridTime(top_ht), reps, digest)
+        db.close()
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def resident(sf_orders: int, seed: int, reps: int, digest) -> dict:
     """q1_agg and q6_agg over the lineitem SSTs as ResidentSources (see the
     module docstring): per query the median wall seconds of `reps` warm
@@ -180,6 +243,16 @@ def resident(sf_orders: int, seed: int, reps: int, digest) -> dict:
                       "device_share": dev_ms / 1e3 / med, "device": dev}
         for r in readers:
             r.close()
+        del cache, srcs
+        torch.cuda.empty_cache()
+        # the same SSTs as a DB: the point read's learned-index mode
+        from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+        li_db = cs.lineitem_point_db(workdir, workdir, "cuda")
+        keys = cs.lineitem_point_keys(li_db, 1024, seed)
+        out["point_read_lineitem"] = point_chunk(li_db, keys,
+                                                 HybridTime.kMax, reps,
+                                                 digest)
+        li_db.close()
         return out
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -330,6 +403,8 @@ def child(root: str, rows: int, seed: int, reps: int,
         digest.update(x.cpu().numpy().tobytes())
     out["agg_reduce"] = timed(k, reps)
     del flags, one, seg, sv
+    torch.cuda.empty_cache()
+    out["point_read"] = point_read(rows, seed, reps, digest)
     torch.cuda.empty_cache()
     out["resident"] = resident(sf_orders, seed, reps, digest)
     out["sha256"] = digest.hexdigest()

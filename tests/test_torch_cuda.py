@@ -784,9 +784,108 @@ def test_point_index_fit_kernel_matches_plain_and_host(cuda):
         assert pr.fit_learned_index_device(st) == fit
 
 
+def _every_file_rows(n_files, seed, device):
+    """n_files sorted SSTs staged on `device` (widths 4 and 8 by turns)
+    as FileTable rows: a dense filter, none (every lane a maybe) or one
+    that rejects every lane, by turns; a fitted model, a mispredicting
+    one or none; files 0 and 1 share tie entries (the same key, ht and
+    wid, newer than every other version). Returns (rows, tie keys)."""
+    from yugabyte_tpu_torch.ops.slabs import pack_kvs
+    from yugabyte_tpu_torch.storage import learned_index
+    rng = np.random.default_rng(seed)
+    tie = [(b"S%08d!" % int(i), (5_000_000 + int(i)) << 12, 3)
+           for i in rng.choice(3000, size=60, replace=False)]
+    m_bits, k = 64 * 37 + 13, 7
+    n_words = merge_gc.bucket_size(-(-m_bits // 32))
+    dense = merge_gc.u32_to_device(
+        rng.integers(0, 2 ** 32, size=n_words, dtype=np.uint32)
+        | rng.integers(0, 2 ** 32, size=n_words, dtype=np.uint32), device)
+    zeros = torch.zeros(n_words, dtype=torch.int32, device=device)
+    rows = []
+    for f in range(n_files):
+        ents = []
+        for i in np.sort(rng.choice(3000, size=600, replace=False)):
+            for col in (b"", b"K\x01"):
+                for _v in range(int(rng.integers(1, 4))):
+                    ents.append((b"S%08d!" % i + col,
+                                 (1000 + int(i) * 10 + int(rng.integers(0, 8)))
+                                 << 12, int(rng.integers(0, 4))))
+        if f % 2:
+            ents += [(b"Slong-key-%017d!" % i, (2000 + int(i)) << 12, f)
+                     for i in rng.choice(3000, size=100, replace=False)]
+        if f < 2:
+            ents += tie
+        ents = sorted({e: None for e in ents}, key=lambda e: (e[0], -e[1],
+                                                               -e[2]))
+        slab = pack_kvs([(kk, (ht << 32) | wid, b"v") for kk, ht, wid in ents])
+        st = merge_gc.stage_slab(slab, device)
+        fit = learned_index.fit_from_slab(slab)
+        model = None
+        if f % 4 == 0:
+            model = learned_index.model_operands(fit, st.n)
+        elif f % 4 == 3:
+            model = learned_index.model_operands(
+                dict(fit, a_hi=fit["a_hi"][::-1], a_lo=fit["a_lo"][::-1],
+                     max_err=0), st.n)
+        bloom = ((dense, m_bits, k), None, (zeros, m_bits, k))[f % 3]
+        rows.append((bloom, st.cols_dev, st.n, st.w, model))
+    return rows, [t[0] for t in tie]
+
+
+@pytest.mark.parametrize("n_files,b", [(1, 1), (2, 64), (5, 65), (16, 1024)])
+def test_point_every_file_kernels_match_plain(cuda, n_files, b):
+    """P2 and P3 + the fold over every file, one launch each, bit for bit
+    equal to their plain versions (the per-file plain P2 / P3 looped in
+    file order and the fold) at both read-time edges, the model on and
+    off; ties go to file 0."""
+    from yugabyte_tpu_torch.ops import point_read as pr
+    rows, tie_keys = _every_file_rows(n_files, 60 + n_files, cuda)
+    table = pr.FileTable(rows, cuda)
+    rng = np.random.default_rng(61 + b)
+    qs = (tie_keys[:max(1, b // 8)]
+          + [b"Slong-key-%017d!" % i for i in range(b // 8)]
+          + [b"S%08d!" % int(i) + (b"K\x01" if i % 3 == 0 else b"")
+             for i in rng.integers(0, 3300, 2 * b)])[:b]
+    qbuf, ql = table.queries(qs)
+    b_pad = len(ql)
+    qbuf_d = merge_gc.u32_to_device(qbuf, cuda)
+    ql_d = torch.from_numpy(ql).to(cuda)
+    h1, h2 = pr.fnv64(merge_gc.u32_to_device(
+        pr.pack_query_batch(qs, 8)[0], cuda), ql_d)
+    for read_ht, model_on in (((1 << 64) - 1, True), ((1 << 64) - 1, False),
+                              ((1000 + 15000) << 12, True),
+                              ((1000 << 12) - 1, True)):
+        before = (pr.bloom_probe_files.launches, pr.locate_fold.launches)
+        maybe, flag = pr.bloom_probe_files(h1, h2, table, b)
+        w_maybe, w_flag = pr.bloom_probe_files_plain(h1, h2, table, b)
+        assert torch.equal(maybe, w_maybe) and torch.equal(flag, w_flag)
+        args = (table, qbuf_d, ql_d, b, read_ht >> 32, read_ht & 0xFFFFFFFF,
+                model_on, flag)
+        out = pr.locate_fold(*args)
+        assert torch.equal(out, pr.locate_fold_plain(*args)), (read_ht,
+                                                               model_on)
+        assert (pr.bloom_probe_files.launches,
+                pr.locate_fold.launches) == (before[0] + 1, before[1] + 1)
+        best, located, misses = pr.fold_arrays(out.cpu().numpy(), b_pad,
+                                               n_files)
+        if n_files >= 3:
+            assert not located[2] and located[1]
+        if n_files >= 4 and model_on and read_ht == (1 << 64) - 1:
+            assert misses[3] > 0
+        if n_files >= 2 and read_ht == (1 << 64) - 1:
+            ties = [i for i, q in enumerate(qs) if q in set(tie_keys)]
+            assert ties and all(best[4][i] and best[3][i] == 0
+                                for i in ties)
+    # the same launches again: deterministic, and the ticket was reset
+    out2 = pr.locate_fold(*args)
+    assert torch.equal(out, out2)
+
+
 def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
-    """DB.multi_get over a DeviceSlabCache on the card launches P1-P3 and
-    answers what the native per-key path and sequential gets answer."""
+    """DB.multi_get over a DeviceSlabCache on the card launches P1, P2
+    over every file and P3 + the fold once per chunk (never the per-file
+    P2 or P3) and answers what the native per-key path and sequential
+    gets answer."""
     from yugabyte_tpu_torch.common.hybrid_time import (DocHybridTime,
                                                        HybridTime)
     from yugabyte_tpu_torch.docdb.value import Value
@@ -811,13 +910,16 @@ def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
         rng = np.random.default_rng(36)
         keys = [b"Suser%08d\x00\x00!" % int(i)
                 for i in rng.integers(0, 3300, size=2100)]
-        kernels = [pr.fnv64, pr.bloom_probe, pr.locate_gather]
+        kernels = [pr.fnv64, pr.bloom_probe_files, pr.locate_fold,
+                   pr.bloom_probe, pr.locate_gather]
+        chunks = -(-len(keys) // 1024)
         for micros in (None, 1500, 50_000):
             read_ht = None if micros is None else HybridTime.from_micros(
                 micros)
             before = [k.launches for k in kernels]
             got = db.multi_get(keys, read_ht)
-            assert all(k.launches > b for k, b in zip(kernels, before))
+            assert [k.launches - b for k, b in zip(kernels, before)] == [
+                chunks, chunks, chunks, 0, 0]
             assert got == db._multi_get_native(keys,
                                                read_ht or HybridTime.kMax)
             assert got[:64] == [db.get(k, read_ht) for k in keys[:64]]

@@ -1,7 +1,17 @@
 """The port imports neither JAX nor the JAX package, and never quietly
 runs on the CPU: without CUDA its entry points raise unless the caller
-passes device='cpu'."""
+passes device='cpu'.
 
+Every case runs in one fresh interpreter (`_RUNNER`): the import check
+first, then each entry point's snippet in its own namespace with
+`torch.cuda.is_available` patched to False, its outcome recorded. The
+run is made once per test run, shared by pytest-xdist's workers through
+a file under the run's common temporary directory, and pinned to one
+thread: the tier-1 run shares the host's cores among its workers. Each
+parametrised case asserts its own outcome."""
+
+import fcntl
+import json
 import os
 import subprocess
 import sys
@@ -69,21 +79,62 @@ print("BAD", bad)
 def _run(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
 
 
-def test_port_imports_no_jax_and_no_reference():
-    r = _run(_CHECK.format(mods=MODULES))
-    assert r.returncode == 0, r.stderr
-    assert "BAD []" in r.stdout, r.stdout
-
-
-_NO_CUDA = """
+# One interpreter for every case: the import check (_CHECK) before
+# anything else is imported, then each case's body in a namespace of its
+# own, CUDA hidden; prints {case: [ran to its end, traceback]} as JSON.
+_RUNNER = """
+import json, traceback
 import torch
+torch.set_num_threads(1)
+{check}
 torch.cuda.is_available = lambda: False
-{body}
+out = {{"imports": [True, repr(bad)]}}
+for case, body in {cases!r}:
+    try:
+        exec(compile(body, "<" + case + ">", "exec"), {{"__name__": case}})
+        out[case] = [True, ""]
+    except BaseException:
+        out[case] = [False, traceback.format_exc()]
+print("RESULTS " + json.dumps(out))
 """
+
+
+def _run_all() -> dict:
+    cases = ([("raises:" + k, ENTRY_POINTS[k]) for k in sorted(ENTRY_POINTS)]
+             + [("cpu:" + k, CPU_CALLS[k]) for k in sorted(CPU_CALLS)])
+    r = _run(_RUNNER.format(check=_CHECK.format(mods=MODULES), cases=cases))
+    line = [x for x in r.stdout.splitlines() if x.startswith("RESULTS ")]
+    assert r.returncode == 0 and line, r.stderr
+    return json.loads(line[-1][len("RESULTS "):])
+
+
+@pytest.fixture(scope="module")
+def outcomes(tmp_path_factory):
+    """Every case's outcome, from one run of _RUNNER a test run: the
+    first xdist worker to need it runs it under a file lock, the others
+    read its result (keyed by the run's id)."""
+    run_id = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run_id is None:
+        return _run_all()
+    path = tmp_path_factory.getbasetemp().parent / f"port_import_{run_id}"
+    with open(f"{path}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(f"{path}.json"):
+            with open(f"{path}.tmp", "w") as f:
+                json.dump(_run_all(), f)
+            os.replace(f"{path}.tmp", f"{path}.json")
+        with open(f"{path}.json") as f:
+            return json.load(f)
+
+
+def test_port_imports_no_jax_and_no_reference(outcomes):
+    ok, bad = outcomes["imports"]
+    assert ok and bad == "[]", bad
 
 # one row (liveness + v = 5) of a table (h INT64 hash key, v INT64)
 _PUSHDOWN = """
@@ -196,10 +247,10 @@ DB(tempfile.mkdtemp(), DBOptions(auto_compact=False))
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
-def test_entry_point_without_cuda_raises(name):
-    r = _run(_NO_CUDA.format(body=ENTRY_POINTS[name]))
-    assert r.returncode != 0
-    assert "no CUDA device is available" in r.stderr, r.stderr
+def test_entry_point_without_cuda_raises(name, outcomes):
+    ran, err = outcomes["raises:" + name]
+    assert not ran
+    assert "no CUDA device is available" in err, err
 
 
 CPU_CALLS = {
@@ -293,6 +344,6 @@ shutil.rmtree(d)
 
 
 @pytest.mark.parametrize("name", sorted(CPU_CALLS))
-def test_entry_point_with_explicit_cpu_runs(name):
-    r = _run(_NO_CUDA.format(body=CPU_CALLS[name]))
-    assert r.returncode == 0, r.stderr
+def test_entry_point_with_explicit_cpu_runs(name, outcomes):
+    ran, err = outcomes["cpu:" + name]
+    assert ran, err

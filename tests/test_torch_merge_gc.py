@@ -7,6 +7,7 @@ pre-sorted cols matrices made from a seed with numpy. Every value is an
 integer, so the tolerance is exact equality.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,12 @@ from yugabyte_tpu_torch.ops import merge_gc as port
 torch.set_num_threads(1)
 
 W = 4
+
+# The JAX package runs gc_over_sorted inside its jitted programs; jitted
+# here too, it compiles once per shape and mode (w, is_major,
+# retain_deletes, snapshot static) instead of compiling each of its
+# operations eagerly, about 16 s in every process that runs a case.
+_gc_jit = jax.jit(ref.gc_over_sorted, static_argnums=(1, 6, 7, 8))
 
 
 def _sorted_cols(runs):
@@ -92,10 +99,9 @@ def _limbs(cutoff):
 
 def _ref_gc(cols, cutoff, is_major, retain, snapshot):
     hi, lo, phi, plo = _limbs(cutoff)
-    keep, mk = ref.gc_over_sorted(
+    keep, mk = _gc_jit(
         jnp.asarray(cols), W, jnp.uint32(hi), jnp.uint32(lo),
-        jnp.uint32(phi), jnp.uint32(plo), is_major=is_major,
-        retain_deletes=retain, snapshot=snapshot)
+        jnp.uint32(phi), jnp.uint32(plo), is_major, retain, snapshot)
     n = cols.shape[1]
     return (np.asarray(keep), np.asarray(mk),
             np.asarray(ref.pack_bits_u32(keep, n)),
@@ -166,9 +172,9 @@ def test_gc_pack_plain_matches_reference_packing(k_pad, m, is_major):
     cutoff = (1 << 21) << 12
     hi, lo, phi, plo = _limbs(cutoff)
     s = jnp.asarray(cols)
-    keep, mk = ref.gc_over_sorted(
+    keep, mk = _gc_jit(
         s, W, jnp.uint32(hi), jnp.uint32(lo), jnp.uint32(phi),
-        jnp.uint32(plo), is_major=is_major, retain_deletes=False)
+        jnp.uint32(plo), is_major, False, False)
     keep = keep & (s[ref._ROW_KEY_LEN] != jnp.uint32(ref.PAD_SENTINEL))
     groups = [ref.pack_bits_u32(keep, 1024), ref.pack_bits_u32(mk, 1024)]
     src = (jnp.asarray(perm) >> (m.bit_length() - 1)).astype(jnp.uint32)

@@ -203,6 +203,183 @@ def test_index_fit_plain_equals_jax_and_host(seed):
     assert dev == host and host["p"] >= 1
 
 
+# -------------------------------------------- P2 and P3 over every file
+_TOP = (1 << 64) - 1
+_TIE_HT = 5_000_000 << 12           # above every other version
+
+
+def _skey(i: int, col: bool = False) -> bytes:
+    """A short key (10 or 12 bytes: a width-4 file)."""
+    return b"S%08d!" % i + (b"K\x01" if col else b"")
+
+
+def _file_entries(rng, f: int, tie_from=None):
+    """One sorted SST: 400 random ids of 0-2999 as row and column keys
+    with 1-3 versions (n_pad 2048, the width-8 files the shape of
+    test_locate_gather_plain_equals_jax's); an odd file also holds
+    28-byte keys (width 8). `tie_from`: entries copied with their (key,
+    ht, wid) unchanged, each the newest version of its key in every
+    file."""
+    entries = []
+    for i in np.sort(rng.choice(3000, size=400, replace=False)):
+        for col in (False, True):
+            for _v in range(int(rng.integers(1, 4))):
+                ht = (1000 + int(i) * 10 + int(rng.integers(0, 8))) << 12
+                entries.append((_skey(int(i), col), ht,
+                                int(rng.integers(0, 4))))
+    if f % 2:
+        entries += [(b"Slong-key-%017d!" % i, (2000 + int(i)) << 12, f)
+                    for i in rng.choice(3000, size=200, replace=False)]
+    if tie_from:
+        entries += tie_from
+    uniq = {(k, ht, wid): None for k, ht, wid in entries}
+    return sorted(uniq, key=lambda e: (e[0], -e[1], -e[2]))
+
+
+def _every_file_set(n_files: int, seed: int):
+    """n_files SSTs (widths 4 and 8 alternating) and their table rows:
+    file 0 a dense filter and a fitted model; file 1 no usable filter and
+    a copy of file 0's newest-of-all tie entries; file 2 a filter that
+    rejects every lane; file 3 a model that mispredicts (`garbage`); file
+    4 a dense filter and no model. Returns (JAX-side rows, port-side rows,
+    tie keys)."""
+    rng = np.random.default_rng(seed)
+    tie = [(_skey(int(i)), _TIE_HT + (int(i) << 12), 3)
+           for i in rng.choice(3000, size=60, replace=False)]
+    m_bits, k = 64 * 37 + 13, 7
+    n_words = ref_mg.bucket_size(-(-m_bits // 32))
+    dense = (rng.integers(0, 2 ** 32, size=n_words, dtype=np.uint32)
+             | rng.integers(0, 2 ** 32, size=n_words, dtype=np.uint32))
+    blooms = [(dense, m_bits, k), None,
+              (np.zeros(n_words, np.uint32), m_bits, k), (dense, m_bits, k),
+              (dense, m_bits, k)]
+    ref_rows, port_rows = [], []
+    for f in range(n_files):
+        ents = _file_entries(rng, f, tie if f < 2 else None)
+        slab, cols, n, _n_pad, w = _cols([(kk, (ht << 32) | wid, b"v")
+                                          for kk, ht, wid in ents])
+        model = None
+        if f in (0, 3):
+            model = _model_variants(slab, n)["fit" if f == 0 else "garbage"]
+        ref_rows.append((blooms[f], cols, n, w, model))
+        bl = blooms[f]
+        port_rows.append((None if bl is None else
+                          (u32_to_device(bl[0], "cpu"), bl[1], bl[2]),
+                          u32_to_device(cols, "cpu"), n, w, model))
+    return ref_rows, port_rows, [t[0] for t in tie]
+
+
+def _jax_every_file(rows, qs, h1, h2, b, read_ht, model_on):
+    """The JAX package's per-file loop (storage/db.py:884-920): P2 per
+    file, P3 per located file, the fold in file order; a lane that a
+    model mispredicted takes the exact P3's answer (the port's, where the
+    JAX DB re-reads the key on the host). Returns the maybe rows, located
+    flags, the fold's five arrays and (bloom_skips, learned_hits,
+    learned_fallbacks)."""
+    b_pad = len(h1)
+    rhi, rlo = jnp.uint32(read_ht >> 32), jnp.uint32(read_ht & 0xFFFFFFFF)
+    maybes, located, best = [], [], None
+    skips = hits = fallbacks = 0
+
+    def locate(cols, n, w, qw, ql, ops):
+        use = ops is not None
+        ops = ops if use else (np.zeros(17, np.uint32),
+                               np.zeros(17, np.uint32),
+                               np.zeros(17, np.int32), 0, 0)
+        return [np.asarray(x) for x in ref_pr._locate_gather_fused(
+            jnp.asarray(cols), jnp.int32(n), jnp.asarray(qw),
+            jnp.asarray(ql), rhi, rlo, jnp.asarray(ops[0]),
+            jnp.asarray(ops[1]), jnp.asarray(ops[2]), jnp.int32(ops[3]),
+            jnp.int32(ops[4]), w=w, use_model=use)]
+
+    for fi, (bl, cols, n, w, model) in enumerate(rows):
+        maybe = None if bl is None else np.asarray(ref_pr._bloom_probe_fused(
+            jnp.asarray(h1), jnp.asarray(h2), jnp.asarray(bl[0]),
+            jnp.uint32(bl[1]), jnp.int32(bl[2])))
+        maybes.append(np.ones(b_pad, bool) if maybe is None else maybe)
+        located.append(maybe is None or bool(maybe[:b].any()))
+        if not located[-1]:
+            skips += 1
+            continue
+        qw, ql = ref_pr.pack_query_batch(qs, w)
+        model = model if model_on else None
+        idx, hit, hhi, hlo, wid, miss = locate(cols, n, w, qw, ql, model)
+        if model is not None:
+            hits += 1
+            fallbacks += int(miss[:b].sum())
+            exact = locate(cols, n, w, qw, ql, None)
+            idx, hit, hhi, hlo, wid = (np.where(miss, e, m) for m, e in
+                                       zip((idx, hit, hhi, hlo, wid), exact))
+        ht = (hhi.astype(np.uint64) << np.uint64(32)) | hlo.astype(np.uint64)
+        if best is None:
+            best = [np.zeros(b_pad, np.uint64), np.zeros(b_pad, np.uint32),
+                    np.zeros(b_pad, np.int64), np.zeros(b_pad, np.int64),
+                    np.zeros(b_pad, bool)]
+        upd = hit & (~best[4] | (ht > best[0])
+                     | ((ht == best[0]) & (wid > best[1])))
+        best[0] = np.where(upd, ht, best[0])
+        best[1] = np.where(upd, wid, best[1])
+        best[2] = np.where(upd, idx.astype(np.int64), best[2])
+        best[3] = np.where(upd, fi, best[3])
+        best[4] = best[4] | hit
+    if best is None:
+        best = [np.zeros(b_pad, np.uint64), np.zeros(b_pad, np.uint32),
+                np.zeros(b_pad, np.int64), np.zeros(b_pad, np.int64),
+                np.zeros(b_pad, bool)]
+    return np.stack(maybes), np.asarray(located), best, (skips, hits,
+                                                         fallbacks)
+
+
+@pytest.mark.parametrize("n_files,b", [(1, 1), (2, 64), (3, 65), (5, 1024)])
+def test_every_file_plain_versions_equal_jax_loop_and_fold(n_files, b):
+    """bloom_probe_files + locate_fold (plain, on the CPU) == the JAX
+    package's per-file P2 and P3 and its fold: maybe rows, located flags,
+    the five fold arrays on every lane (pad lanes too), and the counters
+    the DB derives from them; ties in (ht, wid) go to the earlier file."""
+    ref_rows, port_rows, tie_keys = _every_file_set(n_files, 40 + n_files)
+    rng = np.random.default_rng(50 + b)
+    pool = [_skey(int(i), bool(i % 3 == 0)) for i in rng.integers(0, 3300,
+                                                                  2 * b)]
+    qs = (tie_keys[:max(1, b // 8)] + [b"Slong-key-%017d!" % i
+                                       for i in range(b // 8)] + pool)[:b]
+    table = pr.FileTable(port_rows, "cpu")
+    assert {f.w for f in table.files} == ({4, 8} if n_files > 1 else {4})
+    qbuf, ql = table.queries(qs)
+    b_pad = len(ql)
+    assert b_pad == pr.batch_bucket(b)
+    hw, _ = ref_pr.pack_query_batch(qs, 8)
+    h1, h2 = (_u32(h) for h in pr.fnv64_plain(
+        u32_to_device(hw, "cpu"), torch.from_numpy(ql)))
+    for read_ht, model_on in ((_TOP, True), (_TOP, False),
+                              ((1000 + 15000) << 12, True)):
+        maybe, flag = pr.bloom_probe_files(u32_to_device(h1, "cpu"),
+                                           u32_to_device(h2, "cpu"), table, b)
+        out = pr.locate_fold(table, u32_to_device(qbuf, "cpu"),
+                             torch.from_numpy(ql), b, read_ht >> 32,
+                             read_ht & 0xFFFFFFFF, model_on, flag)
+        best, located, misses = pr.fold_arrays(out.numpy(), b_pad, n_files)
+        w_maybe, w_loc, w_best, (skips, hits, fallbacks) = _jax_every_file(
+            ref_rows, qs, h1, h2, b, read_ht, model_on)
+        assert np.array_equal(maybe.numpy(), w_maybe)
+        assert np.array_equal(flag.numpy(), w_loc) \
+            and np.array_equal(located, w_loc)
+        for name, g, x in zip(("ht", "wid", "row", "file", "hit"), best,
+                              w_best):
+            assert np.array_equal(g, x), (read_ht, model_on, name)
+        assert int((~located).sum()) == skips
+        assert sum(1 for f, loc in zip(table.files, located)
+                   if loc and model_on and f.model is not None) == hits
+        assert int(misses.sum()) == fallbacks
+        if n_files >= 3:
+            assert not located[2] and located[1]
+        if n_files >= 4 and model_on and read_ht == _TOP:
+            assert fallbacks > 0
+        if n_files >= 2 and read_ht == _TOP:    # the ties: file 0 wins
+            ties = [i for i, q in enumerate(qs) if q in set(tie_keys)]
+            assert ties and all(best[4][i] and best[3][i] == 0
+                                for i in ties)
+
+
 # ------------------------------------------------------------ DB helpers
 def _fill(db, hyb, n_keys=1200, n_ssts=3, mem_overlay=True):
     """Keys across n_ssts flushed SSTs with 1-2 versions, some row
@@ -399,24 +576,30 @@ class TestLearnedIndex:
                 learned_index.attach_learned_index(r.base_path, bad)
                 db._readers[fid] = SSTReader(r.base_path, db.opts.block_cache)
                 r.close()
-            modes = []
-            locate_batch = pr.locate_batch
+            calls = []
+            locate_fold = pr.locate_fold
 
-            def spy(st, qw, ql, read_ht, model=None):
-                modes.append(model is not None)
-                return locate_batch(st, qw, ql, read_ht, model)
+            def spy(table, qbuf, qlens, b, rhi, rlo, model_on, located):
+                out = locate_fold(table, qbuf, qlens, b, rhi, rlo, model_on,
+                                  located)
+                _best, _loc, misses = pr.fold_arrays(
+                    out.numpy(), qlens.shape[0], len(table.files))
+                calls.append((model_on, int(misses.sum())))
+                return out
 
             def no_host_read(*a, **kw):
                 raise AssertionError("a mispredicted key went to the host")
 
-            with mock.patch.object(pr, "locate_batch", spy), \
+            with mock.patch.object(pr, "locate_fold", spy), \
                     mock.patch.object(db, "_get_inner", no_host_read):
                 assert db.multi_get(keys) == expect
             assert metrics["learned_fallbacks"] > fb0
-            # an exact launch follows a mispredicting model launch on
-            # the same file: never two exact launches in a row
-            assert modes[0] and False in modes
-            assert all(a or b for a, b in zip(modes, modes[1:]))
+            # one P3 launch a chunk, in learned-index mode: the
+            # mispredicted keys were re-sought exactly inside it
+            assert len(calls) == -(-len(keys) // 1024)
+            assert all(m for m, _ in calls)
+            assert sum(n for _, n in calls) == \
+                metrics["learned_fallbacks"] - fb0
         finally:
             db.close()
 

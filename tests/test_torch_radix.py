@@ -11,6 +11,7 @@ tests hold against the JAX package's `sort_and_gc`; one case here is held
 against the JAX loop directly. Inputs come from numpy with a seed.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,6 +169,9 @@ def test_pass_plan_sixteen_rows_matches_jax():
     assert len(rows) == 16
     _c, _t, plan, n_prefix, at = _plan(cols, rows)
     got = _run_plan(cols, plan, n_prefix, at)
-    perm, _keep, _mk = ref_mg.sort_and_gc(
-        jnp.asarray(cols), 0, 0, 0, 0, w, True, False)
+    # jitted as the JAX package runs it (one compile, cached on disk by
+    # the package, instead of compiling each eager operation)
+    perm, _keep, _mk = jax.jit(ref_mg.sort_and_gc, static_argnums=(5, 6, 7))(
+        jnp.asarray(cols), jnp.uint32(0), jnp.uint32(0), jnp.uint32(0),
+        jnp.uint32(0), w, True, False)
     assert np.array_equal(got, np.asarray(perm))

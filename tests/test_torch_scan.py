@@ -21,6 +21,7 @@ scan.py:119). The port's kernel B never keeps a pad row. So the raw keep of
 scan against `scan_visible`'s masked output, not the raw packed words.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,6 +138,13 @@ def _shuffled(runs, seed):
     return slab
 
 
+# The JAX package runs sort_and_gc inside its jitted programs; jitted here
+# too, it compiles once per shape and mode instead of compiling each of
+# its operations eagerly in every process that runs a case.
+_sort_gc_jit = jax.jit(ref_mg.sort_and_gc, static_argnames=(
+    "w", "is_major", "retain_deletes", "snapshot"))
+
+
 def _cutoffs(name):
     if name == "top_bit":
         return [(1 << 63) + ((1 << 40) << 12), (1 << 64) - 1, (1 << 45) << 12]
@@ -165,7 +173,7 @@ def test_sort_and_gc_matches_reference(name, mode):
     snapshot = mode == "snapshot"
     for cutoff in _cutoffs(name):
         hi, lo, phi, plo = _limbs(cutoff)
-        perm, keep, mk = ref_mg.sort_and_gc(
+        perm, keep, mk = _sort_gc_jit(
             jnp.asarray(cols), jnp.uint32(hi), jnp.uint32(lo),
             jnp.uint32(phi), jnp.uint32(plo), w=w, is_major=is_major,
             retain_deletes=retain, sort_rows=jnp.asarray(sort_rows),
@@ -185,7 +193,7 @@ def test_radix_full_schedule_matches_reference(name):
     """The unpruned schedule (sort_rows=None) gives the JAX perm too."""
     slab = _shuffled(_runs(name, 5), 6)
     cols, n, n_pad, w = ref_mg.pack_cols(slab)
-    perm, _k, _m = ref_mg.sort_and_gc(
+    perm, _k, _m = _sort_gc_jit(
         jnp.asarray(cols), jnp.uint32(0), jnp.uint32(0), jnp.uint32(0),
         jnp.uint32(0), w=w, is_major=True, retain_deletes=False)
     got = radix.radix_sort(torch.from_numpy(cols.view(np.int32)),

@@ -20,14 +20,27 @@ csrc/point_read.cu, each beside its plain PyTorch version:
      over staged cols (prefix skip p, 17 exact anchor limbs, max_err
      measured with the inference arithmetic).
 
+`DB.multi_get` runs P2 and P3 once per chunk over every live SST, through
+a `FileTable` of the reader set (each file's bloom, staged cols and
+learned-index operands; on the card a descriptor table uploaded once):
+
+  P2 `bloom_probe_files` (the JAX DB's loop of `_bloom_probe_fused` per
+     SST, storage/db.py:884-891): the maybe mask [files, b_pad] and each
+     file's flag (a real lane passes, or the file has no usable filter);
+  P3 `locate_fold` (the JAX DB's loop of `_locate_gather_fused` per
+     located SST and its newest-wins fold, db.py:895-920): every lane on
+     every located file, a learned-index misprediction re-sought exactly
+     in the same launch, the fold in file order on the card, and one
+     [5, b_pad] buffer with the per-file counters, downloaded once.
+
 Device matrices are int32 tensors holding u32 bits. On a CPU tensor a
 wrapper runs its plain version; on a CUDA tensor it launches its kernel
 or raises. Each wrapper counts its launches in `<wrapper>.launches`.
 
-Host wrappers (`pack_query_batch`, `bloom_device_words`, `hash_batch`,
-`probe_bloom`, `locate_batch`, `fit_learned_index_device`) follow the
-JAX module; `probe_bloom` and `locate_batch` download their result per
-SST, as the JAX ones do. Not ported yet (ROADMAP queue A: health-board
+Host wrappers (`pack_query_batch`, `bloom_device_words`, `probe_bloom`,
+`file_table`, `fit_learned_index_device`) follow the JAX module;
+`probe_bloom` probes one SST and downloads its result, as the JAX one
+does. Not ported yet (ROADMAP queue A: health-board
 routing and device-fault containment):
 `device_faults.maybe_fault`, `record_kernel_dispatch`,
 `prewarm_point_read`, `point_read_snapshot`; `point_read_metrics()` is a
@@ -37,7 +50,7 @@ dict of plain module counters.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -326,6 +339,164 @@ def locate_gather_plain(cols: torch.Tensor, n: int, qwords: torch.Tensor,
             to_u32_bits(g[_ROW_WID]), miss)
 
 
+class TableFile(NamedTuple):
+    """One live SST as P2 and P3 over every file see it."""
+    bloom: Optional[Tuple[torch.Tensor, int, int]]  # (words, m_bits, k)
+    cols: torch.Tensor      # staged cols [8 + w, n_pad]
+    n: int
+    w: int
+    model: Optional[Model]  # learned-index operands
+    q_off: int              # its queries: qbuf[q_off * b_pad:][:w * b_pad]
+
+
+# csrc/point_read.cu FileDesc (ybt_point_file_desc_bytes)
+_DESC = np.dtype({
+    "names": ["words", "cols", "n_pad", "m_bits", "k", "n", "w", "q_off",
+              "has_model", "a_hi", "a_lo", "pos", "p", "max_err"],
+    "formats": [np.uint64, np.uint64, np.int64, np.uint32, np.int32,
+                np.int32, np.int32, np.int32, np.int32,
+                (np.uint32, LINDEX_SEGMENTS + 1),
+                (np.uint32, LINDEX_SEGMENTS + 1),
+                (np.int32, LINDEX_SEGMENTS + 1), np.int32, np.int32],
+    "offsets": [0, 8, 16, 24, 28, 32, 36, 40, 44, 48, 116, 184, 252, 256],
+    "itemsize": 264})
+
+
+class FileTable:
+    """The live SSTs of a reader set, in file order, for P2 and P3 over
+    every file: per file its bloom (None: no usable filter, every lane a
+    maybe), staged cols, n, w, learned-index operands (None: the exact
+    seek) and the offset of its width's queries in the chunk's query
+    buffer (the distinct widths in `widths`, one [b_pad, w] block each).
+    On a CUDA device `desc` holds the descriptors on the card (uint8
+    [files, 264]), uploaded once; the table keeps every tensor it points
+    to alive."""
+
+    def __init__(self, files: Sequence[Tuple], device):
+        self.widths: List[int] = []
+        for f in files:
+            if f[3] not in self.widths:
+                self.widths.append(f[3])
+        offs = {w: sum(self.widths[:i]) for i, w in enumerate(self.widths)}
+        self.files = [TableFile(bloom, cols, n, w,
+                                model if w >= 2 else None, offs[w])
+                      for bloom, cols, n, w, model in files]
+        for f in self.files:
+            if not 0 < f.n <= f.cols.shape[1] < (1 << 30):
+                raise ValueError(f"FileTable: n {f.n}, n_pad "
+                                 f"{f.cols.shape[1]}")
+        self.desc = None
+        if torch.device(device).type == "cuda" and self.files:
+            self.desc = self._pack().to(device)
+
+    def _pack(self) -> torch.Tensor:
+        d = np.zeros(len(self.files), dtype=_DESC)
+        for i, f in enumerate(self.files):
+            if f.bloom is not None:
+                words, m_bits, k = f.bloom
+                d[i]["words"], d[i]["m_bits"], d[i]["k"] = (
+                    words.data_ptr(), m_bits, k)
+            d[i]["cols"], d[i]["n_pad"] = f.cols.data_ptr(), f.cols.shape[1]
+            d[i]["n"], d[i]["w"], d[i]["q_off"] = f.n, f.w, f.q_off
+            if f.model is not None:
+                a_hi, a_lo, pos, p, max_err = f.model
+                d[i]["has_model"] = 1
+                d[i]["a_hi"], d[i]["a_lo"], d[i]["pos"] = a_hi, a_lo, pos
+                d[i]["p"], d[i]["max_err"] = p, max_err
+        return torch.from_numpy(d.view(np.uint8).reshape(len(self.files),
+                                                         _DESC.itemsize))
+
+    def queries(self, chunk: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+        """The chunk's query buffer (every width's padded [b_pad, w] words,
+        one block after the other, flat u32) and its true key lengths."""
+        packs = [pack_query_batch(chunk, w) for w in self.widths]
+        if not packs:
+            return (np.zeros(0, np.uint32),
+                    pack_query_batch(chunk, 1)[1])
+        return (np.concatenate([qw.reshape(-1) for qw, _ in packs]),
+                packs[0][1])
+
+    def file_queries(self, qbuf: torch.Tensor, f: TableFile, b_pad: int
+                     ) -> torch.Tensor:
+        return qbuf[f.q_off * b_pad:(f.q_off + f.w) * b_pad].view(b_pad, f.w)
+
+
+def bloom_probe_files_plain(h1: torch.Tensor, h2: torch.Tensor,
+                            table: FileTable, b: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P2 over every file of the table: bloom_probe_plain per file in file
+    order. Returns (maybe bool [files, b_pad], flag bool [files]): a file
+    without a usable filter is a maybe on every lane; a file's flag is
+    whether one of the first b lanes is a maybe."""
+    maybe = torch.ones((len(table.files), h1.shape[0]), dtype=torch.bool,
+                       device=h1.device)
+    for i, f in enumerate(table.files):
+        if f.bloom is not None:
+            words, m_bits, k = f.bloom
+            maybe[i] = bloom_probe_plain(h1, h2, words, m_bits, k)
+    return maybe, maybe[:, :b].any(dim=1)
+
+
+def locate_fold_plain(table: FileTable, qbuf: torch.Tensor,
+                      qlens: torch.Tensor, b: int, rhi: int, rlo: int,
+                      model_on: bool, located: torch.Tensor) -> torch.Tensor:
+    """P3 over every located file of the table and the newest-wins fold,
+    in file order: locate_gather_plain on every lane (learned-index mode
+    where the file has a model and model_on), the lanes whose model
+    invariant failed taken from an exact locate_gather_plain, then per
+    lane the hit with the largest (ht, wid) by a strict compare (a tie
+    keeps the earlier file). Returns int32 [5 * b_pad + 2 * files]: rows
+    ht_hi, ht_lo, wid (u32 bits), row and file (-1: no hit) of the lane's
+    winner (0 where none), then each file's located flag and its count of
+    mispredicted lanes among the first b."""
+    b_pad = qlens.shape[0]
+    dev = qlens.device
+    nf = len(table.files)
+    best = torch.zeros((4, b_pad), dtype=torch.int64, device=dev)
+    bfile = torch.full((b_pad,), -1, dtype=torch.int64, device=dev)
+    misses = torch.zeros(nf, dtype=torch.int64, device=dev)
+    for i, f in enumerate(table.files):
+        if not bool(located[i]):
+            continue
+        qw = table.file_queries(qbuf, f, b_pad)
+        model = f.model if model_on else None
+        idx, hit, hh, hl, wid, miss = locate_gather_plain(
+            f.cols, f.n, qw, qlens, rhi, rlo, model, f.w)
+        if model is not None:
+            misses[i] = int(miss[:b].sum())
+            if bool(miss.any()):
+                exact = locate_gather_plain(f.cols, f.n, qw, qlens, rhi, rlo,
+                                            None, f.w)
+                idx, hit, hh, hl, wid = (
+                    torch.where(miss, e, m) for m, e in
+                    zip((idx, hit, hh, hl, wid), exact[:5]))
+        hh, hl, wid = _u(hh), _u(hl), _u(wid)
+        bh, bl, bw = best[0], best[1], best[2]
+        upd = hit & ((bfile < 0) | (hh > bh) | ((hh == bh) & (
+            (hl > bl) | ((hl == bl) & (wid > bw)))))
+        best = torch.where(upd, torch.stack([hh, hl, wid, idx.long()]), best)
+        bfile = torch.where(upd, i, bfile)
+    return torch.cat([to_u32_bits(best[:3]).reshape(-1),
+                      best[3].to(torch.int32), bfile.to(torch.int32),
+                      located.to(torch.int32), misses.to(torch.int32)])
+
+
+def fold_arrays(out: np.ndarray, b_pad: int, files: int):
+    """The host view of one downloaded locate_fold buffer: the fold as the
+    sequential host fold leaves it, [ht u64, wid u32, row i64, file i64,
+    hit bool] per lane (zeros where no file hit), each file's located
+    flag and its mispredicted lanes."""
+    u = out.view(np.uint32)
+    file_ = out[4 * b_pad:5 * b_pad].astype(np.int64)
+    ht = (u[:b_pad].astype(np.uint64) << np.uint64(32)) \
+        | u[b_pad:2 * b_pad].astype(np.uint64)
+    best = [ht, u[2 * b_pad:3 * b_pad].copy(),
+            out[3 * b_pad:4 * b_pad].astype(np.int64),
+            np.maximum(file_, 0), file_ >= 0]
+    tail = out[5 * b_pad:]
+    return best, tail[:files] != 0, tail[files:2 * files].astype(np.int64)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (csrc/point_read.cu)
 # ---------------------------------------------------------------------------
@@ -352,6 +523,17 @@ def _lib():
         lib.ybt_point_index_fit.restype = ci
         lib.ybt_point_index_fit.argtypes = [vp, i64, ci, ci, vp, vp, vp, vp,
                                             vp]
+        lib.ybt_point_file_desc_bytes.restype = ci
+        lib.ybt_point_bloom_files.restype = ci
+        lib.ybt_point_bloom_files.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
+                                              vp]
+        lib.ybt_point_locate_fold_scratch.restype = i64
+        lib.ybt_point_locate_fold_scratch.argtypes = [ci, ci]
+        lib.ybt_point_locate_fold.restype = ci
+        lib.ybt_point_locate_fold.argtypes = [vp, ci, vp, vp, ci, ci, u32, u32,
+                                              ci, vp, vp, vp, vp, vp]
+        if lib.ybt_point_file_desc_bytes() != _DESC.itemsize:
+            raise RuntimeError("point_read.cu FileDesc is not _DESC")
         _lib_cache = lib
     return _lib_cache
 
@@ -414,9 +596,16 @@ def bloom_probe(h1: torch.Tensor, h2: torch.Tensor, bloom_words: torch.Tensor,
 bloom_probe.launches = 0
 
 
-def _locate_launch(cols, n, qwords, qlens, rhi, rlo, model, w):
-    """Launch P3: returns its two output buffers, int32 [4, B] (idx,
-    ht_hi, ht_lo, wid) and bool [2, B] (hit, miss)."""
+def locate_gather(cols: torch.Tensor, n: int, qwords: torch.Tensor,
+                  qlens: torch.Tensor, rhi: int, rlo: int,
+                  model: Optional[Model], w: int):
+    """Kernel P3 wrapper (see locate_gather_plain). Returns (idx i32, hit
+    bool, ht_hi, ht_lo, wid (u32 bits in int32), miss bool), all [B].
+    CPU tensor: the plain version. CUDA tensor: csrc/point_read.cu,
+    counted in `locate_gather.launches`."""
+    if not cols.is_cuda:
+        return locate_gather_plain(cols, n, qwords, qlens, rhi, rlo, model,
+                                   w)
     n_pad = cols.shape[1]
     b = qwords.shape[0]
     _check(cols, (_ROW_WORDS + w, n_pad), "locate_gather cols")
@@ -453,24 +642,94 @@ def _locate_launch(cols, n, qwords, qlens, rhi, rlo, model, w):
         flags.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "locate_gather")
     locate_gather.launches += 1
-    return out, flags
-
-
-def locate_gather(cols: torch.Tensor, n: int, qwords: torch.Tensor,
-                  qlens: torch.Tensor, rhi: int, rlo: int,
-                  model: Optional[Model], w: int):
-    """Kernel P3 wrapper (see locate_gather_plain). Returns (idx i32, hit
-    bool, ht_hi, ht_lo, wid (u32 bits in int32), miss bool), all [B].
-    CPU tensor: the plain version. CUDA tensor: csrc/point_read.cu,
-    counted in `locate_gather.launches`."""
-    if not cols.is_cuda:
-        return locate_gather_plain(cols, n, qwords, qlens, rhi, rlo, model,
-                                   w)
-    out, flags = _locate_launch(cols, n, qwords, qlens, rhi, rlo, model, w)
     return out[0], flags[0], out[1], out[2], out[3], flags[1]
 
 
 locate_gather.launches = 0
+
+
+def _check_table(table: FileTable, dev) -> None:
+    if table.desc is None or table.desc.device != dev:
+        raise ValueError(f"FileTable: no descriptors on {dev}")
+
+
+def bloom_probe_files(h1: torch.Tensor, h2: torch.Tensor, table: FileTable,
+                      b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel P2 over every file of the table (see bloom_probe_files_plain).
+    CPU tensor: the plain version. CUDA tensor: csrc/point_read.cu, one
+    launch (b_pad <= 1024), counted in `bloom_probe_files.launches`."""
+    if not h1.is_cuda:
+        return bloom_probe_files_plain(h1, h2, table, b)
+    b_pad = h1.shape[0]
+    _check(h1, (b_pad,), "bloom_probe_files h1")
+    _check(h2, (b_pad,), "bloom_probe_files h2")
+    dev = h1.device
+    _check_table(table, dev)
+    nf = len(table.files)
+    if not 0 < b <= b_pad <= BATCH_BUCKETS[-1]:
+        raise ValueError(f"bloom_probe_files: b {b}, b_pad {b_pad}")
+    out = torch.empty(nf * (b_pad + 1), dtype=torch.bool, device=dev)
+    maybe, flag = out[:nf * b_pad].view(nf, b_pad), out[nf * b_pad:]
+    rc = _lib().ybt_point_bloom_files(
+        table.desc.data_ptr(), nf, h1.data_ptr(), h2.data_ptr(), b_pad, b,
+        maybe.data_ptr(), flag.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "bloom_probe_files")
+    bloom_probe_files.launches += 1
+    return maybe, flag
+
+
+bloom_probe_files.launches = 0
+
+# P3-over-every-file's completion ticket, one zeroed u32 per (device,
+# stream), which each launch leaves at 0
+_fold_ticket = {}
+
+
+def _fold_ticket_for(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch_setup.stream_ptr(dev))
+    buf = _fold_ticket.get(key)
+    if buf is None:
+        buf = torch.zeros(4, dtype=torch.int32, device=dev)
+        _fold_ticket[key] = buf
+    return buf
+
+
+def locate_fold(table: FileTable, qbuf: torch.Tensor, qlens: torch.Tensor,
+                b: int, rhi: int, rlo: int, model_on: bool,
+                located: torch.Tensor) -> torch.Tensor:
+    """Kernel P3 + the newest-wins fold over every file of the table (see
+    locate_fold_plain). CPU tensor: the plain version. CUDA tensor:
+    csrc/point_read.cu, one launch, counted in `locate_fold.launches`."""
+    if not qlens.is_cuda:
+        return locate_fold_plain(table, qbuf, qlens, b, rhi, rlo, model_on,
+                                 located)
+    b_pad = qlens.shape[0]
+    dev = qlens.device
+    _check_table(table, dev)
+    nf = len(table.files)
+    _check(qbuf, (b_pad * sum(table.widths),), "locate_fold qbuf")
+    _check(qlens, (b_pad,), "locate_fold qlens")
+    if not located.is_cuda or located.dtype != torch.bool \
+            or tuple(located.shape) != (nf,) or not located.is_contiguous():
+        raise ValueError("locate_fold: located must be a contiguous bool "
+                         f"[{nf}] CUDA tensor")
+    if not 0 < b <= b_pad:
+        raise ValueError(f"locate_fold: b {b}, b_pad {b_pad}")
+    lib = _lib()
+    n_out = 5 * b_pad + 2 * nf
+    buf = torch.empty(n_out + lib.ybt_point_locate_fold_scratch(nf, b_pad),
+                      dtype=torch.int32, device=dev)
+    rc = lib.ybt_point_locate_fold(
+        table.desc.data_ptr(), nf, qbuf.data_ptr(), qlens.data_ptr(), b_pad,
+        b, rhi & _U32, rlo & _U32, int(bool(model_on)), located.data_ptr(),
+        buf[n_out:].data_ptr(), _fold_ticket_for(dev).data_ptr(),
+        buf.data_ptr(), torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "locate_fold")
+    locate_fold.launches += 1
+    return buf[:n_out]
+
+
+locate_fold.launches = 0
 
 
 def index_fit(cols: torch.Tensor, n: int, w: int):
@@ -549,11 +808,6 @@ def bloom_device_words(reader, device):
     return cache[str(dev)]
 
 
-def hash_batch(qwords, dkls, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """P1 over the doc-key prefix of each padded query (upload + launch)."""
-    return fnv64(to_device(qwords, device), to_device(dkls, device))
-
-
 def probe_bloom(reader, h1: torch.Tensor, h2: torch.Tensor
                 ) -> Optional[np.ndarray]:
     """Probe one SST's bloom for the batch (P2 + download); None = no
@@ -565,27 +819,15 @@ def probe_bloom(reader, h1: torch.Tensor, h2: torch.Tensor
     return bloom_probe(h1, h2, words, m_bits, k).cpu().numpy()
 
 
-def locate_batch(staged: StagedCols, qwords, qlens, read_ht_value: int,
-                 model_ops: Optional[Model] = None):
-    """P3 over one staged SST, then the download. qwords/qlens: numpy or
-    tensors on the staged matrix's device. model_ops: (a_hi, a_lo,
-    anchor_pos, p, max_err) from storage/learned_index.model_operands, or
-    None for the exact full seek. Returns numpy (idx, hit, ht_hi u32,
-    ht_lo u32, wid u32, miss)."""
-    cols = staged.cols_dev
-    args = (cols, staged.n, to_device(qwords, cols.device),
-            to_device(qlens, cols.device), read_ht_value >> 32,
-            read_ht_value & _U32, model_ops, staged.w)
-    if cols.is_cuda:
-        # two downloads (the kernel's two buffers) instead of six
-        out, flags = _locate_launch(*args)
-        (idx, hhi, hlo, wid), (hit, miss) = (out.cpu().numpy(),
-                                             flags.cpu().numpy())
-    else:
-        idx, hit, hhi, hlo, wid, miss = (
-            x.numpy() for x in locate_gather_plain(*args))
-    return (idx, hit, hhi.view(np.uint32), hlo.view(np.uint32),
-            wid.view(np.uint32), miss)
+def file_table(staged_by, device) -> FileTable:
+    """The FileTable of (file id, reader, staged cols) triples: each
+    file's bloom words (bloom_device_words), staged matrix and validated
+    learned-index operands (storage/learned_index.model_operands)."""
+    from yugabyte_tpu_torch.storage import learned_index
+    return FileTable(
+        [(bloom_device_words(r, device), st.cols_dev, st.n, st.w,
+          learned_index.model_operands(r.props.lindex, st.n))
+         for _fid, r, st in staged_by], device)
 
 
 def fit_learned_index_device(staged: StagedCols) -> Optional[dict]:

@@ -112,6 +112,8 @@ class DB:
                 f"ported yet (ROADMAP queue A: {_ENTRY_POINTS}); pass "
                 "auto_compact=False")
         self._device = self._device_cache = None
+        # (staged_by, FileTable) of the last batched read (_file_table)
+        self._point_table = None
         if self.opts.device == "native":
             if self.opts.device_cache is not None:
                 raise ValueError("DBOptions(device='native') runs no "
@@ -529,87 +531,71 @@ class DB:
 
     def _device_chunk(self, chunk, dkls, read_ht, staged_by):
         """One chunk through the kernels: P1 over the doc-key prefixes,
-        then per SST P2 (a file whose bloom rejects every key is skipped)
-        and P3, the newest (ht, wid) hit kept per key. Returns None when
-        no file was located, else arrays (ht u64, wid u32, row, file
-        index, hit)."""
+        then P2 over every live SST (a file whose bloom rejects every key
+        is not located) and P3 with the newest (ht, wid) hit kept per key,
+        one launch each, and one download. Returns None when no file was
+        located, else arrays (ht u64, wid u32, row, file index, hit)."""
         from yugabyte_tpu_torch.ops import point_read
         point_read.count("batches")
         point_read.count("keys", len(chunk))
-        hw, dk, packs = self._pack_chunk(chunk, dkls, staged_by)
-        h1, h2 = point_read.hash_batch(hw, dk, hw.device)
-        best = None
-        for fi, (_fid, r, st) in enumerate(staged_by):
-            maybe = point_read.probe_bloom(r, h1, h2)
-            if maybe is not None and not maybe[:len(chunk)].any():
-                point_read.count("bloom_skips")
-                continue
-            best = self._locate_file(packs[st.w], r, st, read_ht,
-                                     len(chunk), fi, best)
-        return best
+        table = self._file_table(staged_by)
+        hw, dk, qbuf, ql = self._pack_chunk(chunk, dkls, table)
+        h1, h2 = point_read.fnv64(hw, dk)
+        if not table.files:
+            return None
+        b, b_pad = len(chunk), ql.shape[0]
+        _maybe, located = point_read.bloom_probe_files(h1, h2, table, b)
+        model_on = flags.get_flag("point_read_learned_index")
+        out = point_read.locate_fold(table, qbuf, ql, b, read_ht.value >> 32,
+                                     read_ht.value & 0xFFFFFFFF, model_on,
+                                     located)
+        best, located, misses = point_read.fold_arrays(
+            out.cpu().numpy(), b_pad, len(table.files))
+        point_read.count("bloom_skips", int((~located).sum()))
+        if model_on:
+            point_read.count("learned_hits", sum(
+                1 for f, loc in zip(table.files, located)
+                if loc and f.model is not None))
+            point_read.count("learned_fallbacks", int(misses.sum()))
+        return best if located.any() else None
 
-    def _pack_chunk(self, chunk, dkls, staged_by):
-        """The host half of a chunk, uploaded: the padded doc-key prefixes
-        and their lengths (P1's operands), and per key width of the live
-        files the padded queries and their true lengths (P3's). Returns
-        (hash words, doc-key lengths, {w: (qwords, qlens)})."""
+    def _file_table(self, staged_by):
+        """The reader set's FileTable (ops/point_read.py), rebuilt only
+        when a live file or its staged matrix changed."""
+        from yugabyte_tpu_torch.ops import point_read
+        cached = self._point_table
+        if cached is not None and len(cached[0]) == len(staged_by) and all(
+                a[1] is b[1] and a[2] is b[2]
+                for a, b in zip(cached[0], staged_by)):
+            return cached[1]
+        table = point_read.file_table(staged_by, self._device_cache.device)
+        self._point_table = (list(staged_by), table)
+        return table
+
+    def _pack_chunk(self, chunk, dkls, table):
+        """The host half of a chunk in one upload: the padded doc-key
+        prefixes and their lengths (P1's operands), the queries of every
+        key width of the live files and their true lengths (P3's).
+        Returns (hash words [b_pad, w], doc-key lengths, query buffer,
+        query lengths), views of one device buffer."""
         from yugabyte_tpu_torch.ops import point_read
         from yugabyte_tpu_torch.ops.run_merge import quantize_width
         from yugabyte_tpu_torch.ops.slabs import _doc_key_len
-        dev = self._device_cache.device
         if dkls is None:
             dkls = [_doc_key_len(k) for k in chunk]
         w_hash = quantize_width(max(1, -(-max(dkls) // 4)))
         hw, _hl = point_read.pack_query_batch(chunk, w_hash)
-        dk = np.zeros(len(hw), dtype=np.int32)
+        b_pad = len(hw)
+        dk = np.zeros(b_pad, dtype=np.int32)
         dk[:len(chunk)] = dkls
-        packs = {}
-        for _fid, _r, st in staged_by:
-            if st.w not in packs:
-                qw, ql = point_read.pack_query_batch(chunk, st.w)
-                packs[st.w] = (point_read.to_device(qw, dev),
-                               point_read.to_device(ql, dev))
-        return (point_read.to_device(hw, dev), point_read.to_device(dk, dev),
-                packs)
-
-    @staticmethod
-    def _locate_file(pack, r, st, read_ht, b, fi, best):
-        """P3 (+ download) of the chunk's queries on one staged SST, in
-        learned-index mode when the file carries a usable model. Lanes the
-        model mispredicted (its invariant check flags them `miss`) are
-        resolved by a second, exact launch on the same cols. The file's
-        hits are folded into `best` (newest (ht, wid) wins), which is
-        returned (created on the first located file)."""
-        from yugabyte_tpu_torch.ops import point_read
-        from yugabyte_tpu_torch.storage import learned_index
-        qw, ql = pack
-        model = (learned_index.model_operands(r.props.lindex, st.n)
-                 if flags.get_flag("point_read_learned_index") else None)
-        idx, hit, hhi, hlo, wid, miss = point_read.locate_batch(
-            st, qw, ql, read_ht.value, model)
-        if model is not None:
-            point_read.count("learned_hits")
-            n_miss = int(miss[:b].sum())
-            if n_miss:
-                point_read.count("learned_fallbacks", n_miss)
-                exact = point_read.locate_batch(st, qw, ql, read_ht.value)
-                idx, hit, hhi, hlo, wid = (
-                    np.where(miss, e, m) for m, e in
-                    zip((idx, hit, hhi, hlo, wid), exact[:5]))
-        ht = (hhi.astype(np.uint64) << np.uint64(32)) | hlo.astype(np.uint64)
-        if best is None:
-            b_pad = len(hit)
-            best = [np.zeros(b_pad, np.uint64), np.zeros(b_pad, np.uint32),
-                    np.zeros(b_pad, np.int64), np.zeros(b_pad, np.int64),
-                    np.zeros(b_pad, bool)]
-        upd = hit & (~best[4] | (ht > best[0])
-                     | ((ht == best[0]) & (wid > best[1])))
-        best[0] = np.where(upd, ht, best[0])
-        best[1] = np.where(upd, wid, best[1])
-        best[2] = np.where(upd, idx.astype(np.int64), best[2])
-        best[3] = np.where(upd, fi, best[3])
-        best[4] = best[4] | hit
-        return best
+        qbuf, ql = table.queries(chunk)
+        host = np.concatenate([hw.reshape(-1), dk.view(np.uint32),
+                               ql.view(np.uint32), qbuf])
+        buf = point_read.to_device(host, self._device_cache.device)
+        n_hw = hw.size
+        return (buf[:n_hw].view(b_pad, w_hash),
+                buf[n_hw:n_hw + b_pad], buf[n_hw + 2 * b_pad:],
+                buf[n_hw + b_pad:n_hw + 2 * b_pad])
 
     def _combine_device_chunk(self, chunk, start, mem_hits, staged_by, best,
                               results):
