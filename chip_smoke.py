@@ -84,7 +84,8 @@ Phases (any failure exits non-zero):
      `run_compaction_job_with_decisions`, each == its native job, the
      decisions == sequential launches, one span == the sequential one;
      kernels M1-M3 at the 10M-row job's shard shapes == their plain
-     versions, timed beside their bounds, and the exchange copy;
+     versions (M3 one launch a call), timed beside their bounds, the
+     exchange copy, and the job's M2 + M3 time on the device;
   6. the snapshot scan over the same 4 input SSTs: the full-tablet
      seq-scan (`ops.scan.visible_entries_sources` over
      SlabSource(read_all()), read time above every write, no bounds)
@@ -117,14 +118,14 @@ Phases (any failure exits non-zero):
      reads at a mid read time, 32 small calls, reads with the learned
      index off, and learned-index reads over the lineitem SSTs opened as
      a DB. Every answer equals the native per-key path's, a sample equals
-     sequential gets; P1, P2 over every SST (`bloom_probe_files`) and
-     P3 + the fold (`locate_fold`) launch once per chunk, the per-file
-     P2 and P3 never; P3 in exact and learned-index mode (no lineitem key
+     sequential gets; P1 + P2 over every SST (`hash_probe_files`) and
+     P3 + the fold (`locate_fold`) launch once per chunk, P1 on its own
+     and the per-file P2 and P3 never; P3 in exact and learned-index mode (no lineitem key
      mispredicted); each call's chunks replayed through the per-file
      launches and the host fold give the same folds and counters; P4 on
      every SST equals its persisted model. Stage breakdowns of one warm
-     chunk per DB; kernels P1-P4 and P2 / P3 over every file == their
-     plain versions, timed beside their bounds (P3's beside its floor:
+     chunk per DB; kernels P1-P4, P1 + P2 and P3 over every file ==
+     their plain versions (the path's hashes == P1's), timed beside their bounds (P3's beside its floor:
      one launch and its dependent-load chain at an HBM load latency
      measured on the card);
  10. a `kernels` JSON line, the card line, and last
@@ -1749,11 +1750,15 @@ def pool_wave_phase(args, workdir, mesh, device, wrappers, ids):
 
 def mesh_kernel_phase(args, kin, launches, bandwidth):
     """Kernels M1-M3 at the 10M-row mesh job's shard shapes (shard 0 for
-    M2 and M3), against their plain versions (max_abs_err must be 0),
-    timed with CUDA events beside their byte bounds; M3 beside
-    torch.sort(dest, stable=True), which gives the stable order alone;
-    the exchange (`_exchange_copies`, the job's own) timed beside its
-    byte bound and beside one permuted copy of the same stacked sends."""
+    M2 and M3), against their plain versions (max_abs_err must be 0; M3's
+    send buffer and overflow word bit for bit), timed with CUDA events
+    beside their byte bounds, M2 and M3 also on the device (one launch a
+    call, no memset, no copy); M3 beside torch.sort(dest, stable=True),
+    which gives the stable order alone; the exchange (`_exchange_copies`,
+    the job's own) timed beside its byte bound and beside one permuted
+    copy of the same stacked sends; the job's routing (M1 once, M2 and M3
+    a shard) on the device by kernel, one attempt of it. Returns (rows,
+    exchange, routing)."""
     import torch
     from yugabyte_tpu_torch.parallel import dist_compact
 
@@ -1810,7 +1815,33 @@ def mesh_kernel_phase(args, kin, launches, bandwidth):
     rows[2]["library_call"] = "torch.sort(dest, stable=True), the order alone"
     rows[2]["shard_lanes"] = n_local
     rows[2]["send_lanes"] = width
+    for e, fn, m in ((rows[1], dist_compact.route_dest, m2),
+                     (rows[2], dist_compact.bucket_scatter, m3)):
+        prof = device_profile(lambda fn=fn, m=m: fn(*m), args.reps)
+        one_launch_no_copy(e["name"], prof)
+        e.update(device_ms=prof["device_ms"],
+                 launches_per_call=prof["launches_per_call"])
     del got3
+    # the mesh job's routing, one attempt of it as the job runs it (M1
+    # once, M2 and M3 a shard on the job's capacity), device time by
+    # kernel: M2 + M3 a job is this attempt's times the job's attempts
+    attempts = launches["splitter_pick"]
+    by_kernel = {}
+    for kname, us in profiled(lambda: dist_compact._route_and_bucket(
+            cols, n_local, cap, mesh, w_route), 1):
+        ms, k = by_kernel.get(kernel_name(kname), (0.0, 0))
+        by_kernel[kernel_name(kname)] = (ms + us / 1e3, k + 1)
+    m23 = sum(ms for kname, (ms, _k) in by_kernel.items()
+              if kname in ("route_dest_kernel", "bucket_scatter_kernel"))
+    if not m23:
+        raise AssertionError("the profiler saw no M2 or M3 in the job's "
+                             "routing")
+    routing = {"attempts": attempts, "m2_m3_device_ms_attempt": m23,
+               "m2_m3_device_ms_job": m23 * attempts,
+               "device_kernels": {k: list(v) for k, v in by_kernel.items()}}
+    log(f"the mesh job's M2 + M3 on the device: {m23:.4f} ms an attempt, "
+        f"{attempts} attempt(s): {m23 * attempts:.4f} ms a job "
+        f"({routing['device_kernels']})")
     # the exchange: the job's per-destination copies of the 8 shards'
     # send buffers, and for comparison one permuted copy of them stacked
     send_all = torch.arange(n_shards * (r + 1) * width, dtype=torch.int32,
@@ -1838,7 +1869,7 @@ def mesh_kernel_phase(args, kin, launches, bandwidth):
     log(f"exchange copies: {ex_ms:.4f} ms for {ex_bytes:,} bytes moved "
         f"(one permuted copy {perm_ms:.4f} ms, bound "
         f"{exchange['bound_ms']:.4f} ms)")
-    return rows, exchange
+    return rows, exchange, routing
 
 
 # ---------------------------------------------------------------- the scan
@@ -3072,7 +3103,7 @@ def lineitem_point_keys(db, n: int, seed: int) -> list:
 def _point_wrappers():
     from yugabyte_tpu_torch.ops import point_read
     return {"fnv64": point_read.fnv64,
-            "bloom_probe_files": point_read.bloom_probe_files,
+            "hash_probe_files": point_read.hash_probe_files,
             "locate_fold": point_read.locate_fold,
             "bloom_probe": point_read.bloom_probe,
             "locate_gather": point_read.locate_gather,
@@ -3140,8 +3171,9 @@ def replay_per_file(db, calls, read_ht, counters, what: str) -> None:
 
 
 def per_file_chunk(db, chunk, read_ht, staged_by):
-    """The batched read's device stage as it ran before P2 and P3 ran
-    over every file: per live SST one P2 (`bloom_probe`) and its
+    """The batched read's device stage as it ran before P1, P2 and P3
+    ran in a launch each over every file: P1 (`fnv64`), per live SST one
+    P2 (`bloom_probe`) and its
     download, per located SST one P3 (`locate_gather`) and its download,
     an exact P3 relaunch where the learned index mispredicted a real
     lane, and the newest-wins fold on the host. Returns (fold arrays (ht
@@ -3206,10 +3238,10 @@ def same_fold(got, want, b: int, what: str) -> None:
 
 
 def check_point_launches(launches, chunks: int, files: int, what: str):
-    """P1, P2 over every file and P3 + the fold once per chunk, whatever
-    the number of live SSTs (`files`); no per-file P2 or P3 and no P4 on
-    the read path."""
-    want = {"fnv64": chunks, "bloom_probe_files": chunks,
+    """P1 + P2 over every file and P3 + the fold once per chunk, whatever
+    the number of live SSTs (`files`); no P1 on its own, no per-file P2
+    or P3 and no P4 on the read path."""
+    want = {"fnv64": 0, "hash_probe_files": chunks,
             "locate_fold": chunks, "bloom_probe": 0, "locate_gather": 0,
             "index_fit": 0}
     if files < 1 or {k: launches[k] for k in want} != want:
@@ -3403,8 +3435,8 @@ def point_breakdown(db, chunk, read_ht):
     the other through the DB's own steps of `_multi_get_device` (the
     body of `_device_chunk` unrolled), each ended by its download or a
     synchronize: host pack (`_pack_chunk`: _doc_key_len,
-    pack_query_batch per width, one upload), P1 (`fnv64`), the P2 launch
-    over every SST (`bloom_probe_files`), P3 + the fold over every
+    pack_query_batch per width, one upload), the P1 + P2 launch over
+    every SST (`hash_probe_files`), P3 + the fold over every
     located SST (`locate_fold`) with its one download and the counters,
     combine (the memtable probe, `_mem_probe_many`) and the winners'
     value fetch (`_combine_device_chunk`). Returns the stages, the
@@ -3421,13 +3453,9 @@ def point_breakdown(db, chunk, read_ht):
     sync()
     st_t["host_pack_s"] = time.time() - t0
     t0 = time.time()
-    h1, h2 = pr.fnv64(hw, dk)
+    _maybe, located, h1, h2 = pr.hash_probe_files(hw, dk, table, b)
     sync()
-    st_t["p1_s"] = time.time() - t0
-    t0 = time.time()
-    _maybe, located = pr.bloom_probe_files(h1, h2, table, b)
-    sync()
-    st_t["p2_s"] = time.time() - t0
+    st_t["p1_p2_s"] = time.time() - t0
     t0 = time.time()
     model_on = flags.get_flag("point_read_learned_index")
     rd = read_ht.value
@@ -3477,10 +3505,10 @@ def point_bytes(t, calls):
     once and each output written once. P1: per lane its key words up to
     its doc-key length, the length, 8 bytes out. P2: per lane h1 and h2,
     the distinct filter words the probes read up to each lane's first
-    zero bit, 1 byte out; over every file, those words of every filter
-    and a maybe byte per lane and file plus a flag per file out. P3: see
-    locate_bytes and fold_bytes. P4: the two coordinate rows of the n
-    real entries, 17 x 8 + 8 bytes out."""
+    zero bit, 1 byte out. P1 + P2 over every file: P1's bytes, those
+    words of every filter and a maybe byte per lane and file plus a flag
+    per file out. P3: see locate_bytes and fold_bytes. P4: the two
+    coordinate rows of the n real entries, 17 x 8 + 8 bytes out."""
     w = t["qwords_hash"].shape[1]
     dk = t["dkls"].long().clamp(0, 4 * w)
     p1 = int((4 * ((dk + 3) // 4)).sum()) + 12 * dk.numel()
@@ -3488,14 +3516,14 @@ def point_bytes(t, calls):
     b_pad = t["h1"].numel()
     p2 = 9 * b_pad + 4 * bloom_words_touched(t["h1"], t["h2"], bloom)
     nf = len(t["blooms"])
-    p2_files = 8 * b_pad + nf * (b_pad + 1) + 4 * sum(
+    p12_files = p1 + nf * (b_pad + 1) + 4 * sum(
         bloom_words_touched(t["h1"], t["h2"], bl)
         for bl in t["blooms"] if bl is not None)
     p3, chain = locate_bytes(*calls["locate_gather"])
     p3_model, chain_model = locate_bytes(*calls["locate_gather_model"])
     fold, fold_chain = fold_bytes(*calls["locate_fold"])
     fold_model, fold_chain_model = fold_bytes(*calls["locate_fold_model"])
-    return {"fnv64": p1, "bloom_probe": p2, "bloom_probe_files": p2_files,
+    return {"fnv64": p1, "bloom_probe": p2, "hash_probe_files": p12_files,
             "locate_gather": p3, "locate_gather_model": p3_model,
             "locate_fold": fold, "locate_fold_model": fold_model,
             "index_fit": 8 * calls["index_fit"][1] + 144,
@@ -3624,20 +3652,23 @@ def locate_bytes(cols, n, qw, ql, rhi, rlo, model, w):
 
 
 def point_kernel_phase(args, t, t_li, launches, bandwidth):
-    """P1-P4 and P2 / P3 over every file against their plain versions on
-    the card, bit for bit, on the point-read phase's tensors: P1 on the
+    """P1-P4, P1 + P2 and P3 over every file against their plain versions
+    on the card, bit for bit, on the point-read phase's tensors: P1 on the
     breakdown chunk's hash batch, P2 on every SST's filter, P3 on every
     located SST of the YCSB chunk (exact mode) and of the lineitem chunk
-    (learned-index mode), P2 and P3 + the fold over every file on both
-    chunks (the model on and off), P4 on every staged YCSB and lineitem
-    SST. Timed with CUDA events and torch.profiler's device time beside
+    (learned-index mode), P1 + P2 (its maybe mask, flags and the hashes,
+    also against P1's plain version) and P3 + the fold over every file on
+    both chunks (the model on and off), P4 on every staged YCSB and
+    lineitem SST. Timed with CUDA events and torch.profiler's device time beside
     their bounds (bytes over the card's rate); P3 over every file also
     beside its floor, one launch and its longest dependent-load chain at
     the HBM load latency measured here (hbm_load_ns). No single PyTorch
     call computes any of them (library_ms null). The path's rows are P1,
-    P2 and P3 over every file and P4; the per-file P2 and P3, which the
-    path no longer launches, are checked and timed inside them
-    (`per_file`)."""
+    P1 + P2 and P3 over every file and P4; P1's row is the P1 + P2
+    launch, which computes it on the path, with P1's own bound; the
+    per-query P1 and the per-file P2 and P3, which the path no longer
+    launches, are checked and timed inside them (`standalone`,
+    `per_file`)."""
     import torch
     from yugabyte_tpu_torch.ops import point_read as pr
 
@@ -3653,7 +3684,7 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
         return err
 
     names = ("fnv64", "bloom_probe", "locate_gather", "index_fit",
-             "bloom_probe_files", "locate_fold")
+             "hash_probe_files", "locate_fold")
     errs = {k: 0 for k in names}
     calls = {}
     for tt in (t, t_li):
@@ -3676,11 +3707,14 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                     pr.locate_gather(*a), pr.locate_gather_plain(*a), "P3"))
                 calls.setdefault("locate_gather" if m is None
                                  else "locate_gather_model", a)
-        a2 = (tt["h1"], tt["h2"], tt["table"], tt["b"])
-        errs["bloom_probe_files"] = max(errs["bloom_probe_files"], same(
-            pr.bloom_probe_files(*a2), pr.bloom_probe_files_plain(*a2),
-            "P2 over every file"))
-        calls.setdefault("bloom_probe_files", a2)
+        a2 = (tt["qwords_hash"], tt["dkls"], tt["table"], tt["b"])
+        got2 = pr.hash_probe_files(*a2)
+        errs["hash_probe_files"] = max(
+            errs["hash_probe_files"],
+            same(got2, pr.hash_probe_files_plain(*a2),
+                 "P1 + P2 over every file"),
+            same(got2[2:], pr.fnv64_plain(*args1), "the path's hash"))
+        calls.setdefault("hash_probe_files", a2)
         for model_on in (True, False):
             a3 = (tt["table"], tt["qbuf"], tt["ql"], tt["b"], rd >> 32,
                   rd & 0xFFFFFFFF, model_on, tt["located"])
@@ -3700,29 +3734,29 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                  "locate_fold_model"):
         if need not in calls:
             raise AssertionError(f"{need} was not checked")
-    log("kernels P1-P4 and P2 / P3 over every file == their plain versions "
-        "on the point-read phase's tensors (P3 in exact and learned-index "
-        "mode)")
+    log("kernels P1-P4, P1 + P2 and P3 over every file == their plain "
+        "versions on the point-read phase's tensors (P3 in exact and "
+        "learned-index mode; the path's hashes == P1's)")
     nbytes = point_bytes(t, calls)
     kern = {"fnv64": pr.fnv64, "bloom_probe": pr.bloom_probe,
             "locate_gather": pr.locate_gather,
             "locate_gather_model": pr.locate_gather,
             "index_fit": pr.index_fit,
-            "bloom_probe_files": pr.bloom_probe_files,
+            "hash_probe_files": pr.hash_probe_files,
             "locate_fold": pr.locate_fold,
             "locate_fold_model": pr.locate_fold}
     plain = {"fnv64": pr.fnv64_plain, "bloom_probe": pr.bloom_probe_plain,
              "locate_gather": pr.locate_gather_plain,
              "locate_gather_model": pr.locate_gather_plain,
              "index_fit": pr.index_fit_plain,
-             "bloom_probe_files": pr.bloom_probe_files_plain,
+             "hash_probe_files": pr.hash_probe_files_plain,
              "locate_fold": pr.locate_fold_plain,
              "locate_fold_model": pr.locate_fold_plain}
     times = {k: (cuda_ms(lambda k=k: kern[k](*calls[k]), args.reps),
                  cuda_ms(lambda k=k: plain[k](*calls[k]), 2))
              for k in kern}
     dev = {k: device_profile(lambda k=k: kern[k](*calls[k]), args.reps)
-           for k in ("bloom_probe_files", "locate_fold", "locate_fold_model")}
+           for k in ("hash_probe_files", "locate_fold", "locate_fold_model")}
     lat = hbm_load_ns(t["staged"], 3 * args.reps)
     log(f"HBM load latency {lat['hbm_load_ns']:.1f} ns, launch "
         f"{lat['launch_ms']:.4f} ms (one lane: {lat['one_lane_ms']}, chain "
@@ -3731,7 +3765,7 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                 "bloom_probe": "yugabyte_tpu/ops/point_read.py:171",
                 "locate_gather": "yugabyte_tpu/ops/point_read.py:317",
                 "index_fit": "yugabyte_tpu/ops/point_read.py:257"}
-    replaces["bloom_probe_files"] = replaces["bloom_probe"]
+    replaces["hash_probe_files"] = replaces["bloom_probe"]
     replaces["locate_fold"] = replaces["locate_gather"]
 
     def entry(name):
@@ -3744,9 +3778,17 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                 "bound_by": "bytes", "library_ms": None}
 
     rows = []
-    for name in ("fnv64", "bloom_probe_files", "locate_fold", "index_fit"):
+    for name in ("fnv64", "hash_probe_files", "locate_fold", "index_fit"):
         e = entry(name)
-        if name == "bloom_probe_files":
+        if name == "fnv64":
+            e.update(launches=launches["hash_probe_files"],
+                     ms=times["hash_probe_files"][0],
+                     device_ms=dev["hash_probe_files"]["device_ms"],
+                     max_abs_err=max(errs["fnv64"],
+                                     errs["hash_probe_files"]),
+                     fused_into="hash_probe_files",
+                     standalone=entry("fnv64"))
+        if name == "hash_probe_files":
             e["device_ms"] = dev[name]["device_ms"]
             e["launches_per_call"] = dev[name]["launches_per_call"]
             e["per_file"] = entry("bloom_probe")
@@ -3789,7 +3831,9 @@ def point_kernel_phase(args, t, t_li, launches, bandwidth):
                if name == "locate_fold" else "")
             + (f"; device {e['device_ms']:.4f} ms; per file "
                f"{e['per_file']['ms']:.4f} ms"
-               if name == "bloom_probe_files" else ""))
+               if name == "hash_probe_files" else "")
+            + (f"; the P1 + P2 launch; standalone "
+               f"{e['standalone']['ms']:.4f} ms" if name == "fnv64" else ""))
         rows.append(e)
     return rows
 
@@ -4356,8 +4400,9 @@ def main() -> int:
         mesh_out, mesh_launches, mesh_kin = mesh_phase(
             args, readers, skew_paths, workdir, comp, card)
         launches.update(mesh_launches)
-        mesh_rows, mesh_out["exchange"] = mesh_kernel_phase(
-            args, mesh_kin, launches["mesh_job"], bandwidth)
+        mesh_rows, mesh_out["exchange"], mesh_out["routing"] = \
+            mesh_kernel_phase(args, mesh_kin, launches["mesh_job"],
+                              bandwidth)
         del mesh_kin
         torch.cuda.empty_cache()
         scan_out, launches["scan"], launches["range_scan"], read_ht = \

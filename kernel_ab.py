@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D, G, H, I.2, J.1, J.2 and K of the PyTorch port, the
-resident aggregates and the point read's P2 and P3, timed for several
+"""Kernels A, B, D, G, H, I.2, J.1, J.2, K and M3 of the PyTorch port, the
+resident aggregates and the point read's P1-P3, timed for several
 checkouts in one run on one GPU.
 
     python3 kernel_ab.py [--rows N] [--sf-orders M] [--seed S] [--reps R]
-        ROOT [ROOT ...]
+        [--only SECTION,...] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository (`.` for this one). Each is
 timed in its own process, in the order given, so that two versions of a
 kernel are compared on one card in turns (old, new, new, old). Every
 process builds its checkout's kernels, stages the same YCSB-A tablet
 (chip_smoke's generator: --rows rows in 4 sorted runs, key space rows/2),
-and times with CUDA events, --reps launches after a warm-up:
+and times with CUDA events, --reps launches after a warm-up, the
+sections that --only names (default: all; `merge` is A-K, then `m3`,
+`point`, `resident`):
   - kernel A (`merge_path.merge_level`) at each tournament level, its
     output held against the first process's (the same bytes everywhere);
   - kernel B (`merge_gc.gc_pack`) on the merged payload (the codec job's
@@ -34,18 +36,23 @@ and times with CUDA events, --reps launches after a warm-up:
     tile, whose writes fall to the last tile's CTA);
   - kernel K (`pushdown.agg_reduce`) with the aggregate slot over J.1's
     flags, J.2's output and the sorted value words;
+  - kernel M3 (`dist_compact.bucket_scatter`) at shard 0's shape of the
+    mesh job (the tablet as one slab on 8 virtual shards of the card, M1's
+    splitters, M2's dest and counts, capacity factor 2: a [17, 2^22] send
+    buffer at 10M rows);
   - the resident aggregates: q1_agg and q6_agg (chip_smoke's TPC-H
     lineitem tablet, --sf-orders, in 4 SSTs staged with their value words
     into a DeviceSlabCache) over `ResidentSource`s: the median wall time
     of --reps calls and the device time and launches of one call by
     kernel name, memsets and copies included;
-  - the batched point read's device stage (`DB._device_chunk`: P1, then
-    P2 and P3 with the newest-wins fold) on one warm 1024-key chunk over
+  - the batched point read's device stage (`DB._device_chunk`: P1 + P2,
+    then P3 with the newest-wins fold) on one warm 1024-key chunk over
     chip_smoke's YCSB point DB (--rows rows in 4 SSTs, exact mode) and
     over the lineitem SSTs opened as a DB (learned-index mode): the
     median wall time of --reps chunks (each ended by its downloads) and
-    the device time and launches of one chunk by kernel name, with P2's
-    and P3's summed (a checkout whose P2 and P3 run per SST launches
+    the device time and launches of one chunk by kernel name, with P1's,
+    P2's, P1 + P2's and P3's summed (a checkout whose P1 runs in a launch
+    of its own counts it apart; one whose P2 and P3 run per SST launches
     them once a file);
   - for every wrapper, the host's milliseconds to enqueue one call, and
     the device's milliseconds and launches per call by kernel name
@@ -53,8 +60,8 @@ and times with CUDA events, --reps launches after a warm-up:
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
 D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
-words, J.2's outputs, K's accumulators, the resident answers, the point
-read chunks' folds) go into one
+words, J.2's outputs, K's accumulators, M3's send buffer and overflow
+word, the resident answers, the point read chunks' folds) go into one
 sha256 that must match across the checkouts. Prints one JSON line per
 process and the card's name and power limit.
 Imports nothing of JAX.
@@ -74,6 +81,8 @@ import tempfile
 import time
 
 import numpy as np
+
+SECTIONS = ("merge", "m3", "point", "resident")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -167,10 +176,46 @@ def point_chunk(db, keys, read_ht, reps: int, digest) -> dict:
     dev = device_ms(stage, reps, launches=True)
     out = {"files": len(staged_by), "hits": int(best[4].sum()),
            "wall_ms": statistics.median(wall), "device": dev}
-    for tag, key in (("p2", "bloom"), ("p3", "locate")):
-        mine = [v for k, v in dev.items() if key in k]
+    for tag, keys in (("p1", ("fnv64",)), ("p2", ("bloom",)),
+                      ("p1_p2", ("fnv64", "bloom", "hash_probe")),
+                      ("p3", ("locate",))):
+        mine = [v for k, v in dev.items() if any(x in k for x in keys)]
         out[f"{tag}_device_ms"] = sum(v[0] for v in mine)
         out[f"{tag}_launches"] = sum(v[1] for v in mine)
+    return out
+
+
+def bucket_scatter(runs, reps: int, digest) -> dict:
+    """Kernel M3 at shard 0's shape of the mesh job: the runs as one slab
+    on 8 virtual shards of the card (`stage_sharded_cols`), M1's
+    splitters, M2's dest and counts on shard 0, the job's capacity at
+    factor 2. Its send buffer and overflow word go into the digest."""
+    import torch
+    from yugabyte_tpu_torch.ops.slabs import concat_slabs
+    from yugabyte_tpu_torch.parallel import dist_compact as dc
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    n_shards = 8
+    mesh = make_mesh(n_shards, devices=["cuda"] * n_shards)
+    cols, n_local = dc.stage_sharded_cols(concat_slabs(runs), mesh)
+    w_route = min(dc._W_ROUTE, cols[0].shape[0] - 8)
+    split = dc.splitter_pick(dc._sample_matrix(cols, n_local, w_route,
+                                               cols[0].device),
+                             w_route, n_shards)
+    c0 = cols[0]
+    del cols
+    dest, hist, real = dc.route_dest(c0, split, w_route, n_shards)
+    cap = dc._quantized_capacity(n_local, n_shards, 2.0)
+
+    def m3():
+        return dc.bucket_scatter(c0, dest, hist, real, cap, n_shards, 0)
+    send, ovf = m3()
+    digest.update(send.cpu().numpy().tobytes())
+    digest.update(ovf.cpu().numpy().tobytes())
+    del send, ovf
+    out = dict(timed(m3, reps), shard_lanes=n_local, capacity=cap,
+               send=[int(c0.shape[0]) + 1, n_shards * cap])
+    del c0, dest, hist, real
+    torch.cuda.empty_cache()
     return out
 
 
@@ -258,23 +303,45 @@ def resident(sf_orders: int, seed: int, reps: int, digest) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def child(root: str, rows: int, seed: int, reps: int,
-          sf_orders: int) -> dict:
+def child(root: str, rows: int, seed: int, reps: int, sf_orders: int,
+          only) -> dict:
     sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    runs = cs.synth_ycsb_runs(rows, 4, max(1, rows // 2), seed)
+    digest = hashlib.sha256()
+    out = {"root": root, "sections": sorted(only)}
+    if "merge" in only:
+        out.update(merge_kernels(runs, rows, reps, digest))
+        torch.cuda.empty_cache()
+    if "m3" in only:
+        out["bucket_scatter"] = bucket_scatter(runs, reps, digest)
+    del runs
+    if "point" in only:
+        out["point_read"] = point_read(rows, seed, reps, digest)
+        torch.cuda.empty_cache()
+    if "resident" in only:
+        out["resident"] = resident(sf_orders, seed, reps, digest)
+    out["sha256"] = digest.hexdigest()
+    return out
+
+
+def merge_kernels(runs, rows: int, reps: int, digest) -> dict:
+    """Kernels A, B, D, H, G, I.2, J.1, J.2 and K over the runs (see the
+    module docstring); their outputs go into the digest."""
     import torch
     import chip_smoke as cs
     from yugabyte_tpu_torch.ops import (merge_gc, merge_path, pushdown,
                                        radix, run_merge, scan)
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
 
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: needs a CUDA card")
-    runs = cs.synth_ycsb_runs(rows, 4, max(1, rows // 2), seed)
     st = run_merge.stage_runs_from_slabs(runs, device="cuda")
     p = torch.cat([st.cols_dev, torch.arange(
         st.n_pad, dtype=torch.int32, device="cuda")[None]])
     levels = []
-    digest = hashlib.sha256()
     length = st.m
     while length < st.n_pad:
         def level():
@@ -300,7 +367,7 @@ def child(root: str, rows: int, seed: int, reps: int,
 
     def survivors():
         return run_merge.survivor_scan(keep)
-    out = {"root": root, "rp": int(p.shape[0]), "n": int(p.shape[1]),
+    out = {"rp": int(p.shape[0]), "n": int(p.shape[1]),
            "levels": levels, "gc_pack": gc_entry,
            "survivor_scan_ms": cs.cuda_ms(survivors, reps),
            "survivor_scan_host_ms": host_ms(survivors, reps),
@@ -403,11 +470,6 @@ def child(root: str, rows: int, seed: int, reps: int,
         digest.update(x.cpu().numpy().tobytes())
     out["agg_reduce"] = timed(k, reps)
     del flags, one, seg, sv
-    torch.cuda.empty_cache()
-    out["point_read"] = point_read(rows, seed, reps, digest)
-    torch.cuda.empty_cache()
-    out["resident"] = resident(sf_orders, seed, reps, digest)
-    out["sha256"] = digest.hexdigest()
     return out
 
 
@@ -420,18 +482,25 @@ def main() -> int:
                     "tablet (chip_smoke's; 1,500,000 = SF1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections to time, of "
+                    f"{','.join(SECTIONS)}")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only: sections are {','.join(SECTIONS)}")
     if args.child:
         print(json.dumps(child(args.roots[0], args.rows, args.seed,
-                               args.reps, args.sf_orders)), flush=True)
+                               args.reps, args.sf_orders, only)), flush=True)
         return 0
     results = []
     for root in args.roots:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
              "--rows", str(args.rows), "--seed", str(args.seed), "--reps",
-             str(args.reps), "--sf-orders", str(args.sf_orders), root],
+             str(args.reps), "--sf-orders", str(args.sf_orders), "--only",
+             args.only, root],
             capture_output=True, text=True, check=False, timeout=900)
         sys.stderr.write(out.stderr)
         if out.returncode != 0:

@@ -834,11 +834,13 @@ def _every_file_rows(n_files, seed, device):
 
 @pytest.mark.parametrize("n_files,b", [(1, 1), (2, 64), (5, 65), (16, 1024)])
 def test_point_every_file_kernels_match_plain(cuda, n_files, b):
-    """P2 and P3 + the fold over every file, one launch each, bit for bit
-    equal to their plain versions (the per-file plain P2 / P3 looped in
-    file order and the fold) at both read-time edges, the model on and
-    off; ties go to file 0."""
+    """P1 + P2 and P3 + the fold over every file, one launch each, bit for
+    bit equal to their plain versions (the plain P1, the per-file plain P2
+    / P3 looped in file order and the fold) at both read-time edges, the
+    model on and off; the hashes at doc-key lengths 0, 1, 5 and 4 * w_hash
+    and with a first file that has no filter; ties go to file 0."""
     from yugabyte_tpu_torch.ops import point_read as pr
+    from yugabyte_tpu_torch.ops.slabs import _doc_key_len
     rows, tie_keys = _every_file_rows(n_files, 60 + n_files, cuda)
     table = pr.FileTable(rows, cuda)
     rng = np.random.default_rng(61 + b)
@@ -850,21 +852,35 @@ def test_point_every_file_kernels_match_plain(cuda, n_files, b):
     b_pad = len(ql)
     qbuf_d = merge_gc.u32_to_device(qbuf, cuda)
     ql_d = torch.from_numpy(ql).to(cuda)
-    h1, h2 = pr.fnv64(merge_gc.u32_to_device(
-        pr.pack_query_batch(qs, 8)[0], cuda), ql_d)
+    hw = merge_gc.u32_to_device(pr.pack_query_batch(qs, 8)[0], cuda)
+    dk = np.zeros(b_pad, np.int32)
+    dk[:b] = [_doc_key_len(q) for q in qs]
+    dk[:4] = (0, 1, 5, 32)          # none, a byte, mid-word, 4 * w_hash
+    dk = torch.from_numpy(dk).to(cuda)
+    tables = [table] + ([pr.FileTable(rows[1:] + rows[:1], cuda)]
+                        if n_files > 1 else [])   # file 0 with no filter
+    for tb in tables:
+        before = pr.hash_probe_files.launches
+        got = pr.hash_probe_files(hw, dk, tb, b)
+        assert pr.hash_probe_files.launches == before + 1
+        for g, x in zip(got, pr.hash_probe_files_plain(hw, dk, tb, b)):
+            assert torch.equal(g, x)
+        assert torch.equal(torch.stack(got[2:]),
+                           torch.stack(pr.fnv64_plain(hw, dk)))
     for read_ht, model_on in (((1 << 64) - 1, True), ((1 << 64) - 1, False),
                               ((1000 + 15000) << 12, True),
                               ((1000 << 12) - 1, True)):
-        before = (pr.bloom_probe_files.launches, pr.locate_fold.launches)
-        maybe, flag = pr.bloom_probe_files(h1, h2, table, b)
-        w_maybe, w_flag = pr.bloom_probe_files_plain(h1, h2, table, b)
+        before = (pr.hash_probe_files.launches, pr.locate_fold.launches)
+        maybe, flag, _h1, _h2 = pr.hash_probe_files(hw, dk, table, b)
+        w_maybe, w_flag, _w1, _w2 = pr.hash_probe_files_plain(hw, dk, table,
+                                                              b)
         assert torch.equal(maybe, w_maybe) and torch.equal(flag, w_flag)
         args = (table, qbuf_d, ql_d, b, read_ht >> 32, read_ht & 0xFFFFFFFF,
                 model_on, flag)
         out = pr.locate_fold(*args)
         assert torch.equal(out, pr.locate_fold_plain(*args)), (read_ht,
                                                                model_on)
-        assert (pr.bloom_probe_files.launches,
+        assert (pr.hash_probe_files.launches,
                 pr.locate_fold.launches) == (before[0] + 1, before[1] + 1)
         best, located, misses = pr.fold_arrays(out.cpu().numpy(), b_pad,
                                                n_files)
@@ -882,10 +898,10 @@ def test_point_every_file_kernels_match_plain(cuda, n_files, b):
 
 
 def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
-    """DB.multi_get over a DeviceSlabCache on the card launches P1, P2
-    over every file and P3 + the fold once per chunk (never the per-file
-    P2 or P3) and answers what the native per-key path and sequential
-    gets answer."""
+    """DB.multi_get over a DeviceSlabCache on the card launches P1 + P2
+    over every file and P3 + the fold once per chunk (never P1 on its own,
+    the per-file P2 or P3) and answers what the native per-key path and
+    sequential gets answer."""
     from yugabyte_tpu_torch.common.hybrid_time import (DocHybridTime,
                                                        HybridTime)
     from yugabyte_tpu_torch.docdb.value import Value
@@ -910,7 +926,7 @@ def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
         rng = np.random.default_rng(36)
         keys = [b"Suser%08d\x00\x00!" % int(i)
                 for i in rng.integers(0, 3300, size=2100)]
-        kernels = [pr.fnv64, pr.bloom_probe_files, pr.locate_fold,
+        kernels = [pr.fnv64, pr.hash_probe_files, pr.locate_fold,
                    pr.bloom_probe, pr.locate_gather]
         chunks = -(-len(keys) // 1024)
         for micros in (None, 1500, 50_000):
@@ -919,7 +935,7 @@ def test_point_multi_get_on_the_card_equals_native(cuda, tmp_path):
             before = [k.launches for k in kernels]
             got = db.multi_get(keys, read_ht)
             assert [k.launches - b for k, b in zip(kernels, before)] == [
-                chunks, chunks, chunks, 0, 0]
+                0, chunks, chunks, 0, 0]
             assert got == db._multi_get_native(keys,
                                                read_ht or HybridTime.kMax)
             assert got[:64] == [db.get(k, read_ht) for k in keys[:64]]
@@ -1081,19 +1097,34 @@ def _mesh_slab(rng, n, dkl_max=12):
     return slab
 
 
+# M3's edge layouts: (doc-key bytes at most, capacity or None for the
+# factor's); doc keys of no byte route every real row to the last shard
+_M3_CARD_EDGES = {
+    (8192, 256, 2.0): (12, None),     # kMaxShards, 32 lanes a shard
+    (6000, 1, 2.0): (12, None),       # the one-shard mesh: no M1
+    (9000, 2, 2.0): (12, 4),          # capacity 4: nearly every row dropped
+    (16384, 2, 2.0): (1, None),       # destination 0 empty, 1 exactly full
+    (12000, 2, 1.0): (1, None)}       # shard 1: pads alone past capacity
+
+
 @pytest.mark.parametrize("n,n_shards,factor", [
     (300, 8, 2.0),            # shards 5-7 all pad
     (40000, 3, 0.5),          # 4 tiles a shard, pad columns appended
-    (200000, 2, 0.05)])       # drops past capacity and the overflow word
+    (200000, 2, 0.05),        # drops past capacity and the overflow word
+    *_M3_CARD_EDGES])
 def test_dist_route_kernels_match_plain(cuda, n, n_shards, factor):
+    """M1-M3 on the card == their plain versions, M3's send buffer and
+    overflow word bit for bit, at its edge layouts too; M3 is one kernel
+    a call, with no memset and no copy."""
     from yugabyte_tpu_torch.parallel import dist_compact
     from yugabyte_tpu_torch.parallel.mesh import make_mesh
     rng = np.random.default_rng(n + n_shards)
+    dkl_max, cap = _M3_CARD_EDGES.get((n, n_shards, factor), (12, None))
     mesh = make_mesh(n_shards, devices=[cuda] * n_shards)
-    parts, n_local = dist_compact.stage_sharded_cols(_mesh_slab(rng, n),
-                                                     mesh)
+    parts, n_local = dist_compact.stage_sharded_cols(
+        _mesh_slab(rng, n, dkl_max), mesh)
     w_route = 4
-    cap = dist_compact._quantized_capacity(n_local, n_shards, factor)
+    cap = cap or dist_compact._quantized_capacity(n_local, n_shards, factor)
     samp = dist_compact._sample_matrix(parts, n_local, w_route, cuda)
     before = (dist_compact.splitter_pick.launches,
               dist_compact.route_dest.launches,
@@ -1118,7 +1149,11 @@ def test_dist_route_kernels_match_plain(cuda, n, n_shards, factor):
     assert (dist_compact.splitter_pick.launches,
             dist_compact.route_dest.launches,
             dist_compact.bucket_scatter.launches) == (
-        before[0] + 1, before[1] + n_shards, before[2] + n_shards)
+        before[0] + (n_shards > 1), before[1] + n_shards,
+        before[2] + n_shards)
+    m2 = dist_compact.route_dest(parts[0], split, w_route, n_shards)
+    assert _device_activity(lambda: dist_compact.bucket_scatter(
+        parts[0], *m2, cap, n_shards, 0)) == (1, 0)
 
 
 def test_one_shard_mesh_on_the_card(cuda, monkeypatch):

@@ -445,12 +445,22 @@ def _skewed_cols(n, n_shards, seed, dkl_max):
     return merge_gc.pack_cols(_port_slab(slab))[0], slab
 
 
+# M3's layouts that a case is there for (doc keys of no byte route every
+# real row to the last shard): a destination with no row, one filled
+# exactly to capacity, rows dropped past capacity while the overflow word
+# stays 0 (only pads overflowed)
+_M3_EDGES = {(1024, 2, 2.0, 1): {"empty", "full"},
+             (700, 2, 1.0, 1): {"pads_dropped"}}
+
+
 @pytest.mark.parametrize("n,n_shards,factor,dkl_max", [
     (300, 8, 2.0, 12),        # shards 5-7 all pad
     (5000, 2, 0.05, 12),      # drops past capacity, overflow
     (20000, 2, 2.0, 3),       # 4 tiles a shard, doc keys under one word
     (700, 3, 1.0, 12),        # pad columns appended to a multiple of 3
-    (3000, 8, 0.25, 12)])
+    (3000, 8, 0.25, 12),
+    (1024, 2, 2.0, 1),        # an empty destination, one exactly full
+    (700, 2, 1.0, 1)])        # pads alone dropped past capacity
 def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max):
     cols, slab = _skewed_cols(n, n_shards, n + n_shards, dkl_max)
     mesh = _mesh(n_shards)
@@ -467,7 +477,11 @@ def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max):
         split = fn(samp, w_route, n_shards)
         assert np.array_equal(split.numpy().view(np.uint32), want_split)
     tiles = -(-n_local // dist_compact._TILE)
+    seen = set()
     for s, (dest_w, counts_w, all_w, send_w, ovf_w) in enumerate(want):
+        seen |= {name for name, hit in (
+            ("empty", (all_w == 0).any()), ("full", (all_w == capacity).any()),
+            ("pads_dropped", (all_w > capacity).any() and not ovf_w)) if hit}
         dest, hist, real = dist_compact.route_dest(parts[s], split, w_route,
                                                    n_shards)
         assert np.array_equal(dest.numpy(), dest_w)
@@ -481,6 +495,7 @@ def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max):
             parts[s], dest, hist, real, capacity, n_shards, s * n_local)
         assert np.array_equal(send.numpy().view(np.uint32), send_w)
         assert bool(ovf.item()) == ovf_w
+    assert _M3_EDGES.get((n, n_shards, factor, dkl_max), set()) <= seen
 
 
 def test_exchange_copies_gather_column_blocks():

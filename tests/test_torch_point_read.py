@@ -332,10 +332,12 @@ def _jax_every_file(rows, qs, h1, h2, b, read_ht, model_on):
 
 @pytest.mark.parametrize("n_files,b", [(1, 1), (2, 64), (3, 65), (5, 1024)])
 def test_every_file_plain_versions_equal_jax_loop_and_fold(n_files, b):
-    """bloom_probe_files + locate_fold (plain, on the CPU) == the JAX
-    package's per-file P2 and P3 and its fold: maybe rows, located flags,
-    the five fold arrays on every lane (pad lanes too), and the counters
-    the DB derives from them; ties in (ht, wid) go to the earlier file."""
+    """hash_probe_files + locate_fold (plain, on the CPU) == the JAX
+    package's `hash_batch`, per-file P2 and P3 and its fold: the hashes
+    (doc-key lengths 0, 1, 5 and 4 * w_hash among them, pad lanes too),
+    maybe rows (file 1 has no filter), located flags, the five fold
+    arrays on every lane (pad lanes too), and the counters the DB derives
+    from them; ties in (ht, wid) go to the earlier file."""
     ref_rows, port_rows, tie_keys = _every_file_set(n_files, 40 + n_files)
     rng = np.random.default_rng(50 + b)
     pool = [_skey(int(i), bool(i % 3 == 0)) for i in rng.integers(0, 3300,
@@ -348,12 +350,20 @@ def test_every_file_plain_versions_equal_jax_loop_and_fold(n_files, b):
     b_pad = len(ql)
     assert b_pad == pr.batch_bucket(b)
     hw, _ = ref_pr.pack_query_batch(qs, 8)
-    h1, h2 = (_u32(h) for h in pr.fnv64_plain(
-        u32_to_device(hw, "cpu"), torch.from_numpy(ql)))
+    dk = np.zeros(b_pad, np.int32)
+    dk[:b] = [_doc_key_len(q) for q in qs]
+    dk[:4] = (0, 1, 5, 32)          # none, a byte, mid-word, 4 * w_hash
+    # the JAX hash at test_fnv64_plain_equals_jax_and_host's [1024, 8]
+    # program, over the chunk's lanes
+    hw_j = np.zeros((1024, 8), np.uint32)
+    dk_j = np.zeros(1024, np.int32)
+    hw_j[:b_pad], dk_j[:b_pad] = hw, dk
+    h1, h2 = (np.asarray(h)[:b_pad] for h in ref_pr.hash_batch(hw_j, dk_j))
+    maybe, flag, g1, g2 = pr.hash_probe_files(
+        u32_to_device(hw, "cpu"), torch.from_numpy(dk), table, b)
+    assert np.array_equal(_u32(g1), h1) and np.array_equal(_u32(g2), h2)
     for read_ht, model_on in ((_TOP, True), (_TOP, False),
                               ((1000 + 15000) << 12, True)):
-        maybe, flag = pr.bloom_probe_files(u32_to_device(h1, "cpu"),
-                                           u32_to_device(h2, "cpu"), table, b)
         out = pr.locate_fold(table, u32_to_device(qbuf, "cpu"),
                              torch.from_numpy(ql), b, read_ht >> 32,
                              read_ht & 0xFFFFFFFF, model_on, flag)

@@ -23,21 +23,27 @@
 // Bounds on an H100: M1 sorts a few hundred samples in one CTA (bitonic, in
 // shared memory): latency-bound, a few microseconds of dependent steps. M2
 // reads 24 bytes a lane and writes dest (4 bytes): memory-bound. M3 reads
-// the shard's r rows and dest, and writes the [r+1, S*capacity] send
-// buffer (the unwritten slots are the pad template): memory-bound; the
-// scatter writes runs of consecutive slots, one per destination and warp.
+// the shard's r rows and dest once and writes the [r+1, S*capacity] send
+// buffer once (the slots no row lands in hold the pad template):
+// memory-bound, about 1.5x as many bytes written as read at the mesh
+// job's capacity factor 2.
 //
-// M3 is three launches, counted as one wrapper call: `send_fill` (the pad
-// template, idx 0xFFFFFFFF, and the overflow word cleared), `dest_scan`
-// (one CTA per destination: the exclusive scan of its tile counts and the
-// overflow test on its real count) and `dest_scatter` (per tile of 4096
-// lanes: each warp owns 512 consecutive lanes and ranks equal dests in
-// input order with __match_any_sync, a scan over the 8 warps orders the
-// warps, and each lane lands at dest*capacity + its rank, or is dropped
-// past capacity). Ranks count every row, pads included: pads sit at the
-// shard's tail and route to the last shard, so they rank after its real
-// rows, as the JAX program's stable argsort ranks them. The tiles of M2
-// and M3 are the same, so M2's per-tile counts are M3's tile bases.
+// M3 is one launch (`bucket_scatter_kernel`) over M2's tiles of 4096
+// lanes: each CTA sums M2's per-tile counts of the tiles before its own
+// from L2 (a warp a destination; at the mesh job's S = 8 and 512 tiles
+// 16 KB a CTA, so no scan launch, no look-back and no ticket are needed),
+// ranks its lanes by destination in input order (each warp owns 512
+// consecutive lanes, __match_any_sync ranks equal dests, a scan over the 8
+// warps orders the warps), then per send row stages the tile's words in
+// shared memory in destination order and stores each destination's run as
+// consecutive lanes on consecutive slots, dropping ranks past capacity;
+// the template goes only to the slots [min(rows of d, capacity),
+// capacity) of each destination d, spread over the grid in 16-byte
+// stores, and CTA 0 writes the overflow word. Every slot is written once.
+// Ranks count every row, pads included: pads sit at the shard's tail and
+// route to the last shard, so they rank after its real rows, as the JAX
+// program's stable argsort ranks them. The tiles of M2 and M3 are the
+// same, so M2's per-tile counts are M3's tile bases.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,8 +61,8 @@ constexpr int kItems = 16;                 // lanes per thread
 constexpr int kWarpLanes = 32 * kItems;    // 512 consecutive lanes per warp
 constexpr int kTile = kThreads * kItems;   // 4096 lanes per CTA
 constexpr int kMaxShards = kThreads;       // one thread per destination
+constexpr int kSumLoads = 8;               // M3: count loads in flight a lane
 constexpr int kSortThreads = 1024;
-constexpr int kScanThreads = 1024;
 constexpr int kSortWords = kMaxRoute + 1;  // route words + the pad flag
 // M1's bitonic network in shared memory: 8192 x 5 words = 160 KB
 constexpr int kMaxSamples = 8192;
@@ -209,22 +215,6 @@ __global__ void route_dest_kernel(const uint32_t* __restrict__ cols, int64_t n,
 
 // ---------------------------------------------------------------- M3
 
-// The pad template of an [rows, width] send buffer whose last row is the
-// global index: rows 0-1 (key_len, doc_key_len) PAD_SENTINEL, rows 2-7
-// zero, key words and the index row 0xFFFFFFFF. width % 4 == 0.
-__global__ void send_fill_kernel(uint4* __restrict__ send, int rows,
-                                 int64_t width, uint32_t* __restrict__ overflow) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *overflow = 0u;
-  const int64_t n4 = (int64_t)rows * width / 4;
-  const int64_t w4 = width / 4;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = i / w4;
-    const uint32_t v = (row <= kRowDkl || row >= kRowWords) ? 0xFFFFFFFFu : 0u;
-    send[i] = make_uint4(v, v, v, v);
-  }
-}
-
 // Exclusive scan of one int per thread across the CTA; `total` receives
 // the sum (the block scan of csrc/radix.cu).
 __device__ int block_exclusive_sum(int v, int& total) {
@@ -253,87 +243,227 @@ __device__ int block_exclusive_sum(int v, int& total) {
   return excl;
 }
 
-// CTA d: base[d][t] = the rows of dest d in tiles < t; the overflow word
-// set when dest d's real rows exceed the capacity.
-__global__ void dest_scan_kernel(const int32_t* __restrict__ hist,
-                                 const int32_t* __restrict__ real_hist,
-                                 int tiles, int64_t capacity,
-                                 int32_t* __restrict__ base,
-                                 uint32_t* __restrict__ overflow) {
-  const int64_t row = (int64_t)blockIdx.x * tiles;
-  int carry = 0;
-  int64_t real = 0;
-  for (int start = 0; start < tiles; start += kScanThreads) {
-    const int i = start + threadIdx.x;
-    int total, real_total;
-    const int ex = block_exclusive_sum(i < tiles ? hist[row + i] : 0, total);
-    block_exclusive_sum(i < tiles ? real_hist[row + i] : 0, real_total);
-    if (i < tiles) base[row + i] = carry + ex;
-    carry += total;
-    real += real_total;
-  }
-  if (threadIdx.x == 0 && real > capacity) *overflow = 1u;
+// The pad template's word in send row `row` (the global index is the last
+// row, r >= 9): rows 0-1 (key_len, doc_key_len) PAD_SENTINEL, rows 2-7
+// zero, key words and the index row 0xFFFFFFFF.
+__device__ __forceinline__ uint32_t template_word(int row) {
+  return (row <= kRowDkl || row >= kRowWords) ? 0xFFFFFFFFu : 0u;
 }
 
-// cols: [r, n] (row stride n); send: [r + 1, n_shards * capacity].
-__global__ void dest_scatter_kernel(const uint32_t* __restrict__ cols,
-                                    int64_t n, int r,
-                                    const int32_t* __restrict__ dest,
-                                    const int32_t* __restrict__ base_in,
-                                    int tiles, int64_t capacity, int n_shards,
-                                    uint32_t idx_base,
-                                    uint32_t* __restrict__ send) {
+// M3 in one launch. cols: [r, n] (row stride n); send: [r + 1, n_shards *
+// capacity]; grid: max(tiles, a few CTAs an SM) CTAs; CTA t < tiles owns
+// tile t of M2's tiling. Each CTA
+//   1. sums M2's counts from L2, a warp a destination, kSumLoads loads in
+//      flight a lane (one at a time, these round trips cost about 5% of
+//      the kernel at the mesh job's 512 tiles): base[d] = rows of d in tiles
+//      before t, fill[d] = min(rows of d, capacity), the first slot of
+//      d's template; CTA 0 also sums the real rows and writes the
+//      overflow word (no init launch, no atomic on it);
+//   2. ranks its tile's lanes by destination in input order
+//      (__match_any_sync within a warp, a scan over the warps), so each
+//      lane has a position in the tile's destination order and each
+//      position a slot d * capacity + base[d] + its rank in d, or none past
+//      capacity;
+//   3. per send row, stages the tile's words in shared memory in
+//      destination order (double-buffered: row k + 1's loads are in flight
+//      while row k is stored) and stores position p from thread p % 256,
+//      so each destination's run goes out as consecutive lanes on
+//      consecutive slots (full sectors but at a run's two ends);
+//   4. writes its share of the template slots [fill[d], capacity) of every
+//      destination and row, 16-byte stores over the aligned body (the
+//      grid splits each destination's rows x body evenly), the unaligned
+//      heads (at most 3 words) spread over the grid.
+// Every send slot is written once, by step 3 or step 4.
+__global__ void __launch_bounds__(kThreads)
+bucket_scatter_kernel(const uint32_t* __restrict__ cols, int64_t n, int r,
+                      const int32_t* __restrict__ dest,
+                      const int32_t* __restrict__ hist,
+                      const int32_t* __restrict__ real_hist, int tiles,
+                      int capacity, int n_shards, uint32_t idx_base,
+                      uint32_t* __restrict__ send,
+                      uint32_t* __restrict__ overflow) {
+  __shared__ uint32_t stage[2][kTile];
   __shared__ int cnt[kWarps][kMaxShards];
-  __shared__ int base[kMaxShards];
+  __shared__ int s_base[kMaxShards], s_fill[kMaxShards];
+  __shared__ int s_off[kMaxShards + 1];
+  __shared__ int64_t s_tpre[kMaxShards + 1];
+  __shared__ int s_over;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x < n_shards) {
-    for (int w = 0; w < kWarps; ++w) cnt[w][threadIdx.x] = 0;
-    base[threadIdx.x] = base_in[(int64_t)threadIdx.x * tiles + blockIdx.x];
-  }
-  __syncthreads();
-  const int64_t wbase =
-      (int64_t)blockIdx.x * kTile + (int64_t)warp * kWarpLanes;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  int d[kItems];
-  int off[kItems];
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = wbase + j * 32 + lane;
-    const bool valid = i < n;
-    const int dd = valid ? dest[i] : kMaxShards;
-    const unsigned peers = __match_any_sync(0xffffffffu, dd);
-    const int leader = __ffs(peers) - 1;
-    int b = 0;
-    if (valid && lane == leader) b = cnt[warp][dd];
-    b = __shfl_sync(0xffffffffu, b, leader);
-    if (valid && lane == leader) cnt[warp][dd] = b + __popc(peers);
-    d[j] = dd;
-    off[j] = b + __popc(peers & lt_mask);
-    __syncwarp();
-  }
-  __syncthreads();
-  if (threadIdx.x < n_shards) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = cnt[w][threadIdx.x];
-      cnt[w][threadIdx.x] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
+  const int tile = blockIdx.x;
   const int64_t width = (int64_t)n_shards * capacity;
+
+  // 1. bases and fills from M2's counts
+  if (threadIdx.x == 0) s_over = 0;
+  __syncthreads();
+  for (int d = warp; d < n_shards; d += kWarps) {
+    const int32_t* hr = hist + (int64_t)d * tiles;
+    int before = 0, all = 0;
+    for (int t0 = lane; t0 < tiles; t0 += 32 * kSumLoads) {
+      int c[kSumLoads];  // kSumLoads loads in flight a lane
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = wbase + j * 32 + lane;
-    if (i < n) {
-      const int64_t rank = (int64_t)base[d[j]] + cnt[warp][d[j]] + off[j];
-      if (rank < capacity) {
-        const int64_t slot = (int64_t)d[j] * capacity + rank;
-        for (int row = 0; row < r; ++row)
-          send[row * width + slot] = cols[row * n + i];
-        send[(int64_t)r * width + slot] = idx_base + (uint32_t)i;
+      for (int u = 0; u < kSumLoads; ++u)
+        c[u] = t0 + 32 * u < tiles ? hr[t0 + 32 * u] : 0;
+#pragma unroll
+      for (int u = 0; u < kSumLoads; ++u) {
+        all += c[u];
+        before += t0 + 32 * u < tile ? c[u] : 0;
       }
     }
+    before = __reduce_add_sync(0xffffffffu, before);
+    all = __reduce_add_sync(0xffffffffu, all);
+    if (lane == 0) {
+      s_base[d] = before;
+      s_fill[d] = all < capacity ? all : capacity;
+    }
+    if (blockIdx.x == 0) {
+      const int32_t* rr = real_hist + (int64_t)d * tiles;
+      int real = 0;
+      for (int t = lane; t < tiles; t += 32) real += rr[t];
+      real = __reduce_add_sync(0xffffffffu, real);
+      if (lane == 0 && real > capacity) s_over = 1;
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *overflow = (uint32_t)s_over;
+
+  if (tile < tiles) {
+    // 2. rank the tile's lanes by destination
+    if (threadIdx.x < n_shards)
+      for (int w = 0; w < kWarps; ++w) cnt[w][threadIdx.x] = 0;
+    __syncthreads();
+    const int64_t wbase = (int64_t)tile * kTile + (int64_t)warp * kWarpLanes;
+    const unsigned lt_mask = (1u << lane) - 1u;
+    int d[kItems], pos[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int64_t i = wbase + j * 32 + lane;
+      const bool valid = i < n;
+      const int dd = valid ? dest[i] : kMaxShards;
+      const unsigned peers = __match_any_sync(0xffffffffu, dd);
+      const int leader = __ffs(peers) - 1;
+      int b = 0;
+      if (valid && lane == leader) b = cnt[warp][dd];
+      b = __shfl_sync(0xffffffffu, b, leader);
+      if (valid && lane == leader) cnt[warp][dd] = b + __popc(peers);
+      d[j] = dd;
+      pos[j] = b + __popc(peers & lt_mask);
+      __syncwarp();
+    }
+    __syncthreads();
+    int tile_cnt = 0;
+    if (threadIdx.x < n_shards) {
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = cnt[w][threadIdx.x];
+        cnt[w][threadIdx.x] = tile_cnt;
+        tile_cnt += c;
+      }
+    }
+    int valid_lanes;
+    const int off = block_exclusive_sum(tile_cnt, valid_lanes);
+    if (threadIdx.x < n_shards) s_off[threadIdx.x] = off;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      pos[j] = d[j] < kMaxShards ? s_off[d[j]] + cnt[warp][d[j]] + pos[j]
+                                 : -1;
+    // the slot of position p = threadIdx.x + k * kThreads, or -1
+    int slot[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int p = threadIdx.x + k * kThreads;
+      slot[k] = -1;
+      if (p < valid_lanes) {
+        int lo = 0, hi = n_shards - 1;  // the last dest whose run starts <= p
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (s_off[mid] <= p)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        const int rank = s_base[lo] + (p - s_off[lo]);
+        if (rank < capacity) slot[k] = lo * capacity + rank;
+      }
+    }
+
+    // 3. every send row through shared memory, in destination order
+    const int64_t i0 = (int64_t)tile * kTile + (int64_t)warp * kWarpLanes + lane;
+    uint32_t v[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int64_t i = i0 + j * 32;
+      v[j] = i < n ? cols[i] : 0u;
+    }
+    for (int row = 0; row <= r; ++row) {
+      uint32_t* buf = stage[row & 1];
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        if (pos[j] >= 0) buf[pos[j]] = v[j];
+      __syncthreads();
+      if (row + 1 < r) {
+        const uint32_t* src = cols + (int64_t)(row + 1) * n;
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+          const int64_t i = i0 + j * 32;
+          v[j] = i < n ? src[i] : 0u;
+        }
+      } else if (row + 1 == r) {
+#pragma unroll
+        for (int j = 0; j < kItems; ++j)
+          v[j] = idx_base + (uint32_t)(i0 + j * 32);
+      }
+      uint32_t* out = send + (int64_t)row * width;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k)
+        if (slot[k] >= 0) out[slot[k]] = buf[threadIdx.x + k * kThreads];
+    }
+  }
+
+  // 4. this CTA's share of the template slots
+  const int rows = r + 1;
+  if (threadIdx.x == 0) {
+    int64_t acc = 0;
+    for (int dd = 0; dd < n_shards; ++dd) {
+      s_tpre[dd] = acc;
+      acc += (int64_t)rows * ((capacity - ((s_fill[dd] + 3) & ~3)) >> 2);
+    }
+    s_tpre[n_shards] = acc;
+  }
+  __syncthreads();
+  const int64_t total = s_tpre[n_shards];
+  const int64_t lo = total * blockIdx.x / gridDim.x;
+  const int64_t hi = total * (blockIdx.x + 1) / gridDim.x;
+  for (int dd = 0; dd < n_shards && lo < hi; ++dd) {
+    const int64_t a = lo > s_tpre[dd] ? lo : s_tpre[dd];
+    const int64_t b = hi < s_tpre[dd + 1] ? hi : s_tpre[dd + 1];
+    if (a >= b) continue;
+    const int al = (s_fill[dd] + 3) & ~3;
+    const int body = (capacity - al) >> 2;  // > 0 here
+    uint4* base4 = reinterpret_cast<uint4*>(send + (int64_t)dd * capacity + al);
+    const int64_t w4 = width >> 2;
+    int64_t e = a - s_tpre[dd] + threadIdx.x;
+    const int64_t e_end = b - s_tpre[dd];
+    int row = (int)(e / body), q = (int)(e % body);
+    const int step_row = kThreads / body, step_q = kThreads % body;
+    for (; e < e_end; e += kThreads) {
+      const uint32_t t = template_word(row);
+      base4[(int64_t)row * w4 + q] = make_uint4(t, t, t, t);
+      q += step_q;
+      row += step_row;
+      if (q >= body) {
+        q -= body;
+        ++row;
+      }
+    }
+  }
+  for (int64_t x = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+       x < (int64_t)n_shards * rows * 3; x += (int64_t)gridDim.x * kThreads) {
+    const int dd = (int)(x / (rows * 3));
+    const int row = (int)(x / 3 % rows);
+    const int c = s_fill[dd] + (int)(x % 3);
+    if (c < ((s_fill[dd] + 3) & ~3))
+      send[(int64_t)row * width + (int64_t)dd * capacity + c] =
+          template_word(row);
   }
 }
 
@@ -375,36 +505,29 @@ int ybt_route_dest(const uint32_t* cols, int64_t n, int w,
   return (int)cudaGetLastError();
 }
 
-// Scratch bytes of M3 for a shard of n lanes and n_shards destinations.
-int64_t ybt_bucket_scatter_scratch_bytes(int64_t n, int n_shards) {
-  return 4 * (int64_t)n_shards * num_tiles(n);
-}
-
 // M3. cols: device u32 [r, n]; dest: device i32 [n]; hist, real_hist: M2's
 // counts; send: device u32 [r + 1, n_shards * capacity]; overflow: device
-// u32 [1]; scratch: ybt_bucket_scatter_scratch_bytes. Returns the first
-// failing launch's error, else cudaGetLastError().
+// u32 [1]. One launch.
 int ybt_bucket_scatter(const uint32_t* cols, int64_t n, int r,
                        const int32_t* dest, const int32_t* hist,
                        const int32_t* real_hist, int64_t capacity,
-                       int n_shards, uint32_t idx_base, void* scratch,
-                       uint32_t* send, uint32_t* overflow, void* stream) {
+                       int n_shards, uint32_t idx_base, uint32_t* send,
+                       uint32_t* overflow, void* stream) {
   if (n < 1 || n > 0x7FFFFFFF || r < kRowWords + 1 || capacity < 1 ||
-      capacity % 4 || n_shards < 1 || n_shards > kMaxShards)
+      capacity % 4 || n_shards < 1 || n_shards > kMaxShards ||
+      capacity * n_shards > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int64_t tiles = num_tiles(n);
-  const int64_t width = (int64_t)n_shards * capacity;
-  cudaError_t e;
-  send_fill_kernel<<<1024, kThreads, 0, st>>>((uint4*)send, r + 1, width,
-                                              overflow);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  int32_t* base = (int32_t*)scratch;
-  dest_scan_kernel<<<n_shards, kScanThreads, 0, st>>>(
-      hist, real_hist, (int)tiles, capacity, base, overflow);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  dest_scatter_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
-      cols, n, r, dest, base, (int)tiles, capacity, n_shards, idx_base, send);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t grid = tiles > 2 * sms ? tiles : 2 * sms;
+  bucket_scatter_kernel<<<(unsigned)grid, kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      cols, n, r, dest, hist, real_hist, (int)tiles, (int)capacity, n_shards,
+      idx_base, send, overflow);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,11 @@
 // Replace the four device programs of yugabyte_tpu/ops/point_read.py:
 //   P1 `_fnv64_fused` (:150, with `_mul64_by_prime` :129): FNV-1a-64 over
 //      the first qlens[i] bytes of each query's big-endian key words; out
-//      h1 = low word, h2 = high word | 1. One thread per query. The JAX
-//      limb multiply is h*0x100000001B3 mod 2^64, so one u64 multiply
-//      gives the same bits (as kernel F in block_codec.cu).
+//      h1 = low word, h2 = high word | 1 (`fnv64_lane`). The JAX limb
+//      multiply is h*0x100000001B3 mod 2^64, so one u64 multiply gives the
+//      same bits (as kernel F in block_codec.cu). On the read path it runs
+//      inside P2's launch over every file; `fnv64_kernel` (one thread per
+//      query, a launch of its own) is its first design, off the path.
 //   P2 `_bloom_probe_fused` (:171): one thread per query, k <= 12 probes
 //      of bit (h1 + i*h2) % m_bits of the little-endian bit words. In u64,
 //      h1 + 11*h2 < 2^36, so the plain modulo equals the JAX modular
@@ -35,15 +37,21 @@
 // into an FMA. u32 -> f32 by __uint2float_rn; rint for jnp.round (half to
 // even). The file is built without --use_fast_math.
 //
-// The batched read launches P2 and P3 once per chunk over every live SST
-// (`bloom_files_kernel`, `locate_fold_kernel`): each file is a FileDesc in
-// a table that stays on the card per reader set, so a chunk uploads only
-// its queries and downloads one buffer.
-//   P2 over every file (the JAX loop of `_bloom_probe_fused` per SST,
-//      storage/db.py:884-891): grid (lane block, file), one thread per
-//      (lane, file): the maybe mask [files, b_pad] and the file's flag
-//      (a real lane passes, or the file has no usable filter), from the
-//      block's __syncthreads_or (b_pad <= 1024: one lane block a file).
+// The batched read launches two kernels a chunk over every live SST
+// (`hash_probe_files_kernel`, `locate_fold_kernel`), and none for a chunk
+// with no live SST: each file is a FileDesc in a table that stays on the
+// card per reader set, so a chunk uploads only its queries and downloads
+// one buffer.
+//   P1 + P2 over every file (the JAX `hash_batch`, ops/point_read.py:424,
+//      then `_bloom_probe_fused` per SST, storage/db.py:881-891): grid
+//      (lane block, file), one thread per (lane, file): a file with a
+//      usable filter hashes the lane's doc-key prefix (a few dozen
+//      dependent multiply-xor steps, under a microsecond) and probes it:
+//      the maybe mask [files, b_pad] and the file's flag (a real lane
+//      passes, or the file has no usable filter), from the block's
+//      __syncthreads_or (b_pad <= 1024: one lane block a file). File 0's
+//      threads hash every lane and write (h1, h2), [2, b_pad], so the hash
+//      on the path can be held against P1's plain version.
 //   P3 + the newest-wins fold (the JAX loop of `_locate_gather_fused` per
 //      located SST and its fold, db.py:895-920): grid (lane block of 256,
 //      file); a file whose P2 flag is 0 does no work; a located file seeks
@@ -57,9 +65,9 @@
 //      the ticket. No atomics touch a result: the output is deterministic.
 //
 // Bound on an H100. P1, P2: a few bytes per query, launch-bound at B <=
-// 1024. P3: a chain of dependent loads per query (steps x the words a
-// compare reads), bound by memory latency, not bandwidth: a warp's 32
-// seeks hit 32 unrelated columns. P4 streams the two coordinate rows of
+// 1024, so P1 rides in P2's launch. P3: a chain of dependent loads per
+// query (steps x the words a compare reads), bound by memory latency, not
+// bandwidth: a warp's 32 seeks hit 32 unrelated columns. P4 streams the two coordinate rows of
 // the real entries once: bandwidth-bound.
 
 #include <cuda_runtime.h>
@@ -158,19 +166,28 @@ __device__ __forceinline__ bool seek_pred(const uint32_t* __restrict__ cols,
   return hh < rhi || (hh == rhi && hl <= rlo);
 }
 
+// FNV-1a-64 over the first min(len, 4w) bytes of one query's big-endian
+// key words q[0..w) (none when len <= 0), each word loaded once.
+__device__ __forceinline__ uint64_t fnv64_lane(const uint32_t* __restrict__ q,
+                                               int w, int len) {
+  const int nb = len < 4 * w ? len : 4 * w;
+  uint64_t h = kFnvOffset;
+  for (int j = 0; j < nb; j += 4) {
+    const uint32_t word = q[j >> 2];
+    const int m = nb - j < 4 ? nb - j : 4;
+    for (int t = 0; t < m; ++t)
+      h = (h ^ ((word >> (8 * (3 - t))) & 0xFFu)) * kFnvPrime;
+  }
+  return h;
+}
+
 __global__ void fnv64_kernel(const uint32_t* __restrict__ qwords,
                              const int32_t* __restrict__ qlens, int b, int w,
                              uint32_t* __restrict__ h1,
                              uint32_t* __restrict__ h2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= b) return;
-  const uint32_t* q = qwords + (int64_t)i * w;
-  const int len = qlens[i];
-  uint64_t h = kFnvOffset;
-  for (int j = 0; j < 4 * w && j < len; ++j) {
-    const uint32_t byte = (q[j >> 2] >> (8 * (3 - (j & 3)))) & 0xFFu;
-    h = (h ^ byte) * kFnvPrime;
-  }
+  const uint64_t h = fnv64_lane(qwords + (int64_t)i * w, w, qlens[i]);
   h1[i] = (uint32_t)h;
   h2[i] = (uint32_t)(h >> 32) | 1u;
 }
@@ -277,21 +294,32 @@ __global__ void locate_kernel(const uint32_t* __restrict__ cols,
   flags[b + i] = miss;
 }
 
-// P2 over every file. grid (lane blocks, files), blockDim lanes (b_pad <=
-// 1024: one lane block). All k probes of a lane are loaded before any is
-// tested (the AND does not short-circuit), so they overlap in flight.
-__global__ void bloom_files_kernel(const FileDesc* __restrict__ files,
-                                   const uint32_t* __restrict__ h1,
-                                   const uint32_t* __restrict__ h2, int b_pad,
-                                   int b, uint8_t* __restrict__ maybe,
-                                   uint8_t* __restrict__ any) {
+// P1 + P2 over every file. grid (lane blocks, files), blockDim lanes
+// (b_pad <= 1024: one lane block). A (lane, file) thread of a file with a
+// usable filter hashes its lane (fnv64_lane over hw [b_pad, w_hash] and the
+// doc-key length dk), then loads all k probes before testing any (the AND
+// does not short-circuit), so they overlap in flight. File 0's threads hash
+// every lane, filter or none, and write (h1, h2) to h [2, b_pad].
+__global__ void hash_probe_files_kernel(const FileDesc* __restrict__ files,
+                                        const uint32_t* __restrict__ hw,
+                                        const int32_t* __restrict__ dk,
+                                        int w_hash, int b_pad, int b,
+                                        uint8_t* __restrict__ maybe,
+                                        uint8_t* __restrict__ any,
+                                        uint32_t* __restrict__ h) {
   const FileDesc* d = files + blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const uint32_t* words = d->words;
   bool r = true;
-  if (i < b_pad && words != nullptr) {
-    const uint64_t a = h1[i], dd = h2[i], m_bits = d->m_bits;
-    const int kk = d->k < kKMax ? d->k : kKMax;
+  if (i < b_pad && (words != nullptr || blockIdx.y == 0)) {
+    const uint64_t hv = fnv64_lane(hw + (int64_t)i * w_hash, w_hash, dk[i]);
+    const uint64_t a = (uint32_t)hv, dd = (uint32_t)(hv >> 32) | 1u;
+    if (blockIdx.y == 0) {
+      h[i] = (uint32_t)a;
+      h[b_pad + i] = (uint32_t)dd;
+    }
+    const uint64_t m_bits = d->m_bits;
+    const int kk = words == nullptr ? 0 : (d->k < kKMax ? d->k : kKMax);
 #pragma unroll
     for (int p = 0; p < kKMax; ++p) {
       if (p >= kk) break;
@@ -522,17 +550,22 @@ int ybt_point_index_fit(const uint32_t* cols, int64_t n_pad, int n, int w,
 // Bytes of one FileDesc (ops/point_read.py checks its packing against it).
 int ybt_point_file_desc_bytes() { return (int)sizeof(FileDesc); }
 
-// P2 over every file. files: [nfiles] FileDesc on the card; h1, h2 [b_pad]
-// u32; b real lanes; maybe [nfiles, b_pad] and any [nfiles] u8 out.
-int ybt_point_bloom_files(const void* files, int nfiles, const uint32_t* h1,
-                          const uint32_t* h2, int b_pad, int b, uint8_t* maybe,
-                          uint8_t* any, void* stream) {
+// P1 + P2 over every file. files: [nfiles] FileDesc on the card; hw
+// [b_pad, w_hash] u32 doc-key words, dk [b_pad] i32 doc-key lengths; b
+// real lanes; maybe [nfiles, b_pad] and any [nfiles] u8 out, h [2, b_pad]
+// u32 out (h1, h2).
+int ybt_point_hash_probe_files(const void* files, int nfiles,
+                               const uint32_t* hw, const int32_t* dk,
+                               int w_hash, int b_pad, int b, uint8_t* maybe,
+                               uint8_t* any, uint32_t* h, void* stream) {
   if (nfiles <= 0 || nfiles > 65535 || b_pad <= 0 || b_pad > kFileLanes ||
-      b < 0 || b > b_pad)
+      b < 0 || b > b_pad || w_hash <= 0)
     return (int)cudaErrorInvalidValue;
   const int threads = (b_pad + 31) / 32 * 32;
-  bloom_files_kernel<<<dim3(1, nfiles), threads, 0, (cudaStream_t)stream>>>(
-      static_cast<const FileDesc*>(files), h1, h2, b_pad, b, maybe, any);
+  hash_probe_files_kernel<<<dim3(1, nfiles), threads, 0,
+                            (cudaStream_t)stream>>>(
+      static_cast<const FileDesc*>(files), hw, dk, w_hash, b_pad, b, maybe,
+      any, h);
   return (int)cudaGetLastError();
 }
 

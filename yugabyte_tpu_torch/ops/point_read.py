@@ -2,7 +2,7 @@
 gather, and the learned-index fit.
 
 Counterpart of yugabyte_tpu/ops/point_read.py. The SST half of a batch of
-point reads (`storage/db.DB.multi_get`) runs as four CUDA kernels in
+point reads (`storage/db.DB.multi_get`) runs as CUDA kernels in
 csrc/point_read.cu, each beside its plain PyTorch version:
 
   P1 `fnv64` (replaces `_fnv64_fused`, :150): FNV-1a-64 over the doc-key
@@ -20,18 +20,25 @@ csrc/point_read.cu, each beside its plain PyTorch version:
      over staged cols (prefix skip p, 17 exact anchor limbs, max_err
      measured with the inference arithmetic).
 
-`DB.multi_get` runs P2 and P3 once per chunk over every live SST, through
-a `FileTable` of the reader set (each file's bloom, staged cols and
-learned-index operands; on the card a descriptor table uploaded once):
+`DB.multi_get` makes two launches per chunk over every live SST (none for
+a chunk with no live SST), through a `FileTable` of the reader set (each
+file's bloom, staged cols and learned-index operands; on the card a
+descriptor table uploaded once):
 
-  P2 `bloom_probe_files` (the JAX DB's loop of `_bloom_probe_fused` per
-     SST, storage/db.py:884-891): the maybe mask [files, b_pad] and each
-     file's flag (a real lane passes, or the file has no usable filter);
+  P1 + P2 `hash_probe_files` (the JAX DB's `hash_batch`, then its loop of
+     `_bloom_probe_fused` per SST, storage/db.py:881-891): each (lane,
+     file) thread of a file with a usable filter hashes the lane's
+     doc-key prefix and probes the file; the maybe mask [files, b_pad],
+     each file's flag (a real lane passes, or the file has no usable
+     filter) and the hashes (h1, h2), which file 0's threads write;
   P3 `locate_fold` (the JAX DB's loop of `_locate_gather_fused` per
      located SST and its newest-wins fold, db.py:895-920): every lane on
      every located file, a learned-index misprediction re-sought exactly
      in the same launch, the fold in file order on the card, and one
      [5, b_pad] buffer with the per-file counters, downloaded once.
+
+The per-query `fnv64`, the per-file `bloom_probe` and `locate_gather` are
+the kernels' first designs, off the read path.
 
 Device matrices are int32 tensors holding u32 bits. On a CPU tensor a
 wrapper runs its plain version; on a CUDA tensor it launches its kernel
@@ -437,6 +444,17 @@ def bloom_probe_files_plain(h1: torch.Tensor, h2: torch.Tensor,
     return maybe, maybe[:, :b].any(dim=1)
 
 
+def hash_probe_files_plain(hw: torch.Tensor, dk: torch.Tensor,
+                           table: FileTable, b: int):
+    """P1 + P2 over every file of the table: fnv64_plain over the doc-key
+    words hw [b_pad, w_hash] and lengths dk [b_pad], then
+    bloom_probe_files_plain. Returns (maybe bool [files, b_pad], flag bool
+    [files], h1, h2 int32 [b_pad] (u32 bits))."""
+    h1, h2 = fnv64_plain(hw, dk)
+    maybe, flag = bloom_probe_files_plain(h1, h2, table, b)
+    return maybe, flag, h1, h2
+
+
 def locate_fold_plain(table: FileTable, qbuf: torch.Tensor,
                       qlens: torch.Tensor, b: int, rhi: int, rlo: int,
                       model_on: bool, located: torch.Tensor) -> torch.Tensor:
@@ -524,9 +542,9 @@ def _lib():
         lib.ybt_point_index_fit.argtypes = [vp, i64, ci, ci, vp, vp, vp, vp,
                                             vp]
         lib.ybt_point_file_desc_bytes.restype = ci
-        lib.ybt_point_bloom_files.restype = ci
-        lib.ybt_point_bloom_files.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
-                                              vp]
+        lib.ybt_point_hash_probe_files.restype = ci
+        lib.ybt_point_hash_probe_files.argtypes = [vp, ci, vp, vp, ci, ci, ci,
+                                                   vp, vp, vp, vp]
         lib.ybt_point_locate_fold_scratch.restype = i64
         lib.ybt_point_locate_fold_scratch.argtypes = [ci, ci]
         lib.ybt_point_locate_fold.restype = ci
@@ -653,32 +671,38 @@ def _check_table(table: FileTable, dev) -> None:
         raise ValueError(f"FileTable: no descriptors on {dev}")
 
 
-def bloom_probe_files(h1: torch.Tensor, h2: torch.Tensor, table: FileTable,
-                      b: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel P2 over every file of the table (see bloom_probe_files_plain).
-    CPU tensor: the plain version. CUDA tensor: csrc/point_read.cu, one
-    launch (b_pad <= 1024), counted in `bloom_probe_files.launches`."""
-    if not h1.is_cuda:
-        return bloom_probe_files_plain(h1, h2, table, b)
-    b_pad = h1.shape[0]
-    _check(h1, (b_pad,), "bloom_probe_files h1")
-    _check(h2, (b_pad,), "bloom_probe_files h2")
-    dev = h1.device
+def hash_probe_files(hw: torch.Tensor, dk: torch.Tensor, table: FileTable,
+                     b: int):
+    """Kernels P1 + P2 over every file of the table (see
+    hash_probe_files_plain). CPU tensor: the plain version. CUDA tensor:
+    csrc/point_read.cu, one launch (b_pad <= 1024), counted in
+    `hash_probe_files.launches`."""
+    if not hw.is_cuda:
+        return hash_probe_files_plain(hw, dk, table, b)
+    b_pad, w_hash = hw.shape[0], hw.shape[-1]
+    _check(hw, (b_pad, w_hash), "hash_probe_files hw")
+    _check(dk, (b_pad,), "hash_probe_files dk")
+    dev = hw.device
     _check_table(table, dev)
     nf = len(table.files)
-    if not 0 < b <= b_pad <= BATCH_BUCKETS[-1]:
-        raise ValueError(f"bloom_probe_files: b {b}, b_pad {b_pad}")
-    out = torch.empty(nf * (b_pad + 1), dtype=torch.bool, device=dev)
-    maybe, flag = out[:nf * b_pad].view(nf, b_pad), out[nf * b_pad:]
-    rc = _lib().ybt_point_bloom_files(
-        table.desc.data_ptr(), nf, h1.data_ptr(), h2.data_ptr(), b_pad, b,
-        maybe.data_ptr(), flag.data_ptr(), torch_setup.stream_ptr(dev))
-    torch_setup.raise_on_cuda_error(rc, "bloom_probe_files")
-    bloom_probe_files.launches += 1
-    return maybe, flag
+    if not (0 < b <= b_pad <= BATCH_BUCKETS[-1] and w_hash > 0):
+        raise ValueError(f"hash_probe_files: b {b}, b_pad {b_pad}, w_hash "
+                         f"{w_hash}")
+    out = torch.empty(8 * b_pad + nf * (b_pad + 1), dtype=torch.uint8,
+                      device=dev)
+    h = out[:8 * b_pad].view(torch.int32).view(2, b_pad)
+    flags = out[8 * b_pad:].view(torch.bool)
+    maybe, flag = flags[:nf * b_pad].view(nf, b_pad), flags[nf * b_pad:]
+    rc = _lib().ybt_point_hash_probe_files(
+        table.desc.data_ptr(), nf, hw.data_ptr(), dk.data_ptr(), w_hash,
+        b_pad, b, maybe.data_ptr(), flag.data_ptr(), h.data_ptr(),
+        torch_setup.stream_ptr(dev))
+    torch_setup.raise_on_cuda_error(rc, "hash_probe_files")
+    hash_probe_files.launches += 1
+    return maybe, flag, h[0], h[1]
 
 
-bloom_probe_files.launches = 0
+hash_probe_files.launches = 0
 
 # P3-over-every-file's completion ticket, one zeroed u32 per (device,
 # stream), which each launch leaves at 0

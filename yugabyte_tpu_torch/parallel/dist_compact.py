@@ -116,15 +116,12 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
-        lib.ybt_bucket_scatter_scratch_bytes.restype = ctypes.c_int64
-        lib.ybt_bucket_scatter_scratch_bytes.argtypes = [ctypes.c_int64,
-                                                         ctypes.c_int]
         lib.ybt_bucket_scatter.restype = ctypes.c_int
         lib.ybt_bucket_scatter.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
             ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p]
         _dist_lib = lib
     return _dist_lib
 
@@ -299,10 +296,12 @@ def bucket_scatter(cols: torch.Tensor, dest: torch.Tensor,
                    hist: torch.Tensor, real_hist: torch.Tensor,
                    capacity: int, n_shards: int, idx_base: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel M3 wrapper (see bucket_scatter_plain): the template fill,
-    the per-destination scan of M2's tile counts and the stable scatter,
-    three launches counted as one call in `bucket_scatter.launches`. CPU
-    tensor: the plain version. CUDA tensor: csrc/dist.cu."""
+    """Kernel M3 wrapper (see bucket_scatter_plain): one launch over M2's
+    tiles that writes every send slot once, a row's run of each
+    destination as consecutive slots and the pad template only where no
+    row lands; M2's per-tile counts give each tile its bases. Counted in
+    `bucket_scatter.launches`. CPU tensor: the plain version. CUDA
+    tensor: csrc/dist.cu."""
     if not cols.is_cuda:
         return bucket_scatter_plain(cols, dest, hist, real_hist, capacity,
                                     n_shards, idx_base)
@@ -312,7 +311,7 @@ def bucket_scatter(cols: torch.Tensor, dest: torch.Tensor,
     tiles = _n_tiles(n)
     width = n_shards * capacity
     if not (r > _ROW_WORDS and 0 < n < (1 << 31) and 1 <= n_shards <= 256
-            and capacity >= 1 and capacity % 4 == 0
+            and capacity >= 1 and capacity % 4 == 0 and width < (1 << 31)
             and dest.dtype == hist.dtype == real_hist.dtype == torch.int32
             and dest.shape == (n,) and dest.is_contiguous()
             and hist.shape == real_hist.shape == (n_shards, tiles)
@@ -321,16 +320,12 @@ def bucket_scatter(cols: torch.Tensor, dest: torch.Tensor,
         raise ValueError(f"bucket_scatter: bad arguments for cols "
                          f"{tuple(cols.shape)}, capacity={capacity}, "
                          f"{n_shards} shards")
-    lib = _lib()
     out = torch.empty((r + 1, width), dtype=torch.int32, device=dev)
-    scratch = torch.empty(int(lib.ybt_bucket_scatter_scratch_bytes(
-        n, n_shards)), dtype=torch.uint8, device=dev)
     overflow = torch.empty(1, dtype=torch.int32, device=dev)
-    rc = lib.ybt_bucket_scatter(
+    rc = _lib().ybt_bucket_scatter(
         cols.data_ptr(), n, r, dest.data_ptr(), hist.data_ptr(),
         real_hist.data_ptr(), capacity, n_shards, idx_base & _U32,
-        scratch.data_ptr(), out.data_ptr(), overflow.data_ptr(),
-        torch_setup.stream_ptr(dev))
+        out.data_ptr(), overflow.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "bucket_scatter")
     bucket_scatter.launches += 1
     return out, overflow

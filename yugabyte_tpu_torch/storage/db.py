@@ -530,21 +530,22 @@ class DB:
                 self._purge_obsolete_unlocked()
 
     def _device_chunk(self, chunk, dkls, read_ht, staged_by):
-        """One chunk through the kernels: P1 over the doc-key prefixes,
-        then P2 over every live SST (a file whose bloom rejects every key
-        is not located) and P3 with the newest (ht, wid) hit kept per key,
-        one launch each, and one download. Returns None when no file was
-        located, else arrays (ht u64, wid u32, row, file index, hit)."""
+        """One chunk through the kernels: P1 + P2 over every live SST
+        (each file hashes the doc-key prefixes and probes its bloom; a
+        file whose bloom rejects every key is not located), then P3 with
+        the newest (ht, wid) hit kept per key, one launch each, and one
+        download; no launch without a live SST. Returns None when no file
+        was located, else arrays (ht u64, wid u32, row, file index, hit)."""
         from yugabyte_tpu_torch.ops import point_read
         point_read.count("batches")
         point_read.count("keys", len(chunk))
         table = self._file_table(staged_by)
-        hw, dk, qbuf, ql = self._pack_chunk(chunk, dkls, table)
-        h1, h2 = point_read.fnv64(hw, dk)
         if not table.files:
             return None
+        hw, dk, qbuf, ql = self._pack_chunk(chunk, dkls, table)
         b, b_pad = len(chunk), ql.shape[0]
-        _maybe, located = point_read.bloom_probe_files(h1, h2, table, b)
+        _maybe, located, _h1, _h2 = point_read.hash_probe_files(hw, dk,
+                                                                table, b)
         model_on = flags.get_flag("point_read_learned_index")
         out = point_read.locate_fold(table, qbuf, ql, b, read_ht.value >> 32,
                                      read_ht.value & 0xFFFFFFFF, model_on,
@@ -574,8 +575,8 @@ class DB:
 
     def _pack_chunk(self, chunk, dkls, table):
         """The host half of a chunk in one upload: the padded doc-key
-        prefixes and their lengths (P1's operands), the queries of every
-        key width of the live files and their true lengths (P3's).
+        prefixes and their lengths (the hash's operands), the queries of
+        every key width of the live files and their true lengths (P3's).
         Returns (hash words [b_pad, w], doc-key lengths, query buffer,
         query lengths), views of one device buffer."""
         from yugabyte_tpu_torch.ops import point_read
