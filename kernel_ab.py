@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D, G, H, I.2, J.1, J.2, K and M3 of the PyTorch port, the
-resident aggregates and the point read's P1-P3, timed for several
+"""Kernels A, B, D, G, H, I.2, J.1, J.2, K, M2 and M3 of the PyTorch port,
+the resident aggregates and the point read's P1-P4, timed for several
 checkouts in one run on one GPU.
 
     python3 kernel_ab.py [--rows N] [--sf-orders M] [--seed S] [--reps R]
@@ -36,10 +36,12 @@ sections that --only names (default: all; `merge` is A-K, then `m3`,
     tile, whose writes fall to the last tile's CTA);
   - kernel K (`pushdown.agg_reduce`) with the aggregate slot over J.1's
     flags, J.2's output and the sorted value words;
-  - kernel M3 (`dist_compact.bucket_scatter`) at shard 0's shape of the
-    mesh job (the tablet as one slab on 8 virtual shards of the card, M1's
-    splitters, M2's dest and counts, capacity factor 2: a [17, 2^22] send
-    buffer at 10M rows);
+  - kernels M2 (`dist_compact.route_dest`) and M3
+    (`dist_compact.bucket_scatter`) at shard 0's shape of the mesh job
+    (the tablet as one slab on 8 virtual shards of the card, M1's
+    splitters; M2 over the shard's 2^21 lanes at w_route 4, M3 on M2's
+    dest and counts at capacity factor 2: a [17, 2^22] send buffer at 10M
+    rows);
   - the resident aggregates: q1_agg and q6_agg (chip_smoke's TPC-H
     lineitem tablet, --sf-orders, in 4 SSTs staged with their value words
     into a DeviceSlabCache) over `ResidentSource`s: the median wall time
@@ -53,17 +55,19 @@ sections that --only names (default: all; `merge` is A-K, then `m3`,
     the device time and launches of one chunk by kernel name, with P1's,
     P2's, P1 + P2's and P3's summed (a checkout whose P1 runs in a launch
     of its own counts it apart; one whose P2 and P3 run per SST launches
-    them once a file);
+    them once a file), and kernel P4 (`point_read.index_fit`, the
+    learned-index fit) over each staged SST of the YCSB point DB;
   - for every wrapper, the host's milliseconds to enqueue one call, and
     the device's milliseconds and launches per call by kernel name
     (torch.profiler): where the enqueue takes longer than the device, the
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
 D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
-words, J.2's outputs, K's accumulators, M3's send buffer and overflow
-word, the resident answers, the point read chunks' folds) go into one
-sha256 that must match across the checkouts. Prints one JSON line per
-process and the card's name and power limit.
+words, J.2's outputs, K's accumulators, M2's dest and counts, M3's send
+buffer and overflow word, the resident answers, the point read chunks'
+folds, P4's answers) go into one sha256 that must match across the
+checkouts. Prints one JSON line per process and the card's name and
+power limit.
 Imports nothing of JAX.
 """
 
@@ -100,20 +104,24 @@ def host_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int, launches: bool = False) -> dict:
     """Device milliseconds per call by kernel (and memset) name, from
-    torch.profiler's CUDA activity: one call before the profiler, one
-    sacrificial call inside it (a trace's first events can be lost), a
-    marker kernel (`torch.cuda._sleep`), then `reps` timed calls inside a
-    record_function range, whose device events are those that start after
-    the marker; with `launches`, {name: [ms, launches per call]}. Kept
-    here, not taken from the root's chip_smoke: an older checkout's
-    chip_smoke has no such helper."""
+    torch.profiler's CUDA activity: one call before the profiler; inside
+    it 512 one-element adds and one sacrificial call (a trace's first
+    events can be lost: without the adds, a trace here kept 7 of 10 short
+    calls), a marker kernel (`torch.cuda._sleep`), then `reps` timed
+    calls inside a record_function range, whose device events are those
+    that start after the marker; with `launches`, {name: [ms, launches
+    per call]}. Kept here, not taken from the root's chip_smoke: an older
+    checkout's chip_smoke has no such helper."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(512):
+            pad.add_(1)
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
@@ -185,11 +193,12 @@ def point_chunk(db, keys, read_ht, reps: int, digest) -> dict:
     return out
 
 
-def bucket_scatter(runs, reps: int, digest) -> dict:
-    """Kernel M3 at shard 0's shape of the mesh job: the runs as one slab
-    on 8 virtual shards of the card (`stage_sharded_cols`), M1's
-    splitters, M2's dest and counts on shard 0, the job's capacity at
-    factor 2. Its send buffer and overflow word go into the digest."""
+def mesh_routing(runs, reps: int, digest) -> dict:
+    """Kernels M2 and M3 at shard 0's shape of the mesh job: the runs as
+    one slab on 8 virtual shards of the card (`stage_sharded_cols`), M1's
+    splitters, M2's dest and counts on shard 0, M3 on them at the job's
+    capacity at factor 2. M2's dest and counts, then M3's send buffer and
+    overflow word, go into the digest."""
     import torch
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.parallel import dist_compact as dc
@@ -203,7 +212,12 @@ def bucket_scatter(runs, reps: int, digest) -> dict:
                              w_route, n_shards)
     c0 = cols[0]
     del cols
-    dest, hist, real = dc.route_dest(c0, split, w_route, n_shards)
+
+    def m2():
+        return dc.route_dest(c0, split, w_route, n_shards)
+    dest, hist, real = m2()
+    for x in (dest, hist, real):
+        digest.update(x.cpu().numpy().tobytes())
     cap = dc._quantized_capacity(n_local, n_shards, 2.0)
 
     def m3():
@@ -212,10 +226,31 @@ def bucket_scatter(runs, reps: int, digest) -> dict:
     digest.update(send.cpu().numpy().tobytes())
     digest.update(ovf.cpu().numpy().tobytes())
     del send, ovf
-    out = dict(timed(m3, reps), shard_lanes=n_local, capacity=cap,
-               send=[int(c0.shape[0]) + 1, n_shards * cap])
+    out = {"route_dest": dict(timed(m2, reps), shard_lanes=n_local,
+                              w_route=w_route),
+           "bucket_scatter": dict(timed(m3, reps), shard_lanes=n_local,
+                                  capacity=cap,
+                                  send=[int(c0.shape[0]) + 1,
+                                        n_shards * cap])}
     del c0, dest, hist, real
     torch.cuda.empty_cache()
+    return out
+
+
+def index_fits(db, reps: int, digest) -> list:
+    """Kernel P4 (`point_read.index_fit`) over each staged SST of the DB
+    (staged by point_chunk), in file order: its answer into the digest,
+    then its times."""
+    from yugabyte_tpu_torch.ops import point_read as pr
+    out = []
+    for fid in sorted(db._readers):
+        st = db._device_cache.get(fid)
+
+        def fit(st=st):
+            return pr.index_fit(st.cols_dev, st.n, st.w)
+        for x in fit():
+            digest.update(x.cpu().numpy().tobytes())
+        out.append(dict(timed(fit, reps), n=st.n, w=st.w))
     return out
 
 
@@ -234,6 +269,7 @@ def point_read(rows: int, seed: int, reps: int, digest) -> dict:
         keys = [bytes(k) for k in cs.ycsb_keys(cs.scrambled_zipfian(
             1024, summary["key_space"], rng))]
         out = point_chunk(db, keys, HybridTime(top_ht), reps, digest)
+        out["index_fit"] = index_fits(db, reps, digest)
         db.close()
         return out
     finally:
@@ -318,7 +354,7 @@ def child(root: str, rows: int, seed: int, reps: int, sf_orders: int,
         out.update(merge_kernels(runs, rows, reps, digest))
         torch.cuda.empty_cache()
     if "m3" in only:
-        out["bucket_scatter"] = bucket_scatter(runs, reps, digest)
+        out.update(mesh_routing(runs, reps, digest))
     del runs
     if "point" in only:
         out["point_read"] = point_read(rows, seed, reps, digest)

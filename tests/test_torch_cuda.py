@@ -784,6 +784,114 @@ def test_point_index_fit_kernel_matches_plain_and_host(cuda):
         assert pr.fit_learned_index_device(st) == fit
 
 
+# Kernel P4's layouts (n, n_pad, w, p): n not a multiple of 4, n = n_pad,
+# w = 2, p = 0, 1 and 2, runs of equal keys spanning several anchors (equal
+# anchors, segments with da = 0), a row stride not a multiple of 4 (the
+# kernel's scalar loads)
+INDEX_FIT_CASES = {"n_mod4": (3001, 4096, 4, 0), "n_full": (4096, 4096, 3, 0),
+                   "w2": (2000, 2048, 2, 0), "p1": (5000, 8192, 4, 1),
+                   "p2": (5000, 8192, 5, 2), "runs": (4096, 4096, 4, 0),
+                   "stride": (999, 1001, 4, 1)}
+
+
+def _fit_cols(x, n_pad, w, p, rng):
+    """A sorted staged matrix u32 [8 + w, n_pad] over the 64-bit
+    coordinates x (sorted): key words 0..p-1 one shared prefix, words p and
+    p + 1 the limbs of x, the rest random and sorted within equal limbs;
+    pad columns 0xFFFFFFFF in the key words."""
+    n = len(x)
+    words = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint64)
+    words[:, :p] = rng.integers(0, 2 ** 32, size=p, dtype=np.uint64)
+    words[:, p] = x >> np.uint64(32)
+    words[:, p + 1] = x & np.uint64(0xFFFFFFFF)
+    words = words[np.lexsort(words.T[::-1])].astype(np.uint32)
+    cols = np.zeros((8 + w, n_pad), dtype=np.uint32)
+    cols[0, :n] = 4 * w
+    cols[8:, :n] = words.T
+    cols[8:, n:] = 0xFFFFFFFF
+    return cols
+
+
+def index_fit_case(case):
+    """(cols, n, w) of the named INDEX_FIT_CASES layout, from a seed."""
+    n, n_pad, w, p = INDEX_FIT_CASES[case]
+    rng = np.random.default_rng(sum(case.encode()))
+    if case == "runs":
+        vals = np.sort(rng.integers(0, 2 ** 62, size=5, dtype=np.uint64))
+        x = np.repeat(vals, [700, 1500, 10, 1200, n - 3410])
+    else:
+        x = np.sort(rng.integers(0, 2 ** 62, size=n, dtype=np.uint64))
+    return _fit_cols(x, n_pad, w, p, rng), n, w
+
+
+def _fit_matches_plain(cuda, cols, n, w):
+    from yugabyte_tpu_torch.ops import point_read as pr
+    c = merge_gc.u32_to_device(cols, cuda)
+    before = pr.index_fit.launches
+    got = pr.index_fit(c, n, w)
+    assert pr.index_fit.launches == before + 1
+    want = pr.index_fit_plain(c, n, w)
+    for g, x in zip(got, want):
+        assert torch.equal(g.reshape(-1), x.reshape(-1))
+    return c, got
+
+
+@pytest.mark.parametrize("case", sorted(INDEX_FIT_CASES))
+def test_point_index_fit_kernel_layouts(cuda, case):
+    """P4 == its plain version on its layouts; on the strided one, a chain
+    span cannot have it (every staged span is padded to a power of two),
+    the kernel takes its scalar loads."""
+    cols, n, w = index_fit_case(case)
+    _c, got = _fit_matches_plain(cuda, cols, n, w)
+    assert int(got[2]) == INDEX_FIT_CASES[case][3]
+
+
+@pytest.mark.parametrize("where", [0, 100, 255])
+def test_point_index_fit_largest_error_in_one_cta(cuda, where):
+    """2^20 entries on a line but one run of 1000 equal coordinates, which
+    holds the largest error: in the 4096 entries CTA `where` streams first
+    (256 threads, 4 groups of 4 entries a thread; 256 CTAs), CTA 0, one in
+    between and the last. The fold of the CTAs' partials finds it; ten
+    calls on one stream give the same answer (the ticket resets)."""
+    from yugabyte_tpu_torch.ops import point_read as pr
+    n = 1 << 20
+    x = np.uint64(1 << 40) + np.arange(n, dtype=np.uint64) * np.uint64(
+        3_000_000_000)
+    i0 = 4 * (where * 256) if where < 255 else 4 * (3 * 65536 + 255 * 256)
+    x[i0:i0 + 1000] = x[i0]
+    cols = _fit_cols(x, n, 4, 0, np.random.default_rng(where))
+    c, got = _fit_matches_plain(cuda, cols, n, 4)
+    assert 900 < int(got[3]) < 1100
+    first = torch.cat([t.reshape(-1) for t in got]).clone()
+    for _ in range(10):
+        again = pr.index_fit(c, n, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([t.reshape(-1) for t in again]), first)
+
+
+def test_point_index_fit_one_launch_and_one_download(cuda):
+    """index_fit is one kernel a call, with no memset or copy;
+    fit_learned_index_device adds one device-to-host copy of its answer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from yugabyte_tpu_torch.ops import point_read as pr
+    _ids, _entries, slab, fit = _point_cols(36)
+    st = merge_gc.stage_slab(slab, cuda)
+    assert _device_activity(lambda: pr.index_fit(st.cols_dev, st.n,
+                                                 st.w)) == (1, 0)
+    assert pr.fit_learned_index_device(st) == fit
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pr.fit_learned_index_device(st)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copies = [x for x in names if x.startswith("Memcpy")
+              or x.startswith("Memset")]
+    assert len(names) - len(copies) == 1
+    assert len(copies) == 1 and "DtoH" in copies[0], names
+
+
 def _every_file_rows(n_files, seed, device):
     """n_files sorted SSTs staged on `device` (widths 4 and 8 by turns)
     as FileTable rows: a dense filter, none (every lane a maybe) or one
@@ -1154,6 +1262,71 @@ def test_dist_route_kernels_match_plain(cuda, n, n_shards, factor):
     m2 = dist_compact.route_dest(parts[0], split, w_route, n_shards)
     assert _device_activity(lambda: dist_compact.bucket_scatter(
         parts[0], *m2, cap, n_shards, 0)) == (1, 0)
+
+
+def _route_cols(rng, n, w, sorted_keys, pads):
+    """A shard's matrix u32 [8 + w, n] for kernel M2: key words from a
+    small alphabet (routes collide, so splitters repeat and routes equal
+    splitters), doc-key lengths 0..4w+1, sorted by key words or not, and
+    `pads` pad columns at the tail."""
+    words = rng.choice(np.array([0, 1, 0x53000000, 0x7FFFFFFF, 0xFFFFFFFF],
+                                dtype=np.uint32), size=(n, w))
+    if sorted_keys:
+        words = words[np.lexsort(words.T[::-1])]
+    cols = np.zeros((8 + w, n), dtype=np.uint32)
+    cols[0] = 4 * w
+    cols[1] = rng.integers(0, 4 * w + 2, size=n)
+    cols[8:] = words.T
+    cols[:, n - pads:] = merge_gc.pad_template(8 + w)[:, None]
+    return cols
+
+
+def _route_splitters(cols, w_route, n_shards, rng):
+    """M1's plain splitters over 256 random columns of cols (sorted, so
+    never decreasing; equal where routes collide), int32 [w_route, S-1]."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    if n_shards == 1:
+        return torch.empty((w_route, 0), dtype=torch.int32)
+    lanes = np.sort(rng.integers(0, cols.shape[1], size=256))
+    rows = [0, 1] + list(range(8, 8 + w_route))
+    samp = merge_gc.u32_to_device(
+        np.ascontiguousarray(cols[rows][:, lanes]), "cpu")
+    return dist_compact.splitter_pick_plain(samp, w_route, n_shards)
+
+
+# M2's layouts (n, S, w_route, sorted keys, pad columns): S 1, 2, 8 and
+# 256, w_route 1-4, n % 4 != 0 (the scalar loads), n below one tile, n not
+# a multiple of the tile, pads at the tail
+ROUTE_DEST_CASES = [(5000, 1, 4, True, 0), (4097, 2, 1, False, 3),
+                    (1003, 8, 2, True, 100), (3 * 4096, 8, 3, False, 0),
+                    (1 << 20, 8, 4, True, 1000), (50000, 256, 4, False, 7),
+                    (50001, 256, 1, True, 0), (9000, 2, 4, True, 4096)]
+
+
+@pytest.mark.parametrize("n,n_shards,w_route,sorted_keys,pads",
+                         ROUTE_DEST_CASES)
+def test_route_dest_kernel_layouts(cuda, n, n_shards, w_route, sorted_keys,
+                                   pads):
+    """M2 == its plain version (dest, hist, real_hist) on its layouts, one
+    launch a call; M3 fed by it == M3's plain version fed the same."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    rng = np.random.default_rng(n + n_shards + w_route)
+    cols = _route_cols(rng, n, w_route, sorted_keys, pads)
+    split = _route_splitters(cols, w_route, n_shards, rng).to(cuda)
+    c = merge_gc.u32_to_device(cols, cuda)
+    before = dist_compact.route_dest.launches
+    got = dist_compact.route_dest(c, split, w_route, n_shards)
+    assert dist_compact.route_dest.launches == before + 1
+    want = dist_compact.route_dest_plain(c, split, w_route, n_shards)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cap = dist_compact._quantized_capacity(n, n_shards, 2.0)
+    send, ovf = dist_compact.bucket_scatter(c, *got, cap, n_shards, 0)
+    send_p, ovf_p = dist_compact.bucket_scatter_plain(c, *want, cap,
+                                                      n_shards, 0)
+    assert torch.equal(send, send_p) and torch.equal(ovf, ovf_p)
+    assert _device_activity(lambda: dist_compact.route_dest(
+        c, split, w_route, n_shards)) == (1, 0)
 
 
 def test_one_shard_mesh_on_the_card(cuda, monkeypatch):

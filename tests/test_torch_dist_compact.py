@@ -445,39 +445,74 @@ def _skewed_cols(n, n_shards, seed, dkl_max):
     return merge_gc.pack_cols(_port_slab(slab))[0], slab
 
 
+def _route_edges(cols, n_shards, splitters):
+    """Which of M2's edges the global u32 matrix reaches: two equal
+    splitters, a real row's route equal to a splitter."""
+    w_route = splitters.shape[0]
+    is_pad = cols[ref_mg._ROW_KEY_LEN] == np.uint32(ref_mg.PAD_SENTINEL)
+    mask = np.asarray(ref_mg.route_word_mask(
+        jnp.asarray(cols[ref_mg._ROW_DKL].view(np.int32)), w_route))
+    route = (cols[_ROW_WORDS:_ROW_WORDS + w_route] & mask)[:, ~is_pad]
+    as_void = np.dtype((np.void, 4 * w_route))
+    r = np.ascontiguousarray(route.T).view(as_void).ravel()
+    sp = np.ascontiguousarray(splitters.T).view(as_void).ravel()
+    return {name for name, hit in (
+        ("equal_splitters", len(np.unique(sp)) < len(sp)),
+        ("route_eq_splitter", bool(np.isin(r, sp).any()))) if hit}
+
+
 # M3's layouts that a case is there for (doc keys of no byte route every
 # real row to the last shard): a destination with no row, one filled
 # exactly to capacity, rows dropped past capacity while the overflow word
 # stays 0 (only pads overflowed)
 _M3_EDGES = {(1024, 2, 2.0, 1): {"empty", "full"},
              (700, 2, 1.0, 1): {"pads_dropped"}}
+# M2's: splitters that repeat (doc keys under one word route alike) and
+# routes equal to a splitter, at S = 2 and 8; narrow keys, w_route 1-3
+# (the route words of a matrix of 8 + w_route rows: pack_cols pads a slab
+# to 4 key words at least, so the mesh job routes on 4)
+_M2_EDGES = {(3000, 8, 2.0, 3, 3): {"equal_splitters", "route_eq_splitter"},
+             (6000, 2, 2.0, 12, 4): {"route_eq_splitter"},
+             (4000, 8, 1.0, 12, 2): {"route_eq_splitter"},
+             (2000, 8, 2.0, 12, 1): {"equal_splitters", "route_eq_splitter"}}
 
 
-@pytest.mark.parametrize("n,n_shards,factor,dkl_max", [
-    (300, 8, 2.0, 12),        # shards 5-7 all pad
-    (5000, 2, 0.05, 12),      # drops past capacity, overflow
-    (20000, 2, 2.0, 3),       # 4 tiles a shard, doc keys under one word
-    (700, 3, 1.0, 12),        # pad columns appended to a multiple of 3
-    (3000, 8, 0.25, 12),
-    (1024, 2, 2.0, 1),        # an empty destination, one exactly full
-    (700, 2, 1.0, 1)])        # pads alone dropped past capacity
-def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max):
+@pytest.mark.parametrize("n,n_shards,factor,dkl_max,w_route", [
+    # (the first seven keep their ids from before w_route was a
+    # parameter: the 4 of the mesh job)
+    pytest.param(300, 8, 2.0, 12, 4, id="300-8-2.0-12"),   # shards 5-7 all pad
+    pytest.param(5000, 2, 0.05, 12, 4, id="5000-2-0.05-12"),  # drops, overflow
+    # 4 tiles a shard, doc keys under one word
+    pytest.param(20000, 2, 2.0, 3, 4, id="20000-2-2.0-3"),
+    # pad columns appended to a multiple of 3
+    pytest.param(700, 3, 1.0, 12, 4, id="700-3-1.0-12"),
+    pytest.param(3000, 8, 0.25, 12, 4, id="3000-8-0.25-12"),
+    # an empty destination, one exactly full
+    pytest.param(1024, 2, 2.0, 1, 4, id="1024-2-2.0-1"),
+    # pads alone dropped past capacity
+    pytest.param(700, 2, 1.0, 1, 4, id="700-2-1.0-1"),
+    *_M2_EDGES])
+def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max,
+                                             w_route):
     cols, slab = _skewed_cols(n, n_shards, n + n_shards, dkl_max)
     mesh = _mesh(n_shards)
     parts, n_local = dist_compact.stage_sharded_cols(_port_slab(slab), mesh)
     full = np.concatenate([p.numpy().view(np.uint32) for p in parts], 1)
     assert np.array_equal(full[:, :cols.shape[1]], cols)
+    if w_route < 4:
+        full = np.ascontiguousarray(full[:_ROW_WORDS + w_route])
+        parts = [p[:_ROW_WORDS + w_route].contiguous() for p in parts]
     capacity = dist_compact._quantized_capacity(n_local, n_shards, factor)
     assert capacity == ref_dc._quantized_capacity(n_local, n_shards, factor)
     want_split, want = _per_shard_numpy(full, n_shards, capacity)
-    w_route = min(dist_compact._W_ROUTE, full.shape[0] - _ROW_WORDS)
+    assert w_route == min(dist_compact._W_ROUTE, full.shape[0] - _ROW_WORDS)
     samp = dist_compact._sample_matrix(parts, n_local, w_route,
                                        torch.device("cpu"))
     for fn in (dist_compact.splitter_pick_plain, dist_compact.splitter_pick):
         split = fn(samp, w_route, n_shards)
         assert np.array_equal(split.numpy().view(np.uint32), want_split)
     tiles = -(-n_local // dist_compact._TILE)
-    seen = set()
+    seen = _route_edges(full, n_shards, want_split)
     for s, (dest_w, counts_w, all_w, send_w, ovf_w) in enumerate(want):
         seen |= {name for name, hit in (
             ("empty", (all_w == 0).any()), ("full", (all_w == capacity).any()),
@@ -496,6 +531,8 @@ def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max):
         assert np.array_equal(send.numpy().view(np.uint32), send_w)
         assert bool(ovf.item()) == ovf_w
     assert _M3_EDGES.get((n, n_shards, factor, dkl_max), set()) <= seen
+    assert _M2_EDGES.get((n, n_shards, factor, dkl_max, w_route),
+                         set()) <= seen
 
 
 def test_exchange_copies_gather_column_blocks():

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_cuda import INDEX_FIT_CASES, index_fit_case
 from yugabyte_tpu.common import hybrid_time as ref_ht
 from yugabyte_tpu.ops import merge_gc as ref_mg
 from yugabyte_tpu.ops import point_read as ref_pr
@@ -33,7 +34,8 @@ from yugabyte_tpu.storage import learned_index as ref_li
 from yugabyte_tpu_torch.common.hybrid_time import DocHybridTime, HybridTime
 from yugabyte_tpu_torch.docdb.value import Value
 from yugabyte_tpu_torch.ops import point_read as pr
-from yugabyte_tpu_torch.ops.merge_gc import stage_slab, u32_to_device
+from yugabyte_tpu_torch.ops.merge_gc import (StagedCols, stage_slab,
+                                             u32_to_device)
 from yugabyte_tpu_torch.ops.slabs import _doc_key_len, _pad_keys_to_words
 from yugabyte_tpu_torch.ops.slabs import pack_kvs as port_pack_kvs
 from yugabyte_tpu_torch.storage import bloom, learned_index
@@ -186,21 +188,39 @@ def test_locate_gather_plain_equals_jax(mode):
             assert not miss.any()
 
 
-@pytest.mark.parametrize("seed", [7, 8])
-def test_index_fit_plain_equals_jax_and_host(seed):
-    _ids, entries = _sorted_entries(seed, n_ids=900)
-    slab, cols, n, n_pad, w = _cols(entries)
+@pytest.mark.parametrize("case", [7, 8, *sorted(INDEX_FIT_CASES)])
+def test_index_fit_plain_equals_jax_and_host(case):
+    """P4's plain version == the JAX `_index_fit_fused` == the host twin:
+    over a sorted slab of two seeds, and over the card tests' layouts of
+    kernel P4 (test_torch_cuda.INDEX_FIT_CASES: n not a multiple of 4, n =
+    n_pad, w = 2, p = 0, 1 and 2, runs of equal keys over several anchors,
+    a row stride not a multiple of 4)."""
+    if isinstance(case, int):
+        _ids, entries = _sorted_entries(case, n_ids=900)
+        slab, cols, n, n_pad, w = _cols(entries)
+    else:
+        cols, n, w = index_fit_case(case)
+        n_pad = cols.shape[1]
     a_hi, a_lo, p, err = pr.index_fit_plain(u32_to_device(cols, "cpu"), n, w)
     r = ref_pr._index_fit_fused(jnp.asarray(cols), jnp.int32(n),
                                 n_segments=16, w=w)
     assert np.array_equal(_u32(a_hi), _np(r[0]))
     assert np.array_equal(_u32(a_lo), _np(r[1]))
     assert int(p) == int(r[2]) and int(err) == int(r[3])
-    port_slab = port_pack_kvs(entries)
-    host = learned_index.fit_from_slab(port_slab)
-    assert host == ref_li.fit_from_slab(slab)
-    dev = pr.fit_learned_index_device(stage_slab(port_slab, "cpu"))
-    assert dev == host and host["p"] >= 1
+    if isinstance(case, int):
+        port_slab = port_pack_kvs(entries)
+        host = learned_index.fit_from_slab(port_slab)
+        assert host == ref_li.fit_from_slab(slab)
+        staged = stage_slab(port_slab, "cpu")
+    else:
+        assert int(p) == INDEX_FIT_CASES[case][3]
+        words = np.ascontiguousarray(cols[8:, :n].T)
+        host = learned_index.fit_from_sorted_words(words)
+        assert host == ref_li.fit_from_sorted_words(words)
+        staged = StagedCols(u32_to_device(cols, "cpu"), n, n_pad, w, None,
+                            None)
+    dev = pr.fit_learned_index_device(staged)
+    assert dev == host and (host["p"] >= 1 or not isinstance(case, int))
 
 
 # -------------------------------------------- P2 and P3 over every file

@@ -22,7 +22,9 @@
 //
 // Bounds on an H100: M1 sorts a few hundred samples in one CTA (bitonic, in
 // shared memory): latency-bound, a few microseconds of dependent steps. M2
-// reads 24 bytes a lane and writes dest (4 bytes): memory-bound. M3 reads
+// reads 8 + 4 w_route bytes a lane and writes dest (4 bytes): memory-bound,
+// so every load of a thread is in flight before its first compare (see
+// route_dest_kernel). M3 reads
 // the shard's r rows and dest once and writes the [r+1, S*capacity] send
 // buffer once (the slots no row lands in hold the pad template):
 // memory-bound, about 1.5x as many bytes written as read at the mesh
@@ -150,60 +152,171 @@ __global__ void splitter_pick_kernel(const uint32_t* __restrict__ samp,
 
 // ---------------------------------------------------------------- M2
 
-// cols: [>= 8 + w, n] (the shard, row stride n); split: [w, n_shards - 1];
-// dest: [n]; hist, real_hist: [n_shards][tiles] counts of dest per tile
-// over every row and over the real rows.
-__global__ void route_dest_kernel(const uint32_t* __restrict__ cols, int64_t n,
-                                  int w, const uint32_t* __restrict__ split,
-                                  int n_shards, int tiles,
-                                  int32_t* __restrict__ dest,
-                                  int32_t* __restrict__ hist,
-                                  int32_t* __restrict__ real_hist) {
-  __shared__ uint32_t sp[kMaxRoute * kMaxShards];
+// M2's CTA: kTile lanes over 512 threads, 8 lanes a thread, two CTAs an
+// SM (at most 64 registers a thread). On the mesh job's shard this ran
+// ahead of 256 threads of 16 lanes (one CTA an SM at 128 registers) and
+// of 1024 threads of 4.
+constexpr int kM2Threads = 512;
+constexpr int kM2Items = kTile / kM2Threads;
+
+// Lane of item j (0..kM2Items-1) of this thread in its tile. kVec:
+// kM2Items / 4 groups of 4 consecutive lanes, group k at k * 4 * kM2Threads
+// + 4t (a 16-byte load a row); else lane j * kM2Threads + t (a 4-byte load
+// a row).
+template <bool kVec>
+__device__ __forceinline__ int64_t m2_lane(int j) {
+  return kVec ? (int64_t)(j >> 2) * (4 * kM2Threads) + 4 * threadIdx.x + (j & 3)
+              : (int64_t)j * kM2Threads + threadIdx.x;
+}
+
+// One row's words at this thread's kM2Items lanes of the tile at tile0,
+// every load issued before any is used; a lane at or past n reads nothing
+// and holds 0. kVec: n % 4 == 0, so a group lies wholly below n or wholly
+// at or past it.
+template <bool kVec>
+__device__ __forceinline__ void m2_load_row(const uint32_t* __restrict__ row,
+                                            int64_t tile0, int64_t n,
+                                            uint32_t (&v)[kM2Items]) {
+  if (kVec) {
+#pragma unroll
+    for (int k = 0; k < kM2Items / 4; ++k) {
+      const int64_t i = tile0 + m2_lane<true>(4 * k);
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (i < n) q = __ldg(reinterpret_cast<const uint4*>(row + i));
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kM2Items; ++j) {
+      const int64_t i = tile0 + m2_lane<false>(j);
+      v[j] = i < n ? __ldg(row + i) : 0u;
+    }
+  }
+}
+
+// Splitter s <= route r over 4 words, most significant first (the words
+// past w are 0 in both).
+__device__ __forceinline__ bool split_le(uint4 s, const uint32_t (&r)[kMaxRoute]) {
+  if (s.x != r[0]) return s.x < r[0];
+  if (s.y != r[1]) return s.y < r[1];
+  if (s.z != r[2]) return s.z < r[2];
+  return s.w <= r[3];
+}
+
+// M2. cols: [>= 8 + w, n] (the shard, row stride n); split: [w, n_shards -
+// 1]; dest: [n]; hist, real_hist: [n_shards][tiles] counts of dest per tile
+// over every row and over the real rows. One CTA a tile of kTile lanes,
+// kM2Items lanes a thread:
+//   1. every load of the thread in flight before any compare: key_len,
+//      doc_key_len and the w route words at its 8 lanes (kVec: 2 groups
+//      of 4 consecutive lanes, a 16-byte load a group and row, where n % 4
+//      == 0 and the matrix and dest are 16-byte aligned; else a load a
+//      lane and row);
+//   2. dest = the number of splitters <= the route, by a binary search over
+//      the splitters in shared memory (one 16-byte word a splitter):
+//      ceil(log2 S) compares in place of S - 1. Precondition: the
+//      splitters never decrease (M1's are quantiles of the sorted samples),
+//      so the splitters <= a route are a prefix and their count is the
+//      upper bound, equal splitters and a route equal to one included;
+//   3. dest stored (16-byte stores in kVec), then the tile's counts: a warp
+//      whose 256 lanes share one (dest, pad) adds them by one shared atomic
+//      (a sorted shard's common case), any other warp by one shared atomic
+//      per distinct (dest, pad) of each item (__match_any_sync); one write
+//      a destination and tile.
+template <bool kVec>
+__global__ void __launch_bounds__(kM2Threads, 2)
+route_dest_kernel(const uint32_t* __restrict__ cols, int64_t n, int w,
+                  const uint32_t* __restrict__ split, int n_shards, int tiles,
+                  int32_t* __restrict__ dest, int32_t* __restrict__ hist,
+                  int32_t* __restrict__ real_hist) {
+  constexpr uint32_t kNoKey = 0xFFFFFFFFu;  // a lane at or past n
+  __shared__ uint4 sp[kMaxShards];
   __shared__ int cnt[kMaxShards];
   __shared__ int rcnt[kMaxShards];
   const int n_split = n_shards - 1;
-  for (int t = threadIdx.x; t < w * n_split; t += blockDim.x) sp[t] = split[t];
+  const int64_t tile0 = (int64_t)blockIdx.x * kTile;
+  uint32_t kl[kM2Items], dk[kM2Items], wd[kMaxRoute][kM2Items];
+  m2_load_row<kVec>(cols + (int64_t)kRowKeyLen * n, tile0, n, kl);
+  m2_load_row<kVec>(cols + (int64_t)kRowDkl * n, tile0, n, dk);
+#pragma unroll
+  for (int q = 0; q < kMaxRoute; ++q) {
+    if (q < w) {
+      m2_load_row<kVec>(cols + (int64_t)(kRowWords + q) * n, tile0, n, wd[q]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kM2Items; ++j) wd[q][j] = 0u;
+    }
+  }
+  for (int s = threadIdx.x; s < n_split; s += kM2Threads) {
+    uint32_t x[kMaxRoute];
+#pragma unroll
+    for (int q = 0; q < kMaxRoute; ++q) x[q] = q < w ? split[q * n_split + s] : 0u;
+    sp[s] = make_uint4(x[0], x[1], x[2], x[3]);
+  }
   if (threadIdx.x < n_shards) {
     cnt[threadIdx.x] = 0;
     rcnt[threadIdx.x] = 0;
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + (int64_t)k * kThreads;
-    const bool valid = i < n;
-    uint32_t key = 0xFFFFFFFFu;
-    int d = 0;
-    bool pad = false;
-    if (valid) {
-      pad = cols[(int64_t)kRowKeyLen * n + i] == kPad;
-      const int32_t dkl = (int32_t)cols[(int64_t)kRowDkl * n + i];
-      uint32_t r[kMaxRoute];
-      for (int q = 0; q < w; ++q)
-        r[q] = pad ? kPad : cols[(int64_t)(kRowWords + q) * n + i] &
-                                route_mask(dkl, q);
-      // dest = the number of splitters lexicographically <= the route
-      for (int s = 0; s < n_split; ++s) {
-        bool lt = false;
-        for (int q = 0; q < w; ++q) {
-          const uint32_t sw = sp[q * n_split + s];
-          if (r[q] != sw) {
-            lt = r[q] < sw;
-            break;
-          }
-        }
-        d += !lt;
+  int d[kM2Items];
+  uint32_t key[kM2Items];
+#pragma unroll
+  for (int j = 0; j < kM2Items; ++j) {
+    const bool pad = kl[j] == kPad;
+    uint32_t r[kMaxRoute];
+#pragma unroll
+    for (int q = 0; q < kMaxRoute; ++q)
+      r[q] = q < w ? (pad ? kPad : wd[q][j] & route_mask((int32_t)dk[j], q)) : 0u;
+    int lo = 0, len = n_split;
+    while (len > 0) {
+      const int half = len >> 1;
+      if (split_le(sp[lo + half], r)) {
+        lo += half + 1;
+        len -= half + 1;
+      } else {
+        len = half;
       }
-      dest[i] = d;
-      key = ((uint32_t)d << 1) | (pad ? 1u : 0u);
     }
-    // one shared atomic per distinct (dest, pad) of the warp
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (valid && lane == __ffs(peers) - 1) {
-      atomicAdd(&cnt[d], __popc(peers));
-      if (!pad) atomicAdd(&rcnt[d], __popc(peers));
+    d[j] = lo;
+    key[j] = tile0 + m2_lane<kVec>(j) < n ? ((uint32_t)lo << 1) | (pad ? 1u : 0u)
+                                          : kNoKey;
+  }
+  if (kVec) {
+#pragma unroll
+    for (int k = 0; k < kM2Items / 4; ++k) {
+      const int64_t i = tile0 + m2_lane<true>(4 * k);
+      if (i < n)
+        *reinterpret_cast<int4*>(dest + i) =
+            make_int4(d[4 * k], d[4 * k + 1], d[4 * k + 2], d[4 * k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kM2Items; ++j) {
+      const int64_t i = tile0 + m2_lane<false>(j);
+      if (i < n) dest[i] = d[j];
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const uint32_t k0 = __shfl_sync(0xffffffffu, key[0], 0);
+  bool same = true;
+#pragma unroll
+  for (int j = 0; j < kM2Items; ++j) same = same && key[j] == k0;
+  if (__all_sync(0xffffffffu, same)) {
+    if (lane == 0 && k0 != kNoKey) {
+      atomicAdd(&cnt[k0 >> 1], 32 * kM2Items);
+      if (!(k0 & 1u)) atomicAdd(&rcnt[k0 >> 1], 32 * kM2Items);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kM2Items; ++j) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[j]);
+      if (key[j] != kNoKey && lane == __ffs(peers) - 1) {
+        atomicAdd(&cnt[key[j] >> 1], __popc(peers));
+        if (!(key[j] & 1u)) atomicAdd(&rcnt[key[j] >> 1], __popc(peers));
+      }
     }
   }
   __syncthreads();
@@ -500,8 +613,14 @@ int ybt_route_dest(const uint32_t* cols, int64_t n, int w,
       n_shards > kMaxShards)
     return (int)cudaErrorInvalidValue;
   const int64_t tiles = num_tiles(n);
-  route_dest_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      cols, n, w, split, n_shards, (int)tiles, dest, hist, real_hist);
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(dest) & 15) == 0;
+  if (vec)
+    route_dest_kernel<true><<<(unsigned)tiles, kM2Threads, 0, (cudaStream_t)stream>>>(
+        cols, n, w, split, n_shards, (int)tiles, dest, hist, real_hist);
+  else
+    route_dest_kernel<false><<<(unsigned)tiles, kM2Threads, 0, (cudaStream_t)stream>>>(
+        cols, n, w, split, n_shards, (int)tiles, dest, hist, real_hist);
   return (int)cudaGetLastError();
 }
 

@@ -26,9 +26,9 @@
 //      even on a miss.
 //   P4 `_index_fit_fused` (:257): prefix skip p from entries 0 and n-1,
 //      exact anchor limbs at (arange(17) * (n-1)) / 16, and max_err = max
-//      over the real entries of |rint(pred) - i|: each block sets up the
-//      model in shared memory, predicts a grid-stride share of the
-//      entries, reduces its max and issues one integer atomicMax.
+//      over the real entries of |rint(pred) - i|, in one launch
+//      (`index_fit_kernel`, see there) that writes the whole answer as one
+//      int32 [36] buffer: no memset, no atomic on the result.
 //
 // Float rounding: `_predict_pos` must round as XLA and numpy do (the
 // recorded bound and the learned window depend on it), so every float
@@ -68,7 +68,8 @@
 // 1024, so P1 rides in P2's launch. P3: a chain of dependent loads per
 // query (steps x the words a compare reads), bound by memory latency, not
 // bandwidth: a warp's 32 seeks hit 32 unrelated columns. P4 streams the two coordinate rows of
-// the real entries once: bandwidth-bound.
+// the real entries once: bandwidth-bound, with about 50 instructions an
+// entry of prediction beside its 8 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +85,9 @@ constexpr int kThreads = 256;
 constexpr int kLgWindow = 15;  // halvings of the learned window
 constexpr int kFileLanes = 1024;  // P2 over every file: lanes a block
 constexpr int kFoldLanes = 256;   // P3 over every file: lanes a CTA
+constexpr int kFitUnroll = 1;     // P4: groups of 4 entries in flight a thread
+constexpr int kFitWords = 2 * kAnchors + 2;  // P4's answer: a_hi, a_lo, p, max_err
+constexpr int kFitMaxGrid = 4096;            // P4's partials a launch, at most
 constexpr uint64_t kFnvOffset = 0xCBF29CE484222325ull;
 constexpr uint64_t kFnvPrime = 0x100000001B3ull;
 
@@ -429,58 +433,193 @@ locate_fold_kernel(const FileDesc* __restrict__ files, int nfiles,
   if (threadIdx.x == 0) *ticket = 0u;  // the next launch on this stream starts at 0
 }
 
-__global__ void index_fit_kernel(const uint32_t* __restrict__ cols,
-                                 int64_t n_pad, int n, int w,
-                                 uint32_t* __restrict__ a_hi_out,
-                                 uint32_t* __restrict__ a_lo_out,
-                                 int32_t* __restrict__ p_out,
-                                 int32_t* __restrict__ max_err) {
-  __shared__ Model m;
-  __shared__ int pp_s;
+// P4's model in shared memory: the anchors, and per segment the values
+// predict_pos derives from its two anchors (p0, p1 - p0 and the anchors'
+// difference), computed once by the same intrinsics, so that every
+// prediction rounds exactly as predict_pos's.
+struct FitModel {
+  uint32_t a_hi[kAnchors], a_lo[kAnchors];
+  float p0[kSegments], dp[kSegments], da[kSegments];
+};
+
+// predict_pos over a FitModel, the segment by a 4-step binary search.
+// Precondition: the anchors never decrease. They are limbs p and p + 1 of
+// a sorted span's key words, and words 0..p-1 are shared by every entry
+// (they are by entries 0 and n - 1), so the limbs are in key order. Then
+// the anchors 1..15 that are <= x are a prefix of them, and their count,
+// the segment of predict_pos's (and the JAX `_predict_pos`'s) linear
+// count, is the upper bound the search finds.
+__device__ __forceinline__ float fit_predict(uint32_t xh, uint32_t xl,
+                                             const FitModel& m) {
+  int seg = 0;
+#pragma unroll
+  for (int step = kSegments / 2; step > 0; step >>= 1)
+    if (ge64(xh, xl, m.a_hi[seg + step], m.a_lo[seg + step])) seg += step;
+  const uint32_t a0h = m.a_hi[seg], a0l = m.a_lo[seg];
+  const bool ge0 = ge64(xh, xl, a0h, a0l);
+  const float dx = diff_f32(xh, xl, a0h, a0l);
+  const float da = m.da[seg];
+  float t = (ge0 && da > 0.0f) ? __fdiv_rn(dx, da) : 0.0f;
+  t = fminf(fmaxf(t, 0.0f), 1.0f);
+  return __fadd_rn(m.p0[seg], __fmul_rn(t, m.dp[seg]));
+}
+
+// Entries 4g .. 4g + 3 of a coordinate row: one 16-byte load (kVec: the
+// row stride is a multiple of 4 and the matrix 16-byte aligned, so 4g + 3
+// < n_pad), else 4 loads, each of an entry < n.
+template <bool kVec>
+__device__ __forceinline__ uint4 load_group(const uint32_t* __restrict__ row,
+                                            int64_t g, int n) {
+  if (kVec) return __ldg(reinterpret_cast<const uint4*>(row) + g);
+  const int64_t i = 4 * g;
+  return make_uint4(__ldg(row + i), i + 1 < n ? __ldg(row + i + 1) : 0u,
+                    i + 2 < n ? __ldg(row + i + 2) : 0u,
+                    i + 3 < n ? __ldg(row + i + 3) : 0u);
+}
+
+// P4 in one launch. Warp 0 of every CTA builds the model with all its
+// loads in flight at once: lanes 0-16 load anchor s's words of every row p
+// may pick (rows 8 .. 8 + min(w, kMaxP + 2) - 1 at (s * (n - 1)) / 16),
+// lanes 17-18 word j of entries 0 and n - 1. p is the run of equal pairs
+// (a ballot); each anchor lane keeps its limbs p and p + 1, and lanes 0-15
+// take their segment's constants from their neighbour's by shuffles. One
+// __syncthreads. Every CTA reads the same 72 words: after the first, L2
+// serves them. Each thread then streams groups of 4 entries of both
+// coordinate rows (a 16-byte load each), kFitUnroll groups in flight
+// before it predicts any, over a grid of at most the resident CTAs, so
+// that one warp's loads overlap another's predictions: at a 2.5M-entry
+// SST, 1 group a thread (a loop of 2-3 turns) ran ahead of 2 and of 4 (all
+// loads first, then all predictions) and of a grid sized to cover the
+// span in one turn. Each CTA's max
+// goes to part[blockIdx.x]; the last CTA of the completion ticket folds
+// the partials, writes out [36] (a_hi 17, a_lo 17, p, max_err) and resets
+// the ticket. No memset before the launch and no atomic on the result.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+index_fit_kernel(const uint32_t* __restrict__ cols, int64_t n_pad, int n,
+                 int w, int32_t* part, unsigned* ticket,
+                 int32_t* __restrict__ out) {
+  __shared__ FitModel m;
+  __shared__ int s_p;
   __shared__ int warp_max[kThreads / 32];
-  if (threadIdx.x == 0) {
-    int64_t last = (int64_t)n - 1;
-    last = last < 0 ? 0 : (last > n_pad - 1 ? n_pad - 1 : last);
-    int run = 1, p = 0;
+  __shared__ bool sh_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
     const int jmax = w - 2 < kMaxP ? w - 2 : kMaxP;
-    for (int j = 0; j < jmax; ++j) {
-      const int64_t row = (int64_t)(kRowWords + j) * n_pad;
-      run *= cols[row] == cols[row + last] ? 1 : 0;
-      p += run;
+    const int rows = w < kMaxP + 2 ? w : kMaxP + 2;
+    uint32_t v[kMaxP + 2] = {0u, 0u, 0u, 0u};
+    int pos = 0;
+    bool eq = false;
+    if (lane < kAnchors) {
+      pos = (int)(((int64_t)lane * (n - 1)) / kSegments);
+#pragma unroll
+      for (int r = 0; r < kMaxP + 2; ++r)
+        if (r < rows)
+          v[r] = __ldg(cols + (int64_t)(kRowWords + r) * n_pad + pos);
+    } else if (lane - kAnchors < jmax) {
+      const uint32_t* row = cols + (int64_t)(kRowWords + lane - kAnchors) * n_pad;
+      eq = __ldg(row) == __ldg(row + (n - 1));
     }
-    m.p = p;
-    pp_s = p > w - 2 ? w - 2 : p;
+    const unsigned eqs = __ballot_sync(0xFFFFFFFFu, eq) >> kAnchors;
+    const int p = __ffs(~eqs) - 1;  // the leading equal pairs, <= jmax <= w - 2
+    const uint32_t ah = p == 0 ? v[0] : (p == 1 ? v[1] : v[2]);
+    const uint32_t al = p == 0 ? v[1] : (p == 1 ? v[2] : v[3]);
+    const uint32_t nh = __shfl_down_sync(0xFFFFFFFFu, ah, 1);
+    const uint32_t nl = __shfl_down_sync(0xFFFFFFFFu, al, 1);
+    const int npos = __shfl_down_sync(0xFFFFFFFFu, pos, 1);
+    if (lane < kAnchors) {
+      m.a_hi[lane] = ah;
+      m.a_lo[lane] = al;
+    }
+    if (lane < kSegments) {
+      const float p0 = __int2float_rn(pos);
+      m.p0[lane] = p0;
+      m.dp[lane] = __fsub_rn(__int2float_rn(npos), p0);
+      m.da[lane] = diff_f32(nh, nl, ah, al);
+    }
+    if (lane == 0) s_p = p;
   }
   __syncthreads();
-  const uint32_t* xh_row = cols + (int64_t)(kRowWords + pp_s) * n_pad;
-  const uint32_t* xl_row = xh_row + n_pad;
-  if (threadIdx.x < kAnchors) {
-    const int pos = (int)(((int64_t)threadIdx.x * (n - 1)) / kSegments);
-    m.pos[threadIdx.x] = pos;
-    m.a_hi[threadIdx.x] = xh_row[pos];
-    m.a_lo[threadIdx.x] = xl_row[pos];
-    if (blockIdx.x == 0) {
-      a_hi_out[threadIdx.x] = xh_row[pos];
-      a_lo_out[threadIdx.x] = xl_row[pos];
-    }
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *p_out = m.p;
-  __syncthreads();
+  const uint32_t* xh = cols + (int64_t)(kRowWords + s_p) * n_pad;
+  const uint32_t* xl = xh + n_pad;
+  const int64_t groups = ((int64_t)n + 3) >> 2;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
   int best = 0;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const float pred = predict_pos(xh_row[i], xl_row[i], m);
-    const int err = abs((int)rintf(pred) - (int)i);
-    best = err > best ? err : best;
+  for (int64_t g0 = (int64_t)blockIdx.x * kThreads + threadIdx.x; g0 < groups;
+       g0 += kFitUnroll * stride) {
+    uint4 h[kFitUnroll], l[kFitUnroll];
+#pragma unroll
+    for (int u = 0; u < kFitUnroll; ++u) {
+      const int64_t g = g0 + u * stride;
+      h[u] = l[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (g < groups) {
+        h[u] = load_group<kVec>(xh, g, n);
+        l[u] = load_group<kVec>(xl, g, n);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFitUnroll; ++u) {
+      const int64_t i0 = 4 * (g0 + u * stride);
+      const uint32_t hv[4] = {h[u].x, h[u].y, h[u].z, h[u].w};
+      const uint32_t lv[4] = {l[u].x, l[u].y, l[u].z, l[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i0 + e < n) {
+          const int err = abs((int)rintf(fit_predict(hv[e], lv[e], m)) -
+                              (int)(i0 + e));
+          best = err > best ? err : best;
+        }
+      }
+    }
   }
   best = __reduce_max_sync(0xFFFFFFFFu, best);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
+  if (lane == 0) warp_max[warp] = best;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    best = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0;
-    best = __reduce_max_sync(0xFFFFFFFFu, best);
-    if (threadIdx.x == 0) atomicMax(max_err, best);
+  if (threadIdx.x == 0) {
+    int b = 0;
+    for (int k = 0; k < kThreads / 32; ++k) b = warp_max[k] > b ? warp_max[k] : b;
+    part[blockIdx.x] = b;
+    __threadfence();
+    sh_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!sh_last || warp != 0) return;
+  __threadfence();
+  int b = 0;
+  for (int k = lane; k < (int)gridDim.x; k += 32) {
+    const int c = __ldcg(part + k);
+    b = c > b ? c : b;
+  }
+  b = __reduce_max_sync(0xFFFFFFFFu, b);
+  if (lane < kAnchors) {
+    out[lane] = (int32_t)m.a_hi[lane];
+    out[kAnchors + lane] = (int32_t)m.a_lo[lane];
+  }
+  if (lane == 0) {
+    out[2 * kAnchors] = s_p;
+    out[2 * kAnchors + 1] = b;
+    *ticket = 0u;  // the next launch on this stream starts at 0
+  }
+}
+
+// The CTAs of P4 resident on the card at once (the port's cards are of one
+// kind, so the first query serves the process).
+template <bool kVec>
+cudaError_t fit_resident_ctas(int* out) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, index_fit_kernel<kVec>, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    cached = sms * per_sm;
+  }
+  *out = cached;
+  return cudaSuccess;
 }
 
 int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -534,18 +673,35 @@ int ybt_point_locate(const uint32_t* cols, int64_t n_pad, int n,
   return (int)cudaGetLastError();
 }
 
-// P4. cols [8 + w, n_pad] u32, n real entries (sorted); a_hi, a_lo [17]
-// u32 out; p, max_err: one i32 each, max_err zeroed by the caller.
+// P4 in one launch. cols [8 + w, n_pad] u32, n real entries, sorted (see
+// fit_predict); ticket: one zeroed u32 a stream, left at 0; out:
+// ybt_point_index_fit_words() i32, the answer [36] (a_hi 17, a_lo 17, p,
+// max_err) then the CTAs' partial maxima.
 int ybt_point_index_fit(const uint32_t* cols, int64_t n_pad, int n, int w,
-                        uint32_t* a_hi, uint32_t* a_lo, int32_t* p,
-                        int32_t* max_err, void* stream) {
+                        unsigned* ticket, int32_t* out, void* stream) {
   if (w < 2 || n <= 0 || n > n_pad) return (int)cudaErrorInvalidValue;
-  int grid = blocks_for(n);
-  grid = grid > 132 * 8 ? 132 * 8 : grid;
-  index_fit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      cols, n_pad, n, w, a_hi, a_lo, p, max_err);
+  const bool vec = n_pad % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+  const int64_t groups = ((int64_t)n + 3) / 4;
+  int64_t grid = (groups + kThreads * kFitUnroll - 1) / (kThreads * kFitUnroll);
+  int resident = 0;
+  const cudaError_t e =
+      vec ? fit_resident_ctas<true>(&resident) : fit_resident_ctas<false>(&resident);
+  if (e != cudaSuccess) return (int)e;
+  grid = grid < resident ? grid : resident;
+  grid = grid < kFitMaxGrid ? grid : kFitMaxGrid;
+  grid = grid < 1 ? 1 : grid;
+  int32_t* part = out + kFitWords;
+  if (vec)
+    index_fit_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        cols, n_pad, n, w, part, ticket, out);
+  else
+    index_fit_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+        cols, n_pad, n, w, part, ticket, out);
   return (int)cudaGetLastError();
 }
+
+// i32 words of P4's out buffer: the answer, then a partial a CTA.
+int ybt_point_index_fit_words() { return kFitWords + kFitMaxGrid; }
 
 // Bytes of one FileDesc (ops/point_read.py checks its packing against it).
 int ybt_point_file_desc_bytes() { return (int)sizeof(FileDesc); }

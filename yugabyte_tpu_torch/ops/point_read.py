@@ -18,7 +18,9 @@ csrc/point_read.cu, each beside its plain PyTorch version:
      flagged (`miss`) and never picks another entry;
   P4 `index_fit` (replaces `_index_fit_fused`, :257): the learned index
      over staged cols (prefix skip p, 17 exact anchor limbs, max_err
-     measured with the inference arithmetic).
+     measured with the inference arithmetic), one launch that writes the
+     whole answer as one [36] buffer, which `fit_learned_index_device`
+     downloads once.
 
 `DB.multi_get` makes two launches per chunk over every live SST (none for
 a chunk with no live SST), through a `FileTable` of the reader set (each
@@ -539,8 +541,8 @@ def _lib():
                                          u32, u32p, u32p, i32p, ci, ci, ci,
                                          ci, vp, vp, vp]
         lib.ybt_point_index_fit.restype = ci
-        lib.ybt_point_index_fit.argtypes = [vp, i64, ci, ci, vp, vp, vp, vp,
-                                            vp]
+        lib.ybt_point_index_fit.argtypes = [vp, i64, ci, ci, vp, vp, vp]
+        lib.ybt_point_index_fit_words.restype = ci
         lib.ybt_point_file_desc_bytes.restype = ci
         lib.ybt_point_hash_probe_files.restype = ci
         lib.ybt_point_hash_probe_files.argtypes = [vp, ci, vp, vp, ci, ci, ci,
@@ -704,18 +706,19 @@ def hash_probe_files(hw: torch.Tensor, dk: torch.Tensor, table: FileTable,
 
 hash_probe_files.launches = 0
 
-# P3-over-every-file's completion ticket, one zeroed u32 per (device,
-# stream), which each launch leaves at 0
-_fold_ticket = {}
+# the completion tickets of P3 over every file (word 0) and of P4 (word
+# 1), zeroed u32s per (device, stream), which each launch leaves at 0
+_tickets = {}
+_FOLD_TICKET, _FIT_TICKET = 0, 1
 
 
-def _fold_ticket_for(dev: torch.device) -> torch.Tensor:
+def _ticket_for(dev: torch.device, word: int) -> torch.Tensor:
     key = (dev.index, torch_setup.stream_ptr(dev))
-    buf = _fold_ticket.get(key)
+    buf = _tickets.get(key)
     if buf is None:
         buf = torch.zeros(4, dtype=torch.int32, device=dev)
-        _fold_ticket[key] = buf
-    return buf
+        _tickets[key] = buf
+    return buf[word]
 
 
 def locate_fold(table: FileTable, qbuf: torch.Tensor, qlens: torch.Tensor,
@@ -746,7 +749,7 @@ def locate_fold(table: FileTable, qbuf: torch.Tensor, qlens: torch.Tensor,
     rc = lib.ybt_point_locate_fold(
         table.desc.data_ptr(), nf, qbuf.data_ptr(), qlens.data_ptr(), b_pad,
         b, rhi & _U32, rlo & _U32, int(bool(model_on)), located.data_ptr(),
-        buf[n_out:].data_ptr(), _fold_ticket_for(dev).data_ptr(),
+        buf[n_out:].data_ptr(), _ticket_for(dev, _FOLD_TICKET).data_ptr(),
         buf.data_ptr(), torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "locate_fold")
     locate_fold.launches += 1
@@ -756,27 +759,50 @@ def locate_fold(table: FileTable, qbuf: torch.Tensor, qlens: torch.Tensor,
 locate_fold.launches = 0
 
 
-def index_fit(cols: torch.Tensor, n: int, w: int):
-    """Kernel P4 wrapper (see index_fit_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/point_read.cu (one launch), counted in
+# P4's answer, int32: a_hi [17], a_lo [17], p, max_err
+_FIT_WORDS = 2 * (LINDEX_SEGMENTS + 1) + 2
+
+
+def _fit_parts(words):
+    """(a_hi, a_lo, p, max_err) of P4's answer (a tensor or an array)."""
+    k = LINDEX_SEGMENTS + 1
+    return words[:k], words[k:2 * k], words[2 * k], words[2 * k + 1]
+
+
+def _index_fit_words(cols: torch.Tensor, n: int, w: int) -> torch.Tensor:
+    """P4's answer as one int32 [36] tensor (a_hi, a_lo, p, max_err). CPU
+    tensor: the plain version's outputs side by side. CUDA tensor: one
+    launch of csrc/point_read.cu (no memset, no copy), counted in
     `index_fit.launches`."""
     if not cols.is_cuda:
-        return index_fit_plain(cols, n, w)
+        a_hi, a_lo, p, max_err = index_fit_plain(cols, n, w)
+        return torch.cat([a_hi, a_lo, p.reshape(1), max_err.reshape(1)])
     n_pad = cols.shape[1]
     _check(cols, (_ROW_WORDS + w, n_pad), "index_fit cols")
     if w < 2 or not 0 < n <= n_pad < (1 << 30):
         raise ValueError(f"index_fit: w {w}, n {n}, n_pad {n_pad}")
     dev = cols.device
-    anchors = torch.empty((2, LINDEX_SEGMENTS + 1), dtype=torch.int32,
-                          device=dev)
-    scalars = torch.zeros(2, dtype=torch.int32, device=dev)  # p, max_err
-    rc = _lib().ybt_point_index_fit(
-        cols.data_ptr(), n_pad, n, w, anchors[0].data_ptr(),
-        anchors[1].data_ptr(), scalars[0].data_ptr(), scalars[1].data_ptr(),
+    lib = _lib()
+    out = torch.empty(lib.ybt_point_index_fit_words(), dtype=torch.int32,
+                      device=dev)
+    rc = lib.ybt_point_index_fit(
+        cols.data_ptr(), n_pad, n, w,
+        _ticket_for(dev, _FIT_TICKET).data_ptr(), out.data_ptr(),
         torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "index_fit")
     index_fit.launches += 1
-    return anchors[0], anchors[1], scalars[0], scalars[1]
+    return out[:_FIT_WORDS]
+
+
+def index_fit(cols: torch.Tensor, n: int, w: int):
+    """Kernel P4 wrapper (see index_fit_plain): (a_hi, a_lo, p, max_err).
+    CPU tensor: the plain version. CUDA tensor: csrc/point_read.cu, one
+    launch, counted in `index_fit.launches`; the four are views of its
+    one [36] answer. The staged span must be sorted (as every staged
+    SST is): the kernel finds each segment by a binary search."""
+    if not cols.is_cuda:
+        return index_fit_plain(cols, n, w)
+    return _fit_parts(_index_fit_words(cols, n, w))
 
 
 index_fit.launches = 0
@@ -855,13 +881,15 @@ def file_table(staged_by, device) -> FileTable:
 
 
 def fit_learned_index_device(staged: StagedCols) -> Optional[dict]:
-    """Fit the learned index over an already-staged cols matrix (P4).
-    Returns the persistable model dict, or None when the span is too
-    small or the bound too loose to help."""
+    """Fit the learned index over an already-staged cols matrix (P4: one
+    launch and one download of its answer on the card). Returns the
+    persistable model dict, or None when the span is too small or the
+    bound too loose to help."""
     from yugabyte_tpu_torch.storage import learned_index
     if staged.n < LINDEX_MIN_ENTRIES or staged.w < 2:
         return None
-    a_hi, a_lo, p, max_err = index_fit(staged.cols_dev, staged.n, staged.w)
-    return learned_index.finish_model(
-        a_hi.cpu().numpy().view(np.uint32), a_lo.cpu().numpy().view(np.uint32),
-        int(p), int(max_err), staged.n)
+    a_hi, a_lo, p, max_err = _fit_parts(_index_fit_words(
+        staged.cols_dev, staged.n, staged.w).cpu().numpy())  # one download
+    return learned_index.finish_model(a_hi.view(np.uint32),
+                                      a_lo.view(np.uint32), int(p),
+                                      int(max_err), staged.n)
