@@ -60,7 +60,10 @@ Phases (any failure exits non-zero):
      once, the carve (kernel H) once per chunk, A twice and B once per
      chunk, H for the restage (and the parent payload), C-F on the codec
      route. Kernel L and the carve at the chunked job's shapes == their
-     plain versions, timed beside their bounds; kernels A and B on every
+     plain versions, timed beside their bounds (L also on the device,
+     one launch a call, and beside its latency floor: one launch and its
+     longest dependent-load chain, from step 9's HBM probe); kernels A
+     and B on every
      carved chunk and kernel H's parent payload (index row remapped) ==
      their plain versions, the payload == the job's. A skewed pick
      through the router: the codec job's first output file plus 4 L0
@@ -84,8 +87,9 @@ Phases (any failure exits non-zero):
      `run_compaction_job_with_decisions`, each == its native job, the
      decisions == sequential launches, one span == the sequential one;
      kernels M1-M3 at the 10M-row job's shard shapes == their plain
-     versions (M3 one launch a call), timed beside their bounds, the
-     exchange copy, and the job's M2 + M3 time on the device;
+     versions, timed beside their bounds and on the device (one launch a
+     call, no memset, no copy; M1 also beside its latency floor, as L's),
+     the exchange copy, and the job's M2 + M3 time on the device;
   6. the snapshot scan over the same 4 input SSTs: the full-tablet
      seq-scan (`ops.scan.visible_entries_sources` over
      SlabSource(read_all()), read time above every write, no bounds)
@@ -108,8 +112,9 @@ Phases (any failure exits non-zero):
      dropped per row) in the kernels line;
   8. the query pushdown over a TPC-H lineitem tablet in 4 SSTs: five
      queries each equal to a host oracle, their launch counters, stage
-     breakdowns, kernels J and K == their plain versions (J.1 also by
-     torch.profiler's device time, one launch and no copy a call);
+     breakdowns, kernels J and K == their plain versions, each also by
+     torch.profiler's device time (J.1, J.3 and K one launch and no copy
+     a call, J.2 one launch after one memset);
   9. batched point reads through `storage.db.DB.multi_get` over a
      DeviceSlabCache: the YCSB tablet (the compaction phase's shape) as
      a DB (runs 0-2 bulk-loaded with ingest_packed, run 3 written and
@@ -1128,11 +1133,16 @@ def skewed_cutoff(args) -> int:
     return (ht_base + (history_cutoff(4 * args.skew_rows) >> 12)) << 12
 
 
-def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
-    """Bytes kernel L must move on these inputs: the distinct cells its
-    probes read (doc_key_len, and the route words up to the first that
-    differs from the splitter), the splitters, the run sizes and the
-    output. The probes are those of the kernel's bisection."""
+def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters):
+    """(bytes, chain): the bytes kernel L must move on these inputs (the
+    distinct cells its probes read: doc_key_len, and the route words up
+    to the first that differs from the splitter; the splitters, the run
+    sizes and the output), and the longest chain of dependent loads a
+    lane makes on them (`chain_loads_max`: its run size, then in each
+    bisection step the route words it reads one after the other, since
+    word q + 1 is read only where word q ties; `steps_max`: the most
+    bisection steps a lane takes). The probes are those of the kernel's
+    bisection."""
     import torch
     from yugabyte_tpu_torch.ops.merge_gc import _u, route_word_mask
     k_pad, ns = run_ns.numel(), splitters.shape[0]
@@ -1141,6 +1151,8 @@ def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
     base = torch.arange(k_pad, device=cols.device)[:, None] * m
     sp = _u(splitters)[None]
     cells = set()
+    steps = torch.zeros((k_pad, ns), dtype=torch.int64, device=cols.device)
+    chain = torch.ones((k_pad, ns), dtype=torch.int64, device=cols.device)
     for _ in range(n_iters):
         live = lo < hi
         if not bool(live.any()):
@@ -1152,6 +1164,8 @@ def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
         diff = kr != sp
         nread = torch.where(diff.any(-1), diff.int().argmax(-1),
                             w_route - 1) + 1
+        steps += live.long()
+        chain += torch.where(live, nread, 0)
         for i, nr in zip(idx[live].tolist(), nread[live].tolist()):
             cells.add((1, i))
             cells.update((8 + q, i) for q in range(nr))
@@ -1162,7 +1176,9 @@ def split_search_bytes(cols, run_ns, splitters, m, w_route, n_iters) -> int:
             eq = eq & (kr[..., q] == sp[..., q])
         hi = torch.where(live & ~lt, mid, hi)
         lo = torch.where(live & lt, mid + 1, lo)
-    return 4 * (len(cells) + splitters.numel() + k_pad + k_pad * ns)
+    return (4 * (len(cells) + splitters.numel() + k_pad + k_pad * ns),
+            {"chain_loads_max": int(chain.max()),
+             "steps_max": int(steps.max())})
 
 
 def chunk_window(starts, lens, k_pad):
@@ -1265,7 +1281,10 @@ def chunk_kernel_phase(args, kin, launches, bandwidth):
     their plain versions (max_abs_err must be 0): L over the job's parent
     matrix and splitters, the carve for every chunk's windows. Timed with
     CUDA events (the carve at chunk 0) beside their bounds and, for the
-    carve, one torch.cat of the windows and the template fills."""
+    carve, one torch.cat of the windows and the template fills; L also on
+    the device (one launch a call, no copy), with the longest chain of
+    dependent loads a lane makes (its latency floor comes in main, once
+    the point-read phase has measured an HBM load)."""
     import torch
     from yugabyte_tpu_torch.ops import merge_gc, run_merge
 
@@ -1284,7 +1303,10 @@ def chunk_kernel_phase(args, kin, launches, bandwidth):
     if err_l or not torch.equal(got, want) or got.shape != (k_pad, nc - 1):
         raise AssertionError(f"kernel L != its plain version (max_abs_err "
                              f"{err_l})")
-    l_bytes = split_search_bytes(cols, rn, sp, m, w_route, n_iters)
+    l_bytes, l_chain = split_search_bytes(cols, rn, sp, m, w_route, n_iters)
+    prof = device_profile(lambda: run_merge.chunk_split_search(*a_l),
+                          args.reps)
+    one_launch_no_copy("chunk_split_search", prof)
     rows = [{"name": "chunk_split_search", "route": "cuda",
              "source": "yugabyte_tpu_torch/csrc/chunk.cu",
              "replaces": "yugabyte_tpu/ops/run_merge.py:1029",
@@ -1295,7 +1317,11 @@ def chunk_kernel_phase(args, kin, launches, bandwidth):
                  lambda: run_merge.chunk_split_search_plain(*a_l), 2),
              "bound_ms": l_bytes / bandwidth * 1e3, "bound_by": "bytes",
              "library_ms": None, "lanes": k_pad * (nc - 1),
-             "n_iters": n_iters, "bytes": l_bytes}]
+             "n_iters": n_iters, "bytes": l_bytes, "chain": l_chain,
+             "device_ms": prof["device_ms"],
+             "launches_per_call": prof["launches_per_call"]}]
+    log(f"kernel chunk_split_search on the device: {prof['device_ms']:.4f} "
+        f"ms a call, one launch; longest chain {l_chain}")
 
     err_c = 0
     for starts, lens in kin["metas"]:
@@ -1752,7 +1778,7 @@ def mesh_kernel_phase(args, kin, launches, bandwidth):
     """Kernels M1-M3 at the 10M-row mesh job's shard shapes (shard 0 for
     M2 and M3), against their plain versions (max_abs_err must be 0; M3's
     send buffer and overflow word bit for bit), timed with CUDA events
-    beside their byte bounds, M2 and M3 also on the device (one launch a
+    beside their byte bounds, M1-M3 also on the device (one launch a
     call, no memset, no copy); M3 beside torch.sort(dest, stable=True),
     which gives the stable order alone; the exchange (`_exchange_copies`,
     the job's own) timed beside its byte bound and beside one permuted
@@ -1815,12 +1841,16 @@ def mesh_kernel_phase(args, kin, launches, bandwidth):
     rows[2]["library_call"] = "torch.sort(dest, stable=True), the order alone"
     rows[2]["shard_lanes"] = n_local
     rows[2]["send_lanes"] = width
-    for e, fn, m in ((rows[1], dist_compact.route_dest, m2),
+    for e, fn, m in ((rows[0], dist_compact.splitter_pick, m1),
+                     (rows[1], dist_compact.route_dest, m2),
                      (rows[2], dist_compact.bucket_scatter, m3)):
         prof = device_profile(lambda fn=fn, m=m: fn(*m), args.reps)
         one_launch_no_copy(e["name"], prof)
         e.update(device_ms=prof["device_ms"],
                  launches_per_call=prof["launches_per_call"])
+    # M1's latency floor (set in main): one launch and one dependent load,
+    # the samples' words; its compare pass in shared memory is not counted
+    rows[0].update(samples=int(samp.shape[1]), chain={"chain_loads_max": 1})
     del got3
     # the mesh job's routing, one attempt of it as the job runs it (M1
     # once, M2 and M3 a shard on the job's capacity), device time by
@@ -1865,7 +1895,8 @@ def mesh_kernel_phase(args, kin, launches, bandwidth):
     for e in rows:
         log(f"kernel {e['name']}: equal; {e['ms']:.4f} ms (plain "
             f"{e['plain_ms']:.4f}, library {e['library_ms']}, bound "
-            f"{e['bound_ms']:.6f}), {e['launches']} launches in the mesh job")
+            f"{e['bound_ms']:.6f}; device {e['device_ms']:.4f}), "
+            f"{e['launches']} launches in the mesh job")
     log(f"exchange copies: {ex_ms:.4f} ms for {ex_bytes:,} bytes moved "
         f"(one permuted copy {perm_ms:.4f} ms, bound "
         f"{exchange['bound_ms']:.4f} ms)")
@@ -2777,8 +2808,8 @@ def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
     """Kernels J.1, J.2, J.3 and K against their plain versions on the
     card, bit for bit, on q6_agg's and filter_rows' tensors; timed with
     CUDA events on q6_agg's (J.3 on filter_rows') beside their bounds:
-    the bytes each must move on these inputs; J.1, J.2 and K also on the
-    device (torch.profiler: J.1 and K one launch a call, J.2 one launch
+    the bytes each must move on these inputs; each also on the device
+    (torch.profiler: J.1, J.3 and K one launch a call, J.2 one launch
     after one memset). No single PyTorch call
     computes any of them (library_ms null). Also H's vals launch (the zero
     template) at the phase's shapes, beside torch.cat + a zero fill."""
@@ -2843,17 +2874,16 @@ def pushdown_kernel_phase(args, t_agg, t_rows, launches, bandwidth):
              "library_ms": None,
              "timed_on": "filter_rows" if name == "row_pass_pack"
              else "q6_agg"}
-        if name != "row_pass_pack":
-            # J.1 and K one launch a call, J.2 one launch after one memset
-            prof = device_profile(kern, args.reps)
-            one_launch_no_copy(name, prof, int(name == "segment_or"))
-            e.update(prof)
-            if name == "row_flags":
-                e["bound_sectors_ms"] = nbytes["row_flags_sectors"] \
-                    / bandwidth * 1e3
-            log(f"kernel {name} on the device: {prof['device_ms']:.4f} ms "
-                f"({prof['launches_per_call']} launches, "
-                f"{prof['memsets_per_call']} memsets a call)")
+        # J.1, J.3 and K one launch a call, J.2 one launch after one memset
+        prof = device_profile(kern, args.reps)
+        one_launch_no_copy(name, prof, int(name == "segment_or"))
+        e.update(prof)
+        if name == "row_flags":
+            e["bound_sectors_ms"] = nbytes["row_flags_sectors"] \
+                / bandwidth * 1e3
+        log(f"kernel {name} on the device: {prof['device_ms']:.4f} ms "
+            f"({prof['launches_per_call']} launches, "
+            f"{prof['memsets_per_call']} memsets a call)")
         log(f"kernel {name}: equal; {ms:.4f} ms (plain {plain_ms:.4f}, bound "
             f"{e['bound_ms']:.4f}), {launches[name]} launches in the "
             f"pushdown phase")
@@ -4329,6 +4359,21 @@ def resident_pushdown_phase(args, workdir, slabs, push_out, top_ht, card,
     return out, launches
 
 
+def latency_floors(point_rows, rows) -> None:
+    """Each row's latency floor beside its byte bound, as P3's: one launch
+    plus its longest chain of dependent loads (`chain_loads_max`) at one
+    HBM load each, both from the point-read phase's probe (hbm_load_ns)."""
+    lat = next(e["hbm_probe"] for e in point_rows
+               if e["name"] == "locate_fold")
+    for e in rows:
+        loads = e["chain"]["chain_loads_max"]
+        e.update(hbm_load_ns=lat["hbm_load_ns"], launch_ms=lat["launch_ms"],
+                 floor_ms=lat["launch_ms"] + loads * lat["hbm_load_ns"] / 1e6)
+        log(f"kernel {e['name']}: floor {e['floor_ms']:.4f} ms (one launch "
+            f"{lat['launch_ms']:.4f} + {loads} dependent loads at "
+            f"{lat['hbm_load_ns']:.1f} ns), device {e['device_ms']:.4f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -4473,6 +4518,7 @@ def main() -> int:
         point_rows = point_kernel_phase(args, t_pt["ycsb"],
                                         t_pt["lineitem"], launches["point"],
                                         bandwidth)
+        latency_floors(point_rows, [chunk_rows[0], mesh_rows[0]])
         del t_pt
         ydb.close()
         ldb.close()

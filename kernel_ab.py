@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels A, B, D, G, H, I.2, J.1, J.2, K, M2 and M3 of the PyTorch port,
+"""Kernels A, B, D, G, H, I.2, J.1-J.3, K and M1-M3 of the PyTorch port,
 the resident aggregates and the point read's P1-P4, timed for several
 checkouts in one run on one GPU.
 
@@ -12,8 +12,8 @@ kernel are compared on one card in turns (old, new, new, old). Every
 process builds its checkout's kernels, stages the same YCSB-A tablet
 (chip_smoke's generator: --rows rows in 4 sorted runs, key space rows/2),
 and times with CUDA events, --reps launches after a warm-up, the
-sections that --only names (default: all; `merge` is A-K, then `m3`,
-`point`, `resident`):
+sections that --only names (default: all; `merge` is A-K, then `m3`
+(M1-M3), `point`, `resident`):
   - kernel A (`merge_path.merge_level`) at each tournament level, its
     output held against the first process's (the same bytes everywhere);
   - kernel B (`merge_gc.gc_pack`) on the merged payload (the codec job's
@@ -36,12 +36,14 @@ sections that --only names (default: all; `merge` is A-K, then `m3`,
     tile, whose writes fall to the last tile's CTA);
   - kernel K (`pushdown.agg_reduce`) with the aggregate slot over J.1's
     flags, J.2's output and the sorted value words;
-  - kernels M2 (`dist_compact.route_dest`) and M3
-    (`dist_compact.bucket_scatter`) at shard 0's shape of the mesh job
-    (the tablet as one slab on 8 virtual shards of the card, M1's
-    splitters; M2 over the shard's 2^21 lanes at w_route 4, M3 on M2's
-    dest and counts at capacity factor 2: a [17, 2^22] send buffer at 10M
-    rows);
+  - kernel J.3 (`pushdown.row_pass_pack`) with the predicate slot over
+    J.1's flags and J.2's output (2^24 lanes at 10M rows);
+  - kernels M1 (`dist_compact.splitter_pick`), M2
+    (`dist_compact.route_dest`) and M3 (`dist_compact.bucket_scatter`) at
+    the mesh job's shapes (the tablet as one slab on 8 virtual shards of
+    the card; M1 over the 8 shards' 512 gathered samples at w_route 4, M2
+    over shard 0's 2^21 lanes with M1's splitters, M3 on M2's dest and
+    counts at capacity factor 2: a [17, 2^22] send buffer at 10M rows);
   - the resident aggregates: q1_agg and q6_agg (chip_smoke's TPC-H
     lineitem tablet, --sf-orders, in 4 SSTs staged with their value words
     into a DeviceSlabCache) over `ResidentSource`s: the median wall time
@@ -63,7 +65,8 @@ sections that --only names (default: all; `merge` is A-K, then `m3`,
     events time the host.
 The outputs (A's levels, B's packed words, keep and make-tombstone bytes,
 D's positions, H's matrices, G's perm, I.2's packed words, J.1's flag
-words, J.2's outputs, K's accumulators, M2's dest and counts, M3's send
+words, J.2's outputs, K's accumulators, J.3's packed words, M1's
+splitters, M2's dest and counts, M3's send
 buffer and overflow word, the resident answers, the point read chunks'
 folds, P4's answers) go into one sha256 that must match across the
 checkouts. Prints one JSON line per process and the card's name and
@@ -194,11 +197,12 @@ def point_chunk(db, keys, read_ht, reps: int, digest) -> dict:
 
 
 def mesh_routing(runs, reps: int, digest) -> dict:
-    """Kernels M2 and M3 at shard 0's shape of the mesh job: the runs as
-    one slab on 8 virtual shards of the card (`stage_sharded_cols`), M1's
-    splitters, M2's dest and counts on shard 0, M3 on them at the job's
-    capacity at factor 2. M2's dest and counts, then M3's send buffer and
-    overflow word, go into the digest."""
+    """Kernels M1-M3 at the mesh job's shapes: the runs as one slab on 8
+    virtual shards of the card (`stage_sharded_cols`), M1 over the
+    shards' gathered samples, M2's dest and counts on shard 0 with M1's
+    splitters, M3 on them at the job's capacity at factor 2. M1's
+    splitters, M2's dest and counts, then M3's send buffer and overflow
+    word, go into the digest."""
     import torch
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.parallel import dist_compact as dc
@@ -207,9 +211,14 @@ def mesh_routing(runs, reps: int, digest) -> dict:
     mesh = make_mesh(n_shards, devices=["cuda"] * n_shards)
     cols, n_local = dc.stage_sharded_cols(concat_slabs(runs), mesh)
     w_route = min(dc._W_ROUTE, cols[0].shape[0] - 8)
-    split = dc.splitter_pick(dc._sample_matrix(cols, n_local, w_route,
-                                               cols[0].device),
-                             w_route, n_shards)
+    samp = dc._sample_matrix(cols, n_local, w_route, cols[0].device)
+
+    def m1():
+        return dc.splitter_pick(samp, w_route, n_shards)
+    split = m1()
+    digest.update(split.cpu().numpy().tobytes())
+    m1_entry = dict(timed(m1, reps), samples=int(samp.shape[1]),
+                    w_route=w_route)
     c0 = cols[0]
     del cols
 
@@ -226,7 +235,8 @@ def mesh_routing(runs, reps: int, digest) -> dict:
     digest.update(send.cpu().numpy().tobytes())
     digest.update(ovf.cpu().numpy().tobytes())
     del send, ovf
-    out = {"route_dest": dict(timed(m2, reps), shard_lanes=n_local,
+    out = {"splitter_pick": m1_entry,
+           "route_dest": dict(timed(m2, reps), shard_lanes=n_local,
                               w_route=w_route),
            "bucket_scatter": dict(timed(m3, reps), shard_lanes=n_local,
                                   capacity=cap,
@@ -366,7 +376,7 @@ def child(root: str, rows: int, seed: int, reps: int, sf_orders: int,
 
 
 def merge_kernels(runs, rows: int, reps: int, digest) -> dict:
-    """Kernels A, B, D, H, G, I.2, J.1, J.2 and K over the runs (see the
+    """Kernels A, B, D, H, G, I.2, J.1, J.2, K and J.3 over the runs (see the
     module docstring); their outputs go into the digest."""
     import torch
     import chip_smoke as cs
@@ -505,6 +515,11 @@ def merge_kernels(runs, rows: int, reps: int, digest) -> dict:
     for x in k():
         digest.update(x.cpu().numpy().tobytes())
     out["agg_reduce"] = timed(k, reps)
+
+    def j3():
+        return pushdown.row_pass_pack(flags, seg, p_ops[1], p_ops[2])
+    digest.update(j3().cpu().numpy().tobytes())
+    out["row_pass_pack"] = dict(timed(j3, reps), n=int(flags.shape[0]))
     del flags, one, seg, sv
     return out
 

@@ -2149,6 +2149,134 @@ def test_segment_or_and_agg_reduce_launches(cuda):
                             p_op, p_neg, 1, 1)
 
 
+# ------------------------------------------------- J.3 and M1 at their edges
+
+
+# J.3's predicate slots (p_op, p_neg): none, one, every slot negated,
+# inactive slots between active ones, MAX_PRED slots mixed
+_J3_SLOTS = {"none": ([], []), "one": ([5], [0]),
+             "all_negated": ([1, 3, 5, 2], [1, 1, 1, 1]),
+             "gaps": ([1, 0, 0, 4], [0, 0, 0, 1]),
+             "max_pred": ([1, 2, 3, 6], [0, 1, 0, 1])}
+
+
+def _j3_inputs(rng, n, p_op, p_neg, cuda):
+    """flags (random bits 0-8, so base is set on about half the lanes)
+    and seg (random bits 0-4, on 70% of lanes forced to pass the verdict,
+    so words come out dense and sparse) for kernel J.3, int32 on the
+    card."""
+    need, want = pushdown.verdict_masks(p_op, p_neg)
+    flags = rng.integers(0, 1 << 9, size=n, dtype=np.int64)
+    seg = rng.integers(0, 1 << 5, size=n, dtype=np.int64)
+    seg = np.where(rng.random(n) < 0.7, (seg & ~need) | want, seg)
+    return [torch.from_numpy(a.astype(np.int32)).to(cuda)
+            for a in (flags, seg)]
+
+
+@pytest.mark.parametrize("slots", sorted(_J3_SLOTS))
+@pytest.mark.parametrize("n", [32, 96, 4096 + 32, 1 << 20])
+def test_row_pass_pack_layouts(cuda, n, slots):
+    """J.3 (one launch a call) == its plain version bit for bit at n = 32
+    (one word, below a 16-byte store), 96, 4096 + 32 (a word past a CTA's
+    step: the word-by-word tail) and 2^20, with no slot, every slot
+    negated, inactive slots between active ones and MAX_PRED slots."""
+    p_op, p_neg = _J3_SLOTS[slots]
+    rng = np.random.default_rng(n + 7 * len(p_op))
+    flags, seg = _j3_inputs(rng, n, p_op, p_neg, cuda)
+    before = pushdown.row_pass_pack.launches
+    got = pushdown.row_pass_pack(flags, seg, p_op, p_neg)
+    assert pushdown.row_pass_pack.launches == before + 1
+    assert got.shape == (n // 32,)
+    assert torch.equal(got, pushdown.row_pass_pack_plain(flags, seg, p_op,
+                                                         p_neg))
+
+
+def test_row_pass_pack_one_kernel_no_memset(cuda):
+    """On the card's timeline a J.3 call is one kernel, with no memset and
+    no copy; unaligned inputs and a ragged n raise."""
+    p_op, p_neg = _J3_SLOTS["max_pred"]
+    flags, seg = _j3_inputs(np.random.default_rng(22), 1 << 20, p_op, p_neg,
+                            cuda)
+    assert _device_activity(lambda: pushdown.row_pass_pack(
+        flags, seg, p_op, p_neg)) == (1, 0)
+    with pytest.raises(ValueError):
+        pushdown.row_pass_pack(flags[1:33], seg[:32], p_op, p_neg)
+    with pytest.raises(ValueError):
+        pushdown.row_pass_pack(flags[:48], seg[:48], p_op, p_neg)
+
+
+def _m1_samples(rng, n, w, kind):
+    """Kernel M1's samples int32 [2 + w, n] (key_len, doc_key_len, key
+    words): words from a small alphabet (tuples repeat), doc-key lengths
+    0..4w+1, a quarter pads (key_len PAD_SENTINEL, their other rows
+    random); `all_pad` every sample a pad, `no_pad` none, `all_equal`
+    every tuple equal, `ff_beside_pads` real routes all 0xFFFFFFFF (every
+    doc-key byte set) beside pads, whose route is the same words."""
+    samp = np.zeros((2 + w, n), dtype=np.uint32)
+    samp[0] = 4 * w
+    samp[1] = rng.integers(0, 4 * w + 2, size=n)
+    samp[2:] = rng.choice(np.array([0, 1, 0x53000000, 0x7FFFFFFF, 0xFFFFFFFF],
+                                   dtype=np.uint32), size=(w, n))
+    pad = rng.random(n) < 0.25
+    if kind == "all_pad":
+        pad[:] = True
+    elif kind in ("no_pad", "all_equal"):
+        pad[:] = False
+    if kind == "all_equal":
+        samp[1], samp[2:] = 4 * w, 0x53000000
+    elif kind == "ff_beside_pads":
+        samp[1], samp[2:] = 4 * w, 0xFFFFFFFF
+        pad = rng.random(n) < 0.4
+    samp[0, pad] = merge_gc.PAD_SENTINEL
+    return samp.view(np.int32)
+
+
+def _m1_matches_plain(cuda, samp, w, n_shards):
+    from yugabyte_tpu_torch.parallel import dist_compact
+    t = torch.from_numpy(np.ascontiguousarray(samp)).to(cuda)
+    before = dist_compact.splitter_pick.launches
+    got = dist_compact.splitter_pick(t, w, n_shards)
+    assert dist_compact.splitter_pick.launches == before + 1
+    assert got.shape == (w, n_shards - 1)
+    assert torch.equal(got, dist_compact.splitter_pick_plain(t, w, n_shards))
+
+
+@pytest.mark.parametrize("w_route", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_shards", [2, 8, 256])
+@pytest.mark.parametrize("n_samp", [1, 7, 512, 8192])
+def test_splitter_pick_layouts(cuda, n_samp, n_shards, w_route):
+    """M1 (one launch a call) == its plain version bit for bit at n_samp
+    1, 7, 512 (the mesh job's) and 8192 (the most the wrapper takes: 160
+    KB of shared memory at w_route 4), S = 2, 8 and 256, w_route 1-4."""
+    rng = np.random.default_rng(n_samp + 3 * n_shards + w_route)
+    _m1_matches_plain(cuda, _m1_samples(rng, n_samp, w_route, "random"),
+                      w_route, n_shards)
+
+
+@pytest.mark.parametrize("kind", ["all_pad", "no_pad", "all_equal",
+                                  "ff_beside_pads"])
+@pytest.mark.parametrize("n_samp,n_shards,w_route", [
+    (512, 8, 4), (512, 8, 1), (7, 256, 4), (8192, 256, 2)])
+def test_splitter_pick_edges(cuda, kind, n_samp, n_shards, w_route):
+    """M1 == its plain version with every sample a pad (n_real 1: the
+    first pad's route at every pick), no pad, every tuple equal, and real
+    routes of all 0xFFFFFFFF beside pads (the pad flag alone orders
+    them)."""
+    rng = np.random.default_rng(n_samp + n_shards + w_route + len(kind))
+    _m1_matches_plain(cuda, _m1_samples(rng, n_samp, w_route, kind),
+                      w_route, n_shards)
+
+
+def test_splitter_pick_one_kernel_no_copy(cuda):
+    """On the card's timeline an M1 call is one kernel, with no memset and
+    no copy."""
+    from yugabyte_tpu_torch.parallel import dist_compact
+    samp = torch.from_numpy(_m1_samples(np.random.default_rng(23), 512, 4,
+                                        "random")).to(cuda)
+    assert _device_activity(lambda: dist_compact.splitter_pick(
+        samp, 4, 8)) == (1, 0)
+
+
 # ------------------------------------------------ the resident chain (D, E)
 
 

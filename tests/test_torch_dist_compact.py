@@ -381,6 +381,18 @@ def test_dist_native_unported_arguments_raise(tmp_path):
 # ---------------------------------------- kernels M1-M3 against per_shard
 
 
+def _splitters_numpy(g_samp, g_pad, n_shards):
+    """The JAX `per_shard` splitter pick (parallel/dist_compact.py:125-140)
+    in numpy: the gathered routes u32 [w_route, n] lexsorted with the pad
+    flag as the final key, then read at (q * n_real) // S."""
+    w_route = g_samp.shape[0]
+    order = np.lexsort([g_pad.astype(np.uint32)]
+                       + [g_samp[i] for i in range(w_route - 1, -1, -1)])
+    n_real = max(len(g_pad) - int(g_pad.sum()), 1)
+    qs = (np.arange(1, n_shards) * n_real) // n_shards
+    return g_samp[:, order][:, qs]
+
+
 def _per_shard_numpy(cols, n_shards, capacity):
     """The JAX `per_shard` program (parallel/dist_compact.py:112-178)
     recomputed in numpy over the global u32 matrix: the splitters, and per
@@ -404,11 +416,7 @@ def _per_shard_numpy(cols, n_shards, capacity):
                              for _c, _p, rt in shards], axis=1)
     g_pad = np.concatenate([p[::step][:ref_dc._SAMPLES_PER_SHARD]
                             for _c, p, _rt in shards])
-    order = np.lexsort([g_pad.astype(np.uint32)]
-                       + [g_samp[i] for i in range(w_route - 1, -1, -1)])
-    n_real = max(len(g_pad) - int(g_pad.sum()), 1)
-    qs = (np.arange(1, n_shards) * n_real) // n_shards
-    splitters = g_samp[:, order][:, qs]
+    splitters = _splitters_numpy(g_samp, g_pad, n_shards)
     out = []
     for s, (c, is_pad, route) in enumerate(shards):
         lt = np.zeros((n_local, n_shards - 1), bool)
@@ -533,6 +541,55 @@ def test_route_kernels_plain_match_per_shard(n, n_shards, factor, dkl_max,
     assert _M3_EDGES.get((n, n_shards, factor, dkl_max), set()) <= seen
     assert _M2_EDGES.get((n, n_shards, factor, dkl_max, w_route),
                          set()) <= seen
+
+
+def _edge_samples(kind, n, w_route, seed):
+    """M1's gathered samples u32 [2 + w_route, n] (key_len, doc_key_len,
+    key words): `all_pad` every sample a pad, `equal` every real tuple
+    equal (doc keys of one word) beside pads, `ff_beside_pads` real
+    routes of all 0xFFFFFFFF (full doc keys of 0xFF bytes) beside pads,
+    which route to the same words."""
+    rng = np.random.default_rng(seed)
+    samp = np.zeros((2 + w_route, n), dtype=np.uint32)
+    samp[0] = 4 * w_route + 2
+    samp[1] = 4 * w_route
+    samp[2:] = rng.integers(0, 1 << 32, size=(w_route, n), dtype=np.uint64)
+    pad = rng.random(n) < 0.3
+    if kind == "all_pad":
+        pad[:] = True
+    elif kind == "equal":
+        samp[1] = 4
+        samp[2] = 0x53000001
+    else:  # ff_beside_pads
+        samp[2:] = 0xFFFFFFFF
+    samp[0, pad] = ref_mg.PAD_SENTINEL
+    return samp
+
+
+@pytest.mark.parametrize("kind,n,n_shards,w_route", [
+    ("all_pad", 512, 8, 4), ("all_pad", 7, 256, 1),
+    ("equal", 512, 8, 4), ("equal", 1, 2, 2),
+    ("ff_beside_pads", 512, 8, 4), ("ff_beside_pads", 7, 256, 3)])
+def test_splitter_pick_plain_edges_match_per_shard(kind, n, n_shards,
+                                                    w_route):
+    """M1's plain version and its CPU wrapper against the JAX `per_shard`
+    pick recomputed in numpy (routes by the JAX `route_word_mask`) on
+    gathered samples that are all pads (n_real 1: the first pad's route),
+    whose real tuples are all equal, or whose real routes are all
+    0xFFFFFFFF beside pads (the pad flag alone orders them)."""
+    samp = _edge_samples(kind, n, w_route, n + n_shards + w_route)
+    is_pad = samp[0] == np.uint32(ref_mg.PAD_SENTINEL)
+    mask = np.asarray(ref_mg.route_word_mask(
+        jnp.asarray(samp[1].view(np.int32)), w_route))
+    route = np.where(is_pad[None, :], np.uint32(0xFFFFFFFF),
+                     samp[2:] & mask)
+    want = _splitters_numpy(route, is_pad, n_shards)
+    t = torch.from_numpy(samp.view(np.int32))
+    for fn in (dist_compact.splitter_pick_plain, dist_compact.splitter_pick):
+        got = fn(t, w_route, n_shards)
+        assert np.array_equal(got.numpy().view(np.uint32), want)
+    if kind == "ff_beside_pads" and n > 7:
+        assert (want == np.uint32(0xFFFFFFFF)).all() and not is_pad.all()
 
 
 def test_exchange_copies_gather_column_blocks():

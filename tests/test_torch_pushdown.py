@@ -589,20 +589,41 @@ def _jax_bounds(bounds):
             jnp.int32(hi_l), jnp.bool_(up_inf), jnp.bool_(up_trunc))
 
 
+def _slot_layout(p_ops, preds):
+    """The packed predicate operands with a slot left inactive (p_op 0)
+    wherever preds holds None: the active slots spread over the
+    lattice."""
+    pos = [i for i, x in enumerate(preds) if x is not None]
+    if len(pos) == len(preds):
+        return p_ops
+    out = []
+    for a in p_ops:
+        b = np.zeros_like(a)
+        b[pos] = a[:len(pos)]
+        out.append(b)
+    return tuple(out)
+
+
 @pytest.mark.parametrize("presorted", [False, True])
 @pytest.mark.parametrize("preds,aggs", [
     ([("v", "<", 10)], [("sum", "v")]),
     ([("v", "!=", 0), ("b", "=", True)], [("min", "w"), ("max", "v")]),
     ([("w", ">", 0), ("w", "<", 90), ("v", ">=", -(2 ** 62))],
      [("count", None)]),
-    ([], [("count", None)])])
+    ([], [("count", None)]),
+    # every slot negated (the filtered scan packs != as NOT =)
+    ([("v", "!=", 0), ("w", "!=", 5)], [("count", None)]),
+    # inactive slots between active ones (None: a slot left at p_op 0)
+    ([("v", "<", 10), None, None, ("w", ">", 0)], [("sum", "v")])])
 def test_kernel_plain_versions_match_jax_programs(presorted, preds, aggs):
     """J.1-J.3 and K's plain versions, chained as the scans chain them,
     equal the JAX `_scan_filtered_fused` / `_scan_agg_fused` on the same
     cols and vals, for every predicate-slot and aggregate-slot lattice
-    size that holds the query."""
+    size that holds the query; the filtered scan also with no slot at
+    all (p_pad 0), with every slot negated and with inactive slots
+    between active ones."""
     runs, ends = _runs(51, n_runs=1 if presorted else 3)
-    ref_spec, port_spec = _spec(preds, aggs)
+    ref_spec, port_spec = _spec([x for x in preds if x is not None], aggs)
     staged, vals = _staged_inputs(runs)
     cols_j = jnp.asarray(staged.cols_dev.numpy().view(np.uint32))
     vals_j = jnp.asarray(vals.numpy().view(np.uint32))
@@ -610,9 +631,13 @@ def test_kernel_plain_versions_match_jax_programs(presorted, preds, aggs):
     has_vals = port_spec.needs_vals
     bounds, _lo, _hi = scan._bound_operands(staged, _dk("h1", 2).encode(),
                                             None)
+    p_pads = [p for p in scan.PRED_SLOTS if p >= len(preds)]
     for read_ht in _read_hts(ends):
-        for p_pad in [p for p in scan.PRED_SLOTS if p >= len(preds)]:
-            p_ops = scan._pack_predicate_operands(port_spec, p_pad, True)
+        for p_pad in p_pads + ([0] if not preds else []):
+            p_ops = _slot_layout(
+                scan._pack_predicate_operands(port_spec, p_pad, True), preds)
+            assert [bool(c) for c in p_ops[1][:len(preds)]] == \
+                [x is not None for x in preds]
             perm, keep_p = ref_scan._scan_filtered_fused(
                 cols_j, vals_j, sort_rows, jnp.int32(staged.n_sort),
                 *_limbs(read_ht), *_jax_bounds(bounds),
@@ -624,7 +649,10 @@ def test_kernel_plain_versions_match_jax_programs(presorted, preds, aggs):
             assert np.array_equal(t_perm.numpy(), np.asarray(perm))
             assert np.array_equal(t_keep.numpy().view(np.uint32),
                                   np.asarray(keep_p))
-            p_ops = scan._pack_predicate_operands(port_spec, p_pad)
+            if p_pad not in p_pads:
+                continue
+            p_ops = _slot_layout(
+                scan._pack_predicate_operands(port_spec, p_pad), preds)
             for c_pad in [c for c in scan.AGG_SLOTS
                           if c >= len(port_spec.agg_cids)]:
                 a_ops = scan._pack_agg_operands(port_spec, c_pad)

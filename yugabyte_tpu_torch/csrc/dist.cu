@@ -20,8 +20,13 @@
 // it); a pad row's route is all 0xFFFFFFFF. Routes compare as unsigned
 // words, most significant first.
 //
-// Bounds on an H100: M1 sorts a few hundred samples in one CTA (bitonic, in
-// shared memory): latency-bound, a few microseconds of dependent steps. M2
+// Bounds on an H100: M1 picks S - 1 order statistics of a few hundred
+// samples (512 at the mesh job): latency-bound, one launch, one round trip
+// for the samples and n / 32 compares a lane in shared memory. It counts
+// each sample's rank over a warp and sorts nothing (splitter_pick_kernel);
+// the design it replaces ran a bitonic sort of the 5-word tuples in one
+// CTA of 1024 threads (45 stages at 512 samples, a barrier each, at most a
+// quarter of the threads working) and an atomic pad count. M2
 // reads 8 + 4 w_route bytes a lane and writes dest (4 bytes): memory-bound,
 // so every load of a thread is in flight before its first compare (see
 // route_dest_kernel). M3 reads
@@ -64,9 +69,7 @@ constexpr int kWarpLanes = 32 * kItems;    // 512 consecutive lanes per warp
 constexpr int kTile = kThreads * kItems;   // 4096 lanes per CTA
 constexpr int kMaxShards = kThreads;       // one thread per destination
 constexpr int kSumLoads = 8;               // M3: count loads in flight a lane
-constexpr int kSortThreads = 1024;
-constexpr int kSortWords = kMaxRoute + 1;  // route words + the pad flag
-// M1's bitonic network in shared memory: 8192 x 5 words = 160 KB
+// M1's samples in shared memory at most: 8192 x 5 words = 160 KB
 constexpr int kMaxSamples = 8192;
 
 __device__ __forceinline__ uint32_t route_mask(int32_t dkl, int q) {
@@ -79,74 +82,71 @@ __device__ __forceinline__ uint32_t route_mask(int32_t dkl, int q) {
 
 // ---------------------------------------------------------------- M1
 
-// a > b over (words 0..w-1, flag), unsigned
-__device__ __forceinline__ bool tuple_gt(const uint32_t* a, const uint32_t* b,
-                                         int w) {
-  for (int q = 0; q <= w; ++q) {
-    const int k = q < w ? q : kMaxRoute;
-    if (a[k] != b[k]) return a[k] > b[k];
-  }
-  return false;
-}
+// M1's CTA: 16 warps, one sample a warp at a time.
+constexpr int kPickThreads = 512;
+constexpr int kPickWarps = kPickThreads / 32;
 
-// samp: [2 + w, n_samp] (key_len, doc_key_len, key words 0..w-1 of the
-// sampled rows); out: [w, n_shards - 1] splitters. p2: the power of two
-// >= n_samp the bitonic network sorts (the tail holds flag-2 fillers that
-// sort after every sample).
-__global__ void splitter_pick_kernel(const uint32_t* __restrict__ samp,
-                                     int n_samp, int w, int n_shards, int p2,
-                                     uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t el[];  // [p2][kSortWords]
-  __shared__ int n_pad_samples;
-  if (threadIdx.x == 0) n_pad_samples = 0;
-  __syncthreads();
-  int my_pads = 0;
-  for (int i = threadIdx.x; i < p2; i += blockDim.x) {
-    uint32_t* e = el + (int64_t)i * kSortWords;
-    if (i < n_samp) {
-      const bool pad = samp[(int64_t)kRowKeyLen * n_samp + i] == kPad;
-      const int32_t dkl = (int32_t)samp[(int64_t)kRowDkl * n_samp + i];
-      for (int q = 0; q < w; ++q)
-        e[q] = pad ? kPad : samp[(int64_t)(2 + q) * n_samp + i] &
-                                route_mask(dkl, q);
-      e[kMaxRoute] = pad ? 1u : 0u;
-      my_pads += pad;
-    } else {
-      for (int q = 0; q < w; ++q) e[q] = kPad;
-      e[kMaxRoute] = 2u;
-    }
+// M1. samp: [2 + W, n] (key_len, doc_key_len, key words 0..W-1 of the
+// sampled rows); out: [W, n_shards - 1] splitters. No sort: the splitter
+// at pick position pos is the sample of rank pos in the lexsort of the
+// tuples t = (route words, pad flag), the rank rank(i) = #{j : t_j < t_i}
+// + #{j < i : t_j == t_i} (the tie broken by index, so the ranks are a
+// permutation). Each CTA loads every sample's tuple once into shared
+// memory (row q < W the masked route word, row W the pad flag; no filler
+// tuples), one barrier; then each warp takes a sample i, its lanes
+// compare (t_i, i) with (t_j, j) for j = lane, lane + 32, ... (n / 32
+// compares a lane, conflict-free rows) and count the tuples below and the
+// pads, and __reduce_add_sync gives every lane the rank and the pad count
+// (every warp passes over all samples, so no atomic and no second
+// barrier). n_real = max(n - pads, 1); pads are the largest tuples, so a
+// real sample's rank is below n_real and a pad's is not (all pads: the
+// first pad has rank 0). The sample whose rank is (q n_real) / S writes
+// splitter q - 1, its lanes over q: each splitter has exactly one writer,
+// and equal tuples have equal words, so the splitters are the lexsort's
+// whatever the tie order.
+template <int W>
+__global__ void __launch_bounds__(kPickThreads)
+splitter_pick_kernel(const uint32_t* __restrict__ samp, int n, int n_shards,
+                     uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t tup[];  // [W + 1][n]
+  for (int i = threadIdx.x; i < n; i += kPickThreads) {
+    const bool pad = __ldg(samp + (int64_t)kRowKeyLen * n + i) == kPad;
+    const int32_t dkl = (int32_t)__ldg(samp + (int64_t)kRowDkl * n + i);
+    uint32_t x[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) x[q] = __ldg(samp + (int64_t)(2 + q) * n + i);
+#pragma unroll
+    for (int q = 0; q < W; ++q) tup[q * n + i] = pad ? kPad : x[q] & route_mask(dkl, q);
+    tup[W * n + i] = pad ? 1u : 0u;
   }
-  if (my_pads) atomicAdd(&n_pad_samples, my_pads);
   __syncthreads();
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p2; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          uint32_t* a = el + (int64_t)i * kSortWords;
-          uint32_t* b = el + (int64_t)ixj * kSortWords;
-          const bool up = (i & k) == 0;
-          // ascending blocks swap a > b, descending ones a < b; equal
-          // tuples are identical, so swapping them changes nothing
-          if (tuple_gt(a, b, w) == up) {
-            for (int q = 0; q < kSortWords; ++q) {
-              const uint32_t t = a[q];
-              a[q] = b[q];
-              b[q] = t;
-            }
-          }
-        }
+  const int lane = threadIdx.x & 31;
+  for (int i = blockIdx.x * kPickWarps + (threadIdx.x >> 5); i < n;
+       i += gridDim.x * kPickWarps) {
+    uint32_t ti[W + 1];
+#pragma unroll
+    for (int q = 0; q <= W; ++q) ti[q] = tup[q * n + i];
+    unsigned below = 0u, pads = 0u;
+    for (int j = lane; j < n; j += 32) {
+      bool lt = false, eq = true;
+#pragma unroll
+      for (int q = 0; q <= W; ++q) {
+        const uint32_t y = tup[q * n + j];
+        lt = lt || (eq && y < ti[q]);
+        eq = eq && y == ti[q];
+        if (q == W) pads += y;
       }
-      __syncthreads();
+      below += (lt || (eq && j < i)) ? 1u : 0u;
     }
-  }
-  int64_t n_real = (int64_t)n_samp - n_pad_samples;
-  if (n_real < 1) n_real = 1;
-  for (int t = threadIdx.x; t < (n_shards - 1) * w; t += blockDim.x) {
-    const int q = t / (n_shards - 1);
-    const int s = t - q * (n_shards - 1);
-    const int64_t pos = ((int64_t)(s + 1) * n_real) / n_shards;
-    out[t] = el[pos * kSortWords + q];
+    const unsigned rank = __reduce_add_sync(0xFFFFFFFFu, below);
+    const int64_t n_pad = __reduce_add_sync(0xFFFFFFFFu, pads);
+    const int64_t n_real = n - n_pad < 1 ? 1 : n - n_pad;
+    if (rank >= n_real) continue;  // a pad: no pick position is its rank
+    for (int q = 1 + lane; q < n_shards; q += 32) {
+      if ((int64_t)q * n_real / n_shards != rank) continue;
+#pragma unroll
+      for (int w = 0; w < W; ++w) out[w * (n_shards - 1) + q - 1] = ti[w];
+    }
   }
 }
 
@@ -582,26 +582,54 @@ bucket_scatter_kernel(const uint32_t* __restrict__ cols, int64_t n, int r,
 
 int64_t num_tiles(int64_t n) { return (n + kTile - 1) / kTile; }
 
+// SMs of the current device (counted once per device).
+int sm_count() {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int& c = sms[dev & 63];
+  if (c == 0) cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+  return c;
+}
+
+// M1's grid: a CTA for each kPickWarps samples, at most one an SM (each
+// CTA loads every sample).
+template <int W>
+int launch_pick(const uint32_t* samp, int n, int n_shards, uint32_t* out,
+                cudaStream_t st) {
+  const size_t smem = (size_t)(W + 1) * n * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        splitter_pick_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int want = (n + kPickWarps - 1) / kPickWarps;
+  splitter_pick_kernel<W><<<want < sms ? want : sms, kPickThreads, smem, st>>>(
+      samp, n, n_shards, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // M1. samp: device u32 [2 + w, n_samp]; out: device u32 [w, n_shards-1].
+// One launch; returns cudaGetLastError().
 int ybt_splitter_pick(const uint32_t* samp, int n_samp, int w, int n_shards,
                       uint32_t* out, void* stream) {
   if (n_samp < 1 || n_samp > kMaxSamples || w < 1 || w > kMaxRoute ||
       n_shards < 2 || n_shards > kMaxShards)
     return (int)cudaErrorInvalidValue;
-  int p2 = 1;
-  while (p2 < n_samp) p2 <<= 1;
-  const size_t smem = (size_t)p2 * kSortWords * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      splitter_pick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  splitter_pick_kernel<<<1, kSortThreads, smem, (cudaStream_t)stream>>>(
-      samp, n_samp, w, n_shards, p2, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (w) {
+    case 1: return launch_pick<1>(samp, n_samp, n_shards, out, st);
+    case 2: return launch_pick<2>(samp, n_samp, n_shards, out, st);
+    case 3: return launch_pick<3>(samp, n_samp, n_shards, out, st);
+    default: return launch_pick<4>(samp, n_samp, n_shards, out, st);
+  }
 }
 
 // M2. cols: device u32 [>= 8 + w, n]; split: device u32 [w, n_shards-1];
@@ -637,11 +665,8 @@ int ybt_bucket_scatter(const uint32_t* cols, int64_t n, int r,
       capacity * n_shards > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   const int64_t tiles = num_tiles(n);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const int64_t grid = tiles > 2 * sms ? tiles : 2 * sms;
   bucket_scatter_kernel<<<(unsigned)grid, kThreads, 0,
                           (cudaStream_t)stream>>>(

@@ -44,9 +44,18 @@
 //     three launches: tile aggregates both ways, one CTA scanning them, a
 //     re-scan of each tile, with four scalar loads a thread, a re-read of
 //     the next word and Hillis-Steele scans in shared memory.
-// J.3 row_pass_pack: rowpass = AND over active slots of (segment bit XOR
-//     p_neg); keep = base and rowpass, packed little-endian by
-//     __ballot_sync as pack_bits_u32.
+// J.3 row_pass_pack (replaces `_row_pass`'s AND over the slots and the
+//     packing of `_scan_filtered_fused`, ops/scan.py:545, :606-607):
+//     keep = base and the row verdict, the AND over active slots of
+//     (segment bit XOR p_neg), as K takes it: one masked compare (seg &
+//     need) == want. Packed little-endian as pack_bits_u32. Bound: 8 bytes
+//     an entry in, n/8 out. One launch, no memset (row_pass_pack_kernel):
+//     resident CTAs, grid-stride, 8 lanes a thread as two 16-byte loads of
+//     each input, every load of a step in flight first, bytes into words by
+//     warp shuffles, 16-byte stores. The design it replaces (about 1.5 TB/s
+//     at 2^24 entries): a thread a lane, two 4-byte loads, a CTA of 256
+//     lanes (65,536 CTAs), a loop over the slots' operator and negation
+//     words, and one 4-byte store a warp from __ballot_sync.
 // K agg_reduce (replaces the reductions of `_scan_agg_fused`, ops/scan.py:
 //     612-695): rows = sum(new_doc & live & rowpass); per aggregate slot,
 //     over qualifying entries of passing rows: the count, the 8 byte sums
@@ -99,7 +108,7 @@ constexpr int kThreads = 256;
 // below, bit 1 equal, bit 2 above).
 struct Ops {
   uint64_t p_hi[kMaxPred], p_lo[kMaxPred];
-  uint32_t p_sub[kMaxPred], p_op[kMaxPred], p_neg[kMaxPred], p_acc[kMaxPred];
+  uint32_t p_sub[kMaxPred], p_acc[kMaxPred];
   uint32_t p_ta[kMaxPred], p_tb[kMaxPred];
   uint32_t a_sub[kMaxAgg], a_ta[kMaxAgg], a_tb[kMaxAgg];
   int p, c;
@@ -107,15 +116,14 @@ struct Ops {
 
 // host operand array layout (u32), as ops/pushdown.py `_ops_array` writes
 // it: p_sub, p_op, p_neg, p_tag_a, p_tag_b, p_len [kMaxPred] each, p_words
-// [kMaxPred][kValWords], a_sub, a_tag_a, a_tag_b [kMaxAgg] each
+// [kMaxPred][kValWords], a_sub, a_tag_a, a_tag_b [kMaxAgg] each (J.1 reads
+// no p_neg: a slot's negation is J.3's and K's, in their verdict masks)
 constexpr int kOpsLen = 6 * kMaxPred + kMaxPred * kValWords + 3 * kMaxAgg;
 
 Ops unpack_ops(const uint32_t* h, int p, int c) {
   Ops o;
   for (int k = 0; k < kMaxPred; ++k) {
     o.p_sub[k] = h[k];
-    o.p_op[k] = h[kMaxPred + k];
-    o.p_neg[k] = h[2 * kMaxPred + k];
     o.p_ta[k] = h[3 * kMaxPred + k];
     o.p_tb[k] = h[4 * kMaxPred + k];
     const uint32_t* words = h + 6 * kMaxPred + k * kValWords;
@@ -123,7 +131,8 @@ Ops unpack_ops(const uint32_t* h, int p, int c) {
     o.p_lo[k] = ((uint64_t)words[2] << 32) | (h[5 * kMaxPred + k] ^ 0x80000000u);
     // 1 =, 2 !=, 3 <, 4 <=, 5 >, else >= (ops/scan.py's operator codes)
     static const uint32_t kAccept[6] = {6u, 2u, 5u, 1u, 3u, 4u};
-    o.p_acc[k] = o.p_op[k] < 6 ? kAccept[o.p_op[k]] : 6u;
+    const uint32_t op = h[kMaxPred + k];
+    o.p_acc[k] = op < 6 ? kAccept[op] : 6u;
   }
   const int a0 = 6 * kMaxPred + kMaxPred * kValWords;
   for (int k = 0; k < kMaxAgg; ++k) {
@@ -693,22 +702,84 @@ __global__ void __launch_bounds__(kSegThreads) segment_or_kernel(SegArgs a) {
 
 // ---------------------------------------------------------- J.3 and K
 
-__device__ __forceinline__ bool row_pass(uint32_t seg, const Ops& o) {
-  bool pass = true;
-  for (int k = 0; k < o.p; ++k)
-    if (o.p_op[k] != 0) pass = pass && ((((seg >> k) & 1u) != 0) != (o.p_neg[k] != 0));
-  return pass;
+// The row verdict of J.3 and K: every active predicate slot's segment bit
+// set, or clear where the slot is negated, as one masked compare (need:
+// the active slots, want: those not negated; ops/pushdown.py
+// verdict_masks).
+__device__ __forceinline__ bool row_passes(uint32_t seg, uint32_t need,
+                                           uint32_t want) {
+  return (seg & need) == want;
 }
 
-__global__ void row_pass_pack_kernel(const uint32_t* __restrict__ flags,
-                                     const uint32_t* __restrict__ seg,
-                                     int64_t n, Ops o,
-                                     uint32_t* __restrict__ packed) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  bool k = false;
-  if (i < n) k = (flags[i] & kBaseBit) && row_pass(seg[i], o);
-  const unsigned bits = __ballot_sync(0xffffffffu, k);
-  if ((threadIdx.x & 31) == 0 && i < n) packed[i >> 5] = bits;
+constexpr int kPackThreads = 256;
+constexpr int kPackLanes = 8;    // lanes a thread a block: one output byte
+constexpr int kPackBlocks = 2;   // blocks of 256 lanes a warp takes a step
+constexpr int kPackWarpStep = 32 * kPackLanes * kPackBlocks;  // 512 lanes
+constexpr int kPackCtaStep = (kPackThreads / 32) * kPackWarpStep;
+
+// J.3. One launch over resident CTAs, grid-stride, a warp 512 consecutive
+// lanes a step as two blocks of 256: a thread's 8 consecutive lanes of a
+// block are two 16-byte loads of flags and two of seg (each pair one
+// 32-byte sector), all 8 loads of the step in flight before the first is
+// used. Its 8 verdicts make one byte; four threads' bytes make a word
+// (two xor shuffles, lane 4k + j at byte j: pack_bits_u32's little-endian
+// order), and lanes 0 and 16 gather words 0-3 and 4-7 of the block (three
+// down shuffles) and store them as one 16-byte vector, or word by word at
+// the tail. n % 32 == 0, so a word's lanes are all below n or all past it:
+// every output word is written once, with no memset.
+__global__ void __launch_bounds__(kPackThreads)
+row_pass_pack_kernel(const uint32_t* __restrict__ flags,
+                     const uint32_t* __restrict__ seg, int64_t n,
+                     uint32_t need, uint32_t want,
+                     uint32_t* __restrict__ packed) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_words = n >> 5;
+  const int64_t step = (int64_t)gridDim.x * kPackCtaStep;
+  for (int64_t base = (int64_t)blockIdx.x * kPackCtaStep +
+                      (int64_t)(threadIdx.x >> 5) * kPackWarpStep;
+       base < n; base += step) {
+    uint4 f[kPackBlocks][2], s[kPackBlocks][2];
+#pragma unroll
+    for (int b = 0; b < kPackBlocks; ++b) {
+      const int64_t i = base + (int64_t)(b * 32 + lane) * kPackLanes;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[b][h] = s[b][h] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < n) {
+          f[b][h] = __ldg(reinterpret_cast<const uint4*>(flags + i) + h);
+          s[b][h] = __ldg(reinterpret_cast<const uint4*>(seg + i) + h);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kPackBlocks; ++b) {
+      uint32_t byte = 0u;
+#pragma unroll
+      for (int e = 0; e < kPackLanes; ++e) {
+        const uint32_t fl = comp(f[b][e >> 2], e & 3);
+        const uint32_t sg = comp(s[b][e >> 2], e & 3);
+        byte |= (uint32_t)((fl & kBaseBit) != 0u && row_passes(sg, need, want))
+                << e;
+      }
+      uint32_t word = byte << (8 * (lane & 3));
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      const uint32_t w1 = __shfl_down_sync(kFull, word, 4);
+      const uint32_t w2 = __shfl_down_sync(kFull, word, 8);
+      const uint32_t w3 = __shfl_down_sync(kFull, word, 12);
+      if ((lane & 15) == 0) {
+        const int64_t wi = (base >> 5) + 8 * b + (lane >> 2);
+        if (wi + 4 <= n_words) {
+          *reinterpret_cast<uint4*>(packed + wi) = make_uint4(word, w1, w2, w3);
+        } else {
+          const uint32_t v[4] = {word, w1, w2, w3};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (wi + k < n_words) packed[wi + k] = v[k];
+        }
+      }
+    }
+  }
 }
 
 constexpr int kAccPerSlot = 9;  // nonnull, 8 byte sums
@@ -808,7 +879,7 @@ agg_reduce_kernel(const uint32_t* __restrict__ flags,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const uint32_t f = comp(f4, e), s = comp(s4, e);
-      if ((s & need) != want) continue;
+      if (!row_passes(s, need, want)) continue;
       if ((f & kNewDocBit) && (s & kLiveBit)) t.a[0] += 1u;
 #pragma unroll
       for (int c = 0; c < C; ++c)
@@ -876,7 +947,15 @@ agg_reduce_kernel(const uint32_t* __restrict__ flags,
   if (q == 0) *ticket = 0u;  // the next launch on this stream starts at 0
 }
 
-unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+// J.3's grid: its CTAs resident on every SM (the occupancy counted once),
+// at most one step a CTA.
+unsigned pack_grid(int64_t n) {
+  static int per_sm = 0;
+  if (per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_pass_pack_kernel,
+                                                  kPackThreads, 0);
+  return key_bounds::sm_grid(per_sm, (n + kPackCtaStep - 1) / kPackCtaStep);
+}
 
 template <bool kLo, bool kHi>
 int launch_row_flags(const uint32_t* s, int64_t n, int w, const uint8_t* keep,
@@ -995,13 +1074,19 @@ int ybt_segment_or(const uint32_t* flags, int64_t n, uint8_t* scratch,
   return (int)cudaGetLastError();
 }
 
-// J.3. flags, seg: [n] u32; packed: [n / 32] u32 out; n a multiple of 32.
+// J.3. flags, seg: [n] u32, 16-byte aligned; need / want: a row passes
+// when (seg & need) == want (ops/pushdown.py verdict_masks); packed: [n /
+// 32] u32 out, 16-byte aligned; n a multiple of 32. One launch, no memset;
+// returns cudaGetLastError().
 int ybt_row_pass_pack(const uint32_t* flags, const uint32_t* seg, int64_t n,
-                      const uint32_t* host_ops, int p, uint32_t* packed,
+                      uint32_t need, uint32_t want, uint32_t* packed,
                       void* stream) {
-  if (n <= 0 || n % 32 != 0 || !ops_ok(p, 0)) return (int)cudaErrorInvalidValue;
-  row_pass_pack_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      flags, seg, n, unpack_ops(host_ops, p, 0), packed);
+  if (n <= 0 || n % 32 != 0 || reinterpret_cast<uintptr_t>(flags) % 16 ||
+      reinterpret_cast<uintptr_t>(seg) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 16)
+    return (int)cudaErrorInvalidValue;
+  row_pass_pack_kernel<<<pack_grid(n), kPackThreads, 0, (cudaStream_t)stream>>>(
+      flags, seg, n, need, want, packed);
   return (int)cudaGetLastError();
 }
 

@@ -282,7 +282,8 @@ def _lib():
         lib.ybt_segment_or.restype = ci
         lib.ybt_segment_or.argtypes = [vp, i64, vp, vp, vp]
         lib.ybt_row_pass_pack.restype = ci
-        lib.ybt_row_pass_pack.argtypes = [vp, vp, i64, u32p, ci, vp, vp]
+        lib.ybt_row_pass_pack.argtypes = [vp, vp, i64, ctypes.c_uint32,
+                                          ctypes.c_uint32, vp, vp]
         lib.ybt_agg_reduce_scratch_bytes.restype = i64
         lib.ybt_agg_reduce_scratch_bytes.argtypes = []
         lib.ybt_agg_reduce.restype = ci
@@ -400,8 +401,10 @@ segment_or.launches = 0
 def row_pass_pack(flags: torch.Tensor, seg_or: torch.Tensor, p_op,
                   p_neg) -> torch.Tensor:
     """Kernel J.3 wrapper (see row_pass_pack_plain). CPU tensor: the plain
-    version. CUDA tensor: csrc/pushdown.cu, counted in
-    `row_pass_pack.launches`."""
+    version. CUDA tensor: csrc/pushdown.cu, one launch and no memset, the
+    verdict as K takes it (verdict_masks), counted in
+    `row_pass_pack.launches`; n a multiple of 32, flags and seg_or 16-byte
+    aligned (the kernel reads 16-byte vectors)."""
     if not flags.is_cuda:
         return row_pass_pack_plain(flags, seg_or, p_op, p_neg)
     n = flags.shape[0]
@@ -410,11 +413,14 @@ def row_pass_pack(flags: torch.Tensor, seg_or: torch.Tensor, p_op,
     if n % 32 or len(p_op) > MAX_PRED:
         raise ValueError(f"row_pass_pack: n={n} (a multiple of 32), "
                          f"{len(p_op)} slots")
+    if flags.data_ptr() % 16 or seg_or.data_ptr() % 16:
+        raise ValueError("row_pass_pack: flags and seg_or must start "
+                         "16-byte aligned")
     dev = flags.device
     packed = torch.empty(n // 32, dtype=torch.int32, device=dev)
+    need, want = verdict_masks(p_op, p_neg)
     rc = _lib().ybt_row_pass_pack(
-        flags.data_ptr(), seg_or.data_ptr(), n,
-        _host_ops(_pred_only(p_op, p_neg)), len(p_op), packed.data_ptr(),
+        flags.data_ptr(), seg_or.data_ptr(), n, need, want, packed.data_ptr(),
         torch_setup.stream_ptr(dev))
     torch_setup.raise_on_cuda_error(rc, "row_pass_pack")
     row_pass_pack.launches += 1
@@ -424,16 +430,11 @@ def row_pass_pack(flags: torch.Tensor, seg_or: torch.Tensor, p_op,
 row_pass_pack.launches = 0
 
 
-def _pred_only(p_op, p_neg):
-    p = len(p_op)
-    z = np.zeros(p, dtype=np.uint32)
-    return (z, p_op, p_neg, z, z, np.zeros((p, VAL_WORDS), np.uint32), z)
-
-
 def verdict_masks(p_op, p_neg) -> Tuple[int, int]:
-    """Kernel K's row verdict as one masked compare: a row passes when
-    (seg & need) == want, which is `_row_pass` (need: the active slots,
-    want: those whose segment bit must be set, where p_neg is clear)."""
+    """Kernels J.3's and K's row verdict as one masked compare: a row
+    passes when (seg & need) == want, which is `_row_pass` (need: the
+    active slots, want: those whose segment bit must be set, where p_neg
+    is clear)."""
     need = want = 0
     for k, (code, neg) in enumerate(zip(p_op, p_neg)):
         if int(code):

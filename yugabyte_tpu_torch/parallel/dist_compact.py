@@ -157,11 +157,12 @@ def splitter_pick_plain(samp: torch.Tensor, w_route: int, n_shards: int
 
 def splitter_pick(samp: torch.Tensor, w_route: int, n_shards: int
                   ) -> torch.Tensor:
-    """Kernel M1 wrapper (see splitter_pick_plain): one CTA's bitonic sort
-    in shared memory. CPU tensor: the plain version. CUDA tensor:
-    csrc/dist.cu, counted in `splitter_pick.launches`. A one-shard mesh has
-    no splitters: an empty [w_route, 0] tensor on either device, with no
-    launch and no sort."""
+    """Kernel M1 wrapper (see splitter_pick_plain): no sort, each sample's
+    rank counted by a warp over the samples in shared memory, the sample
+    at each pick position writing its splitter. CPU tensor: the plain
+    version. CUDA tensor: csrc/dist.cu, one launch, counted in
+    `splitter_pick.launches`. A one-shard mesh has no splitters: an empty
+    [w_route, 0] tensor on either device, with no launch and no sort."""
     if n_shards == 1:
         return torch.empty((w_route, 0), dtype=torch.int32,
                            device=samp.device)
