@@ -90,6 +90,28 @@ Phases (any failure exits non-zero):
      versions, timed beside their bounds and on the device (one launch a
      call, no memset, no copy; M1 also beside its latency floor, as L's),
      the exchange copy, and the job's M2 + M3 time on the device;
+ 5d. the faults phase (`faults_phase`; `faults:` lines on stdout, each
+     with the card): device-fault containment and the bucket-health
+     board at config 2's width on the codec route — oom:result:1 absorbed
+     by the download's relaunch, oom:result:2 completed natively (files
+     == native, the (k_pad, m) and the decode bucket QUARANTINED, counts
+     exact) and the next job parked (no A-F launch); a real
+     torch.cuda.OutOfMemoryError under set_per_process_memory_fraction
+     at half the codec job's peak (files == native, no pin), then a
+     device job after the cap; decay to PROBATION and HEALTHY on a
+     --fault-rows (1M) tablet; the shadow verifier (bitflip caught,
+     sticky past its window, clear_mismatch, one job at sample 1.0
+     beside one at 0; 40 1M-row jobs at the default sample, 3 at 1.0
+     beside 3 at 0); a fault after the mesh job's M1-M3 (files ==
+     native); the reference's rate race (the board's route, state and
+     EWMAs per job, COLD first and prewarmed first). After the pushdown
+     a fault in q6_agg (PushdownUnsupported, the host answer == the
+     device's, the next call parked with no launch) and after the point
+     reads one at P3's result site (answers == `_multi_get_native`, the
+     next call launches no P1-P3). Every other phase must leave every
+     containment counter, the board's native routings among them, where
+     it found it (`no_fallbacks`), and the
+     timed phases run with shadow_verify_sample pinned to 0;
   6. the snapshot scan over the same 4 input SSTs: the full-tablet
      seq-scan (`ops.scan.visible_entries_sources` over
      SlabSource(read_all()), read time above every write, no bounds)
@@ -138,7 +160,7 @@ Phases (any failure exits non-zero):
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
        [--chunk-rows C] [--skew-rows L] [--wave-rows W] [--sf-orders M]
-       [--point-reads K]
+       [--point-reads K] [--fault-rows F]
 """
 
 from __future__ import annotations
@@ -1428,13 +1450,13 @@ def _counted_run(wrappers, fn):
     from yugabyte_tpu_torch.parallel import dist_compact
     for w in wrappers.values():
         w.launches = 0
-    retries = dist_compact.dist_compact_overflow_retry_total
+    retries = dist_compact.overflow_retries()
     t0 = time.time()
     res = fn()
     sync()
     secs = time.time() - t0
     return (res, secs, {k: w.launches for k, w in wrappers.items()},
-            dist_compact.dist_compact_overflow_retry_total - retries)
+            dist_compact.overflow_retries() - retries)
 
 
 def skewed_prefix_slab(n: int, groups: int, seed: int):
@@ -3159,14 +3181,14 @@ def point_reads(db, keys, read_ht, batch: int, what: str):
     for w in wrappers.values():
         w.launches = 0
     m = point_read.point_read_metrics()
-    before = {k: m[k] for k in _POINT_COUNTERS}
+    before = {k: m[k].value() for k in _POINT_COUNTERS}
     res, secs = [], []
     for s in range(0, len(keys), batch):
         t0 = time.time()
         res.extend(db.multi_get(keys[s:s + batch], read_ht))
         secs.append(time.time() - t0)
     launches = {k: w.launches for k, w in wrappers.items()}
-    counters = {k: m[k] - v for k, v in before.items()}
+    counters = {k: m[k].value() - v for k, v in before.items()}
     replay_per_file(db, [keys[s:s + batch]
                          for s in range(0, len(keys), batch)],
                     read_ht, counters, what)
@@ -3372,14 +3394,14 @@ def point_read_phase(args, workdir, lineitem_dir, device="cuda"):
     for w in wrappers.values():
         w.launches = 0
     m = point_read.point_read_metrics()
-    before = {k: m[k] for k in _POINT_COUNTERS}
+    before = {k: m[k].value() for k in _POINT_COUNTERS}
     t0 = time.time()
     got = [db.multi_get(ks, top) for ks in small_keys]
     small_s = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     check_point_launches(launches, 32, files, "small calls")
     replay_per_file(db, small_keys, top,
-                    {k: m[k] - v for k, v in before.items()}, "small calls")
+                    {k: m[k].value() - v for k, v in before.items()}, "small calls")
     for ks, g in zip(small_keys, got):
         same_answers(g, db, ks, top_ht, "small calls")
     out["small"] = {"calls": 32, "keys": int(sizes.sum()), "s": small_s}
@@ -4374,6 +4396,610 @@ def latency_floors(point_rows, rows) -> None:
             f"{lat['hbm_load_ns']:.1f} ns), device {e['device_ms']:.4f} ms")
 
 
+# ------------------------------------------------------------------ faults
+# The counters of a containment, which no phase that armed no fault may
+# move: the native completions after a device fault, the quarantines
+# (timed and sticky), the shadow verifier's mismatches, the point read's
+# native batches, the download retries, and the work the health board's
+# gate sent native (a parked bucket, or a degraded one with no probe).
+_FAULT_COUNTERS = (
+    ("board_routing", "board_routed_native_total"),
+    ("offload_policy", "compaction_device_fallback_total"),
+    ("offload_policy", "offload_quarantine_added_total"),
+    ("bucket_health", "bucket_health_quarantines_total"),
+    ("bucket_health", "bucket_health_mismatch_total"),
+    ("integrity", "device_shadow_mismatch_total"),
+    ("point_read", "point_read_device_fallback_total"),
+    ("kernels", "kernel_chunk_retry_total"),
+)
+_fault_base: dict = {}
+
+
+def fault_counts() -> dict:
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    return {f"{e}:{n}": ROOT_REGISTRY.entity("server", e).counter(n).value()
+            for e, n in _FAULT_COUNTERS}
+
+
+def no_fallbacks(what: str) -> None:
+    """Fail when a phase that armed no fault moved a containment counter;
+    then take the current counts as the next phase's baseline."""
+    now = fault_counts()
+    moved = {k: v - _fault_base.get(k, 0) for k, v in now.items()
+             if v != _fault_base.get(k, 0)}
+    if _fault_base and moved:
+        raise AssertionError(f"{what}: a phase that armed no fault moved "
+                             f"containment counters {moved}")
+    _fault_base.clear()
+    _fault_base.update(now)
+
+
+def reset_fault_base() -> None:
+    """After a phase that armed faults (and checked every count it
+    moved): its counts are the next phase's baseline."""
+    _fault_base.clear()
+    _fault_base.update(fault_counts())
+
+
+def fault_moves(before: dict, want: dict, what: str) -> dict:
+    """The counters a faulted step moved, which must be exactly `want`
+    (short names: the part after the entity)."""
+    moved = fault_counts_delta(before)
+    if moved != want:
+        raise AssertionError(f"{what}: containment counters moved "
+                             f"{moved}, expected {want}")
+    return moved
+
+
+def fault_line(card: str, what: str, rec: dict) -> None:
+    """One line of the faults phase on stdout, with the card."""
+    print("faults: " + json.dumps({"step": what, "card": card, **rec}),
+          flush=True)
+
+
+def _device_launches(launches: dict, names) -> int:
+    return sum(launches[k] for k in names)
+
+
+_CODEC_KERNELS = ("merge_path_level", "gc_pack", "block_decode",
+                  "survivor_scan", "span_gather", "block_encode",
+                  "staged_concat")
+
+
+def faults_phase(args, readers, workdir, card, comp, device="cuda"):
+    """Containment at the main path's width and the reference's rate race,
+    each step with its faults armed and its counters checked exactly:
+
+      - the 10M-row tablet (config 2) on the codec route: oom:result:1 is
+        absorbed by the download's one relaunch (job on the device);
+        oom:result:2 exhausts it: the job completes natively (files ==
+        native), the (k_pad, m) bucket and the first file's decode bucket
+        are QUARANTINED, and the next job over the bucket launches no
+        A-F (five armed faults stay armed);
+      - a real torch.cuda.OutOfMemoryError: the caching allocator capped
+        at half the codec job's peak above what is allocated; the job
+        over a DeviceSlabCache completes natively with no pin left, and
+        after the cap is lifted, empty_cache() and the window's decay a
+        device job writes the same files;
+      - decay and probation on a 1M-row tablet of the same generator: a
+        dispatch fault, the window decays (device_fault_quarantine_s 1),
+        the next job re-proves the bucket on the card (kernels launched,
+        PROBATION), the next one makes it HEALTHY;
+      - the shadow verifier (sample 1.0): bitflip:survivor:1 is caught
+        before install, contained (files == native), the bucket sticky
+        past its window's decay, until clear_mismatch re-opens it on
+        probation; one job's seconds with the verifier at 1.0 beside one
+        at 0; then, on the 1M-row tablet, 40 jobs at the default sample
+        and 3 at 1.0 beside 3 at 0 (default_sample_step);
+      - the mesh job (8 virtual shards of the card): a fault at the
+        routing attempt's download (after M1-M3) completes natively;
+      - the rate race: jobs over the 1M-row tablet through
+        run_compaction_job(..., offload_policy=health_board()) under
+        device_offload_mode=auto, as the reference routes and records
+        them: a COLD start (native, timed), then prewarm_buckets, then
+        the jobs the board routes; and a second board prewarmed first.
+        Each job's route, state and both EWMAs are printed; a finding,
+        not a gate.
+
+    Every step prints a `faults:` line with the card. The board is reset
+    (an operator's reset) before and after, so the phases around it see
+    no parked bucket."""
+    import torch
+    from yugabyte_tpu_torch.ops import device_faults, run_merge
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.storage import compaction, integrity
+    from yugabyte_tpu_torch.storage.bucket_health import (
+        HEALTHY, PROBATION, QUARANTINED, health_board)
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.offload_policy import bucket_key
+    from yugabyte_tpu_torch.utils import flags
+    from yugabyte_tpu_torch.utils.trace import Trace
+
+    board = health_board()
+    board.reset()
+    device_faults.disarm_all()
+    wrappers = {**_wrappers(), **_mesh_wrappers()}
+    rows = sum(r.props.n_entries for r in readers)
+    cutoff = history_cutoff(rows)
+    qkey = bucket_key(run_merge.packed_run_ns(
+        [r.props.n_entries for r in readers]))
+    out = {"bucket": list(qkey)}
+    counter = [0]
+
+    def job(tag, inputs, fn=None, **kw):
+        """One job, every launch counter at 0 just before and read just
+        after: (result, seconds, launches)."""
+        d = os.path.join(workdir, "faults", tag)
+        os.makedirs(d)
+        counter[0] += 1
+        ids = iter(range(counter[0] * 10_000, counter[0] * 10_000 + 9_000))
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        cut = history_cutoff(sum(r.props.n_entries for r in inputs))
+        if fn is None:
+            res = compaction.run_compaction_job_device_native(
+                inputs, d, lambda: next(ids), cut, True, device=device, **kw)
+        else:
+            res = fn(inputs, d, lambda: next(ids), cut, True, **kw)
+        sync()
+        return (res, time.time() - t0,
+                {k: w.launches for k, w in wrappers.items()})
+
+    def native_of(inputs, tag):
+        res, secs, _ = job(tag, inputs, fn=lambda *a, **k:
+                           compaction._run_native_job(*a, False, None))
+        return res, secs
+
+    os.environ["YBTPU_DEVICE_CODEC"] = "1"
+    try:
+        native, t_native = native_of(readers, "native")
+        out["native_s"] = t_native
+
+        # -- injected faults at full width, codec route
+        before = fault_counts()
+        device_faults.arm("oom", "result", 1)
+        res, secs, l = job("retried", readers)
+        same_files(res, native, "oom:result:1 job vs native")
+        check_launches(l, "codec")
+        fault_moves(before, {"kernel_chunk_retry_total": 1}, "oom:result:1")
+        if device_faults.armed_count() or board.state(
+                "run_merge_fused", qkey) == QUARANTINED:
+            raise AssertionError("oom:result:1: the fault did not fire, or "
+                                 "the retried job was contained")
+        out["retried"] = {"s": secs, "on_device": True}
+        fault_line(card, "oom:result:1", out["retried"])
+
+        board.reset()
+        before = fault_counts()
+        device_faults.arm("oom", "result", 2)
+        with Trace("faults: contained job") as trace:
+            res, secs, l = job("contained", readers)
+        same_files(res, native, "oom:result:2 job vs native")
+        if "quarantined; completing via the native merge" not in \
+                trace.dump():
+            raise AssertionError("the contained job left no TRACE")
+        fault_moves(before, {"compaction_device_fallback_total": 1,
+                             "offload_quarantine_added_total": 2,
+                             "bucket_health_quarantines_total": 2,
+                             "kernel_chunk_retry_total": 1},
+                    "oom:result:2")
+        n_pad0 = run_merge.bucket_size(readers[0].props.n_entries)
+        states = {"run_merge_fused": board.state("run_merge_fused", qkey),
+                  "block_decode": board.state("block_decode", (1, n_pad0))}
+        if set(states.values()) != {QUARANTINED}:
+            raise AssertionError(f"oom:result:2: buckets {states}")
+        out["contained"] = {"s": secs, "states": states,
+                            "attempt_launches": {k: v for k, v in l.items()
+                                                 if v}}
+        fault_line(card, "oom:result:2 contained", out["contained"])
+        device_faults.arm("oom", "result", 5)
+        before = fault_counts()
+        res, secs, l = job("parked", readers)
+        same_files(res, native, "parked job vs native")
+        fault_moves(before, {"board_routed_native_total": 1}, "parked job")
+        if _device_launches(l, _CODEC_KERNELS) or \
+                device_faults.armed_count() != 5:
+            raise AssertionError(f"parked job launched {l} or fired a "
+                                 f"fault")
+        device_faults.disarm_all()
+        out["parked"] = {"s": secs, "launches": 0}
+        fault_line(card, "parked bucket", out["parked"])
+
+        # -- a real device fault: the caching allocator capped
+        board.reset()
+        flags.set_flag("device_fault_quarantine_s", 1.0)
+        cache = DeviceSlabCache(device)
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        base = torch.cuda.memory_allocated()
+        cap = base + comp["codec_peak_bytes"] // 2
+        before = fault_counts()
+        torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total))
+        try:
+            res, secs, l = job("real_oom", readers, device_cache=cache,
+                               input_ids=[0, 1, 2, 3])
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.empty_cache()
+        same_files(res, native, "capped job vs native")
+        # where the cap bites decides which buckets park (the merge's,
+        # and the decode's when its retry ran out too): one native
+        # completion in any case
+        moved = fault_counts_delta(before)
+        if moved.get("compaction_device_fallback_total") != 1 \
+                or cache.pinned_count():
+            raise AssertionError(f"capped job: counters {moved}, pins "
+                                 f"{cache.pinned_count()}")
+        out["real_oom"] = {"s": secs, "cap_bytes": cap - base,
+                           "peak_bytes": comp["codec_peak_bytes"],
+                           "moved": moved, "pins": cache.pinned_count(),
+                           "attempt_launches": {k: v for k, v in l.items()
+                                                if v}}
+        fault_line(card, "real OutOfMemoryError contained", out["real_oom"])
+        del cache
+        time.sleep(1.1)
+        before = fault_counts()
+        res, secs, l = job("after_oom", readers)
+        same_files(res, native, "job after the cap vs native")
+        check_launches(l, "codec")
+        fault_moves(before, {}, "job after the cap")
+        out["after_oom"] = {"s": secs,
+                            "state": board.state("run_merge_fused", qkey)}
+        fault_line(card, "after the cap lifted", out["after_oom"])
+
+        # -- decay and probation on the 1M-row tablet
+        board.reset()
+        small_dir = os.path.join(workdir, "faults", "in_small")
+        os.makedirs(small_dir)
+        small = write_inputs(synth_ycsb_runs(
+            args.fault_rows, 4, max(1, args.fault_rows // 2), args.seed + 7),
+            small_dir)
+        skey = bucket_key(run_merge.packed_run_ns(
+            [r.props.n_entries for r in small]))
+        small_native, t_small_native = native_of(small, "native_small")
+        before = fault_counts()
+        device_faults.arm("runtime", "dispatch", 1)
+        res, secs, l = job("decay_fault", small)
+        same_files(res, small_native, "1M faulted job vs native")
+        fault_moves(before, {"compaction_device_fallback_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1},
+                    "1M dispatch fault")
+        seq = [(board.state("run_merge_fused", skey), secs, 0)]
+        time.sleep(1.1)
+        for i in range(2):
+            res, secs, l = job(f"reprove{i}", small)
+            same_files(res, small_native, "1M re-proving job vs native")
+            seq.append((board.state("run_merge_fused", skey), secs,
+                        _device_launches(l, _CODEC_KERNELS)))
+        if [s for s, _t, _n in seq] != [QUARANTINED, PROBATION, HEALTHY] \
+                or not all(n for _s, _t, n in seq[1:]):
+            raise AssertionError(f"decay and probation: {seq}")
+        out["decay"] = {"rows": sum(r.props.n_entries for r in small),
+                        "bucket": list(skey), "native_s": t_small_native,
+                        "jobs": [{"state": s, "s": t, "launches": n}
+                                 for s, t, n in seq]}
+        fault_line(card, "decay to probation to healthy", out["decay"])
+
+        # -- the shadow verifier at full width
+        board.reset()
+        flags.set_flag("shadow_verify_sample", 1.0)
+        before = fault_counts()
+        device_faults.arm("bitflip", "survivor", 1)
+        res, secs, l = job("bitflip", readers)
+        same_files(res, native, "bit-flipped job vs native")
+        fault_moves(before, {"compaction_device_fallback_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1,
+                             "bucket_health_mismatch_total": 1,
+                             "device_shadow_mismatch_total": 1},
+                    "bitflip")
+        t_flip = secs
+        time.sleep(1.1)   # the mismatch's timed window decays; it stays
+        res, secs, l = job("sticky", readers)
+        same_files(res, native, "sticky-parked job vs native")
+        if _device_launches(l, _CODEC_KERNELS) or board.state(
+                "run_merge_fused", qkey) != QUARANTINED:
+            raise AssertionError("the shadow mismatch did not stay sticky")
+        if board.clear_mismatch("run_merge_fused", qkey) != 1 or \
+                board.state("run_merge_fused", qkey) != PROBATION:
+            raise AssertionError("clear_mismatch did not re-open the "
+                                 "bucket on probation")
+        verified0 = integrity.shadow_snapshot()["jobs_verified"]
+        res, t_on, l = job("verified", readers)
+        same_files(res, native, "verified job vs native")
+        check_launches(l, "codec")
+        if integrity.shadow_snapshot()["jobs_verified"] != verified0 + 1:
+            raise AssertionError("the clean job was not shadow-verified")
+        flags.set_flag("shadow_verify_sample", 0.0)
+        res, t_off, l = job("unverified", readers)
+        same_files(res, native, "unverified job vs native")
+        fault_moves(before, {"board_routed_native_total": 1,
+                             "compaction_device_fallback_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1,
+                             "bucket_health_mismatch_total": 1,
+                             "device_shadow_mismatch_total": 1},
+                    "shadow verifier steps")
+        out["shadow"] = {"bitflip_job_s": t_flip, "verifier_on_s": t_on,
+                         "verifier_off_s": t_off,
+                         "verifier_cost_s": t_on - t_off,
+                         "snapshot": integrity.shadow_snapshot()}
+        fault_line(card, "shadow verifier", out["shadow"])
+
+        # -- the verifier at its default sample, on the 1M-row tablet
+        board.reset()
+        out["default_sample"] = default_sample_step(
+            args, small, small_native, skey, job, board, card)
+
+        # -- the mesh job: a fault after the routing kernels
+        board.reset()
+        mesh = make_mesh(8, devices=[torch.device(device)] * 8)
+        before = fault_counts()
+        device_faults.arm("oom", "result", 1)
+        res, secs, l = job("mesh", readers, fn=compaction.run_compaction_job,
+                           device=device, mesh=mesh)
+        same_files(res, native, "faulted mesh job vs native")
+        fault_moves(before, {"compaction_device_fallback_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1},
+                    "mesh fault")
+        snap = board.snapshot()
+        if [(k["family"], k["state"]) for k in snap["keys"]] != \
+                [("dist_compact", QUARANTINED)] or not all(
+                    l[k] for k in ("splitter_pick", "route_dest",
+                                   "bucket_scatter")):
+            raise AssertionError(f"mesh fault: board {snap['keys']}, "
+                                 f"launches {l}")
+        out["mesh"] = {"s": secs, "bucket": snap["keys"][0]["bucket"],
+                       "routing_launches": {k: l[k] for k in (
+                           "splitter_pick", "route_dest",
+                           "bucket_scatter")}}
+        fault_line(card, "mesh fault at M2/M3", out["mesh"])
+
+        # -- the reference's rate race at the card's rates
+        out["rate_race"] = {}
+        routed = "board_routing:board_routed_native_total"
+        for order in ("cold_first", "prewarmed_first"):
+            board.reset()
+            flags.set_flag("device_offload_mode", "auto")
+            steps = []
+            base = fault_counts()
+            for i in range(8):
+                if (order == "prewarmed_first" and i == 0) or \
+                        (order == "cold_first" and i == 1):
+                    run_merge.prewarm_buckets([(skey[0], skey[1], 4, 8)],
+                                              device=device)
+                res, secs, l = job(
+                    f"race_{order}{i}", small,
+                    fn=compaction.run_compaction_job, device=device,
+                    offload_policy=board)
+                same_files(res, small_native, f"rate race job {i}")
+                rec = {k["family"]: k for k in board.snapshot()["keys"]}[
+                    "run_merge_fused"]
+                now = fault_counts()
+                steps.append({
+                    "job": i, "s": secs,
+                    "route": ("device" if _device_launches(
+                        l, _CODEC_KERNELS) else "native"),
+                    "board_routed_native": now[routed] - base[routed],
+                    "state": rec["state"],
+                    "device_ewma": rec["device_rows_per_sec"],
+                    "native_ewma": rec["native_rows_per_sec"]})
+                base = now
+                fault_line(card, f"rate race {order}", steps[-1])
+            out["rate_race"][order] = steps
+        flags.reset_flag("device_offload_mode")
+    finally:
+        device_faults.disarm_all()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        flags.set_flag("shadow_verify_sample", 0.0)
+        flags.reset_flag("device_fault_quarantine_s")
+        flags.reset_flag("device_offload_mode")
+        board.reset()
+    reset_fault_base()
+    return out
+
+
+def default_sample_step(args, small, small_native, skey, job, board,
+                        card, n_default=40, n_pair=3):
+    """The sampled shadow verifier at its default sample on the 1M-row
+    tablet: after one uncounted job, n_default device jobs with
+    shadow_verify_sample at its default (random seeded from --seed),
+    then n_pair jobs at 1.0 and at
+    0 alternated. Prints each set's seconds (mean, p50, max), the
+    verified jobs' count, the cost of one verified job and the default's
+    cost per job on average, and the device rate the board kept (the
+    verifier's wait is left out of it). Moves no containment counter."""
+    import random
+    from yugabyte_tpu_torch.storage import integrity
+    from yugabyte_tpu_torch.utils import flags
+    flags.reset_flag("shadow_verify_sample")
+    sample = float(flags.get_flag("shadow_verify_sample"))
+    random.seed(args.seed)
+    before = fault_counts()
+
+    def timed(tag, n):
+        secs, verified = [], []
+        for i in range(n):
+            v0 = integrity.shadow_snapshot()["jobs_verified"]
+            res, t, l = job(f"{tag}{i}", small)
+            same_files(res, small_native, f"{tag} job {i} vs native")
+            if not _device_launches(l, _CODEC_KERNELS):
+                raise AssertionError(f"{tag} job {i} ran no kernel")
+            secs.append(t)
+            verified.append(integrity.shadow_snapshot()["jobs_verified"]
+                            - v0)
+        return secs, verified
+
+    flags.set_flag("shadow_verify_sample", 0.0)
+    timed("warmup", 1)     # not counted: the first 1M job after 10M ones
+    flags.reset_flag("shadow_verify_sample")
+    d_secs, d_ver = timed("default", n_default)
+    on, off = [], []
+    for i in range(n_pair):
+        flags.set_flag("shadow_verify_sample", 1.0)
+        s_on, v_on = timed(f"on{i}_", 1)
+        flags.set_flag("shadow_verify_sample", 0.0)
+        s_off, v_off = timed(f"off{i}_", 1)
+        if v_on != [1] or v_off != [0]:
+            raise AssertionError("the verifier ran where it was not asked "
+                                 "or not where it was")
+        on += s_on
+        off += s_off
+    fault_moves(before, {}, "default sample")
+
+    def stats(xs):
+        xs = sorted(xs)
+        return {"n": len(xs), "mean": float(np.mean(xs)),
+                "p50": xs[len(xs) // 2], "max": xs[-1]}
+    rec = {k["family"]: k for k in board.snapshot()["keys"]}[
+        "run_merge_fused"]
+    d_plain = [t for t, v in zip(d_secs, d_ver) if not v]
+    out = {"sample": sample, "rows": sum(r.props.n_entries for r in small),
+           "bucket": list(skey), "default": stats(d_secs),
+           "default_verified": int(sum(d_ver)),
+           "default_verified_s": [t for t, v in zip(d_secs, d_ver) if v],
+           "default_unverified": stats(d_plain) if d_plain else None,
+           "verifier_on": stats(on), "verifier_off": stats(off),
+           "verified_job_cost_s": float(np.mean(on) - np.mean(off)),
+           "default_cost_per_job_s": float(np.mean(d_secs) - np.mean(off)),
+           "expected_cost_per_job_s": float(
+               sample * (np.mean(on) - np.mean(off))),
+           "board_device_ewma": rec["device_rows_per_sec"],
+           "board_state": rec["state"]}
+    fault_line(card, "shadow verifier at its default sample", out)
+    return out
+
+
+def fault_counts_delta(before: dict) -> dict:
+    now = fault_counts()
+    return {k.split(":", 1)[1]: v - before[k] for k, v in now.items()
+            if v != before[k]}
+
+
+def pushdown_fault_phase(slabs, top_ht, push_out, card, device="cuda"):
+    """A fault in q6_agg's download: the pushdown raises
+    PushdownUnsupported("fault") and the (1, n_pad) scan_agg bucket is
+    parked; the query is answered by the host path (LineitemOracle, the
+    host evaluation the caller falls back to, computed once), equal to
+    the healthy device answer; the next call refuses before any launch.
+    Seconds are the device attempt to its refusal."""
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    from yugabyte_tpu_torch.ops import device_faults, scan
+    from yugabyte_tpu_torch.storage.bucket_health import (QUARANTINED,
+                                                          health_board)
+    board = health_board()
+    board.reset()
+    mode, spec = pushdown_queries(lineitem_schema())["q6_agg"]
+    wrappers = {**_wrappers(), **_pushdown_wrappers()}
+    srcs = [scan.SlabSource(s, sorted_source=True) for s in slabs]
+    t0 = time.time()
+    host = LineitemOracle(slabs, top_ht).aggregate(spec, lineitem_schema())
+    host_j = {"rows": host["rows"], "cols": {
+        str(c): st for c, st in host["cols"].items()}}
+    out = {"host_s": time.time() - t0}
+    if host_j != push_out["q6_agg"]["answer"]:
+        raise AssertionError("q6_agg: the host path's answer differs from "
+                             "the healthy device answer")
+    before = fault_counts()
+    try:
+        for attempt, spec_arm, reason in (
+                ("fault", ("runtime", "result", 1), "fault"),
+                ("parked", ("runtime", "dispatch", 3), "quarantined")):
+            device_faults.arm(*spec_arm)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            try:
+                scan.aggregate_sources(srcs, top_ht, spec, device=device)
+            except PushdownUnsupported as e:
+                got_reason = e.reason
+            else:
+                raise AssertionError(f"q6_agg {attempt}: no refusal")
+            # the caller's host path answers: host_j, equal to the
+            # healthy device answer (checked above)
+            secs = time.time() - t0
+            launched = {k: w.launches for k, w in wrappers.items()
+                        if w.launches}
+            if got_reason != reason:
+                raise AssertionError(f"q6_agg {attempt}: refused "
+                                     f"{got_reason}, not {reason}")
+            if attempt == "parked" and (launched or
+                                        device_faults.armed_count() != 3):
+                raise AssertionError(f"parked q6_agg launched {launched}")
+            device_faults.disarm_all()
+            out[attempt] = {"reason": got_reason, "s": secs,
+                            "launches": launched}
+        states = [k["state"] for k in board.snapshot()["keys"]
+                  if k["family"] == "scan_agg"]
+        if states != [QUARANTINED]:
+            raise AssertionError(f"q6_agg fault: board {states}")
+        fault_moves(before, {"board_routed_native_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1},
+                    "q6_agg fault")
+    finally:
+        device_faults.disarm_all()
+        board.reset()
+    reset_fault_base()
+    fault_line(card, "q6_agg fault", out)
+    return out
+
+
+def point_fault_phase(db, keys, read_ht, card):
+    """A fault at P3's result site on the YCSB point DB: the batch is
+    answered by _multi_get_native (equal), the (1, n_pad) bucket of the
+    first live file is parked, and the next call launches no P1-P3."""
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.storage.bucket_health import (QUARANTINED,
+                                                          health_board)
+    board = health_board()
+    board.reset()
+    wrappers = _point_wrappers()
+    want = db._multi_get_native(keys, read_ht)
+    before = fault_counts()
+    out = {}
+    try:
+        for attempt, spec_arm in (("fault", ("oom", "result", 1)),
+                                  ("parked", ("oom", "dispatch", 3))):
+            device_faults.arm(*spec_arm)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.time()
+            got = db.multi_get(keys, read_ht)
+            secs = time.time() - t0
+            launched = {k: w.launches for k, w in wrappers.items()
+                        if w.launches}
+            if got != want:
+                raise AssertionError(f"point read {attempt}: answers differ "
+                                     f"from _multi_get_native")
+            if attempt == "parked" and (launched or
+                                        device_faults.armed_count() != 3):
+                raise AssertionError(f"parked point read launched "
+                                     f"{launched}")
+            device_faults.disarm_all()
+            out[attempt] = {"keys": len(keys), "s": secs,
+                            "launches": launched}
+        keys_q = [(k["family"], k["bucket"]) for k in
+                  board.snapshot()["keys"] if k["state"] == QUARANTINED]
+        if len(keys_q) != 1 or keys_q[0][0] != "point_read_locate":
+            raise AssertionError(f"point-read fault: parked {keys_q}")
+        out["bucket"] = keys_q[0][1]
+        fault_moves(before, {"board_routed_native_total": 1,
+                             "offload_quarantine_added_total": 1,
+                             "bucket_health_quarantines_total": 1,
+                             "point_read_device_fallback_total": 1},
+                    "point-read fault")
+    finally:
+        device_faults.disarm_all()
+        board.reset()
+    reset_fault_base()
+    fault_line(card, "point-read fault", out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -4394,6 +5020,9 @@ def main() -> int:
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
                     "each")
+    ap.add_argument("--fault-rows", type=int, default=1_000_000,
+                    help="rows of the faults phase's decay and rate-race "
+                    "tablet (the YCSB-A generator, cut in rows only)")
     args = ap.parse_args()
 
     import torch
@@ -4411,6 +5040,14 @@ def main() -> int:
     t_start = time.time()
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the timed phases run with the sampled shadow verifier off, as PRs
+    # 1-17 ran them (the port had none), so their rates stay comparable;
+    # the faults phase turns it on where it measures it
+    from yugabyte_tpu_torch.storage import integrity  # noqa: F401 (flags)
+    from yugabyte_tpu_torch.utils import flags
+    flags.set_flag("shadow_verify_sample", 0.0)
+    log("shadow_verify_sample pinned to 0 for the timed phases")
+    no_fallbacks("start")
     name = torch.cuda.get_device_name(0)
     bandwidth = next(bw for key, bw in _BANDWIDTH if key in name) \
         if any(key in name for key, _ in _BANDWIDTH) else 3.35e12
@@ -4436,11 +5073,14 @@ def main() -> int:
                                         bandwidth)
         del tensors
         torch.cuda.empty_cache()
+        no_fallbacks("compaction")
         chain_out, chain_launches, chain_state = resident_chain_phase(
             args, runs, readers, workdir, card)
         del runs
+        no_fallbacks("resident chain")
         chunk_out, launches["chunked"], kin, base_file = chunked_phase(
             args, readers, workdir)
+        no_fallbacks("chunked jobs")
         chunk_rows = chunk_kernel_phase(args, kin, launches["chunked"],
                                         bandwidth)
         errs_chunked = chunk_merge_check(kin)
@@ -4453,6 +5093,7 @@ def main() -> int:
                                   card)
         del chain_state
         torch.cuda.empty_cache()
+        no_fallbacks("skewed pick")
         mesh_out, mesh_launches, mesh_kin = mesh_phase(
             args, readers, skew_paths, workdir, comp, card)
         launches.update(mesh_launches)
@@ -4460,6 +5101,9 @@ def main() -> int:
             mesh_kernel_phase(args, mesh_kin, launches["mesh_job"],
                               bandwidth)
         del mesh_kin
+        torch.cuda.empty_cache()
+        no_fallbacks("mesh")
+        faults_out = faults_phase(args, readers, workdir, card, comp)
         torch.cuda.empty_cache()
         scan_out, launches["scan"], launches["range_scan"], read_ht = \
             scan_phase(readers, args.rows)
@@ -4475,6 +5119,7 @@ def main() -> int:
                                       launches["range_scan"])
         del scan_tensors, readers
         torch.cuda.empty_cache()
+        no_fallbacks("scan")
         push_out, launches["pushdown"], slabs, (top_ht, _mid) = \
             pushdown_phase(args, workdir)
         queries = pushdown_queries(lineitem_schema())
@@ -4495,6 +5140,9 @@ def main() -> int:
             args, workdir, slabs, push_out, top_ht, card)
         for qname, counts in push_launches.items():
             chain_launches[f"resident_{qname}"] = counts
+        no_fallbacks("pushdown")
+        faults_out["pushdown"] = pushdown_fault_phase(slabs, top_ht,
+                                                      push_out, card)
         del slabs
         torch.cuda.empty_cache()
         push_rows, h_vals = pushdown_kernel_phase(
@@ -4520,6 +5168,8 @@ def main() -> int:
                                         bandwidth)
         latency_floors(point_rows, [chunk_rows[0], mesh_rows[0]])
         del t_pt
+        no_fallbacks("point reads")
+        faults_out["point_read"] = point_fault_phase(ydb, chunk, top, card)
         ydb.close()
         ldb.close()
     finally:
@@ -4558,7 +5208,8 @@ def main() -> int:
                "resident_chain": chain_out,
                "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
                "pushdown": push_out,
-               "point_read": point_out, "seconds": time.time() - t_start}
+               "point_read": point_out, "faults": faults_out,
+               "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows
                       + mesh_rows + scan_rows + push_rows + point_rows}),

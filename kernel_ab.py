@@ -12,8 +12,15 @@ kernel are compared on one card in turns (old, new, new, old). Every
 process builds its checkout's kernels, stages the same YCSB-A tablet
 (chip_smoke's generator: --rows rows in 4 sorted runs, key space rows/2),
 and times with CUDA events, --reps launches after a warm-up, the
-sections that --only names (default: all; `merge` is A-K, then `m3`
-(M1-M3), `point`, `resident`):
+sections that --only names (default: all; `jobs` first, then `merge`
+(A-K), `m3` (M1-M3), `point`, `resident`):
+  - jobs: the native CompactionJob and the device-native job on the
+    shell route (YBTPU_DEVICE_CODEC=0) and the codec route over the
+    tablet written as 4 SSTs, max(1, --reps // 3) times in turns
+    (native, shell, codec), each on the host clock to a synchronize,
+    the sampled shadow verifier off where the checkout has one (as
+    chip_smoke's timed phases run); the first turn's files go into the
+    sha256;
   - kernel A (`merge_path.merge_level`) at each tournament level, its
     output held against the first process's (the same bytes everywhere);
   - kernel B (`merge_gc.gc_pack`) on the merged payload (the codec job's
@@ -89,7 +96,7 @@ import time
 
 import numpy as np
 
-SECTIONS = ("merge", "m3", "point", "resident")
+SECTIONS = ("merge", "m3", "point", "resident", "jobs")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -349,6 +356,56 @@ def resident(sf_orders: int, seed: int, reps: int, digest) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def jobs(runs, turns: int, digest) -> dict:
+    """Seconds of the native job and the device-native job on both routes
+    (see the module docstring): {name: {"s": [...], "median_s": m}}."""
+    import torch
+    import chip_smoke as cs
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.utils import flags
+    try:
+        from yugabyte_tpu_torch.storage import integrity  # noqa: F401
+        flags.set_flag("shadow_verify_sample", 0.0)
+    except (ImportError, KeyError):
+        pass     # a checkout without the shadow verifier
+    workdir = tempfile.mkdtemp(prefix="kernel_ab_jobs_")
+    try:
+        in_dir = os.path.join(workdir, "in")
+        os.makedirs(in_dir)
+        readers = cs.write_inputs(runs, in_dir)
+        cutoff = cs.history_cutoff(sum(s.n for s in runs))
+        secs = {"native": [], "shell": [], "codec": []}
+        for turn in range(turns):
+            for name, got in secs.items():
+                d = os.path.join(workdir, f"{name}{turn}")
+                os.makedirs(d)
+                ids = iter(range(1000, 100000))
+                t0 = time.time()
+                if name == "native":
+                    res = compaction._run_native_job(
+                        readers, d, lambda: next(ids), cutoff, True, False,
+                        None)
+                else:
+                    os.environ["YBTPU_DEVICE_CODEC"] = \
+                        "0" if name == "shell" else "1"
+                    res = compaction.run_compaction_job_device_native(
+                        readers, d, lambda: next(ids), cutoff, True,
+                        device="cuda")
+                torch.cuda.synchronize()
+                got.append(time.time() - t0)
+                if turn == 0:
+                    for _fid, base, _props in res.outputs:
+                        for suffix in ("", ".sblock.0"):
+                            with open(base + suffix, "rb") as f:
+                                digest.update(f.read())
+                shutil.rmtree(d)
+        os.environ["YBTPU_DEVICE_CODEC"] = "1"
+        return {name: {"s": v, "median_s": statistics.median(v)}
+                for name, v in secs.items()}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def child(root: str, rows: int, seed: int, reps: int, sf_orders: int,
           only) -> dict:
     sys.path.insert(0, os.path.abspath(root))
@@ -360,6 +417,9 @@ def child(root: str, rows: int, seed: int, reps: int, sf_orders: int,
     runs = cs.synth_ycsb_runs(rows, 4, max(1, rows // 2), seed)
     digest = hashlib.sha256()
     out = {"root": root, "sections": sorted(only)}
+    if "jobs" in only:
+        out["jobs"] = jobs(runs, max(1, reps // 3), digest)
+        torch.cuda.empty_cache()
     if "merge" in only:
         out.update(merge_kernels(runs, rows, reps, digest))
         torch.cuda.empty_cache()

@@ -26,12 +26,14 @@ from yugabyte_tpu.storage.sst import Frontier, SSTReader, SSTWriter
 from yugabyte_tpu.utils import flags as ref_flags
 from yugabyte_tpu_torch.parallel.mesh import make_mesh
 from yugabyte_tpu_torch.storage import compaction as port_compaction
+from yugabyte_tpu_torch.storage.bucket_health import health_board
 from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
 from yugabyte_tpu_torch.storage.run_cache import (NamespacedRunCache,
                                                   NativeRunCache)
 from yugabyte_tpu_torch.storage.sst import SSTReader as PortSSTReader
 from yugabyte_tpu_torch.utils import flags as port_flags
 from yugabyte_tpu_torch.utils import env as port_env
+from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
 
 # The tier-1 run shares the host's cores among its workers: one intra-op
 # thread keeps these small tensors from starving the cluster tests
@@ -399,7 +401,6 @@ def test_router_unported_arguments_raise(tmp_path):
             readers, str(tmp_path), iter(range(9, 99)).__next__, CUTOFF,
             True, device="cpu", **kw)
 
-    health = "ROADMAP queue A: health-board routing"
     entry = "ROADMAP queue A: the DB's remaining entry points"
     # the caches, once refused, are taken: the input is staged into the
     # cache (input_ids alone has nothing to stage into), the outputs
@@ -417,10 +418,53 @@ def test_router_unported_arguments_raise(tmp_path):
             assert cache.level_of(1) == 0 and cache.pinned_count() == 0
             assert all(cache.level_of(fid) == 1 for fid, _p, _pr in
                        res.outputs)
-    for kw, title in (({"offload_policy": object()}, health),
-                      ({"cancel": object()}, entry)):
-        with pytest.raises(NotImplementedError, match=title):
-            job(**kw)
+    # offload_policy, once refused, routes by the bucket-health board:
+    # forced, COLD (native, timed into the board) and measured (device)
+    board = health_board()
+
+    def routed_job(sub, **kw):
+        out = tmp_path / sub
+        out.mkdir()
+        return port_compaction.run_compaction_job(
+            readers, str(out), iter(range(9, 99)).__next__, CUTOFF, True,
+            **{"device": "cpu", **kw})
+
+    native = routed_job("native", device="native")
+    decisions = ROOT_REGISTRY.entity("server", "offload_policy")
+
+    def counts():
+        return {k: decisions.counter(f"offload_decisions_{k}_total").value()
+                for k in ("device", "native", "forced", "cold", "measured")}
+
+    for mode, prewarm, want, routed in (
+            ("device", False, {"forced": 1, "device": 1}, "device"),
+            ("native", False, {"forced": 1, "native": 1}, "native"),
+            ("auto", False, {"cold": 1, "native": 1}, "native"),
+            ("auto", True, {"measured": 1, "device": 1}, "device")):
+        port_flags.set_flag("device_offload_mode", mode)
+        board.reset()
+        qkey = (1, 512)
+        if prewarm:
+            board.record_prewarmed("run_merge_fused", qkey)
+        before = counts()
+        try:
+            res = routed_job(f"{mode}{int(prewarm)}", offload_policy=board)
+        finally:
+            port_flags.reset_flag("device_offload_mode")
+        after = counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == want, (mode, prewarm)
+        assert _files(res.outputs) and [b for _n, b in _files(res.outputs)] \
+            == [b for _n, b in _files(native.outputs)], (mode, prewarm)
+        snap = {k["family"]: k for k in board.snapshot()["keys"]}
+        if mode == "auto":
+            rec = snap["run_merge_fused"]
+            assert rec["bucket"] == list(qkey)
+            assert (rec["native_obs"], rec["device_obs"]) == \
+                ((1, 0) if routed == "native" else (0, 1)), rec
+    board.reset()
+    with pytest.raises(NotImplementedError, match=entry):
+        job(cancel=object())
     key = "compaction_rate_bytes_per_sec"
     port_flags.set_flag(key, 1 << 20)
     try:

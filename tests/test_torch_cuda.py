@@ -1958,25 +1958,38 @@ def test_bound_pack_key_stride_edges(cuda, w):
         _bound_pack_match(cuda, s, keep, w, case)
 
 
-def _device_activity(fn, reps=3):
+def _device_activity(fn, reps=3, lead=512, tries=6):
     """(kernel launches, memcpys and memsets) per call of fn in
-    torch.profiler's trace: a sacrificial call first (a trace's first
-    events can be lost), a marker kernel (`torch.cuda._sleep`), then
-    `reps` calls, whose device events start after the marker."""
+    torch.profiler's trace: `lead` one-element adds and a sacrificial
+    call first (in a long process a trace loses its first device events,
+    as chip_smoke's `profiled` found: the adds are there to be lost), a
+    marker kernel (`torch.cuda._sleep`), then `reps` calls, whose device
+    events start after the marker. A trace that lost the marker is taken
+    again, up to `tries` traces."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        for _ in range(reps):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                pad.add_(1)
             fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    t0 = max(e.time_range.start for e in device if "spin_kernel" in e.name)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.start for e in device
+                 if "spin_kernel" in e.name]
+        if marks:
+            break
+    assert marks, f"every one of {tries} traces lost the marker kernel"
+    t0 = max(marks)
     names = [e.name for e in device if e.time_range.start >= t0
              and "spin_kernel" not in e.name]
     copies = [x for x in names if x.startswith("Memcpy")
@@ -2417,12 +2430,23 @@ def test_warm_chain_equals_cold_on_card(cuda, tmp_path, monkeypatch, route):
     b = _chain_job(paths[2:], tmp_path / "b", [2, 3], 200, "cuda", cache, rc)
     l1 = a.outputs + b.outputs
     l1_paths = [p for _f, p, _pr in l1]
-    before = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
-              compaction.ingest_decodes())
-    warm = _chain_job(l1_paths, tmp_path / "warm", [f for f, _p, _pr in l1],
-                      300, "cuda", cache, rc)
-    after = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
-             compaction.ingest_decodes())
+    # the sampled checks decode host blocks when they fire: off for the
+    # counted job, as in the JAX package's chain tests
+    from yugabyte_tpu_torch.utils import flags
+    samples = {k: flags.get_flag(k) for k in ("shadow_verify_sample",
+                                              "resident_digest_sample")}
+    for k in samples:
+        flags.set_flag(k, 0.0)
+    try:
+        before = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
+                  compaction.ingest_decodes())
+        warm = _chain_job(l1_paths, tmp_path / "warm",
+                          [f for f, _p, _pr in l1], 300, "cuda", cache, rc)
+        after = (sst.blocks_decoded(), merge_gc.key_col_uploads(),
+                 compaction.ingest_decodes())
+    finally:
+        for k, v in samples.items():
+            flags.set_flag(k, v)
     cold_cache = DeviceSlabCache("cuda")
     cold = _chain_job(l1_paths, tmp_path / "cold", [f for f, _p, _pr in l1],
                       300, "cuda", cold_cache)
@@ -2433,3 +2457,203 @@ def test_warm_chain_equals_cold_on_card(cuda, tmp_path, monkeypatch, route):
         assert after[2] == before[2]
     assert all(cache.level_of(f) == 2 for f, _p, _pr in warm.outputs)
     assert cache.pinned_count() == 0
+
+
+# ----------------------------------------------- device-fault containment
+@pytest.fixture
+def fault_state():
+    """Disarmed, a fresh board, the sampled checks off; restored after."""
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.storage import integrity  # noqa: F401 (flags)
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.utils import flags
+    keys = ("shadow_verify_sample", "resident_digest_sample",
+            "device_fault_quarantine_s")
+    old = {k: flags.get_flag(k) for k in keys}
+    flags.set_flag("shadow_verify_sample", 0.0)
+    flags.set_flag("resident_digest_sample", 0.0)
+    device_faults.disarm_all()
+    health_board().reset()
+    yield health_board()
+    device_faults.disarm_all()
+    health_board().reset()
+    for k, v in old.items():
+        flags.set_flag(k, v)
+    torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+def _native_files(paths, out_dir):
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    out_dir.mkdir()
+    it = iter(range(100, 600))
+    return _bytes(compaction._run_native_job(
+        [SSTReader(p) for p in paths], str(out_dir), lambda: next(it),
+        10_000_000 << 12, True, False, None).outputs)
+
+
+def _quarantined(board):
+    return sorted((k["family"], tuple(k["bucket"]))
+                  for k in board.snapshot()["keys"]
+                  if k["state"] == "quarantined")
+
+
+@pytest.mark.parametrize("route", ["codec", "shell"])
+def test_real_oom_is_contained_on_card(cuda, tmp_path, monkeypatch,
+                                       fault_state, route):
+    """The caching allocator capped below the job's staging: the job's
+    first allocation raises a real torch.cuda.OutOfMemoryError, which
+    is_device_fault classifies; the job completes natively (files equal
+    to native), the cache holds no pin, and once the cap is lifted and
+    the window decayed a device job over the same cache writes the files
+    a cached device job wrote before the cap (a job with a cache fits
+    learned indexes into its base files, which the native job's lack),
+    and a device job without a cache writes the native files."""
+    import time as _time
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.utils import flags
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", "1" if route == "codec"
+                       else "0")
+    paths = _chain_files(tmp_path, _chain_runs(71, 4, 300_000, 500_000))
+    native = _native_files(paths, tmp_path / "native")
+    flags.set_flag("device_fault_quarantine_s", 0.5)
+    cached = _bytes(_chain_job(paths, tmp_path / "cached", [0, 1, 2, 3],
+                               100, "cuda", DeviceSlabCache("cuda")).outputs)
+    cache = DeviceSlabCache("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_reserved() + (4 << 20)
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    from yugabyte_tpu_torch.storage import compaction
+    fb = compaction._storage_fallback_counter()
+    f0 = fb.value()
+    try:
+        res = _chain_job(paths, tmp_path / "capped", [0, 1, 2, 3], 100,
+                         "cuda", cache)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    assert _bytes(res.outputs) == native
+    assert fb.value() == f0 + 1
+    assert cache.pinned_count() == 0
+    assert _quarantined(fault_state) and all(
+        f in ("run_merge_fused", "block_decode")
+        for f, _b in _quarantined(fault_state))
+    _time.sleep(0.6)
+    after = _chain_job(paths, tmp_path / "after", [0, 1, 2, 3], 100,
+                       "cuda", cache)
+    assert _bytes(after.outputs) == cached
+    assert cache.pinned_count() == 0
+    again = _chain_job(paths, tmp_path / "again", None, 100, "cuda", None)
+    assert _bytes(again.outputs) == native
+    assert fb.value() == f0 + 1
+
+
+def test_build_and_contract_errors_are_not_contained(cuda, tmp_path,
+                                                     monkeypatch,
+                                                     fault_state):
+    """A kernel library that fails to build and a wrapper's contract
+    error are bugs: is_device_fault refuses them and the job raises
+    instead of completing natively."""
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.utils import torch_setup
+    with pytest.raises(Exception) as build:
+        torch_setup.load_cuda_lib("no_such_kernel.cu")
+    assert not device_faults.is_device_fault(build.value)
+    p = torch.zeros((9, 64), dtype=torch.int32, device=cuda)[:, 1:]
+    with pytest.raises(ValueError) as contract:
+        merge_gc.gc_pack(p, 8, 1, merge_gc.GCParams(0, True), 1, 63)
+    assert not device_faults.is_device_fault(contract.value)
+    paths = _chain_files(tmp_path, _chain_runs(72, 3, 2000, 3000))
+
+    def broken(*a, **k):
+        raise ValueError("gc_pack: p_mat must start 16-byte aligned")
+    monkeypatch.setattr(run_merge, "gc_pack", broken)
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", "0")
+    fb = compaction._storage_fallback_counter().value()
+    with pytest.raises(ValueError, match="aligned"):
+        _chain_job(paths, tmp_path / "job", None, 100, "cuda", None)
+    assert compaction._storage_fallback_counter().value() == fb
+    assert not _quarantined(fault_state)
+    assert not list((tmp_path / "job").iterdir())
+
+
+@pytest.mark.parametrize("case", ["merge_dispatch", "codec_decode",
+                                  "point_read", "pushdown", "mesh"])
+def test_armed_fault_parks_exactly_its_bucket(cuda, tmp_path, monkeypatch,
+                                              fault_state, case):
+    """An armed fault at each family's site on the card parks exactly the
+    (family, bucket) keys of the launches it hit, and the answer is the
+    native one."""
+    from yugabyte_tpu_torch.ops import device_faults, scan
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.sst import SSTReader
+    if case in ("merge_dispatch", "codec_decode", "mesh"):
+        monkeypatch.setenv("YBTPU_DEVICE_CODEC",
+                           "1" if case == "codec_decode" else "0")
+        paths = _chain_files(tmp_path, _chain_runs(73, 3, 3000, 4000))
+        native = _native_files(paths, tmp_path / "native")
+        if case == "mesh":
+            from yugabyte_tpu_torch.parallel.mesh import make_mesh
+            from yugabyte_tpu_torch.utils import flags
+            old = flags.get_flag("distributed_compaction_min_rows")
+            flags.set_flag("distributed_compaction_min_rows", 1000)
+            device_faults.arm("oom", "dispatch", 1)
+            try:
+                (tmp_path / "mesh").mkdir()
+                it = iter(range(100, 600))
+                res = compaction.run_compaction_job(
+                    [SSTReader(p) for p in paths], str(tmp_path / "mesh"),
+                    lambda: next(it), 10_000_000 << 12, True,
+                    device="cuda", mesh=make_mesh(2, devices=[cuda] * 2))
+            finally:
+                flags.set_flag("distributed_compaction_min_rows", old)
+            want = [("dist_compact", (2, 8192))]
+        else:
+            spec = (("runtime", "dispatch", 1) if case == "merge_dispatch"
+                    else ("oom", "result", 2))
+            device_faults.arm(*spec)
+            res = _chain_job(paths, tmp_path / "job", None, 100, "cuda",
+                             None)
+            want = [("run_merge_fused", (4, 4096))]
+            if case == "codec_decode":
+                want = [("block_decode", (1, 4096))] + want
+        assert _bytes(res.outputs) == native
+        assert _quarantined(fault_state) == want
+        return
+    if case == "point_read":
+        from yugabyte_tpu_torch.common.hybrid_time import (DocHybridTime,
+                                                           HybridTime)
+        from yugabyte_tpu_torch.storage.db import DB, DBOptions
+        from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+        db = DB(str(tmp_path / "db"), DBOptions(
+            device="cuda", device_cache=DeviceSlabCache("cuda"),
+            auto_compact=False))
+        try:
+            for f in range(2):
+                db.write_batch([(b"Suser%08d\x00\x00!" % i, DocHybridTime(
+                    HybridTime.from_micros(1000 + i + 7 * f), f), b"v")
+                    for i in range(f, 3000, 2)])
+                db.flush()
+            keys = [b"Suser%08d\x00\x00!" % i for i in range(0, 3100, 3)]
+            device_faults.arm("oom", "result", 1)
+            got = db.multi_get(keys)
+            assert got == db._multi_get_native(keys, HybridTime.kMax)
+            assert _quarantined(fault_state) == [("point_read_locate",
+                                                  (1, 2048))]
+        finally:
+            db.close()
+        return
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    runs, read_ht = _table_runs(78, 3, 2500, 2000)
+    spec = _pushdown_specs()[0]
+    srcs = [scan.SlabSource(s, False) for s in runs]
+    device_faults.arm("runtime", "result", 1)
+    with pytest.raises(PushdownUnsupported, match="fault"):
+        scan.aggregate_sources(srcs, read_ht, spec, device="cuda")
+    n_pad = merge_gc.bucket_size(sum(s.n for s in runs))
+    assert _quarantined(fault_state) == [("scan_agg", (1, n_pad))]
+    with pytest.raises(PushdownUnsupported, match="quarantined"):
+        scan.aggregate_sources(srcs, read_ht, spec, device="cuda")

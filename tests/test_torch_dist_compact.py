@@ -204,11 +204,10 @@ def test_dist_overflow_retry_counts_and_matches_reference():
     entries = [ModelEntry(*mk_key(r), ht(100 + (r % 500)))
                for r in range(2048)]
     slab = slab_from_model(entries)
-    port_before = dist_compact.dist_compact_overflow_retry_total
+    port_before = dist_compact.overflow_retries()
     ref_before = ref_dc._overflow_retry_counter().value()
     port, ref = _both(slab, True, 8, factor=0.05)
-    port_retries = dist_compact.dist_compact_overflow_retry_total \
-        - port_before
+    port_retries = dist_compact.overflow_retries() - port_before
     assert port_retries > 0, "overflow retries must be counted"
     assert port_retries == ref_dc._overflow_retry_counter().value() \
         - ref_before

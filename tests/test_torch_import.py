@@ -27,6 +27,15 @@ MODULES = [
     "yugabyte_tpu_torch.utils.env",
     "yugabyte_tpu_torch.utils.native_build",
     "yugabyte_tpu_torch.utils.torch_setup",
+    "yugabyte_tpu_torch.utils.metrics",
+    "yugabyte_tpu_torch.utils.trace",
+    "yugabyte_tpu_torch.utils.ybsan",
+    "yugabyte_tpu_torch.utils.cancellation",
+    "yugabyte_tpu_torch.utils.rate_limiter",
+    "yugabyte_tpu_torch.ops.device_faults",
+    "yugabyte_tpu_torch.storage.offload_policy",
+    "yugabyte_tpu_torch.storage.bucket_health",
+    "yugabyte_tpu_torch.storage.integrity",
     "yugabyte_tpu_torch.common.hybrid_time",
     "yugabyte_tpu_torch.common.partition",
     "yugabyte_tpu_torch.common.schema",
@@ -336,7 +345,7 @@ db.flush()
 got = db.multi_get([b"k", b"j"])
 assert [g and (g[0].ht.value, g[1]) for g in got] == [(5 << 12, b"\x01"),
                                                         None], got
-assert point_read.point_read_metrics()["batches"] == 1
+assert point_read.point_read_metrics()["batches"].value() == 1
 db.close()
 shutil.rmtree(d)
 """,

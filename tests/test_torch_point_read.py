@@ -460,9 +460,16 @@ def _plain(results):
             for r in results]
 
 
+class _CounterValues:
+    """The registry counters of pr.point_read_metrics(), read as ints."""
+
+    def __getitem__(self, name):
+        return pr.point_read_metrics()[name].value()
+
+
 @pytest.fixture
 def metrics():
-    return pr.point_read_metrics()
+    return _CounterValues()
 
 
 # ---------------------------------------------------------------- identity

@@ -224,14 +224,17 @@ def no_digest():
     when they fire."""
     old = (flags.get_flag("resident_digest_sample"),
            ref_flags.get_flag("resident_digest_sample"),
-           ref_flags.get_flag("shadow_verify_sample"))
+           ref_flags.get_flag("shadow_verify_sample"),
+           flags.get_flag("shadow_verify_sample"))
     flags.set_flag("resident_digest_sample", 0.0)
     ref_flags.set_flag("resident_digest_sample", 0.0)
     ref_flags.set_flag("shadow_verify_sample", 0.0)
+    flags.set_flag("shadow_verify_sample", 0.0)
     yield
     flags.set_flag("resident_digest_sample", old[0])
     ref_flags.set_flag("resident_digest_sample", old[1])
     ref_flags.set_flag("shadow_verify_sample", old[2])
+    flags.set_flag("shadow_verify_sample", old[3])
 
 
 def set_route(monkeypatch, route):

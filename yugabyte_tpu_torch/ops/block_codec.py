@@ -24,10 +24,16 @@ byte shell. `block_decode` and `block_encode` are the kernels' wrappers:
 on a CPU tensor they run their plain PyTorch versions, on a CUDA tensor
 they launch the kernel or raise, and each counts its launches.
 
-Not ported: the JAX package's bucket-health board, device-fault injection
-and retry-once, donation, prewarm and manifest shapes, and the codec
-metrics (this package has no metrics registry yet; the launch counters
-take their place).
+Containment, as in the JAX package (block_codec.py:293-381, :401-502
+there): each file's decode and each span's encode pass the health
+board's `allow_device` gate for their (1, n_pad) bucket (a parked bucket
+raises BlockCodecUnsupported, and the job takes the native byte shell),
+the "dispatch" and "result" fault sites, and ONE retry of the launch on
+a device fault at the download; a second failure records the fault on
+the board (block_decode / block_encode) and propagates to the job's
+native completion. `codec_metrics()` are the JAX package's counters;
+`prewarm_block_codec` launches both kernels once at the declared buckets.
+Donation has no counterpart (a CUDA launch writes fresh outputs).
 """
 
 from __future__ import annotations
@@ -48,6 +54,27 @@ from yugabyte_tpu_torch.ops.point_read import (
     _FNV_OFFSET_HI, _FNV_OFFSET_LO, _mul64_by_prime)
 from yugabyte_tpu_torch.storage import block_format
 from yugabyte_tpu_torch.utils import torch_setup
+
+
+def codec_metrics():
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "storage")
+    return {
+        "decode_blocks": e.counter(
+            "compaction_block_decode_device_total",
+            "SST blocks decoded into staged cols by the device codec "
+            "(the host decode_block loop these replace counts in "
+            "sst_block_decode_total)"),
+        "encode_blocks": e.counter(
+            "compaction_block_encode_device_total",
+            "output SST blocks whose column bytes were assembled by the "
+            "device codec"),
+        "encode_fallbacks": e.counter(
+            "compaction_block_encode_fallback_total",
+            "device-native compactions that wrote outputs through the "
+            "native shell encode instead of the device codec (codec "
+            "disabled, all inputs run-cached, or mid-job fault)"),
+    }
 
 
 class BlockCodecUnsupported(Exception):
@@ -320,14 +347,63 @@ def decode_file_to_staged(rfb: RawFileBlocks, device=None) -> StagedCols:
     (kernel C) into the StagedCols that merge_gc.stage_slab would build
     from the host decode, bit for bit (cuda unless the caller passes
     device='cpu')."""
+    import time
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.ops.run_merge import _chunk_retry_counter
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.utils.metrics import (record_kernel_dispatch,
+                                                  record_pipeline_stage)
+    from yugabyte_tpu_torch.utils.trace import TRACE
     dev = torch_setup.resolve_device(device)
-    if rfb.n == 0:
+    n = rfb.n
+    if n == 0:
         raise BlockCodecUnsupported("empty file has nothing to stage")
+    t0 = time.monotonic()
+    n_pad = bucket_size(n)
+    board = health_board()
+    if not board.allow_device("block_decode", (1, n_pad)):
+        # parked bucket (recent fault / sticky mismatch): the caller's
+        # BlockCodecUnsupported handling takes the native byte shell
+        raise BlockCodecUnsupported("decode bucket parked by the "
+                                    "health board")
     cols_in, n_pad, w_pad = raw_cols(rfb)
-    count_key_col_upload()
-    cols, is_const, first = block_decode(u32_to_device(cols_in, dev), rfb.n)
-    return StagedCols(cols, rfb.n, n_pad, w_pad, is_const.cpu().numpy(),
-                      first.cpu().numpy().view(np.uint32))
+    device_faults.maybe_fault("dispatch")
+
+    def _dispatch():
+        # a fresh upload each launch: the host matrix is intact
+        count_key_col_upload()
+        cols, is_const, first = block_decode(u32_to_device(cols_in, dev), n)
+        device_faults.maybe_fault("result")
+        return cols, is_const.cpu().numpy(), \
+            first.cpu().numpy().view(np.uint32)
+
+    try:
+        cols, is_const, first = _dispatch()
+    except Exception as e:  # noqa: BLE001 — device-fault containment
+        if not device_faults.is_device_fault(e):
+            raise
+        # one retry of the same launch, like the merge handle's relaunch;
+        # a second failure takes the job's native fallback
+        _chunk_retry_counter().increment()
+        TRACE("block_codec: device fault at decode download (%r) — "
+              "retrying the launch once", e)
+        try:
+            cols, is_const, first = _dispatch()
+        except Exception as e2:  # noqa: BLE001 — post-retry containment
+            if device_faults.is_device_fault(e2):
+                # retry exhausted: park the decode bucket before the
+                # fault unwinds to the job-level native fallback
+                board.record_fault(
+                    "block_decode", (1, n_pad),
+                    reason=f"decode {type(e2).__name__}: {e2}")
+            raise
+    ms = (time.monotonic() - t0) * 1e3
+    record_kernel_dispatch("kernel_block_decode", n, n_pad, ms)
+    record_pipeline_stage("decode", ms)
+    board.record_device("block_decode", (1, n_pad), n,
+                        time.monotonic() - t0)
+    codec_metrics()["decode_blocks"].increment(len(rfb.bodies))
+    return StagedCols(cols, n, n_pad, w_pad, is_const, first)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -345,19 +421,56 @@ def encode_span(st: StagedCols, n_rows: int, w_out: int, values,
     rows (tombstone rewrite already applied). Kernel F runs on the span;
     only the real rows and the real stride are sliced (on the device) and
     copied to the host. Returns (blocks, index_items, bloom_hashes,
-    first_key, last_key) in write_base_file's vocabulary."""
-    (keys_d, kl2_d, dkl2_d, ht_hi_d, ht_lo_d, wid_d, fl4_d, ttl_d,
-     h_hi_d, h_lo_d) = block_encode(st.cols_dev)
-    keys = _host(keys_d[:n_rows, :w_out])
-    kl = _host(kl2_d[: (n_rows + 1) // 2]).view("<u2")[:n_rows]
-    dkl = _host(dkl2_d[: (n_rows + 1) // 2]).view("<u2")[:n_rows]
-    ht_hi = _host(ht_hi_d[:n_rows])
-    ht_lo = _host(ht_lo_d[:n_rows])
-    wid = _host(wid_d[:n_rows])
-    fl = _host(fl4_d[: (n_rows + 3) // 4]).view(np.uint8)[:n_rows]
-    ttl = _host(ttl_d[:, :n_rows])
-    h_hi = _host(h_hi_d[:n_rows])
-    h_lo = _host(h_lo_d[:n_rows])
+    first_key, last_key) in write_base_file's vocabulary. A parked
+    (1, n_pad) encode bucket raises BlockCodecUnsupported (the job
+    unwinds and re-runs through the native byte shell); a device fault at
+    the download retries the launch once (the span's cols are intact)."""
+    import time
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.ops.run_merge import _chunk_retry_counter
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.utils.metrics import (record_kernel_dispatch,
+                                                  record_pipeline_stage)
+    from yugabyte_tpu_torch.utils.trace import TRACE
+    board = health_board()
+    if not board.allow_device("block_encode", (1, st.n_pad)):
+        raise BlockCodecUnsupported("encode bucket parked by the "
+                                    "health board")
+    t0 = time.monotonic()
+    device_faults.maybe_fault("dispatch")
+
+    def _download():
+        # device-side row slicing before the copy: only the real rows and
+        # the real output stride leave the card
+        (keys_d, kl2_d, dkl2_d, ht_hi_d, ht_lo_d, wid_d, fl4_d, ttl_d,
+         h_hi_d, h_lo_d) = block_encode(st.cols_dev)
+        device_faults.maybe_fault("result")
+        return (_host(keys_d[:n_rows, :w_out]),
+                _host(kl2_d[: (n_rows + 1) // 2]).view("<u2")[:n_rows],
+                _host(dkl2_d[: (n_rows + 1) // 2]).view("<u2")[:n_rows],
+                _host(ht_hi_d[:n_rows]), _host(ht_lo_d[:n_rows]),
+                _host(wid_d[:n_rows]),
+                _host(fl4_d[: (n_rows + 3) // 4]).view(np.uint8)[:n_rows],
+                _host(ttl_d[:, :n_rows]), _host(h_hi_d[:n_rows]),
+                _host(h_lo_d[:n_rows]))
+
+    try:
+        outs = _download()
+    except Exception as e:  # noqa: BLE001 — device-fault containment
+        if not device_faults.is_device_fault(e):
+            raise
+        _chunk_retry_counter().increment()
+        TRACE("block_codec: device fault at encode download (%r) — "
+              "retrying the launch once", e)
+        try:
+            outs = _download()
+        except Exception as e2:  # noqa: BLE001 — post-retry containment
+            if device_faults.is_device_fault(e2):
+                board.record_fault(
+                    "block_encode", (1, st.n_pad),
+                    reason=f"encode {type(e2).__name__}: {e2}")
+            raise
+    keys, kl, dkl, ht_hi, ht_lo, wid, fl, ttl, h_hi, h_lo = outs
     keys_u8 = keys.view(np.uint8).reshape(n_rows, w_out * 4)
     # ttl rows are [hi20, lo]: the pack_cols 20/32 microsecond split; the
     # limbs were ms * 1000, so the division back is exact
@@ -403,4 +516,48 @@ def encode_span(st: StagedCols, n_rows: int, w_out: int, values,
         data_off += len(blk)
     first_key = key_at(0) if n_rows else b""
     last_key = key_at(n_rows - 1) if n_rows else b""
+    ms = (time.monotonic() - t0) * 1e3
+    record_kernel_dispatch("kernel_block_encode", n_rows, st.n_pad, ms)
+    record_pipeline_stage("encode", ms)
+    board.record_device("block_encode", (1, st.n_pad), n_rows,
+                        time.monotonic() - t0)
+    codec_metrics()["encode_blocks"].increment(len(blocks))
     return blocks, index_items, hashes, first_key, last_key
+
+
+# The (n_pad, w_pad) lattice the manifest declares: the flush-sized and
+# once-compacted row buckets at the default key width (the JAX package's
+# _PREWARM_DECODE)
+_PREWARM_DECODE = ((1 << 16, 4), (1 << 18, 4))
+
+
+def prewarm_block_codec(device=None) -> int:
+    """Ahead-of-traffic warm of the codec buckets (mirrors
+    run_merge.prewarm_buckets): builds the library and launches kernels C
+    and F once at each declared (n_pad, w_pad), over pad columns, and
+    marks block_decode / block_encode (1, n_pad) prewarmed on the health
+    board. Returns the launches made; a failure is reported on stderr and
+    never blocks."""
+    from yugabyte_tpu_torch.ops.merge_gc import pad_template
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    dev = torch_setup.resolve_device(device)
+    board = health_board()
+    launched = 0
+    for n_pad, w_pad in _PREWARM_DECODE:
+        r = _ROW_WORDS + w_pad
+        try:
+            cols = u32_to_device(np.ascontiguousarray(np.broadcast_to(
+                pad_template(r)[:, None], (r, n_pad))), dev)
+            block_decode(cols, n_pad)
+            block_encode(cols)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            launched += 2
+        except Exception as e:  # noqa: BLE001 — prewarm must never block
+            import sys as _sys
+            print(f"[block_codec] prewarm of (n_pad={n_pad} w_pad={w_pad})"
+                  f" failed: {e!r}", file=_sys.stderr, flush=True)
+            continue
+        board.record_prewarmed("block_decode", (1, n_pad))
+        board.record_prewarmed("block_encode", (1, n_pad))
+    return launched

@@ -49,11 +49,12 @@ or raises. Each wrapper counts its launches in `<wrapper>.launches`.
 Host wrappers (`pack_query_batch`, `bloom_device_words`, `probe_bloom`,
 `file_table`, `fit_learned_index_device`) follow the JAX module;
 `probe_bloom` probes one SST and downloads its result, as the JAX one
-does. Not ported yet (ROADMAP queue A: health-board
-routing and device-fault containment):
-`device_faults.maybe_fault`, `record_kernel_dispatch`,
-`prewarm_point_read`, `point_read_snapshot`; `point_read_metrics()` is a
-dict of plain module counters.
+does. `point_read_metrics()` are the JAX package's registry counters,
+`point_read_snapshot` its page block, and `prewarm_point_read` launches
+the read path's kernels once at the declared buckets. The fault sites
+and the health-board gate of the JAX package's per-file locate
+(point_read.py:478-487 there) sit around the port's one locate launch a
+chunk, in storage/db.DB._device_chunk.
 """
 
 from __future__ import annotations
@@ -87,22 +88,50 @@ _FNV_OFFSET_LO = 0x84222325
 # h*P mod 2^64 into shift/add limbs so no intermediate needs 64 bits
 _FNV_PRIME_LOW = 0x1B3
 
-_METRICS = {"batches": 0, "keys": 0, "bloom_skips": 0, "learned_hits": 0,
-            "learned_fallbacks": 0}
-
-
-def point_read_metrics() -> dict:
-    """Process-wide batched-read counters (plain ints; the JAX package's
-    registry metrics come with ROADMAP queue A: health-board routing and
-    device-fault containment): batches and keys through
-    the device path, per-SST locates skipped by the bloom, locates seeded
-    by a learned index, and keys re-resolved exactly after a learned-index
-    misprediction."""
-    return _METRICS
+def point_read_metrics():
+    """Process-wide batched-read observability (the JAX package's
+    registry counters, entity server:point_read): batches and keys
+    through the device path, the batch-size histogram, per-SST locates
+    skipped by the bloom, locates seeded by a learned index, keys
+    re-resolved exactly after a learned-index misprediction, batches
+    completed natively after a device fault, and the latest fitted
+    model's error bound."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "point_read")
+    return {
+        "batches": e.counter(
+            "point_read_batches_total",
+            "multi_get batches resolved through the device kernels"),
+        "keys": e.counter(
+            "point_read_batched_keys_total",
+            "keys resolved through the batched device path"),
+        "batch_rows": e.histogram(
+            "point_read_batch_rows",
+            "multi_get batch sizes reaching the device path"),
+        "bloom_skips": e.counter(
+            "point_read_bloom_skipped_sst_total",
+            "per-SST locate dispatches skipped because the bloom probe "
+            "rejected every key in the batch"),
+        "learned_hits": e.counter(
+            "point_read_learned_hit_total",
+            "locate dispatches that used a learned per-SST index"),
+        "learned_fallbacks": e.counter(
+            "point_read_learned_fallback_total",
+            "keys re-resolved exactly after a learned-index "
+            "misprediction beyond the recorded error bound"),
+        "device_fallbacks": e.counter(
+            "point_read_device_fallback_total",
+            "multi_get batches completed via the native per-key path "
+            "after a device fault"),
+        "max_error": e.gauge(
+            "learned_index_max_error_rows",
+            "recorded max-error bound (entry positions) of the most "
+            "recently fitted learned per-SST index"),
+    }
 
 
 def count(name: str, n: int = 1) -> None:
-    _METRICS[name] += n
+    point_read_metrics()[name].increment(n)
 
 
 def batch_bucket(n: int) -> int:
@@ -893,3 +922,72 @@ def fit_learned_index_device(staged: StagedCols) -> Optional[dict]:
     return learned_index.finish_model(a_hi.view(np.uint32),
                                       a_lo.view(np.uint32), int(p),
                                       int(max_err), staged.n)
+
+
+# (n_pad, w) lattice points the manifest declares for locate / fit (the
+# JAX package's _PREWARM_NPADS and _PREWARM_WIDTHS)
+_PREWARM_NPADS = (1 << 16, 1 << 20)
+_PREWARM_WIDTHS = (4, 8)
+
+
+def prewarm_point_read(device=None) -> int:
+    """Ahead-of-traffic warm of the declared point-read buckets (mirrors
+    ops/run_merge.prewarm_buckets): builds the library, then for each
+    (n_pad, w) one one-file table of pad columns and one chunk of each
+    batch bucket through P1 + P2 (`hash_probe_files`) and P3 + the fold
+    (`locate_fold`), model mode off and on, plus P4 (`index_fit`); each
+    (1, n_pad) is marked prewarmed on the health board
+    (point_read_locate). Returns the launches made; a failure is
+    reported on stderr and never blocks."""
+    from yugabyte_tpu_torch.ops.merge_gc import pad_template
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    dev = torch_setup.resolve_device(device)
+    board = health_board()
+    launched = 0
+    for n_pad in _PREWARM_NPADS:
+        ok = True
+        for w in _PREWARM_WIDTHS:
+            r = _ROW_WORDS + w
+            try:
+                cols = u32_to_device(np.ascontiguousarray(np.broadcast_to(
+                    pad_template(r)[:, None], (r, n_pad))), dev)
+                index_fit(cols, n_pad, w)
+                launched += 1
+                # one file without a usable filter or a model
+                table = FileTable([(None, cols, n_pad, w, None)], dev)
+                for b in BATCH_BUCKETS:
+                    keys = [b""] * b
+                    hw, _hl = pack_query_batch(keys, w)
+                    hw_d = to_device(hw, dev)
+                    dk = torch.zeros(len(hw), dtype=torch.int32, device=dev)
+                    qbuf, ql = table.queries(keys)
+                    qbuf_d = to_device(qbuf, dev)
+                    ql_d = to_device(ql.view(np.uint32), dev)
+                    _maybe, located, _h1, _h2 = hash_probe_files(
+                        hw_d, dk, table, b)
+                    for model_on in (False, True):
+                        locate_fold(table, qbuf_d, ql_d, b, 0, 0, model_on,
+                                    located).cpu()
+                    launched += 3
+            except Exception as e:  # noqa: BLE001 — prewarm never blocks
+                import sys as _sys
+                print(f"[point_read] prewarm of (n_pad={n_pad} w={w}) "
+                      f"failed: {e!r}", file=_sys.stderr, flush=True)
+                ok = False
+        if ok:
+            board.record_prewarmed("point_read_locate", (1, n_pad))
+    return launched
+
+
+def point_read_snapshot() -> dict:
+    """The batched point-read block of an operator's page."""
+    m = point_read_metrics()
+    return {
+        "batches": m["batches"].value(),
+        "batched_keys": m["keys"].value(),
+        "bloom_skipped_ssts": m["bloom_skips"].value(),
+        "learned_index_hits": m["learned_hits"].value(),
+        "learned_index_fallbacks": m["learned_fallbacks"].value(),
+        "device_fallbacks": m["device_fallbacks"].value(),
+        "learned_index_max_error": m["max_error"].value(),
+    }

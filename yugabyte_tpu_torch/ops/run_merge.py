@@ -28,6 +28,17 @@ output file's survivor span of cols from the merged payload.
 Kernel H (`staged_concat`, csrc/concat.cu) lays per-file staged cols out
 into one matrix: run-major for the merge (`_restage_concat`), back to
 back for the radix merge and the scan (`_concat_staged_fused`).
+
+Device-fault containment (ops/device_faults.py) has three hooks here, as
+in the JAX package: the "dispatch" site before every leaf launch (with
+its (k_pad, m) bucket, so a "slow" nemesis can pin one bucket), the
+"result" site at the download with ONE relaunch of kernel B over the
+handle's merged payload (still on the card), and the chunked handle's
+re-carve of a failed chunk from the intact parent matrix; a chunk that
+fails its retry raises DeviceFaultError, which the compaction layer
+quarantines before its byte-identical native completion.
+`prewarm_buckets` runs a bucket's kernels once at its shapes and marks it
+prewarmed on the health board (storage/bucket_health.py).
 """
 
 from __future__ import annotations
@@ -431,6 +442,28 @@ def stage_runs_from_staged(staged_list: Sequence[StagedCols]) -> StagedRuns:
     return StagedRuns(cat, m, k_pad, w, [s.n for s in live], cmp_rows, n_cmp)
 
 
+class DeviceFaultError(Exception):
+    """A device-path failure that survived its retry: the kernel path of
+    this job is broken (a launch failure, an out-of-memory, a runtime
+    fault). Carries the shape-bucket key so the containment layer
+    (storage/compaction.py) can quarantine the bucket before taking the
+    byte-identical native fallback."""
+
+    def __init__(self, bucket: Tuple[int, int], cause: BaseException):
+        super().__init__(f"device merge failed after retry "
+                         f"(bucket k_pad={bucket[0]} m={bucket[1]}): "
+                         f"{cause!r}")
+        self.bucket = bucket
+        self.cause = cause
+
+
+def _chunk_retry_counter():
+    from yugabyte_tpu_torch.utils.metrics import kernel_metrics
+    return kernel_metrics().counter(
+        "kernel_chunk_retry_total",
+        "per-chunk kernel retries after a device fault")
+
+
 class MergeGCHandle:
     """In-flight merge+GC launch: the packed decisions ride a non-blocking
     copy into pinned host memory; result() waits on the copy's event.
@@ -441,18 +474,28 @@ class MergeGCHandle:
     (its last row is the merged run-major index, `_perm_dev`), and the
     keep / make-tombstone bytes `_keep_dev` / `_mk_dev` in merged order.
     It holds the staged runs' metadata only, not their cols matrix: the
-    span gather reads the merged cols from `_p_mat`."""
+    span gather reads the merged cols from `_p_mat`.
+
+    relaunch: a closure re-running kernel B over `_p_mat`, returning
+    (packed, keep, make_tombstone): a device fault at the download gets
+    that one more attempt before the caller's native fallback (the JAX
+    handle re-dispatches its whole fused program; here the merge's
+    output is still on the card, so only the GC and packing re-run)."""
 
     def __init__(self, packed_dev: torch.Tensor, staged: StagedRuns,
                  p_mat: Optional[torch.Tensor] = None,
                  keep_dev: Optional[torch.Tensor] = None,
-                 mk_dev: Optional[torch.Tensor] = None):
-        self._packed_dev = packed_dev
+                 mk_dev: Optional[torch.Tensor] = None, relaunch=None):
         self._staged = dataclasses.replace(staged, cols_dev=None)
         self._p_mat = p_mat
         self._keep_dev = keep_dev
         self._mk_dev = mk_dev
+        self._relaunch = relaunch
         self._result = None
+        self._start_copy(packed_dev)
+
+    def _start_copy(self, packed_dev: torch.Tensor) -> None:
+        self._packed_dev = packed_dev
         self._host = None
         self._event = None
         if packed_dev.is_cuda:
@@ -468,15 +511,36 @@ class MergeGCHandle:
             return self._host.numpy()
         return self._packed_dev.cpu().numpy()
 
+    def _fetch(self):
+        from yugabyte_tpu_torch.ops import device_faults
+        device_faults.maybe_fault("result")
+        return _decode_packed(self._download().view(np.uint32),
+                              self._staged)
+
     def result(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(perm, keep, make_tombstone) host arrays over the merged order.
 
         perm indexes the CONCATENATION of the live runs in input order
         (padding excluded): merged position i came from input row perm[i].
         Arrays cover exactly the real rows (length n = sum(run_ns))."""
-        if self._result is None:
-            packed = self._download().view(np.uint32)
-            self._result = _decode_packed(packed, self._staged)
+        if self._result is not None:
+            return self._result
+        from yugabyte_tpu_torch.ops import device_faults
+        try:
+            self._result = self._fetch()
+        except Exception as e:  # noqa: BLE001 — device-fault containment
+            if self._relaunch is None or not device_faults.is_device_fault(e):
+                raise
+            # one retry of kernel B over the merged payload; a second
+            # failure surfaces to the caller, which quarantines the
+            # bucket and falls back to the native merge
+            from yugabyte_tpu_torch.utils.trace import TRACE
+            _chunk_retry_counter().increment()
+            TRACE("run_merge: device fault at download (%r) — retrying "
+                  "the launch once", e)
+            packed, self._keep_dev, self._mk_dev = self._relaunch()
+            self._start_copy(packed)
+            self._result = self._fetch()
         return self._result
 
     def result_iter(self):
@@ -880,18 +944,67 @@ class _ChunkedMergeGCHandle:
 
     Write-through staging (kernels D and E) reads the parent-domain merge
     products that to_parent_products builds on the device from the chunks'
-    merged payloads: `_p_mat` [r+1, n_pad], `_keep_dev`, `_mk_dev`. A
-    device error propagates; the JAX package's re-carve retry and its
-    fused download are not ported (ROADMAP queue A: health-board routing
-    and device-fault containment)."""
+    merged payloads: `_p_mat` [r+1, n_pad], `_keep_dev`, `_mk_dev`.
 
-    def __init__(self, handles, metas, staged: StagedRuns):
+    A chunk whose download faults past its own relaunch is re-carved from
+    the intact parent matrix and launched once more
+    (`_result_with_retry`); a second failure raises DeviceFaultError. The
+    handle keeps the parent cols for that until every chunk's decisions
+    have landed, then lets them go. The JAX package's fused download of
+    every chunk's packed buffer has no counterpart: each chunk's
+    decisions ride their own pinned copy, started at its launch."""
+
+    def __init__(self, handles, metas, staged: StagedRuns,
+                 params: Optional[GCParams] = None, snapshot: bool = False,
+                 carve=None):
         self._handles = handles          # one per chunk, in key order
         self._metas = metas              # (starts[k_live], lens[k_live])
         self._staged = dataclasses.replace(staged, cols_dev=None)
         self._result = None
         self._parent_built = False
         self._p_mat = self._keep_dev = self._mk_dev = None
+        # re-carve info of the per-chunk retry: the parent matrix and,
+        # per chunk, (starts [k_pad], lens [k_pad], m_c)
+        self._parent_cols = staged.cols_dev
+        self._params = params
+        self._snapshot = snapshot
+        self._carve = carve
+
+    def _result_with_retry(self, i: int):
+        """Chunk i's (perm, keep, mk) with ONE device-fault retry: re-carve
+        the chunk from the intact parent matrix and launch it again. A
+        second failure raises DeviceFaultError so the compaction layer
+        can quarantine the shape bucket and fall back to the native
+        merge."""
+        from yugabyte_tpu_torch.ops import device_faults
+        h = self._handles[i]
+        try:
+            return h.result()
+        except Exception as e:  # noqa: BLE001 — device-fault containment
+            if (self._carve is None or self._parent_cols is None
+                    or not device_faults.is_device_fault(e)):
+                raise
+            from yugabyte_tpu_torch.utils.trace import TRACE
+            _chunk_retry_counter().increment()
+            TRACE("run_merge: chunk %d device fault (%r) — re-carving "
+                  "and retrying once", i, e)
+            staged = self._staged
+            starts, lens, m_c = self._carve[i]
+            k_live = len(staged.run_ns)
+            try:
+                carved = carve_chunk(self._parent_cols, starts, lens,
+                                     staged.m, m_c, staged.k_pad)
+                sub = StagedRuns(carved, m_c, staged.k_pad, staged.w,
+                                 [int(x) for x in lens[:k_live]],
+                                 staged.cmp_rows, staged.n_cmp)
+                h2 = launch_merge_gc(sub, self._params,
+                                     snapshot=self._snapshot)
+                out = h2.result()
+            except Exception as e2:  # noqa: BLE001 — retry exhausted
+                raise DeviceFaultError(
+                    (staged.k_pad, staged.m), e2) from e2
+            self._handles[i] = h2   # the parent products read the good run
+            return out
 
     def _remap_perm(self, p: np.ndarray, starts: np.ndarray,
                     lens: np.ndarray) -> np.ndarray:
@@ -921,8 +1034,8 @@ class _ChunkedMergeGCHandle:
             yield self._result
             return
         perms, keeps, mks = [], [], []
-        for h, (starts, lens) in zip(self._handles, self._metas):
-            p, keep, mk = h.result()
+        for i, (starts, lens) in enumerate(self._metas):
+            p, keep, mk = self._result_with_retry(i)
             perm_g = self._remap_perm(p, starts, lens)
             perms.append(perm_g)
             keeps.append(keep)
@@ -930,6 +1043,7 @@ class _ChunkedMergeGCHandle:
             yield perm_g, keep, mk
         self._result = (np.concatenate(perms), np.concatenate(keeps),
                         np.concatenate(mks))
+        self._parent_cols = None   # no chunk can need a re-carve now
 
     def result(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(perm, keep, make_tombstone) host arrays over the merged order,
@@ -1038,7 +1152,7 @@ def _launch_chunked(staged: StagedRuns, params: GCParams, snapshot: bool,
     m_c = run_bucket(int(lens_all.max()))
     if m_c >= m:
         return None                                        # skew: no win
-    handles, metas = [], []
+    handles, metas, carve = [], [], []
     for c in range(nc):
         starts = bounds[:, c]
         lens = lens_all[:, c]
@@ -1051,9 +1165,11 @@ def _launch_chunked(staged: StagedRuns, params: GCParams, snapshot: bool,
         handles.append(launch_merge_gc(sub, params, snapshot=snapshot))
         metas.append((starts[:k_live].astype(np.int64),
                       lens[:k_live].astype(np.int64)))
+        carve.append((starts, lens, m_c))
     if not handles:
         return None
-    return _ChunkedMergeGCHandle(handles, metas, staged)
+    return _ChunkedMergeGCHandle(handles, metas, staged, params=params,
+                                 snapshot=snapshot, carve=carve)
 
 
 def merge_payload(staged: StagedRuns) -> torch.Tensor:
@@ -1077,13 +1193,23 @@ def launch_merge_gc(staged: StagedRuns, params: GCParams,
 
     With YBTPU_MERGE_CHUNK_ROWS set (>= 1024) a job larger than it is
     split into route-partitioned chunk launches (_launch_chunked), as in
-    the JAX package; unset, chunking is off."""
+    the JAX package; unset, chunking is off. Every leaf launch passes the
+    "dispatch" fault site (ops/device_faults.py) with its (k_pad, m)."""
+    from yugabyte_tpu_torch.utils.metrics import record_kernel_dispatch
+    record_kernel_dispatch("kernel_run_merge", staged.n, staged.n_pad)
     target = _chunk_target_rows()
     if (target and staged.k_pad >= 2 and staged.n_pad > target
             and staged.m >= 512):
         h = _launch_chunked(staged, params, snapshot, target)
         if h is not None:
+            from yugabyte_tpu_torch.utils.metrics import kernel_metrics
+            kernel_metrics().counter(
+                "kernel_chunked_launch_total",
+                "merge jobs split into route-partitioned chunk "
+                "launches").increment()
             return h
+    from yugabyte_tpu_torch.ops import device_faults
+    device_faults.maybe_fault("dispatch", bucket=(staged.k_pad, staged.m))
     return launch_unchunked(staged, params, snapshot)
 
 
@@ -1091,12 +1217,68 @@ def launch_unchunked(staged: StagedRuns, params: GCParams,
                      snapshot: bool = False) -> MergeGCHandle:
     """The one big merge + GC of launch_merge_gc (kernel A's levels, then
     kernel B), never chunked: the counterpart of `_merge_gc_runs_impl`,
-    which the pooled wave runs per slot."""
+    which the pooled wave runs per slot. The handle's relaunch re-runs
+    kernel B over the merged payload."""
     p_mat = merge_payload(staged)
     r = _ROW_WORDS + staged.w
-    packed, keep, mk = gc_pack(p_mat, r, staged.w, params, staged.k_pad,
-                               staged.m, snapshot=snapshot)
-    return MergeGCHandle(packed, staged, p_mat, keep, mk)
+
+    def _gc():
+        return gc_pack(p_mat, r, staged.w, params, staged.k_pad, staged.m,
+                       snapshot=snapshot)
+
+    packed, keep, mk = _gc()
+    return MergeGCHandle(packed, staged, p_mat, keep, mk, relaunch=_gc)
+
+
+# The shape buckets steady-state universal compaction produces (the JAX
+# package's _PREWARM_SHAPES): 2/4-slot merges of flush-sized (64k-row)
+# through once-compacted (256k-row) runs at the default 4-word key width
+# on the n_cmp = 8 lattice point.
+_PREWARM_SHAPES = (
+    (2, 1 << 16, 4, 8),
+    (4, 1 << 16, 4, 8),
+    (2, 1 << 18, 4, 8),
+    (4, 1 << 18, 4, 8),
+)
+
+
+def prewarm_buckets(shapes: Optional[Sequence[Tuple[int, int, int, int]]]
+                    = None, device=None) -> int:
+    """Ahead-of-traffic warm of the merge buckets: builds the kernel
+    libraries (nvcc, once per checkout), then launches kernels A and B
+    once at each (k_pad, m, w) bucket, both is_major variants, over pad
+    columns, and marks each (k_pad, m) prewarmed on the health board
+    (COLD -> WARMING), so the policy gate stops routing it native for an
+    unpaid first launch. In the JAX package PrewarmKernelsOp makes that
+    board call; the port has no maintenance manager yet. Returns the
+    launches made (a bucket that fails to warm is reported on stderr and
+    left COLD: a prewarm never blocks)."""
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    dev = torch_setup.resolve_device(device)
+    shapes = tuple(shapes) if shapes is not None else _PREWARM_SHAPES
+    board = health_board()
+    launched = 0
+    for (k_pad, m, w, n_cmp) in shapes:
+        r = _ROW_WORDS + w
+        n = k_pad * m
+        try:
+            cols = u32_to_device(np.ascontiguousarray(np.broadcast_to(
+                pad_template(r)[:, None], (r, n))), dev)
+            # the full (unpruned) compare schedule, as the JAX prewarm
+            cmp_rows, n_cmp_full = _cmp_schedule(w, np.zeros(r, bool))
+            staged = StagedRuns(cols, m, k_pad, w, [m] * k_pad, cmp_rows,
+                                n_cmp_full)
+            for is_major in (True, False):
+                launch_unchunked(staged, GCParams(0, is_major,
+                                                  False)).result()
+                launched += 1
+        except Exception as e:  # noqa: BLE001 — prewarm must never block
+            import sys as _sys
+            print(f"[run_merge] prewarm of bucket (k_pad={k_pad} m={m} "
+                  f"w={w}) failed: {e!r}", file=_sys.stderr, flush=True)
+            continue
+        board.record_prewarmed("run_merge_fused", (k_pad, m))
+    return launched
 
 
 def merge_and_gc_runs(slabs: Sequence[KVSlab], params: GCParams, device=None

@@ -36,6 +36,17 @@ words) the device slab cache holds. A resident input is neither decoded
 nor uploaded to stage the scan; the entries of its survivors are read
 block by block from the file (`decoded_blocks` counts the blocks). Pad
 rows are masked (perm < n) on every route.
+
+The pushdown is contained as in the JAX package (scan.py:700-727 there):
+`_check_pushdown_bucket` gates each scan on the health board's
+(family, (1, n_pad)) record (scan_filtered / scan_agg) before anything
+is staged, and refuses a parked bucket with
+PushdownUnsupported("quarantined"); the "dispatch"
+and "result" fault sites bracket its launches and download, and
+`_contain_pushdown_fault` parks the bucket on a device fault and turns
+it into PushdownUnsupported("fault"), so the caller serves the SAME
+query through its host path. `pushdown_metrics`, `pushdown_snapshot`
+and `prewarm_scan_pushdown` follow the JAX module.
 """
 
 from __future__ import annotations
@@ -381,6 +392,90 @@ def _visible_entries_host(slabs: Sequence[KVSlab], read_ht_value: int,
 
 VAL_WORDS = pushdown.VAL_WORDS      # value payload words staged per entry
 _VAL_ROWS = 1 + VAL_WORDS           # + the payload byte-length row
+def pushdown_metrics():
+    """Process-wide pushdown observability: hit counters, per-reason
+    fallbacks, and batch-size and blocks-decoded histograms (the JAX
+    package's names)."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "scan_pushdown")
+    return {
+        "filtered": e.counter(
+            "scan_pushdown_filtered_total",
+            "row scans served by the fused filtered kernel"),
+        "agg": e.counter(
+            "scan_pushdown_agg_total",
+            "aggregating scans served by the fused segment-reduce "
+            "kernel"),
+        "rows": e.counter(
+            "scan_pushdown_rows_total",
+            "input entries resolved by the pushdown kernels"),
+        "vals_staged": e.counter(
+            "scan_pushdown_vals_staged_total",
+            "value-word matrices staged on a residency miss (write-"
+            "through keeps later pushdown scans fully resident)"),
+        "blocks": e.histogram(
+            "scan_pushdown_decoded_blocks",
+            "SST blocks decoded per fused filtered scan (winner blocks "
+            "only — a selective predicate over resident slabs decodes "
+            "a handful of blocks, not the file)"),
+        "batch": e.histogram(
+            "scan_pushdown_batch_rows",
+            "real entries per pushdown kernel dispatch"),
+    }
+
+
+def count_pushdown_fallback(reason: str) -> None:
+    """scan_pushdown_fallback_<reason>_total: one counter per fallback
+    reason, so the offload policy can see WHY queries leave the device
+    path."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "scan_pushdown")
+    e.counter(f"scan_pushdown_fallback_{reason}_total",
+              f"pushdown-eligible scans served by the host path "
+              f"({reason})").increment()
+
+
+def _record_bucket_dispatch(kind: str, n_pad: int) -> None:
+    """Per-shape-bucket dispatch counter (one per (kernel, n_pad))."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "scan_pushdown")
+    e.counter(f"scan_pushdown_{kind}_n{n_pad}_dispatch_total",
+              f"{kind} kernel dispatches over the n_pad={n_pad} shape "
+              "bucket").increment()
+
+
+def _check_pushdown_bucket(n_pad: int, family: str):
+    """Pre-dispatch health gate: a shape bucket the board parked (recent
+    fault, sticky mismatch, measured demotion without a probe slot)
+    routes straight to the host path (no re-fault). Returns the bucket
+    key for the fault-time report."""
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.storage.offload_policy import (
+        point_read_bucket_key)
+    bkey = point_read_bucket_key(n_pad)
+    if not health_board().allow_device(family, bkey):
+        raise PushdownUnsupported("quarantined")
+    return bkey
+
+
+def _contain_pushdown_fault(e: BaseException, bkey, family: str) -> None:
+    """Fault-time half of the containment: a device fault parks the
+    shape bucket on the health board and converts to
+    PushdownUnsupported("fault") so the caller serves the SAME query
+    through the host path; anything else propagates unchanged."""
+    from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    from yugabyte_tpu_torch.ops.device_faults import is_device_fault
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.utils.trace import TRACE
+    if is_device_fault(e):
+        health_board().record_fault(
+            family, bkey, f"scan_pushdown:{e.__class__.__name__}")
+        TRACE("scan pushdown: device fault (%r) — %s bucket %s parked; "
+              "the host path serves the query", e, family, tuple(bkey))
+        raise PushdownUnsupported("fault") from e
+
+
 PRED_SLOTS = (1, 2, 4)              # predicate-slot lattice
 AGG_SLOTS = (1, 2)                  # aggregate-column-slot lattice
 # byte-column SUM accumulators are exact only while n * 255 < 2^32
@@ -580,12 +675,16 @@ def _bound_operands(staged: StagedCols, lower_key, upper_key):
              hi_exact is not None), lo_exact, hi_exact)
 
 
-def _stage_pushdown(sources, spec, device):
+def _stage_pushdown(sources, spec, device, family: Optional[str] = None):
     """Stage (cols, vals) for a mixed source list: one merged matrix
     pair, row-aligned, resident inputs (their cols and value words) used
     where they lie on the device. Raises PushdownUnsupported on deep
     documents, slot overflow, a resident source without value words, or
-    an oversized batch (callers serve the query on the host)."""
+    an oversized batch (callers serve the query on the host). family:
+    the health-board gate (`_check_pushdown_bucket`) of the (1, n_pad)
+    the staging would build, passed before anything is uploaded: a
+    parked bucket refuses with PushdownUnsupported("quarantined") and
+    launches nothing."""
     from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP
@@ -609,6 +708,8 @@ def _stage_pushdown(sources, spec, device):
         raise PushdownUnsupported("vals")
     if bucket_size(sum(s.n for s in live)) > PUSHDOWN_MAX_NPAD:
         raise PushdownUnsupported("batch_size")
+    if family is not None:
+        _check_pushdown_bucket(bucket_size(sum(s.n for s in live)), family)
     staged_list = [s.staged if s.staged is not None
                    else stage_slab(s.slab, device) for s in live]
     staged = (staged_list[0] if len(staged_list) == 1
@@ -637,19 +738,41 @@ def filtered_entries_sources(sources, read_ht_value: int, spec,
     caller passes device='cpu'). The
     device work and its decision download happen EAGERLY, before the
     first entry is yielded."""
-    staged, vals, live, presorted = _stage_pushdown(sources, spec, device)
+    import time
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.utils.metrics import record_kernel_dispatch
+    from yugabyte_tpu_torch.storage.offload_policy import (
+        point_read_bucket_key)
+    staged, vals, live, presorted = _stage_pushdown(sources, spec, device,
+                                                    "scan_filtered")
     if staged is None:
         return iter(())
     p_ops = _pack_predicate_operands(
         spec, pred_slot_bucket(len(spec.predicates)), wire_ne_semantics=True)
     bounds, lo_exact, hi_exact = _bound_operands(staged, lower_key,
                                                  upper_key)
-    perm, keep_p = _scan_filtered_fused(
-        staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
-        read_ht_value, bounds, p_ops, staged.w, presorted)
-    del vals
-    perm = perm.cpu().numpy()
-    keep = _unpack_bits(keep_p.cpu().numpy(), staged.n_pad) & (perm < staged.n)
+    bkey = point_read_bucket_key(staged.n_pad)
+    t0 = time.monotonic()
+    try:
+        device_faults.maybe_fault("dispatch")
+        perm, keep_p = _scan_filtered_fused(
+            staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
+            read_ht_value, bounds, p_ops, staged.w, presorted)
+        del vals
+        device_faults.maybe_fault("result")
+        perm = perm.cpu().numpy()
+        keep_p = keep_p.cpu().numpy()
+    except Exception as e:  # noqa: BLE001 — classified below
+        _contain_pushdown_fault(e, bkey, "scan_filtered")
+        raise
+    keep = _unpack_bits(keep_p, staged.n_pad) & (perm < staged.n)
+    record_kernel_dispatch("kernel_scan_filtered", staged.n, staged.n_pad,
+                           (time.monotonic() - t0) * 1e3)
+    _record_bucket_dispatch("filtered", staged.n_pad)
+    m = pushdown_metrics()
+    m["filtered"].increment()
+    m["rows"].increment(staged.n)
+    m["batch"].increment(staged.n)
     return survivor_entries(live, perm, keep, lo_exact, hi_exact)
 
 
@@ -662,9 +785,15 @@ def aggregate_sources(sources, read_ht_value: int, spec,
     passing rows>, "cols": {cid: {"nonnull", "sum", "min", "max"}}}.
     Sums and extremes are exact arbitrary-precision ints reconstructed
     from the device's byte-column sums and biased limbs."""
+    import time
     from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.utils.metrics import record_kernel_dispatch
 
-    staged, vals, _live, presorted = _stage_pushdown(sources, spec, device)
+    from yugabyte_tpu_torch.storage.offload_policy import (
+        point_read_bucket_key)
+    staged, vals, _live, presorted = _stage_pushdown(sources, spec, device,
+                                                     "scan_agg")
     if staged is None:
         return {"rows": 0,
                 "cols": {cid: {"nonnull": 0, "sum": 0, "min": None,
@@ -680,11 +809,27 @@ def aggregate_sources(sources, read_ht_value: int, spec,
                                      pred_slot_bucket(len(spec.predicates)))
     a_ops = _pack_agg_operands(spec, c_pad)
     bounds, _lo, _hi = _bound_operands(staged, lower_key, upper_key)
-    acc, ext = _scan_agg_fused(
-        staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
-        read_ht_value, bounds, p_ops, a_ops, staged.w, c_pad,
-        spec.needs_vals, presorted)
-    return agg_partial(spec, acc, ext, c_pad)
+    bkey = point_read_bucket_key(staged.n_pad)
+    t0 = time.monotonic()
+    try:
+        device_faults.maybe_fault("dispatch")
+        acc, ext = _scan_agg_fused(
+            staged.cols_dev, vals, staged.sort_rows, staged.n_sort,
+            read_ht_value, bounds, p_ops, a_ops, staged.w, c_pad,
+            spec.needs_vals, presorted)
+        device_faults.maybe_fault("result")
+        out = agg_partial(spec, acc, ext, c_pad)
+    except Exception as e:  # noqa: BLE001 — classified below
+        _contain_pushdown_fault(e, bkey, "scan_agg")
+        raise
+    record_kernel_dispatch("kernel_scan_agg", staged.n, staged.n_pad,
+                           (time.monotonic() - t0) * 1e3)
+    _record_bucket_dispatch("agg", staged.n_pad)
+    m = pushdown_metrics()
+    m["agg"].increment()
+    m["rows"].increment(staged.n)
+    m["batch"].increment(staged.n)
+    return out
 
 
 def agg_partial(spec, acc: torch.Tensor, ext: torch.Tensor,
@@ -707,3 +852,94 @@ def agg_partial(spec, acc: torch.Tensor, ext: torch.Tensor,
             (((int(max_hi[c]) << 32) | int(max_lo[c])) - bias),
         }
     return {"rows": rows_count, "cols": cols}
+
+
+# (n_pad, w) lattice the manifest declares for the pushdown families
+_PREWARM_NPADS = (1 << 16, 1 << 20)
+_PREWARM_W = 4
+
+
+def prewarm_scan_pushdown(device=None) -> int:
+    """Ahead-of-traffic warm of the declared scan_filtered / scan_agg
+    buckets (mirrors ops/point_read.prewarm_point_read): builds the
+    libraries and runs each fused scan once per n_pad, radix and
+    presorted route, over pad columns with one predicate slot and one
+    aggregate slot (kernels G, I.1, B, J, K), and marks the (1, n_pad)
+    buckets prewarmed on the health board. Returns the scans run; a
+    failure is reported on stderr and never blocks."""
+    from yugabyte_tpu_torch.ops.merge_gc import full_sort_sequence
+    from yugabyte_tpu_torch.ops.merge_gc import pad_template
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    dev = torch_setup.resolve_device(device)
+    board = health_board()
+    w = _PREWARM_W
+    r = _ROW_WORDS + w
+    done = 0
+    p_ops = (np.zeros(1, np.uint32), np.zeros(1, np.int32),
+             np.zeros(1, np.int32), np.zeros(1, np.uint32),
+             np.zeros(1, np.uint32), np.zeros((1, VAL_WORDS), np.uint32),
+             np.zeros(1, np.int32))
+    a_ops = (np.zeros(1, np.uint32), np.zeros(1, np.uint32),
+             np.zeros(1, np.uint32))
+    for n_pad in _PREWARM_NPADS:
+        try:
+            cols = u32_to_device(np.ascontiguousarray(np.broadcast_to(
+                pad_template(r)[:, None], (r, n_pad))), dev)
+            vals = u32_to_device(np.zeros((_VAL_ROWS, n_pad), np.uint32),
+                                 dev)
+            staged = StagedCols(cols, 0, n_pad, w)
+            bounds = _bound_operands(staged, None, None)[0]
+            sort_rows = np.asarray(full_sort_sequence(w), np.int32)
+            for presorted in (False, True):
+                perm, keep_p = _scan_filtered_fused(
+                    cols, vals, sort_rows, len(sort_rows), 0, bounds,
+                    p_ops, w, presorted)
+                acc, ext = _scan_agg_fused(
+                    cols, vals, sort_rows, len(sort_rows), 0, bounds,
+                    p_ops, a_ops, w, 1, True, presorted)
+                pushdown.decode_agg(acc, ext, 1)
+                keep_p.cpu()
+                done += 2
+        except Exception as e:  # noqa: BLE001 — prewarm must never block
+            import sys as _sys
+            print(f"[scan_pushdown] prewarm of n_pad={n_pad} failed: "
+                  f"{e!r}", file=_sys.stderr, flush=True)
+            continue
+        board.record_prewarmed("scan_filtered", (1, n_pad))
+        board.record_prewarmed("scan_agg", (1, n_pad))
+    return done
+
+
+def pushdown_snapshot() -> dict:
+    """The pushdown block of an operator's page: hit / fallback counters
+    by reason, per-bucket dispatch counts and the blocks-decoded-per-scan
+    histogram."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    e = ROOT_REGISTRY.entity("server", "scan_pushdown")
+    m = pushdown_metrics()
+    fallbacks = {}
+    buckets = {}
+    for name, c in sorted(e.metrics_snapshot().items()):
+        if not hasattr(c, "value"):
+            continue
+        if name.startswith("scan_pushdown_fallback_"):
+            reason = name[len("scan_pushdown_fallback_"):-len("_total")]
+            fallbacks[reason] = c.value()
+        elif "_dispatch_total" in name and "_n" in name:
+            buckets[name[len("scan_pushdown_"):-len("_dispatch_total")]] \
+                = c.value()
+    blocks = m["blocks"]
+    return {
+        "filtered_scans": m["filtered"].value(),
+        "agg_scans": m["agg"].value(),
+        "rows_resolved": m["rows"].value(),
+        "vals_staged": m["vals_staged"].value(),
+        "fallbacks": fallbacks,
+        "bucket_dispatches": buckets,
+        "blocks_decoded_per_scan": {
+            "count": blocks.count(),
+            "p50": round(blocks.percentile(50), 1),
+            "p99": round(blocks.percentile(99), 1),
+            "max": blocks.max(),
+        },
+    }

@@ -41,16 +41,20 @@ shards, and shard s's keys all sort <= shard s+1's.
 
 Each kernel wrapper runs its plain PyTorch version on a CPU tensor and
 launches csrc/dist.cu on a CUDA tensor, or raises; it never falls back.
-Not ported: `prewarm_dist_compact` (no prewarm operation in the port yet),
-the pipeline and dispatch metrics and the fault-injection sites (ROADMAP
-queue A: health-board routing and device-fault containment).
+The fault-injection sites of the JAX package (dist_compact.py:353, :366,
+:629, :635 there) sit at each attempt's routing launch ("dispatch") and
+its overflow download ("result"), and at the pool wave's launch (with
+its (k_pad, m)) and download; the mesh job's containment lives in
+storage/compaction.run_compaction_job_dist_native. The overflow retries
+count in the registry (`dist_compact_overflow_retry_total`, read by
+`overflow_retries()`). `prewarm_dist_compact` launches the mesh families
+once at the declared capacities and pool shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import threading
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -83,12 +87,18 @@ _MAX_CAPACITY_FACTOR = 64
 _TILE = 4096
 _U32 = 0xFFFFFFFF
 
-# distributed-compaction attempts re-launched at doubled per-destination
-# capacity after a bucket overflow (the JAX package's registry counter of
-# the same name; the port's metrics registry comes with ROADMAP queue A:
-# health-board routing and device-fault containment)
-dist_compact_overflow_retry_total = 0
-_retry_lock = threading.Lock()   # the pool's thread runs jobs too
+def _overflow_retry_counter():
+    from yugabyte_tpu_torch.utils.metrics import kernel_metrics
+    return kernel_metrics().counter(
+        "dist_compact_overflow_retry_total",
+        "distributed-compaction attempts re-launched at doubled "
+        "per-destination capacity after a bucket overflow (splitter "
+        "skew); retries re-shard from the device-resident cols")
+
+
+def overflow_retries() -> int:
+    """Distributed-compaction overflow retries so far in this process."""
+    return _overflow_retry_counter().value()
 
 
 def _quantized_capacity(n_local: int, n_shards: int, factor: float) -> int:
@@ -513,7 +523,7 @@ def distributed_compact_with_outputs(slab, params: GCParams, mesh: Mesh,
 
 def _distributed_compact_impl(slab, params: GCParams, mesh: Mesh,
                               capacity_factor: float, want_outputs: bool):
-    global dist_compact_overflow_retry_total
+    from yugabyte_tpu_torch.ops import device_faults
     _check_mesh(mesh)
     n_shards = mesh.size
     cols, n_local = stage_sharded_cols(slab, mesh)
@@ -523,16 +533,20 @@ def _distributed_compact_impl(slab, params: GCParams, mesh: Mesh,
     factor = capacity_factor
     while True:
         capacity = _quantized_capacity(n_local, n_shards, factor)
+        # fault sites: a launch failure of the routing kernels surfaces
+        # at "dispatch", an asynchronous one at the overflow download
+        # (containment in storage/compaction)
+        device_faults.maybe_fault("dispatch")
         sends, overflow = _route_and_bucket(cols, n_local, capacity, mesh,
                                             w_route)
+        device_faults.maybe_fault("result")
         if not overflow:
             break
         del sends
         if factor >= _MAX_CAPACITY_FACTOR:
             raise RuntimeError(f"distributed compaction bucket overflow at "
                                f"{_MAX_CAPACITY_FACTOR}x")
-        with _retry_lock:
-            dist_compact_overflow_retry_total += 1
+        _overflow_retry_counter().increment()
         factor *= 2
     del cols                    # the attempt fit: the input is dead
     recvs = _exchange_copies(sends, capacity, list(mesh.devices.flat))
@@ -643,9 +657,13 @@ def pooled_merge_gc(mesh: Mesh, jobs: Sequence[Tuple[object, GCParams]],
         if (p.is_major_compaction, p.retain_deletes) != \
                 (p0.is_major_compaction, p0.retain_deletes):
             raise ValueError("wave jobs must share GC statics")
+    from yugabyte_tpu_torch.ops import device_faults
     r = _ROW_WORDS + w
     n = k_pad * m
     n_cmp = max(st.n_cmp for st, _p in jobs)
+    # fault sites of the wave (the bucket lets a "slow" nemesis throttle
+    # one (k_pad, m)); the pool's containment demotes the bucket
+    device_faults.maybe_fault("dispatch", bucket=(k_pad, m))
     handles = []
     for i, dev in enumerate(mesh.devices.flat):
         if i < len(jobs):
@@ -666,5 +684,87 @@ def pooled_merge_gc(mesh: Mesh, jobs: Sequence[Tuple[object, GCParams]],
                 n_cmp)
         handles.append(run_merge.launch_unchunked(slot, p))
         del cols, slot
+    device_faults.maybe_fault("result")
     decisions = [h.result() for h in handles[:len(jobs)]]
     return PoolWaveHandle(decisions, handles)
+
+
+# --------------------------------------------------------------------------
+# Prewarm: the mesh families' declared lattice (the JAX package's
+# _PREWARM_CAPACITIES and _PREWARM_POOL_SHAPES).
+
+_PREWARM_CAPACITIES = (1 << 13, 1 << 14)
+_PREWARM_POOL_SHAPES = ((2, 1 << 16, 4, 8), (4, 1 << 16, 4, 8))
+
+
+def prewarm_dist_compact(mesh: Mesh,
+                         capacities: Optional[Sequence[int]] = None,
+                         pool_shapes: Optional[Sequence[Tuple[int, int,
+                                                              int, int]]]
+                         = None) -> int:
+    """Ahead-of-traffic warm of the mesh families: one key-range-sharded
+    job per declared capacity (M1-M3, G, I.1, B on every shard, over
+    n_shards^2 * capacity / 2 rows of distinct keys: n_shards * capacity
+    / 2 a shard, which quantizes to the declared capacity) and one pool wave per declared
+    (k_pad, m, w) bucket, each marked prewarmed on the health board
+    (dist_compact (n_shards, capacity); the wave's run_merge_fused
+    (k_pad, m)). Returns the jobs and waves run; a failure is reported on
+    stderr and never blocks."""
+    from yugabyte_tpu_torch.ops.slabs import KVSlab, ValueArray
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    caps = tuple(capacities) if capacities is not None \
+        else _PREWARM_CAPACITIES
+    shapes = tuple(pool_shapes) if pool_shapes is not None \
+        else _PREWARM_POOL_SHAPES
+    board = health_board()
+    n_shards = mesh.size
+    done = 0
+
+    def _warm(what: str, fn) -> bool:
+        try:
+            fn()
+            return True
+        except Exception as e:  # noqa: BLE001 — prewarm must never block
+            import sys as _sys
+            print(f"[dist_compact] prewarm of {what} failed: {e!r}",
+                  file=_sys.stderr, flush=True)
+            return False
+
+    def _slab(n: int) -> KVSlab:
+        keys = np.zeros((n, 4), dtype=np.uint32)
+        keys[:, 0] = (np.arange(n, dtype=np.uint64) * 2654435761
+                      & 0xFFFFFFFF).astype(np.uint32)
+        keys[:, 1] = np.arange(n, dtype=np.uint32)
+        z32 = np.zeros(n, dtype=np.uint32)
+        return KVSlab(key_words=keys, key_len=np.full(n, 16, np.int32),
+                      doc_key_len=np.full(n, 16, np.int32),
+                      ht_hi=z32, ht_lo=np.ones(n, np.uint32),
+                      write_id=z32, flags=z32,
+                      ttl_ms=np.zeros(n, np.int64),
+                      value_idx=np.zeros(n, np.int32),
+                      values=ValueArray.from_list([b""]))
+
+    for capacity in caps:
+        n = n_shards * n_shards * capacity // 2
+        got = []
+        if _warm(f"dist_compact (n_shards={n_shards} capacity={capacity})",
+                 lambda: got.append(distributed_compact_with_outputs(
+                     _slab(n), GCParams(0, True, False), mesh)[3]
+                     .bucket_key())):
+            # the bucket the job really ran (the declared one unless a
+            # retry doubled its capacity)
+            board.record_prewarmed("dist_compact", got[0])
+            done += 1
+    for (k_pad, m, w, _n_cmp) in shapes:
+        def _wave():
+            r = _ROW_WORDS + w
+            cols = np.ascontiguousarray(np.broadcast_to(
+                pad_template(r)[:, None], (r, k_pad * m)))
+            cmp_rows, n_cmp = run_merge._cmp_schedule(w, np.zeros(r, bool))
+            st = run_merge.StagedRuns(cols, m, k_pad, w, [], cmp_rows, n_cmp)
+            pooled_merge_gc(mesh, [(st, GCParams(0, True, False))])
+        if _warm(f"pool_wave (slots={n_shards} k_pad={k_pad} m={m} w={w})",
+                 _wave):
+            board.record_prewarmed("run_merge_fused", (k_pad, m))
+            done += 1
+    return done

@@ -77,13 +77,34 @@ the sharded outputs (DistOutputs.gather_span: H once, D once, E a span).
 wave slot (parallel/dist_compact.pooled_merge_gc): outputs from decisions
 computed elsewhere.
 
+Containment and routing, as in the JAX package:
+
+  - `run_compaction_job(..., offload_policy=board)` routes a job by the
+    bucket-health board (storage/bucket_health.py; `health_board()`):
+    `use_device("run_merge_fused", (k_pad, m), probe=False)` decides,
+    forced by `device_offload_mode`, native while the bucket is COLD,
+    else by the measured rates; a native routing is timed into the
+    board's native EWMA (compaction.py:210-295 there).
+  - `run_compaction_job_device_native` gates on
+    `allow_device("run_merge_fused", (k_pad, m))` (a parked bucket
+    completes natively, timed), times every device completion into the
+    board, and CONTAINS a device fault (ops/device_faults.is_device_fault,
+    run_merge.DeviceFaultError) or a shadow mismatch: the attempt unwinds
+    (partial outputs deleted, installed cache entries dropped, zero
+    pins), the bucket is quarantined (a mismatch sticky), the counters
+    and the TRACE record it, and the whole job re-runs natively over the
+    same filtered inputs, byte-identical (compaction.py:618-748 there).
+  - A sampled fraction of device jobs (`shadow_verify_sample`) is
+    shadow-verified (storage/integrity.ShadowVerifier) chunk by chunk
+    before any byte installs, on the shell, codec and mesh routes; the
+    silent-fault site `maybe_flip_survivors` sits before each check.
+  - `run_compaction_job_dist_native` gates and contains the mesh job on
+    its ("dist_compact", (n_shards, capacity)) bucket.
+
 Not ported yet, each raising NotImplementedError naming its ROADMAP
-queue A item: the offload policy (health-board routing and device-fault
-containment), cancellation and the compaction rate limiter (the DB's
+queue A item: cancellation and the compaction rate limiter (the DB's
 remaining entry points), an encrypted Env (the encrypted Env and
-FaultInjectionEnv). The bucket-health routing, the device-fault
-containment that re-runs natively and the sampled shadow verifier are
-queue A items too: here a device error propagates.
+FaultInjectionEnv).
 """
 
 from __future__ import annotations
@@ -115,19 +136,15 @@ flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "compaction_job.cc:330 GenSubcompactionBoundaries)")
 
 
-_TITLE_HEALTH = "ROADMAP queue A: health-board routing and device-fault " \
-    "containment"
 _TITLE_DB = "ROADMAP queue A: the DB's remaining entry points"
 _TITLE_ENV = "ROADMAP queue A: the encrypted Env and FaultInjectionEnv"
 
 
-def _check_ported(offload_policy=None, cancel=None) -> None:
+def _check_ported(cancel=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP queue A item, for
     every argument and setting of the JAX package's job that the port
     does not have yet."""
     from yugabyte_tpu_torch.utils.env import get_env
-    if offload_policy is not None:
-        raise NotImplementedError(f"offload_policy: {_TITLE_HEALTH}")
     if cancel is not None:
         raise NotImplementedError(
             f"cancel: compaction cancellation is {_TITLE_DB}")
@@ -141,23 +158,32 @@ def _check_ported(offload_policy=None, cancel=None) -> None:
             f"package's encrypted Env needs the cryptography package)")
 
 
-# native-shell file ingests (each input read and decoded from its SST by
-# the C++ shell), process-wide: a warm chained job ingests every input
-# from the run cache and must add none
-_ingest_lock = threading.Lock()
-_ingest_decodes = 0   # guarded-by: _ingest_lock
+def _ingest_decode_counter():
+    """The warm resident chain's honesty meter: a chained job whose every
+    input the run cache holds ingests without reading or decoding SST
+    bytes, and adds nothing here."""
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    return ROOT_REGISTRY.entity("server", "storage").counter(
+        "compaction_ingest_decode_total",
+        "compaction inputs the native shell read and decoded from SST "
+        "files (run-cache hits ingest without touching the bytes)")
 
 
 def ingest_decodes() -> int:
     """Native-shell file ingests so far in this process."""
-    with _ingest_lock:
-        return _ingest_decodes
+    return _ingest_decode_counter().value()
 
 
 def _count_ingest_decode() -> None:
-    global _ingest_decodes
-    with _ingest_lock:
-        _ingest_decodes += 1
+    _ingest_decode_counter().increment()
+
+
+def _storage_fallback_counter():
+    from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+    return ROOT_REGISTRY.entity("server", "offload_policy").counter(
+        "compaction_device_fallback_total",
+        "compactions completed via the native merge after a mid-job "
+        "device fault")
 
 
 def _realign_ids(all_inputs, input_ids, inputs):
@@ -359,11 +385,40 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     the outputs are written through to it; run_cache: the native run
     cache of the device-native job. mesh: a parallel.mesh.Mesh — jobs at
     or above distributed_compaction_min_rows fan their subcompactions
-    across its shards (parallel/dist_compact.py). offload_policy and
-    cancel raise NotImplementedError (see _check_ported)."""
-    _check_ported(offload_policy, cancel)
+    across its shards (parallel/dist_compact.py). offload_policy: the
+    bucket-health board (storage/bucket_health.health_board()) — with an
+    explicit device, a single-device job routes by `use_device("run_merge_fused", (k_pad,
+    m), probe=False)`, and a native routing is timed into the board's
+    native EWMA (mesh-sized jobs gate on their own bucket in
+    run_compaction_job_dist_native). cancel raises NotImplementedError
+    (see _check_ported)."""
+    import time
+    _check_ported(cancel)
     all_inputs = list(inputs)
     orig_input_ids = list(input_ids) if input_ids is not None else None
+    board_key = None  # (board, family, qkey) when the board routed native
+    if (offload_policy is not None and device is not None
+            and device != "native" and not _no_combined):
+        # measured device-vs-native routing: offload only where the live
+        # bucket-health board says the device path wins
+        est_rows = sum(r.props.n_entries for r in all_inputs)
+        cached = bool(device_cache is not None and input_ids is not None
+                      and all(device_cache.contains(fid)
+                              for fid in input_ids))
+        if not _wants_distributed(mesh, est_rows):
+            from yugabyte_tpu_torch.ops import run_merge
+            from yugabyte_tpu_torch.storage import offload_policy as _pol
+            qkey = _pol.bucket_key(run_merge.packed_run_ns(
+                [r.props.n_entries for r in all_inputs
+                 if r.props.n_entries]))
+            # probe=False: a routing DECISION — a DEGRADED bucket's probe
+            # slot is claimed at the device-native path's own
+            # allow_device(), immediately before the launch
+            if not offload_policy.use_device("run_merge_fused", qkey,
+                                             est_rows=est_rows,
+                                             cached=cached, probe=False):
+                device = "native"
+                board_key = (offload_policy, "run_merge_fused", qkey)
     if device is not None and device != "native" and not _no_combined:
         # the production path: device decisions + the codec or the C++
         # byte shell, for depth-2 inputs without the radix override; the
@@ -395,11 +450,17 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     if device == "native":
         from yugabyte_tpu_torch.storage import native_engine
         if native_engine.available():
+            t0 = time.monotonic()
             result = _run_native_job(inputs, out_dir, new_file_id,
                                      history_cutoff_ht, is_major,
                                      retain_deletes, block_entries,
                                      frontier_inputs=all_inputs)
             result.rows_in += dropped_rows
+            if board_key is not None:
+                # live native measurement, what the device rate must beat
+                board, family, qkey = board_key
+                board.record_native(family, qkey, result.rows_in,
+                                    time.monotonic() - t0)
             return result
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP, concat_slabs
     slabs = [r.read_all() for r in inputs]
@@ -524,7 +585,13 @@ def run_compaction_job_device_native(
     raises. A skewed pick (run-layout inflation past 2x) or a deep input
     re-enters run_compaction_job's Python path (the radix re-sort, or the
     native merge). device_cache + input_ids: the resident chain (see the
-    module docstring); run_cache: the native run cache."""
+    module docstring); run_cache: the native run cache.
+
+    The bucket (k_pad, m) is gated on the health board, every device
+    completion is timed into it (without the sampled shadow verifier's
+    wait: integrity.shadow_wait_s), and a device fault or shadow mismatch
+    is contained: the job completes natively, byte-identical (see the
+    module docstring)."""
     from yugabyte_tpu_torch.ops import block_codec, run_merge
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
@@ -553,24 +620,133 @@ def run_compaction_job_device_native(
                                   device_cache=device_cache,
                                   input_ids=orig_input_ids,
                                   _no_combined=True)
+    import time
+    from yugabyte_tpu_torch.storage import integrity, offload_policy
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.utils.trace import TRACE
+    qkey = offload_policy.bucket_key(
+        run_merge.packed_run_ns([r.props.n_entries for r in inputs]))
+    surface = offload_policy.declared_surface_keys()
+    if surface and qkey not in surface:
+        # a reachable shape the committed manifest never declared: the
+        # live signal that the bucket lattice and reality diverged
+        from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+        ROOT_REGISTRY.entity("server", "offload_policy").counter(
+            "compaction_offsurface_bucket_total",
+            "device-native compactions whose shape bucket is outside "
+            "the declared kernel compile surface").increment()
+        TRACE("compaction: bucket k_pad=%d m=%d is outside the declared "
+              "compile surface", *qkey)
+    board = health_board()
+    if not board.allow_device("run_merge_fused", qkey):
+        # QUARANTINED (recent fault / sticky mismatch) or DEGRADED with
+        # no probe slot: native until the board re-opens the bucket
+        TRACE("compaction: shape bucket k_pad=%d m=%d is parked by the "
+              "health board — routing native", *qkey)
+        t0 = time.monotonic()
+        result = run_compaction_job(all_inputs, out_dir, new_file_id,
+                                    history_cutoff_ht, is_major,
+                                    retain_deletes, device="native",
+                                    block_entries=block_entries,
+                                    input_ids=orig_input_ids,
+                                    _no_combined=True)
+        # the parked completion is live native measurement too: what a
+        # probe's device rate has to beat to re-promote
+        board.record_native("run_merge_fused", qkey, result.rows_in,
+                            time.monotonic() - t0)
+        return result
     # The device codec takes the cold byte path: when the run cache holds
     # every input the shell ingests with zero decode (and its export keeps
     # the chain warm), so the shell keeps those jobs
     all_run_cached = bool(
         run_cache is not None and input_ids is not None
         and all(run_cache.contains(fid) for fid in input_ids))
-    if block_codec.codec_enabled() and not all_run_cached:
-        try:
-            return _device_codec_attempt(
-                inputs, all_inputs, input_ids, dropped_rows, out_dir,
-                new_file_id, history_cutoff_ht, is_major, retain_deletes,
-                dev, block_entries, device_cache)
-        except block_codec.BlockCodecUnsupported:
-            pass   # the native byte shell takes the job
-    return _device_native_attempt(
-        inputs, all_inputs, input_ids, dropped_rows, out_dir, new_file_id,
-        history_cutoff_ht, is_major, retain_deletes, dev, block_entries,
-        device_cache, run_cache)
+    t0 = time.monotonic()
+    w0 = integrity.shadow_wait_s()
+
+    def device_s() -> float:
+        # the job's seconds without the sampled verifier's wait: an
+        # audited job must not read as a slow device on the board
+        return time.monotonic() - t0 - (integrity.shadow_wait_s() - w0)
+    try:
+        if block_codec.codec_enabled() and not all_run_cached:
+            try:
+                result = _device_codec_attempt(
+                    inputs, all_inputs, input_ids, dropped_rows, out_dir,
+                    new_file_id, history_cutoff_ht, is_major,
+                    retain_deletes, dev, block_entries, device_cache)
+                board.record_device("run_merge_fused", qkey,
+                                    result.rows_in, device_s())
+                return result
+            except block_codec.BlockCodecUnsupported as e:
+                # the native byte shell takes the job
+                block_codec.codec_metrics()["encode_fallbacks"].increment()
+                TRACE("compaction: device codec unsupported for this "
+                      "job (%s) — taking the native byte shell", e)
+        else:
+            block_codec.codec_metrics()["encode_fallbacks"].increment()
+        result = _device_native_attempt(
+            inputs, all_inputs, input_ids, dropped_rows, out_dir,
+            new_file_id, history_cutoff_ht, is_major, retain_deletes, dev,
+            block_entries, device_cache, run_cache)
+        board.record_device("run_merge_fused", qkey, result.rows_in,
+                            device_s())
+        return result
+    except Exception as e:  # noqa: BLE001 — device-fault containment
+        if not _contain(e, board, "run_merge_fused", qkey):
+            raise
+        # the native re-run below writes through the shell encode
+        block_codec.codec_metrics()["encode_fallbacks"].increment()
+        # byte-identical completion: the attempt unwound cleanly (its
+        # partial outputs deleted, entries dropped, pins released), so
+        # the whole job re-runs natively over the SAME filtered inputs
+        t1 = time.monotonic()
+        result = _run_native_job(inputs, out_dir, new_file_id,
+                                 history_cutoff_ht, is_major,
+                                 retain_deletes, block_entries,
+                                 frontier_inputs=all_inputs)
+        result.rows_in += dropped_rows
+        board.record_native("run_merge_fused", qkey, result.rows_in,
+                            time.monotonic() - t1)
+        return result
+
+
+def _contain(e: BaseException, board, family: str, bucket) -> bool:
+    """The containment decision of a failed device attempt (JAX
+    compaction.py:696-737): False for a host-side failure (a disk fault,
+    a bug, a build error — the caller re-raises it); for a device fault
+    (ops/device_faults.is_device_fault, run_merge.DeviceFaultError) or a
+    shadow mismatch, records it on the board (a mismatch STICKY: wrong
+    bytes out-rank any fault), counts the native completion, TRACEs, and
+    returns True."""
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.ops.run_merge import DeviceFaultError
+    from yugabyte_tpu_torch.storage.integrity import (
+        ShadowMismatch, shadow_mismatch_counter)
+    from yugabyte_tpu_torch.utils.trace import TRACE
+    shadow_mm = isinstance(e, ShadowMismatch)
+    if not (shadow_mm or isinstance(e, DeviceFaultError)
+            or device_faults.is_device_fault(e)):
+        return False
+    cause = e.cause if isinstance(e, DeviceFaultError) else e
+    reason = f"{type(cause).__name__}: {cause}"
+    if shadow_mm:
+        board.record_mismatch(family, bucket, reason=reason)
+    else:
+        board.record_fault(family, bucket, reason=reason)
+    _storage_fallback_counter().increment()
+    if shadow_mm:
+        # the alarm: device decisions diverged from the native oracle —
+        # a SILENT-corruption event, never an expected fault
+        shadow_mismatch_counter().increment()
+        TRACE("compaction: SHADOW VERIFY MISMATCH (%s) — partial outputs "
+              "deleted, %s bucket %s quarantined; re-running the job "
+              "natively", cause, family, tuple(bucket))
+    else:
+        TRACE("compaction: device fault mid-job (%r) — %s bucket %s "
+              "quarantined; completing via the native merge", cause,
+              family, tuple(bucket))
+    return True
 
 
 class _ResidentSpanInstaller:
@@ -756,10 +932,16 @@ def _device_native_body(
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries, device_cache,
         run_cache, cached_ids, state: dict) -> CompactionResult:
-    from yugabyte_tpu_torch.ops import run_merge
+    from yugabyte_tpu_torch.ops import device_faults, run_merge
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
-    from yugabyte_tpu_torch.storage import native_engine
+    from yugabyte_tpu_torch.storage import integrity, native_engine
 
+    # online shadow verification (sampled): the native heap-merge oracle
+    # re-derives this job's survivor decisions on its own thread,
+    # overlapping the device work; each decision chunk is compared
+    # before its bytes can install
+    shadow = integrity.maybe_shadow_verifier(
+        inputs, history_cutoff_ht, is_major, retain_deletes)
     tombstone_value = Value.tombstone().encode()
     with native_engine.NativeCompactionJob() as job:
         # -- stage A (host): the native shell ingests the inputs on its
@@ -862,10 +1044,17 @@ def _device_native_body(
         for perm_c, keep_c, mk_c in handle.result_iter():
             surv = perm_c[keep_c]
             mk_surv = mk_c[keep_c]
+            # silent-corruption injection point (tests): a flipped
+            # decision lands in the SST unless shadow verify is on
+            device_faults.maybe_flip_survivors(surv, mk_surv)
+            if shadow is not None:
+                shadow.check_chunk(surv, mk_surv)
             tombstones_written += int(np.count_nonzero(mk_surv))
             job.append_survivors(surv, mk_surv)
             writer.feed(job.n_survivors)
         rows_out = job.n_survivors
+        if shadow is not None:
+            shadow.finish(rows_out)   # before the tail files write
         outputs, ranges = writer.finish(rows_out)
         if run_cache is not None:
             # run-cache write-through: the exported survivors are
@@ -1002,8 +1191,12 @@ def _device_codec_body(
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries, device_cache,
         state: dict) -> CompactionResult:
-    from yugabyte_tpu_torch.ops import block_codec, run_merge
+    from yugabyte_tpu_torch.ops import block_codec, device_faults, run_merge
     from yugabyte_tpu_torch.ops.slabs import ValueArray
+    from yugabyte_tpu_torch.storage import integrity
+
+    shadow = integrity.maybe_shadow_verifier(
+        inputs, history_cutoff_ht, is_major, retain_deletes)
 
     # -- stage A: raw-byte ingest. One file read, per-block CRC check and
     # zero-copy value slicing per input; key columns decode on the card
@@ -1037,10 +1230,25 @@ def _device_codec_body(
 
     # the decisions drain fully before stage C: the survivor indices
     # drive the host value gather
-    perm, keep, mk_all = handle.result()
-    surv = perm[keep]
-    mk = mk_all[keep]
+    surv_parts, mk_parts = [], []
+    for perm_c, keep_c, mk_c in handle.result_iter():
+        surv_c = perm_c[keep_c]
+        mk_surv = mk_c[keep_c]
+        device_faults.maybe_flip_survivors(surv_c, mk_surv)
+        if shadow is not None:
+            shadow.check_chunk(surv_c, mk_surv)
+        surv_parts.append(surv_c)
+        mk_parts.append(mk_surv)
+    # one part for an unchunked launch: no concatenating copy
+    surv = (surv_parts[0] if len(surv_parts) == 1
+            else np.concatenate(surv_parts) if surv_parts
+            else np.zeros(0, dtype=np.int64))
+    mk = (mk_parts[0] if len(mk_parts) == 1
+          else np.concatenate(mk_parts) if mk_parts
+          else np.zeros(0, dtype=bool))
     rows_out = int(surv.shape[0])
+    if shadow is not None:
+        shadow.finish(rows_out)
 
     # -- stage C: device gather + encode, host value splice, per span
     fr = _merge_frontiers([r.props.frontier for r in all_inputs],
@@ -1111,14 +1319,23 @@ def run_compaction_job_dist_native(
     (_DistResidentInstaller) at one level above the deepest input. The
     shards run on the mesh's devices; a `device` given must be of their
     type ("cuda" for a mesh of cards, "cpu" for a CPU mesh), or the job
-    raises. cancel raises NotImplementedError (see _check_ported); a
-    device error propagates, and every output file written is deleted
-    and every entry installed dropped first."""
+    raises. cancel raises NotImplementedError (see _check_ported).
+
+    The (n_shards, capacity) bucket is gated on the health board
+    ("dist_compact"), and a device fault or shadow mismatch is contained
+    as in run_compaction_job_device_native: every output file written is
+    deleted and every entry installed dropped, the bucket quarantined,
+    and the job completed by the native CompactionJob, byte-identical."""
+    import time
+    from yugabyte_tpu_torch.ops import device_faults
+    from yugabyte_tpu_torch.ops.merge_gc import bucket_size
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.parallel.dist_compact import (
-        distributed_compact_with_outputs)
-    from yugabyte_tpu_torch.storage import native_engine
+        _quantized_capacity, distributed_compact_with_outputs)
+    from yugabyte_tpu_torch.storage import integrity, native_engine
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
+    from yugabyte_tpu_torch.utils.trace import TRACE
 
     _check_ported(cancel=cancel)
     if device is not None:
@@ -1135,6 +1352,29 @@ def run_compaction_job_dist_native(
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
     input_ids = _realign_ids(all_inputs, input_ids, inputs)
+    n_shards = mesh.devices.size
+    est_rows = sum(r.props.n_entries for r in inputs)
+    bucket = (n_shards, _quantized_capacity(
+        bucket_size(est_rows) // n_shards, n_shards, 2.0))
+    board = health_board()
+    if not board.allow_device("dist_compact", bucket):
+        # the bucket is parked (fault quarantine / sticky mismatch /
+        # degraded without a probe slot): the native job, byte-identical
+        TRACE("compaction: dist bucket n_shards=%d capacity=%d is "
+              "parked by the health board — routing native", *bucket)
+        t0 = time.monotonic()
+        result = _run_native_job(inputs, out_dir, new_file_id,
+                                 history_cutoff_ht, is_major,
+                                 retain_deletes, block_entries,
+                                 frontier_inputs=all_inputs)
+        result.rows_in += dropped_rows
+        board.record_native("dist_compact", bucket, result.rows_in,
+                            time.monotonic() - t0)
+        return result
+    t_job = time.monotonic()
+    w0 = integrity.shadow_wait_s()
+    shadow = integrity.maybe_shadow_verifier(
+        inputs, history_cutoff_ht, is_major, retain_deletes)
     params = GCParams(history_cutoff_ht, is_major, retain_deletes)
     state = {"writer": None, "installer": None}
     try:
@@ -1158,8 +1398,11 @@ def run_compaction_job_dist_native(
             try:
                 merged = concat_slabs([s for s in (r.read_all()
                                                    for r in inputs) if s.n])
+                bucket = (n_shards, _quantized_capacity(
+                    bucket_size(merged.n) // n_shards, n_shards, 2.0))
                 keep, mk, src_idx, outputs_dev = \
                     distributed_compact_with_outputs(merged, params, mesh)
+                bucket = outputs_dev.bucket_key()
                 del merged
             finally:
                 # the thread calls into the C++ job; it MUST finish
@@ -1170,7 +1413,12 @@ def run_compaction_job_dist_native(
             rows_in = ingest["rows_in"]
             surv = src_idx[keep]
             mk_surv = mk[keep]
+            device_faults.maybe_flip_survivors(surv, mk_surv)
+            if shadow is not None:
+                shadow.check_chunk(surv, mk_surv)
             rows_out = int(surv.shape[0])
+            if shadow is not None:
+                shadow.finish(rows_out)
             fr = _merge_frontiers([r.props.frontier for r in all_inputs],
                                   history_cutoff_ht)
             installer = None
@@ -1188,9 +1436,23 @@ def run_compaction_job_dist_native(
             state["writer"] = writer
             job.set_survivors(surv, mk_surv)
             outputs, _ranges = writer.finish(job.n_survivors)
-    except BaseException:
+    except BaseException as e:
         _unwind_attempt(state)
-        raise
+        if not (isinstance(e, Exception)
+                and _contain(e, board, "dist_compact", bucket)):
+            raise
+        t1 = time.monotonic()
+        result = _run_native_job(inputs, out_dir, new_file_id,
+                                 history_cutoff_ht, is_major,
+                                 retain_deletes, block_entries,
+                                 frontier_inputs=all_inputs)
+        result.rows_in += dropped_rows
+        board.record_native("dist_compact", bucket, result.rows_in,
+                            time.monotonic() - t1)
+        return result
+    board.record_device("dist_compact", bucket, rows_in + dropped_rows,
+                        time.monotonic() - t_job
+                        - (integrity.shadow_wait_s() - w0))
     return CompactionResult(outputs, rows_in + dropped_rows, rows_out,
                             tombstones_written=int(np.count_nonzero(mk_surv)))
 

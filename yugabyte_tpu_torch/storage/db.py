@@ -26,16 +26,34 @@ flush exports each new L0 file's decoded run into it, so the first
 compaction over the file starts zero-decode; the obsolete-file purge and
 `close` drop both caches' entries.
 
+Containment, as in the JAX package:
+
+  - `_multi_get_device` gates every batch on the health board's
+    point_read_locate (1, n_pad) record of each live file (a parked
+    bucket serves the batch natively) and contains a device fault
+    mid-batch: the bucket is parked (the first live file's, the file the
+    JAX loop locates first), the fallback counted and TRACEd, and the
+    batch served by `_multi_get_native`, byte-identical. A stale resident
+    entry is still restaged (ROADMAP C.3): the native path is for device
+    faults only.
+  - The background-error slot (`background_error`,
+    `on_background_error`, `retry_background_work`): a failed flush
+    (OSError / StatusError) restores the memtable and parks the DB
+    read-only — writes refuse retryably, reads serve the installed
+    state — until a retry flushes; a Corruption park is sticky.
+  - Read-corruption routing: a `get` or `multi_get` that hits corrupt
+    SST bytes parks the DB with a sticky Corruption and re-raises
+    ServiceUnavailable (retry on a healthy replica).
+  - `scrub`: every live SST deep-verified (storage/integrity.verify_sst)
+    at a throttled rate, a corrupt one quarantined (`*.corrupt`) and the
+    DB parked with a sticky Corruption.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 queue A item: compaction scheduling (`auto_compact=True`, `compact_all`,
 `maybe_schedule_compaction`), the scans (`scan_visible`,
-`scan_filtered`, `scan_aggregate`, `scan_native`) and `checkpoint`: the
-DB's remaining entry points; the health-board gate and device-fault
-containment of `_multi_get_device`, the background-error slot and its
-retry, and the read-corruption routing: health-board routing and
-device-fault containment (here a kernel error propagates to the caller);
-`scrub`: the sampled shadow verifier. `pre_flush_hook` comes with the
-device-free rest.
+`scan_filtered`, `scan_aggregate`, `scan_native`), cancellation
+(`scrub(cancel=)`) and `checkpoint`: the DB's remaining entry points.
+`pre_flush_hook` comes with the device-free rest.
 """
 
 from __future__ import annotations
@@ -44,7 +62,7 @@ import heapq
 import os
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -57,6 +75,8 @@ from yugabyte_tpu_torch.storage.sst import (
     BlockCache, Frontier, SSTReader, SSTWriter, data_file_name)
 from yugabyte_tpu_torch.storage.version_set import VersionSet
 from yugabyte_tpu_torch.utils import flags, torch_setup
+from yugabyte_tpu_torch.utils.status import Code, Status, StatusError
+from yugabyte_tpu_torch.utils.trace import TRACE
 
 flags.define_flag("memstore_size_bytes", 128 * 1024 * 1024,
                   "flush memtable at this size (ref docdb_rocksdb_util.cc:113)")
@@ -79,8 +99,6 @@ _CHUNK = 1024   # keys per device chunk (the larger batch bucket)
 
 
 _ENTRY_POINTS = "the DB's remaining entry points"
-_HEALTH = "health-board routing and device-fault containment"
-_SHADOW = "the sampled shadow verifier"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -156,6 +174,13 @@ class DB:
         self._pins: dict = {}       # file_id -> active read count
         self._obsolete: dict = {}   # file_id -> reader awaiting unpin+delete
         self._last_op_id: Tuple[int, int] = (0, 0)
+        # RocksDB-style background-error slot (ref: db_impl.cc
+        # error_handler_): a failed flush parks the DB in degraded
+        # read-only mode — writes reject retryably, reads keep serving the
+        # installed state — until retry_background_work() clears it. The
+        # hook tells the owner (a tablet peer) to fail the tablet.
+        self._bg_error: Optional[Status] = None
+        self.on_background_error: Optional[Callable[[object], None]] = None
         # native read engine state: per-SST native handles + a frozen
         # ReaderSet snapshot, both rebuilt when the live-file set changes
         self._native_readers: dict = {}
@@ -178,6 +203,7 @@ class DB:
                     op_id: Tuple[int, int] = (0, 0)) -> None:
         """Apply a batch (already carrying DocHybridTimes). WAL-less: durability
         comes from the Raft log above (ref: tablet.cc:1247 WriteToRocksDB)."""
+        self._require_writable()
         with self._lock:
             mem = self.mem
             if len(items) > 8 or hasattr(mem, "add_columns"):
@@ -199,6 +225,7 @@ class DB:
         """Columnar bulk write: parallel key/value lists + uint64 HT and
         uint32 write-id arrays — one native memtable call instead of
         per-row tuple assembly (ref: db/memtable.cc Add)."""
+        self._require_writable()
         with self._lock:
             mem = self.mem
             if hasattr(mem, "add_columns"):
@@ -226,6 +253,7 @@ class DB:
         from yugabyte_tpu_torch.utils.env import get_env
         if not (native_engine.available() and not get_env().encrypted):
             raise RuntimeError("ingest_packed requires the native engine")
+        self._require_writable()
         n = len(key_offs) - 1
         if n == 0:
             return None
@@ -252,13 +280,16 @@ class DB:
         The lock is held only to swap the memtable and to install the
         result; the SST write runs unlocked while reads serve from the
         immutable memtable. On failure the un-flushed entries go back
-        into the live memtable, partial outputs are removed, and the
-        error propagates (the background-error slot is ROADMAP queue A:
-        health-board routing and device-fault containment).
+        into the live memtable and partial outputs are removed; an
+        OSError or StatusError then parks the DB (the background-error
+        slot; retry_background_work re-drives the flush) and returns
+        None, as the JAX flush does; any other error propagates.
         """
         with self._lock:
             if self._imm is not None:
                 return None  # a flush is already in progress
+            if self._bg_error is not None:
+                return None  # parked: retry_background_work re-drives
             if self.mem.empty:
                 return None
             self._imm, self.mem = self.mem, new_memtable()
@@ -304,7 +335,7 @@ class DB:
                 self._imm = None
                 self._rset = None  # native snapshot is stale
                 self._rset_gen += 1
-        except BaseException:
+        except BaseException as e:
             with self._lock:
                 # restore un-flushed entries into the live memtable
                 for k, v in imm.iter_from():
@@ -316,8 +347,79 @@ class DB:
                 _delete_sst_files(path)
                 if fid is not None:
                     self._drop_cached(fid)
+            if isinstance(e, (OSError, StatusError)):
+                # contained: the version set untouched, no rows lost (the
+                # memtable restored); park read-only until a retry
+                self._set_background_error("flush", e)
+                return None
             raise
         return fid
+
+    # ------------------------------------------------------- background error
+    @property
+    def background_error(self):
+        """The parked Status, or None when healthy."""
+        return self._bg_error
+
+    def _require_writable(self) -> None:
+        err = self._bg_error
+        if err is not None:
+            raise StatusError(Status.ServiceUnavailable(
+                f"DB {self.db_dir} is read-only after a background error "
+                f"({err}); retry later"))
+
+    def _set_background_error(self, where: str, exc: BaseException,
+                              corruption: bool = False) -> None:
+        if corruption:
+            st = Status.Corruption(
+                f"{where} detected corrupt data in {self.db_dir}: {exc}")
+        else:
+            st = Status.IoError(f"{where} failed in {self.db_dir}: {exc}")
+        with self._lock:
+            if self._bg_error is not None:
+                # first error wins — except corruption, which UPGRADES a
+                # retryable I/O park: lost bytes need a rebuild, and the
+                # sticky corruption code is what blocks in-place retry
+                if not corruption or \
+                        self._bg_error.code == Code.CORRUPTION:
+                    return
+            self._bg_error = st
+        TRACE("db %s: background error (%s): %s", self.db_dir, where, exc)
+        cb = self.on_background_error
+        if cb is not None:
+            cb(st)
+
+    def retry_background_work(self) -> bool:
+        """Clear the parked error and retry the failed work (ref
+        DBImpl::Resume). Returns True when the DB is healthy again; a
+        failing retry re-parks it. A CORRUPTION error is STICKY: lost
+        bytes cannot be retried back into existence — the replica must
+        be rebuilt from a healthy peer."""
+        with self._lock:
+            if self._bg_error is not None \
+                    and self._bg_error.code == Code.CORRUPTION:
+                return False
+            if self._bg_error is None:
+                return True
+            self._bg_error = None
+        try:
+            self.flush()
+        except (OSError, StatusError):
+            return False  # flush's failure path re-set the background error
+        return self._bg_error is None
+
+    def _route_read_corruption(self, e: StatusError) -> None:
+        """A read that hit corrupt SST bytes (block CRC / footer
+        mismatch) must not surface as a raw Corruption to the client:
+        route it to the background-error slot — parking the DB — and
+        re-raise RETRYABLY so the client walks to a healthy replica."""
+        if e.status.code != Code.CORRUPTION:
+            return
+        self._set_background_error("read", e, corruption=True)
+        raise StatusError(Status.ServiceUnavailable(
+            f"read hit corrupt SST data in {self.db_dir} "
+            f"({e.status.message}); replica is being repaired — retry "
+            f"on another replica")) from e
 
     # ---------------------------------------------------- native read engine
     def _native_rset(self):
@@ -358,7 +460,11 @@ class DB:
             ) -> Optional[Tuple[DocHybridTime, bytes]]:
         """Latest version of key_prefix visible at read_ht (raw KV semantics;
         document semantics layer above in docdb)."""
-        return self._get_inner(key_prefix, read_ht)
+        try:
+            return self._get_inner(key_prefix, read_ht)
+        except StatusError as e:
+            self._route_read_corruption(e)
+            raise
 
     def _mem_snapshot(self):
         with self._lock:
@@ -431,9 +537,16 @@ class DB:
         read_ht = read_ht or HybridTime.kMax
         if not keys:
             return []
-        if self._device is not None and flags.get_flag("point_read_batched"):
-            return self._multi_get_device(keys, read_ht, doc_key_lens)
-        return self._multi_get_native(keys, read_ht)
+        try:
+            if self._device is not None \
+                    and flags.get_flag("point_read_batched"):
+                out = self._multi_get_device(keys, read_ht, doc_key_lens)
+                if out is not None:
+                    return out
+            return self._multi_get_native(keys, read_ht)
+        except StatusError as e:
+            self._route_read_corruption(e)
+            raise
 
     def _multi_get_native(self, keys, read_ht):
         """One native multi_get per key over a single reader-set snapshot
@@ -498,9 +611,14 @@ class DB:
         return staged_by
 
     def _multi_get_device(self, keys, read_ht, doc_key_lens=None):
-        """The batched device path. A kernel error propagates (the
-        reference's health-board gate and fault containment are ROADMAP
-        queue A: health-board routing and device-fault containment)."""
+        """The batched device path, or None when this batch must take the
+        native path (a parked shape bucket, or a device fault mid-batch:
+        both byte-identical). Any other error propagates."""
+        import time
+        from yugabyte_tpu_torch.ops import device_faults, point_read
+        from yugabyte_tpu_torch.storage.bucket_health import health_board
+        from yugabyte_tpu_torch.storage.offload_policy import (
+            point_read_bucket_key)
         # memtable snapshot BEFORE the reader set (see _get_inner)
         with self._lock:
             mems = [self.mem] + ([self._imm] if self._imm is not None
@@ -510,16 +628,46 @@ class DB:
                 self._pins[fid] = self._pins.get(fid, 0) + 1
         try:
             staged_by = self._stage_live(readers)
+            board = health_board()
+            if any(not board.allow_device(
+                    "point_read_locate", point_read_bucket_key(st.n_pad))
+                   for _fid, _r, st in staged_by):
+                return None
             results: List = [None] * len(keys)
             mems = [m for m in mems if not m.empty]
-            for start in range(0, len(keys), _CHUNK):
-                chunk = keys[start: start + _CHUNK]
-                dkls = (doc_key_lens[start: start + _CHUNK]
-                        if doc_key_lens is not None else None)
-                best = self._device_chunk(chunk, dkls, read_ht, staged_by)
-                mem_hits = self._mem_probe_many(mems, chunk, read_ht)
-                self._combine_device_chunk(chunk, start, mem_hits,
-                                           staged_by, best, results)
+            t0 = time.monotonic()
+            try:
+                for start in range(0, len(keys), _CHUNK):
+                    chunk = keys[start: start + _CHUNK]
+                    dkls = (doc_key_lens[start: start + _CHUNK]
+                            if doc_key_lens is not None else None)
+                    best = self._device_chunk(chunk, dkls, read_ht,
+                                              staged_by)
+                    mem_hits = self._mem_probe_many(mems, chunk, read_ht)
+                    self._combine_device_chunk(chunk, start, mem_hits,
+                                               staged_by, best, results)
+                if staged_by:
+                    # the last live file's bucket, as the JAX loop's
+                    # running bucket ends there
+                    board.record_device(
+                        "point_read_locate",
+                        point_read_bucket_key(staged_by[-1][2].n_pad),
+                        len(keys), time.monotonic() - t0)
+            except Exception as e:  # noqa: BLE001 — device-fault containment
+                if not device_faults.is_device_fault(e):
+                    raise
+                # park the bucket and serve this batch (and the window)
+                # natively, byte-identical: the compaction fallback's twin
+                n_pad = staged_by[0][2].n_pad
+                board.record_fault(
+                    "point_read_locate", point_read_bucket_key(n_pad),
+                    reason=f"point-read {type(e).__name__}: {e}")
+                point_read.point_read_metrics()[
+                    "device_fallbacks"].increment()
+                TRACE("multi_get: device fault mid-batch (%r) — shape "
+                      "bucket (1, %d) quarantined; serving natively",
+                      e, n_pad)
+                return None
             return results
         finally:
             with self._lock:
@@ -536,22 +684,33 @@ class DB:
         the newest (ht, wid) hit kept per key, one launch each, and one
         download; no launch without a live SST. Returns None when no file
         was located, else arrays (ht u64, wid u32, row, file index, hit)."""
-        from yugabyte_tpu_torch.ops import point_read
-        point_read.count("batches")
-        point_read.count("keys", len(chunk))
+        import time
+        from yugabyte_tpu_torch.ops import device_faults, point_read
+        from yugabyte_tpu_torch.utils.metrics import record_kernel_dispatch
+        m = point_read.point_read_metrics()
+        m["batches"].increment()
+        m["keys"].increment(len(chunk))
+        m["batch_rows"].increment(len(chunk))
         table = self._file_table(staged_by)
         if not table.files:
             return None
         hw, dk, qbuf, ql = self._pack_chunk(chunk, dkls, table)
         b, b_pad = len(chunk), ql.shape[0]
+        t0 = time.monotonic()
         _maybe, located, _h1, _h2 = point_read.hash_probe_files(hw, dk,
                                                                 table, b)
         model_on = flags.get_flag("point_read_learned_index")
+        # the JAX package's locate fault sites (point_read.py:478, :487
+        # there), around the one locate launch and its download
+        device_faults.maybe_fault("dispatch")
         out = point_read.locate_fold(table, qbuf, ql, b, read_ht.value >> 32,
                                      read_ht.value & 0xFFFFFFFF, model_on,
                                      located)
+        device_faults.maybe_fault("result")
         best, located, misses = point_read.fold_arrays(
             out.cpu().numpy(), b_pad, len(table.files))
+        record_kernel_dispatch("kernel_point_locate", b, b,
+                               (time.monotonic() - t0) * 1e3)
         point_read.count("bloom_skips", int((~located).sum()))
         if model_on:
             point_read.count("learned_hits", sum(
@@ -703,11 +862,55 @@ class DB:
     def compact_all(self) -> None:
         raise _not_ported("compact_all", _ENTRY_POINTS)
 
-    def retry_background_work(self) -> bool:
-        raise _not_ported("retry_background_work", _HEALTH)
-
-    def scrub(self, *args, **kwargs) -> dict:
-        raise _not_ported("scrub", _SHADOW)
+    # ------------------------------------------------------------------ scrub
+    def scrub(self, limiter=None, cancel=None) -> dict:
+        """At-rest integrity scrub: deep-verify every live SST (block
+        CRCs, footer, index/bloom consistency — storage/integrity.py) at
+        a throttled byte rate (`limiter`, a utils.rate_limiter
+        .RateLimiter; integrity.scrub_rate_limiter() is the process-wide
+        one). Files are PINNED while verified. A corrupt file is
+        quarantined (renamed ``*.corrupt``) and the DB parks with a
+        STICKY Corruption background error; in-place retry is refused.
+        cancel raises NotImplementedError (compaction and scrub
+        cancellation are ROADMAP queue A: the DB's remaining entry
+        points)."""
+        from yugabyte_tpu_torch.storage import integrity
+        if cancel is not None:
+            raise _not_ported("scrub(cancel=)", _ENTRY_POINTS)
+        with self._lock:
+            targets = [(fid, r.base_path)
+                       for fid, r in self._readers.items()]
+            for fid, _ in targets:
+                self._pins[fid] = self._pins.get(fid, 0) + 1
+        report = {"files": 0, "blocks": 0, "entries": 0, "bytes": 0,
+                  "corrupt": []}
+        try:
+            for fid, base_path in targets:
+                rep = integrity.verify_sst(base_path, limiter=limiter)
+                report["files"] += 1
+                report["blocks"] += rep.n_blocks
+                report["entries"] += rep.n_entries
+                report["bytes"] += rep.bytes_verified
+                if rep.errors:
+                    report["corrupt"].append(
+                        {"path": base_path, "errors": rep.errors[:4]})
+                    integrity.quarantine_sst(base_path,
+                                             reason=rep.errors[0])
+                    self._set_background_error(
+                        "scrub",
+                        StatusError(Status.Corruption(
+                            f"{base_path}: {rep.errors[0]}")),
+                        corruption=True)
+        finally:
+            with self._lock:
+                for fid, _ in targets:
+                    self._pins[fid] -= 1
+                    if not self._pins[fid]:
+                        del self._pins[fid]
+                self._purge_obsolete_unlocked()
+        integrity.record_scrub(report["files"], report["blocks"],
+                               report["bytes"], len(report["corrupt"]))
+        return report
 
     def checkpoint(self, out_dir: str) -> None:
         raise _not_ported("checkpoint", _ENTRY_POINTS)

@@ -73,8 +73,8 @@ class DeviceSlabCache:
             OrderedDict()                  # guarded-by: _lock
         self._used = 0                     # guarded-by: _lock
         # per-instance ints (tests diff fresh caches); the JAX package's
-        # registry counters come with the metrics registry (ROADMAP queue
-        # A: health-board routing and device-fault containment)
+        # server-wide registry counters of the cache feed its operator
+        # pages, which come with ROADMAP queue A: the device-free rest
         self.hits = 0                      # guarded-by: _lock
         self.misses = 0                    # guarded-by: _lock
         self.evictions = 0                 # guarded-by: _lock

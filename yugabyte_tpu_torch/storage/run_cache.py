@@ -11,9 +11,9 @@ chain the disk file is for durability only.
 
 Memory lives in C++ (one registry per process); this class is the LRU
 accountant over it, namespaced per DB exactly like DeviceSlabCache. Hits
-and misses are plain per-instance ints (the JAX package's registry
-counters come with the metrics registry: ROADMAP queue A, health-board
-routing and device-fault containment).
+and misses are plain per-instance ints; the JAX package's server-wide
+registry counters of the cache feed its operator pages, which come with
+ROADMAP queue A: the device-free rest.
 """
 
 from __future__ import annotations

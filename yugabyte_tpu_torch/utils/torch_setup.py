@@ -58,10 +58,27 @@ def check_u32_matrix(t: torch.Tensor, what: str, rows: int = -1) -> None:
                          f"got {tuple(t.shape)}")
 
 
+# cudaErrorMemoryAllocation: the one launch error a process survives
+# (ops/device_faults.is_device_fault). The others mean the kernel was
+# built or called wrongly (invalid value 1, invalid configuration 9, no
+# kernel image 209, out of resources 701) or left the context unusable
+# (illegal address 700, launch failure 719, ECC 214: sticky errors)
+CUDA_ALLOC_ERROR = 2
+
+
+class CudaLaunchError(RuntimeError):
+    """A wrapper's launch returned a CUDA error; `code` is its
+    cudaError_t."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what}: CUDA launch failed with error {code}")
+        self.code = code
+
+
 def raise_on_cuda_error(rc: int, what: str) -> None:
     """The C interface returns cudaGetLastError() after each launch."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+        raise CudaLaunchError(what, rc)
 
 
 def stream_ptr(device: torch.device) -> int:
