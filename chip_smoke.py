@@ -6,7 +6,9 @@ compaction through `storage.compaction.run_compaction_job_device_native`
 on its default device-codec path and on its native-shell path
 (YBTPU_DEVICE_CODEC=0), chunked and skewed picks through the router
 `storage.compaction.run_compaction_job`, and the snapshot scan `ops.scan.
-visible_entries_sources` — and holds every CUDA kernel of those paths
+visible_entries_sources`, and the DB's own entry points (scheduled
+compactions, scans, checkpoint, cancellation, the compaction pool) —
+and holds every CUDA kernel of those paths
 against its plain PyTorch version, the compaction decisions against the
 native C++ heap-merge oracle and the scan against the native host scan.
 Imports nothing of JAX.
@@ -155,7 +157,26 @@ Phases (any failure exits non-zero):
      their plain versions (the path's hashes == P1's), timed beside their bounds (P3's beside its floor:
      one launch and its dependent-load chain at an HBM load latency
      measured on the card);
- 10. a `kernels` JSON line, the card line, and last
+ 10. the DB's own entry points (`db_phase`), each beside a "native" DB
+     that takes the same writes in the same call: a DB on the card
+     (DeviceSlabCache, auto_compact) bulk-loads 4 L0 runs of rows/4 and
+     the universal pick on the 4th runs the codec route; 4 flushes of
+     rows/100 and compact_all take the resident chain (no block decode);
+     files == native; scan_visible unbounded and over a range == the
+     native DB's scan_native(visible=True); the checkpoint reopened on
+     the card answers alike; q6_agg and filter_rows through
+     scan_aggregate / scan_filtered on the lineitem SSTs as a DB == step
+     8's answers; close() during the scheduled 10M-row compaction (held
+     at its first output file by a sync point) installs nothing and
+     leaves no file or pin; cancel_background_work leaves a --fault-rows
+     DB readable, and its compaction under compaction_rate_bytes_per_sec
+     takes at least the paced bytes' time; a DB with DBOptions.mesh (8
+     virtual shards) runs its mesh-sized scheduled compaction on the
+     dist-native job (M1-M3), == native; 8 tablet DBs behind one
+     CompactionPool (DBOptions.mesh_pool, 8 virtual shards) compact in
+     one wave, files == native. Launches per part in the kernels line
+     (`launches_db_*`); no containment counter moves;
+ 11. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
@@ -2740,6 +2761,7 @@ def pushdown_phase(args, workdir, device="cuda"):
                 str(c): st for c, st in got["cols"].items()}}
         else:
             res["entries_out"] = len(got)
+            res["entries_sha256"] = entries_sha256(got)
         out[name] = res
         log(f"{name}: equal to the host oracle; {secs:.3f}s "
             f"({res['rows_per_s']:,.0f} rows/s over {oracle.n_rows} visible "
@@ -2747,6 +2769,13 @@ def pushdown_phase(args, workdir, device="cuda"):
             f"{peak} bytes; launches {res['launches']}")
     del oracles
     return out, totals, slabs, (top_ht, mid_ht)
+
+
+def entries_sha256(entries) -> str:
+    """sha256 of an entry list's repr: (key, value, hybrid time) tuples
+    in order."""
+    import hashlib
+    return hashlib.sha256(repr(list(entries)).encode()).hexdigest()
 
 
 def pushdown_breakdown(slabs, read_ht, spec, mode, device="cuda"):
@@ -3115,14 +3144,15 @@ def ycsb_point_db(args, workdir, device="cuda"):
     return db, out, (span * 6) << 12, ((span * 4) << 12) - 1
 
 
-def lineitem_point_db(lineitem_dir, workdir, device="cuda"):
+def lineitem_point_db(lineitem_dir, workdir, device="cuda",
+                      name="lineitem_db"):
     """The pushdown phase's 4 lineitem SSTs opened as a DB (hard links
     under file ids 1-4 and a manifest): SSTWriter fitted a learned index
     into each, so P3 runs its model mode here."""
     from yugabyte_tpu_torch.storage.db import DB
     from yugabyte_tpu_torch.storage.sst import SSTReader, data_file_name
     from yugabyte_tpu_torch.storage.version_set import VersionSet
-    d = os.path.join(workdir, "lineitem_db")
+    d = os.path.join(workdir, name)
     os.makedirs(d)
     vs = VersionSet(d)
     for src in sorted(f for f in os.listdir(lineitem_dir)
@@ -5000,6 +5030,651 @@ def point_fault_phase(db, keys, read_ht, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The DB's own entry points
+
+def _db_ycsb_runs(n_runs, rows_per_run, key_space, span, seed, gen0=0):
+    """YCSB-A packed runs (ycsb_packed_run) over key_space: run g's rows
+    at hybrid times span * (gen0 + g + 1) + a permutation of its rows (no
+    internal key repeats across runs)."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for g in range(n_runs):
+        ids = rng.integers(0, key_space, size=rows_per_run)
+        is_tomb = rng.random(rows_per_run) < 0.05
+        ht = ((span * (gen0 + g + 1) + rng.permutation(rows_per_run))
+              .astype(np.uint64) << np.uint64(12))
+        runs.append(ycsb_packed_run(ids, is_tomb, ht, rng))
+    return runs
+
+
+def _db_columns(run):
+    """A packed run as write_batch_columns' arguments (keys, ht, wid,
+    values), split once for every DB that takes it."""
+    return (_split(run[0], run[1]), run[2], run[3], _split(run[4], run[5]))
+
+
+def _db_flush(db, cols, op):
+    """One run's columns written through the memtable and flushed."""
+    db.write_batch_columns(*cols, op_id=(1, op))
+    if db.flush() is None:
+        raise AssertionError("a flush wrote no file")
+
+
+def _file_sha(path) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def same_db_files(dev, nat, what) -> dict:
+    """The live files of a device DB and its "native" twin: equal ids and
+    data files byte for byte; base files byte for byte where the device
+    job fitted no learned index (the native job cannot), else equal
+    props. Returns {files, with_lindex}."""
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    a = sorted(dev.versions.live_files(), key=lambda f: f.file_id)
+    b = sorted(nat.versions.live_files(), key=lambda f: f.file_id)
+    if [f.file_id for f in a] != [f.file_id for f in b] or not a:
+        raise AssertionError(f"{what}: live files {[f.file_id for f in a]}"
+                             f" != {[f.file_id for f in b]}")
+    lidx = 0
+    for fa, fb in zip(a, b):
+        if _file_sha(data_file_name(fa.path)) != \
+                _file_sha(data_file_name(fb.path)):
+            raise AssertionError(f"{what}: data file {fa.file_id} differs")
+        pa, pb = fa.props, fb.props
+        if pa.lindex is not None:
+            lidx += 1
+            if (pa.n_entries, pa.first_key, pa.last_key, pa.data_size,
+                    pa.frontier) != (pb.n_entries, pb.first_key,
+                                     pb.last_key, pb.data_size,
+                                     pb.frontier):
+                raise AssertionError(f"{what}: file {fa.file_id}'s props "
+                                     f"differ")
+        elif _file_sha(fa.path) != _file_sha(fb.path):
+            raise AssertionError(f"{what}: base file {fa.file_id} differs")
+    return {"files": len(a), "with_lindex": lidx}
+
+
+def check_resident(db, what, min_level=1) -> list:
+    """Every live file resident at min_level or deeper, its entry's n that
+    of the file; no pin left. Returns the levels."""
+    levels = []
+    for fm in db.versions.live_files():
+        st = db._device_cache.get(fm.file_id)
+        lv = db._device_cache.level_of(fm.file_id)
+        if st is None or st.n != fm.props.n_entries or lv < min_level:
+            raise AssertionError(f"{what}: file {fm.file_id} is not "
+                                 f"resident at level >= {min_level}")
+        levels.append(lv)
+    if db._device_cache.pinned_count():
+        raise AssertionError(f"{what}: pins left")
+    return sorted(levels)
+
+
+def _launches_of(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _zero(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _need(launches, need, absent, what):
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"{what}: kernel {k} was not launched")
+    for k in absent:
+        if launches[k]:
+            raise AssertionError(f"{what}: kernel {k} launched "
+                                 f"{launches[k]} times")
+
+
+def _scan_digest(entries):
+    """(entries, key + value bytes, sha256) of a (key, value, ...)
+    stream, walked once: each entry's two lengths, then its key and
+    value, enter the hash."""
+    import hashlib
+    import struct
+    lens = struct.Struct("<II").pack
+    h = hashlib.sha256()
+    n = nbytes = 0
+    for e in entries:
+        k, v = e[0], e[1]
+        h.update(lens(len(k), len(v)))
+        h.update(k)
+        h.update(v)
+        n += 1
+        nbytes += len(k) + len(v)
+    return n, nbytes, h.hexdigest()
+
+
+def _native_visible(db, read_ht, lower=b"", upper=None):
+    for b in db.scan_native(lower, upper, read_ht, visible=True).batches():
+        keys, vals, ko, vo = b.keys, b.vals, b.key_offs, b.val_offs
+        for i in range(b.n):
+            yield (keys[ko[i]:ko[i + 1]].tobytes(),
+                   vals[vo[i]:vo[i + 1]].tobytes())
+
+
+def _hold_point(name):
+    """Arm sync point `name` to park the thread that hits it until
+    released: returns (held event, release event)."""
+    import threading
+    from yugabyte_tpu_torch.utils import sync_point
+    held, go = threading.Event(), threading.Event()
+
+    def hold():
+        held.set()
+        if not go.wait(300):
+            raise AssertionError(f"{name} was never released")
+    sync_point.arm(name, hold)
+    return held, go
+
+
+def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
+    """The DB's own entry points on the card, beside a "native" DB (no
+    device path) that takes the same writes in the same call:
+
+      - scheduled compaction: a DB with DBOptions(device, DeviceSlabCache,
+        auto_compact) bulk-loads 4 L0 runs of rows/4 (ingest_packed); the
+        universal pick fires on the 4th and runs the codec route (C on
+        the cache misses, A, B, D, E, F, H, P4), outputs installed at L1;
+        the files == the native DB's. Then 4 flushes of rows/100
+        (write_batch_columns) and compact_all take the resident chain
+        (every input a cache hit: no C; outputs one level above their
+        deepest input), == native;
+      - scans: scan_visible unbounded and over a range (G, H, I.1, B; I.2
+        once on the range) == the native DB's scan_native(visible=True),
+        entry for entry (one sha256 over each ordered stream); q6_agg and
+        filter_rows through scan_aggregate / scan_filtered on the lineitem
+        SSTs opened as a DB == the pushdown phase's answers, first call
+        (staging the value words) and resident call;
+      - cancellation and pacing: close() while the DB's scheduled
+        10M-row compaction is parked at its first output file (the
+        compaction:output_written sync point) on its compaction thread:
+        nothing installed, no partial file, zero pins, no L1 entry;
+        cancel_background_work on a --fault-rows DB the same way leaves
+        it readable and healthy, retry_background_work re-arms it, and
+        its compaction under compaction_rate_bytes_per_sec takes at least
+        (paced bytes - burst) / rate;
+      - checkpoint: the DB's checkpoint reopened as a DB on the card
+        answers the range scan and a multi_get as the original (P1 + P2
+        and P3 a chunk in both);
+      - DBOptions.mesh: 4 bulk loads of distributed_compaction_min_rows/4
+        + 4096 rows; the pick on the 4th runs the dist-native job on 8
+        virtual shards (M1, M2, M3, G, I.1, B; the outputs installed from
+        the shards: H, D, E), == native;
+      - the pool: 8 tablet DBs with DBOptions.mesh_pool =
+        CompactionPool(8 virtual shards of the card), --wave-rows rows a
+        tablet in 4 flushes; the pool's loop is held (the
+        compaction_pool:take_round sync point) until all 8 scheduled jobs
+        queue: one wave (A, B a slot), files == each native twin's.
+
+    Every launch counter is set to 0 just before each part and read just
+    after. Returns (summary, {part: launches})."""
+    import threading
+    import torch
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.db import DB, DBOptions
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
+    from yugabyte_tpu_torch.utils import flags, sync_point
+    from yugabyte_tpu_torch.utils.threadpool import PriorityThreadPool
+
+    wrappers = {**_mesh_wrappers(), **_pushdown_wrappers(),
+                **_point_wrappers()}
+    launches, out = {}, {"card": card}
+    t_phase = time.time()
+    n = args.rows
+    key_space = max(1, n // 2)
+    span = max(1_000_000, n // 4)
+    cutoff = (span * 10) << 12          # above every write of the phase
+    d = os.path.join(workdir, "db_phase")
+    os.makedirs(d)
+
+    def opts(dev, **kw):
+        """Options of a phase DB: a history cutoff above every write, a
+        memtable only explicit flushes cut, and on the card a 16 GiB
+        device cache unless one is given."""
+        if dev != "native" and kw.get("device_cache") is None:
+            kw["device_cache"] = DeviceSlabCache(dev, capacity_bytes=16 << 30)
+        return DBOptions(device=dev, retention_policy=lambda: cutoff,
+                         memstore_size_bytes=1 << 40, **kw)
+
+    # -- scheduled compaction: 4 bulk-loaded L0 runs, the pick on the 4th
+    t0 = time.time()
+    runs = _db_ycsb_runs(4, n // 4, key_space, span, args.seed + 80)
+    out["generate_s"] = time.time() - t0
+    dev = DB(os.path.join(d, "dev"), opts(device))
+    nat = DB(os.path.join(d, "nat"), opts("native"))
+    ingest_s = {}
+    for tag, db in (("native", nat), ("device", dev)):
+        _zero(wrappers)
+        secs = []
+        for g, run in enumerate(runs):
+            t0 = time.time()
+            db.ingest_packed(*run, op_id=(1, g + 1))
+            sync()
+            secs.append(time.time() - t0)
+        ingest_s[tag] = secs
+        if db.compaction_stats.to_dict()["compactions"] != 1:
+            raise AssertionError(f"{tag} DB: the 4th ingest did not "
+                                 f"compact")
+    launches["db_sched"] = _launches_of(wrappers)
+    _need(launches["db_sched"], _CODEC_KERNELS + ("index_fit",), (),
+          "db scheduled compaction")
+    out["sched"] = {
+        "rows": n, **same_db_files(dev, nat, "db scheduled compaction"),
+        "levels": check_resident(dev, "db scheduled compaction"),
+        "ingest_s": ingest_s,
+        # the 4th ingest's seconds beyond the mean of the first three:
+        # the compaction it scheduled
+        "compaction_s": {k: v[3] - sum(v[:3]) / 3
+                         for k, v in ingest_s.items()}}
+    out["sched"]["rows_per_s"] = {k: n / v for k, v in
+                                  out["sched"]["compaction_s"].items()}
+    rates = out["sched"]["rows_per_s"]
+    log(f"db scheduled compaction: {n} rows in 4 ingests, the universal "
+        f"pick on the 4th (codec route): {rates['device']:,.0f}"
+        f" rows/s on the card vs {rates['native']:,.0f}"
+        f" native (the 4th ingest's seconds beyond the mean of the first "
+        f"three); files == native ({out['sched']['files']} files, "
+        f"{out['sched']['with_lindex']} with a learned index); levels "
+        f"{out['sched']['levels']}; launches "
+        f"{ {k: v for k, v in launches['db_sched'].items() if v} } [{card}]")
+
+    # -- the resident chain: 4 flushes, then compact_all
+    small = [_db_columns(r) for r in _db_ycsb_runs(
+        4, max(1, n // 100), key_space, span, args.seed + 81, gen0=4)]
+    chain_s = {}
+    for tag, db in (("native", nat), ("device", dev)):
+        _zero(wrappers)
+        t0 = time.time()
+        for g, cols in enumerate(small):
+            _db_flush(db, cols, 5 + g)
+        t1 = time.time()
+        db.compact_all()
+        sync()
+        chain_s[tag] = {"flushes_s": t1 - t0, "compact_all_s":
+                        time.time() - t1}
+    launches["db_chain"] = _launches_of(wrappers)
+    _need(launches["db_chain"], ("merge_path_level", "gc_pack",
+                                 "survivor_scan", "span_gather",
+                                 "block_encode", "staged_concat",
+                                 "index_fit"), ("block_decode",),
+          "db resident chain")
+    stats = dev.compaction_stats.to_dict()
+    chain_rows = stats["compaction_rows_in"] - n
+    out["chain"] = {
+        **same_db_files(dev, nat, "db resident chain"),
+        "levels": check_resident(dev, "db resident chain", 2),
+        "compactions": stats["compactions"], "seconds": chain_s,
+        "write_amplification": stats["write_amplification"],
+        "rows_compacted": chain_rows}
+    out["chain"]["rows_per_s"] = {
+        k: chain_rows / (v["flushes_s"] + v["compact_all_s"])
+        for k, v in chain_s.items()}
+    log(f"db resident chain: 4 flushes of {n // 100} rows + compact_all "
+        f"({stats['compactions'] - 1} compactions, {chain_rows} rows in, "
+        f"every input a cache hit: no block_decode) "
+        f"{out['chain']['rows_per_s']['device']:,.0f} rows/s on the card "
+        f"vs {out['chain']['rows_per_s']['native']:,.0f} native (flushes "
+        f"included); files == native; levels {out['chain']['levels']}; "
+        f"launches "
+        f"{ {k: v for k, v in launches['db_chain'].items() if v} } [{card}]")
+    del small
+
+    # -- scans: unbounded and a range (a tenth of the keys), each == the
+    # native scan
+    lower = b"Suser%08d" % (key_space // 5)
+    upper = b"Suser%08d" % (3 * key_space // 10)
+    out["scans"] = {}
+    for tag, lo, hi, path in (("scan", None, None, "scan"),
+                              ("range_scan", lower, upper, "range_scan")):
+        _zero(wrappers)
+        t0 = time.time()
+        got = _scan_digest(dev.scan_visible(cutoff, lo, hi))
+        secs = time.time() - t0
+        launches[f"db_{tag}"] = _launches_of(wrappers)
+        # G, I.1, B; H concatenates the files (one file: no H); I.2 once
+        # on the range, never on the unbounded scan
+        _need(launches[f"db_{tag}"], ("radix_sort", "sorted_payload",
+                                      "gc_pack")
+              + (("staged_concat",) if dev.n_live_files > 1 else ()),
+              ("block_decode",), f"db {tag}")
+        if launches[f"db_{tag}"]["bound_pack"] != (path == "range_scan"):
+            raise AssertionError(f"db {tag}: launches "
+                                 f"{launches[f'db_{tag}']}")
+        t0 = time.time()
+        want = _scan_digest(_native_visible(nat, cutoff, lo or b"", hi))
+        nsecs = time.time() - t0
+        if got != want or not got[0]:
+            raise AssertionError(f"db {tag}: {got} != native {want}")
+        out["scans"][tag] = {"entries": got[0], "bytes": got[1],
+                             "seconds": secs, "native_seconds": nsecs,
+                             "rows_per_s": got[0] / secs,
+                             "native_rows_per_s": got[0] / nsecs}
+        log(f"db {tag}: {got[0]} entries == the native DB's "
+            f"scan_native(visible=True) (sha256 of the stream); "
+            f"{got[0] / secs:,.0f} rows/s ({got[1] / secs / 1e6:,.1f} MB/s)"
+            f" on the card vs {got[0] / nsecs:,.0f} native; launches "
+            f"{ {k: v for k, v in launches[f'db_{tag}'].items() if v} } "
+            f"[{card}]")
+
+    # -- checkpoint: reopened on the card, it answers as the original
+    ck = os.path.join(d, "checkpoint")
+    _zero(wrappers)
+    dev.checkpoint(ck)
+    ckdb = DB(ck, opts(device, auto_compact=False))
+    rng = np.random.default_rng(args.seed + 82)
+    keys = [bytes(k) for k in ycsb_keys(rng.integers(0, key_space,
+                                                     size=4096))]
+    want = dev.multi_get(keys)
+    if ckdb.multi_get(keys) != want or _scan_digest(ckdb.scan_visible(
+            cutoff, lower, upper))[2] != _scan_digest(
+                dev.scan_visible(cutoff, lower, upper))[2]:
+        raise AssertionError("db checkpoint: the reopened DB answers "
+                             "otherwise")
+    out["checkpoint"] = {"files": ckdb.n_live_files, "keys": len(keys)}
+    # both DBs' multi_get (P1 + P2, P3 + the fold a chunk) and range scans
+    launches["db_checkpoint"] = _launches_of(wrappers)
+    _need(launches["db_checkpoint"], ("hash_probe_files", "locate_fold",
+                                      "radix_sort", "bound_pack"), (),
+          "db checkpoint")
+    ckdb.close()
+    log(f"db checkpoint: reopened on the card ({out['checkpoint']['files']}"
+        f" files), 4096 multi_get keys and the range scan == the original")
+    dev.close()
+    nat.close()
+    torch.cuda.empty_cache()
+
+    # -- the pushdown on the lineitem SSTs opened as a DB
+    queries = pushdown_queries(lineitem_schema())
+    ldb = lineitem_point_db(os.path.join(workdir, "lineitem"), workdir,
+                            device, name="lineitem_db_phase")
+    out["pushdown"] = {}
+    for qname in ("q6_agg", "filter_rows"):
+        mode, spec = queries[qname]
+        ref = push_out[qname]
+        rec = {}
+        for call in ("first", "resident"):
+            _zero(wrappers)
+            t0 = time.time()
+            if mode == "aggregate":
+                got = ldb.scan_aggregate(top_ht, spec)
+                sync()
+                ok = {"rows": got["rows"], "cols": {
+                    str(c): st for c, st in got["cols"].items()}} \
+                    == ref["answer"]
+            else:
+                got = list(ldb.scan_filtered(top_ht, spec))
+                ok = (len(got) == ref["entries_out"]
+                      and entries_sha256(got) == ref["entries_sha256"])
+            rec[f"{call}_s"] = time.time() - t0
+            if not ok:
+                raise AssertionError(f"db {qname} ({call} call): the DB's "
+                                     f"answer differs from the pushdown "
+                                     f"phase's")
+            if ldb._pins:
+                raise AssertionError(f"db {qname}: pins left")
+            launches[f"db_{qname}_{call}"] = _launches_of(wrappers)
+            check_pushdown_launches(launches[f"db_{qname}_{call}"], mode,
+                                    False, f"db {qname}")
+        rec["rows_per_s"] = ref["visible_rows"] / rec["resident_s"]
+        rec["slab_source_rows_per_s"] = ref["rows_per_s"]
+        out["pushdown"][qname] = rec
+        log(f"db {qname}: == the pushdown phase's answer; first call "
+            f"{rec['first_s']:.3f}s (stages the value words), resident "
+            f"{rec['resident_s']:.3f}s = {rec['rows_per_s']:,.0f} rows/s vs "
+            f"{ref['rows_per_s']:,.0f} over SlabSources [{card}]")
+    ldb.close()
+    torch.cuda.empty_cache()
+
+    # -- close() during the scheduled 10M-row compaction (part 1's runs)
+    threads = PriorityThreadPool(1, name="db-phase-compactions")
+    try:
+        cache = DeviceSlabCache(device, capacity_bytes=16 << 30)
+        cdb = DB(os.path.join(d, "close"), opts(
+            device, device_cache=cache, compaction_pool=threads))
+        for g, run in enumerate(runs[:3]):
+            cdb.ingest_packed(*run, op_id=(1, g + 1))
+        held, go = _hold_point("compaction:output_written")
+        try:
+            cdb.ingest_packed(*runs[3], op_id=(1, 4))
+            in_ids = sorted(cdb.versions.files)
+            if not held.wait(600):
+                raise AssertionError("the scheduled compaction never "
+                                     "wrote its first file")
+        finally:
+            sync_point.disarm("compaction:output_written")
+        t0 = time.time()
+        cdb.close()
+        go.set()
+        threads.wait_idle()
+        abort_s = time.time() - t0
+        del runs
+        names = sorted(f for f in os.listdir(cdb.db_dir)
+                       if f.endswith(".sst") or f.endswith(".sblock.0"))
+        want_names = sorted([f"{f:06d}.sst" for f in in_ids]
+                            + [f"{f:06d}.sst.sblock.0" for f in in_ids])
+        reopened = DB(cdb.db_dir, opts("native", auto_compact=False))
+        live = sorted(reopened.versions.files)
+        reopened.close()
+        if names != want_names or live != in_ids or cache.pinned_count() \
+                or cache.snapshot()["entries"]:
+            raise AssertionError(
+                f"db close mid-compaction: files {names}, live {live}, "
+                f"pins {cache.pinned_count()}, entries "
+                f"{cache.snapshot()['entries']}")
+        out["close_cancel"] = {"rows": n, "abort_s": abort_s,
+                               "inputs": len(in_ids)}
+        log(f"db close() during the scheduled {n}-row compaction (parked "
+            f"at its first output file): aborted {abort_s:.3f}s after the "
+            f"close; nothing installed, no partial file, zero pins")
+        torch.cuda.empty_cache()
+
+        # -- cancel_background_work, then the paced compaction
+        m = args.fault_rows
+        runs = _db_ycsb_runs(4, max(1, m // 4), max(1, m // 2),
+                             max(1_000_000, m // 4), args.seed + 83)
+        cache = DeviceSlabCache(device, capacity_bytes=16 << 30)
+        bdb = DB(os.path.join(d, "cancel"), opts(
+            device, device_cache=cache, compaction_pool=threads))
+        for g, run in enumerate(runs[:3]):
+            bdb.ingest_packed(*run, op_id=(1, g + 1))
+        held, go = _hold_point("compaction:output_written")
+        try:
+            bdb.ingest_packed(*runs[3], op_id=(1, 4))
+            if not held.wait(600):
+                raise AssertionError("the scheduled compaction never "
+                                     "wrote its first file")
+        finally:
+            sync_point.disarm("compaction:output_written")
+        in_ids = sorted(bdb.versions.files)
+        keys = [bytes(k) for k in ycsb_keys(np.random.default_rng(
+            args.seed + 84).integers(0, max(1, m // 2), size=4096))]
+        before = bdb.multi_get(keys)
+        visible = _scan_digest(bdb.scan_visible(cutoff))
+        bdb.cancel_background_work("tablet failed")
+        go.set()
+        threads.wait_idle()
+        if (bdb.background_error is not None
+                or sorted(bdb.versions.files) != in_ids
+                or bdb.multi_get(keys) != before or cache.pinned_count()):
+            raise AssertionError("db cancel_background_work: the DB is not "
+                                 "as it was")
+        if not bdb.retry_background_work() or bdb._cancel.cancelled:
+            raise AssertionError("db retry_background_work did not re-arm")
+        in_bytes = sum(fm.total_size for fm in bdb.versions.live_files())
+        rate = max(1, int(in_bytes / 2.0))
+        flags.set_flag("compaction_rate_bytes_per_sec", rate)
+        flags.set_flag("compaction_max_output_entries_per_sst",
+                       max(1, m // 10))
+        try:
+            lim = compaction.compaction_rate_limiter()
+            through = lim.total_through
+            t0 = time.time()
+            if not bdb.maybe_schedule_compaction():
+                raise AssertionError("nothing was due after the retry")
+            threads.wait_idle()
+            paced_s = time.time() - t0
+            paced = lim.total_through - through
+        finally:
+            flags.reset_flag("compaction_rate_bytes_per_sec")
+            flags.reset_flag("compaction_max_output_entries_per_sst")
+        # the major compaction keeps every visible entry
+        if _scan_digest(bdb.scan_visible(cutoff)) != visible:
+            raise AssertionError("db paced job: the visible entries "
+                                 "changed")
+        floor = (paced - lim.capacity) / rate
+        if bdb.compaction_stats.to_dict()["compactions"] != 1 \
+                or paced <= 0 or paced_s < floor:
+            raise AssertionError(f"db paced job: {paced} bytes paced in "
+                                 f"{paced_s:.3f}s, floor {floor:.3f}s")
+        out["cancel_and_pace"] = {
+            "rows": m, "rate_bytes_per_s": rate, "paced_bytes": paced,
+            "seconds": paced_s, "floor_s": floor,
+            "files": bdb.n_live_files}
+        log(f"db cancel_background_work mid-compaction: DB healthy, "
+            f"{len(keys)} reads unchanged, retry re-armed; the {m}-row job "
+            f"(visible entries unchanged) under "
+            f"{rate:,} bytes/s paced {paced:,} bytes in {paced_s:.3f}s "
+            f"(floor {floor:.3f}s) [{card}]")
+        bdb.close()
+        del runs
+    finally:
+        go.set()
+        threads.shutdown()
+    torch.cuda.empty_cache()
+
+    # -- DBOptions.mesh: a mesh-sized scheduled compaction (dist-native)
+    mesh = make_mesh(8, devices=[device] * 8)
+    per = flags.get_flag("distributed_compaction_min_rows") // 4 + 4096
+    mruns = _db_ycsb_runs(4, per, max(1, 2 * per), max(1_000_000, per),
+                          args.seed + 85)
+    mdb = DB(os.path.join(d, "mesh"), opts(device, mesh=mesh))
+    mnat = DB(os.path.join(d, "meshn"), opts("native"))
+    mesh_s = {}
+    for tag, db in (("native", mnat), ("device", mdb)):
+        _zero(wrappers)
+        secs = []
+        for g, run in enumerate(mruns):
+            t0 = time.time()
+            db.ingest_packed(*run, op_id=(1, g + 1))
+            sync()
+            secs.append(time.time() - t0)
+        mesh_s[tag] = secs[3] - sum(secs[:3]) / 3
+    launches["db_mesh"] = _launches_of(wrappers)
+    # M1 once an attempt, M2 and M3 a shard an attempt, G, I.1, B a
+    # shard; the installer's H, D, E
+    _need(launches["db_mesh"], ("splitter_pick", "route_dest",
+                                "bucket_scatter", "radix_sort",
+                                "sorted_payload", "gc_pack", "survivor_scan",
+                                "span_gather"), ("merge_path_level",),
+          "db mesh compaction")
+    if launches["db_mesh"]["radix_sort"] != 8:
+        raise AssertionError(f"db mesh compaction: launches "
+                             f"{launches['db_mesh']}")
+    rows = 4 * per
+    out["mesh"] = {"rows": rows, **same_db_files(mdb, mnat,
+                                                 "db mesh compaction"),
+                   "levels": check_resident(mdb, "db mesh compaction"),
+                   "compaction_s": mesh_s,
+                   "rows_per_s": {k: rows / v for k, v in mesh_s.items()}}
+    log(f"db mesh compaction (DBOptions.mesh, 8 virtual shards): {rows} "
+        f"rows, the 4th ingest's pick on the dist-native job: "
+        f"{rows / mesh_s['device']:,.0f} rows/s on the card vs "
+        f"{rows / mesh_s['native']:,.0f} native; files == native; levels "
+        f"{out['mesh']['levels']}; launches "
+        f"{ {k: v for k, v in launches['db_mesh'].items() if v} } [{card}]")
+    mdb.close()
+    mnat.close()
+    del mruns, mesh
+    torch.cuda.empty_cache()
+
+    # -- 8 tablet DBs behind one CompactionPool
+    release = threading.Event()
+    sync_point.arm("compaction_pool:take_round", lambda: release.wait(600))
+    pool = CompactionPool(make_mesh(8, devices=[device] * 8))
+    threads = PriorityThreadPool(8, name="db-phase-tablets")
+    shared = DeviceSlabCache(device, capacity_bytes=16 << 30)
+    pairs = []
+    try:
+        snap0 = pool.snapshot()
+        wr = args.wave_rows
+        native_s = 0.0
+        for t in range(8):
+            pdb = DB(os.path.join(d, f"tab{t}"), opts(
+                device, mesh_pool=pool, compaction_pool=threads,
+                device_cache=pool.partition_for(shared, f"tab{t}",
+                                                f"tab{t}")))
+            ndb = DB(os.path.join(d, f"tabn{t}"), opts("native"))
+            pairs.append((pdb, ndb))
+        _zero(wrappers)
+        for t, (pdb, ndb) in enumerate(pairs):
+            truns = _db_ycsb_runs(4, max(1, wr // 4), max(1, wr // 2),
+                                  1_000_000, args.seed + 90 + t)
+            secs = []
+            for g, run in enumerate(truns):
+                cols = _db_columns(run)
+                _db_flush(pdb, cols, g + 1)
+                t0 = time.time()
+                _db_flush(ndb, cols, g + 1)
+                secs.append(time.time() - t0)
+            native_s += secs[3] - sum(secs[:3]) / 3
+        for _ in range(6000):
+            if pool.snapshot()["queue_depth"] == 8:
+                break
+            time.sleep(0.01)
+        t0 = time.time()
+        release.set()
+        threads.wait_idle()
+        pool_s = time.time() - t0
+        launches["db_pool"] = _launches_of(wrappers)
+        snap = pool.snapshot()
+        waves = (snap["waves"] - snap0["waves"],
+                 snap["wave_jobs"] - snap0["wave_jobs"])
+        if waves != (1, 8) or launches["db_pool"]["gc_pack"] != 8:
+            raise AssertionError(f"db pool: waves {waves}, launches "
+                                 f"{launches['db_pool']}")
+        for t, (pdb, ndb) in enumerate(pairs):
+            if pdb.compaction_stats.to_dict()["compactions"] != 1:
+                raise AssertionError(f"db pool: tablet {t} did not compact")
+            same_db_files(pdb, ndb, f"db pool tablet {t}")
+        if shared.pinned_count():
+            raise AssertionError("db pool: pins left")
+        rows = 8 * 4 * max(1, wr // 4)
+        out["pool"] = {"tablets": 8, "rows": rows, "seconds": pool_s,
+                       "native_seconds": native_s,
+                       "rows_per_s": rows / pool_s,
+                       "native_rows_per_s": rows / native_s}
+        log(f"db pool: 8 tablet DBs' scheduled compactions in one wave "
+            f"({rows} rows) {rows / pool_s:,.0f} rows/s from the loop's "
+            f"release to the last install vs {rows / native_s:,.0f} for the "
+            f"native DBs' own compactions; files == native; launches "
+            f"{ {k: v for k, v in launches['db_pool'].items() if v} } "
+            f"[{card}]")
+    finally:
+        release.set()
+        sync_point.disarm("compaction_pool:take_round")
+        for pair in pairs:
+            for db in pair:
+                db.close()
+        threads.shutdown()
+        pool.shutdown()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"db phase: {out['seconds']:.1f}s [{card}]")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -5172,6 +5847,10 @@ def main() -> int:
         faults_out["point_read"] = point_fault_phase(ydb, chunk, top, card)
         ydb.close()
         ldb.close()
+        torch.cuda.empty_cache()
+        reset_fault_base()
+        db_out, db_launches = db_phase(args, workdir, card, push_out, top_ht)
+        no_fallbacks("db")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
@@ -5204,11 +5883,15 @@ def main() -> int:
         for tag, counts in chain_launches.items():
             if entry["name"] in counts:
                 entry[f"launches_chain_{tag}"] = counts[entry["name"]]
+        # launches per part of the DB phase (its entry points)
+        for tag, counts in db_launches.items():
+            if entry["name"] in counts:
+                entry[f"launches_{tag}"] = counts[entry["name"]]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
                "resident_chain": chain_out,
                "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
                "pushdown": push_out,
-               "point_read": point_out, "faults": faults_out,
+               "point_read": point_out, "faults": faults_out, "db": db_out,
                "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows

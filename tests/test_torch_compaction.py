@@ -401,7 +401,6 @@ def test_router_unported_arguments_raise(tmp_path):
             readers, str(tmp_path), iter(range(9, 99)).__next__, CUTOFF,
             True, device="cpu", **kw)
 
-    entry = "ROADMAP queue A: the DB's remaining entry points"
     # the caches, once refused, are taken: the input is staged into the
     # cache (input_ids alone has nothing to stage into), the outputs
     # written through at level 1 on a mesh too
@@ -463,15 +462,34 @@ def test_router_unported_arguments_raise(tmp_path):
             assert (rec["native_obs"], rec["device_obs"]) == \
                 ((1, 0) if routed == "native" else (0, 1)), rec
     board.reset()
-    with pytest.raises(NotImplementedError, match=entry):
-        job(cancel=object())
+    # cancel and the rate limiter, once refused, run: a live token lets
+    # the job finish, a tripped one aborts it before any file; the
+    # limiter paces every output file but the last
+    from yugabyte_tpu_torch.utils.cancellation import (CancellationToken,
+                                                       OperationCancelled)
+    assert job(cancel=CancellationToken()).outputs
+    token = CancellationToken()
+    token.cancel("shutdown")
+    (tmp_path / "cancelled").mkdir()
+    with pytest.raises(OperationCancelled, match="shutdown"):
+        port_compaction.run_compaction_job(
+            readers, str(tmp_path / "cancelled"), iter(range(9, 99)).__next__,
+            CUTOFF, True, device="cpu", cancel=token)
+    assert os.listdir(tmp_path / "cancelled") == []
     key = "compaction_rate_bytes_per_sec"
     port_flags.set_flag(key, 1 << 20)
+    port_flags.set_flag("compaction_max_output_entries_per_sst", 100)
     try:
-        with pytest.raises(NotImplementedError, match=entry):
-            job()
+        lim = port_compaction.compaction_rate_limiter()
+        through = lim.total_through
+        res = job()
+        assert len(res.outputs) == 3
+        assert lim.total_through - through == sum(
+            p.data_size + p.base_size for _f, _b, p in res.outputs[:2])
     finally:
         port_flags.set_flag(key, 0)
+        port_flags.reset_flag("compaction_max_output_entries_per_sst")
+    assert port_compaction.compaction_rate_limiter() is None
 
     class _Encrypted(port_env.Env):
         encrypted = True

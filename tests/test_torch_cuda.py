@@ -872,20 +872,14 @@ def test_point_index_fit_largest_error_in_one_cta(cuda, where):
 def test_point_index_fit_one_launch_and_one_download(cuda):
     """index_fit is one kernel a call, with no memset or copy;
     fit_learned_index_device adds one device-to-host copy of its answer."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from yugabyte_tpu_torch.ops import point_read as pr
     _ids, _entries, slab, fit = _point_cols(36)
     st = merge_gc.stage_slab(slab, cuda)
     assert _device_activity(lambda: pr.index_fit(st.cols_dev, st.n,
                                                  st.w)) == (1, 0)
     assert pr.fit_learned_index_device(st) == fit
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pr.fit_learned_index_device(st)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    # the trace behind the lost-first-events remedy: one call
+    names = _device_names(lambda: pr.fit_learned_index_device(st), reps=1)
     copies = [x for x in names if x.startswith("Memcpy")
               or x.startswith("Memset")]
     assert len(names) - len(copies) == 1
@@ -1959,7 +1953,16 @@ def test_bound_pack_key_stride_edges(cuda, w):
 
 
 def _device_activity(fn, reps=3, lead=512, tries=6):
-    """(kernel launches, memcpys and memsets) per call of fn in
+    """(kernel launches, memcpys and memsets) per call of fn in the
+    trace of `_device_names`."""
+    names = _device_names(fn, reps, lead, tries)
+    copies = [x for x in names if x.startswith("Memcpy")
+              or x.startswith("Memset")]
+    return (len(names) - len(copies)) / reps, len(copies) / reps
+
+
+def _device_names(fn, reps=3, lead=512, tries=6):
+    """The names of the device events of `reps` calls of fn in
     torch.profiler's trace: `lead` one-element adds and a sacrificial
     call first (in a long process a trace loses its first device events,
     as chip_smoke's `profiled` found: the adds are there to be lost), a
@@ -1990,11 +1993,8 @@ def _device_activity(fn, reps=3, lead=512, tries=6):
             break
     assert marks, f"every one of {tries} traces lost the marker kernel"
     t0 = max(marks)
-    names = [e.name for e in device if e.time_range.start >= t0
-             and "spin_kernel" not in e.name]
-    copies = [x for x in names if x.startswith("Memcpy")
-              or x.startswith("Memset")]
-    return (len(names) - len(copies)) / reps, len(copies) / reps
+    return [e.name for e in device if e.time_range.start >= t0
+            and "spin_kernel" not in e.name]
 
 
 def test_bound_pack_and_row_flags_one_kernel_no_copy(cuda):
@@ -2657,3 +2657,152 @@ def test_armed_fault_parks_exactly_its_bucket(cuda, tmp_path, monkeypatch,
     assert _quarantined(fault_state) == [("scan_agg", (1, n_pad))]
     with pytest.raises(PushdownUnsupported, match="quarantined"):
         scan.aggregate_sources(srcs, read_ht, spec, device="cuda")
+
+
+# ------------------------------------------------- the DB's entry points
+
+
+def _db_pair(tmp_path, tag, **kw):
+    """A DB on the card (its cache there) and its "native" twin, with
+    the same options."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    from yugabyte_tpu_torch.storage.db import DB, DBOptions
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    kw.setdefault("retention_policy", lambda: HybridTime.kMax.value)
+    card = DB(str(tmp_path / f"{tag}_card"), DBOptions(
+        device="cuda", device_cache=kw.pop("device_cache", None)
+        or DeviceSlabCache("cuda"), **kw))
+    kw.pop("mesh_pool", None)
+    kw.pop("compaction_pool", None)
+    native = DB(str(tmp_path / f"{tag}_native"),
+                DBOptions(device="native", **kw))
+    return card, native
+
+
+def _db_writes(dbs, gen, n=6000, seed=0):
+    from yugabyte_tpu_torch.common.hybrid_time import (DocHybridTime,
+                                                       HybridTime)
+    from yugabyte_tpu_torch.docdb.value import Value
+    rng = np.random.default_rng(seed + gen)
+    ids = rng.integers(0, 4000, size=n)
+    tomb = rng.random(n) < 0.05
+    items = [(b"Suser%08d\x00\x00!" % k,
+              DocHybridTime(HybridTime.from_micros(100_000 * (gen + 1) + i),
+                            0),
+              Value.tombstone().encode() if t else b"v%d-%d" % (gen, i))
+             for i, (k, t) in enumerate(zip(ids.tolist(), tomb.tolist()))]
+    for db in dbs:
+        db.write_batch(items, op_id=(1, gen + 1))
+        db.flush()
+
+
+def _db_data(db):
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    return [open(data_file_name(fm.path), "rb").read()
+            for fm in sorted(db.versions.live_files(),
+                             key=lambda f: f.file_id)]
+
+
+def test_db_scheduled_compaction_and_scans_on_the_card(cuda, tmp_path):
+    """DBOptions(device="cuda", device_cache on the card, auto_compact):
+    the 4th flush schedules the universal pick, which runs the codec
+    route on the card over the flushes' resident entries (kernels A, B,
+    D-F, H; the outputs resident at L1) and
+    writes the native DB's data files; compact_all then takes the
+    resident chain; scan_visible, unbounded and over a range, launches
+    G, H, I.1, B (and one I.2 for the range) and answers what the native
+    DB's scan_native(visible=True) answers."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridTime
+    from yugabyte_tpu_torch.ops import radix, scan
+    from yugabyte_tpu_torch.utils import flags
+    flags.set_flag("compaction_run_cache_mb", 0)      # the codec route
+    card, native = _db_pair(tmp_path, "sched")
+    # the flushes wrote through to the cache: no decode on the card
+    kernels = [merge_path.merge_level, merge_gc.gc_pack,
+               block_codec.block_encode]
+    try:
+        before = [k.launches for k in kernels]
+        for gen in range(4):
+            _db_writes((card, native), gen)
+        assert card.compaction_stats.to_dict()["compactions"] == 1
+        assert all(k.launches > b for k, b in zip(kernels, before))
+        assert _db_data(card) == _db_data(native) and _db_data(card)
+        assert all(card._device_cache.level_of(fm.file_id) == 1
+                   for fm in card.versions.live_files())
+        for gen in range(4, 6):
+            _db_writes((card, native), gen, n=1500)
+        card.compact_all()
+        native.compact_all()
+        assert _db_data(card) == _db_data(native)
+        assert card._device_cache.pinned_count() == 0
+        read_ht = HybridTime.kMax.value - 1
+        for lo, hi, bounds in ((None, None, 0), (500, 2500, 1)):
+            lower = None if lo is None else b"Suser%08d\x00\x00!" % lo
+            upper = None if hi is None else b"Suser%08d\x00\x00!" % hi
+            counted = [radix.radix_sort, radix.sorted_payload,
+                       merge_gc.gc_pack, scan.bound_pack]
+            before = [k.launches for k in counted]
+            got = list(card.scan_visible(read_ht, lower, upper))
+            moved = [k.launches - b for k, b in zip(counted, before)]
+            assert moved == [1, 1, 1, bounds]
+            want = []
+            for b in native.scan_native(lower or b"", upper, read_ht,
+                                        visible=True).batches():
+                for i in range(b.n):
+                    want.append(
+                        (b.keys[b.key_offs[i]:b.key_offs[i + 1]].tobytes(),
+                         b.vals[b.val_offs[i]:b.val_offs[i + 1]].tobytes()))
+            assert [(k, v) for k, v, _h in got] == want and want
+    finally:
+        card.close()
+        native.close()
+        flags.reset_flag("compaction_run_cache_mb")
+
+
+def test_db_mesh_pool_wave_on_the_card(cuda, tmp_path):
+    """8 DBs sharing CompactionPool(8 virtual shards of the card) as
+    DBOptions.mesh_pool: their scheduled compactions ride one wave (A + B
+    on every slot), their files equal their native twins', no pin left."""
+    import threading
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
+    from yugabyte_tpu_torch.utils import sync_point
+    from yugabyte_tpu_torch.utils.threadpool import PriorityThreadPool
+    release = threading.Event()
+    sync_point.arm("compaction_pool:take_round", lambda: release.wait(120))
+    pool = CompactionPool(make_mesh(8, devices=[cuda] * 8))
+    threads = PriorityThreadPool(8, name="card-tablets")
+    shared = DeviceSlabCache(cuda)
+    pairs = []
+    try:
+        w0 = (pool.snapshot()["waves"], pool.snapshot()["wave_jobs"])
+        a0 = merge_gc.gc_pack.launches
+        for t in range(8):
+            pairs.append(_db_pair(
+                tmp_path, f"t{t}", mesh_pool=pool, compaction_pool=threads,
+                device_cache=pool.partition_for(shared, f"t{t}", f"t{t}")))
+        for gen in range(4):
+            for t, pair in enumerate(pairs):
+                _db_writes(pair, gen, n=3000, seed=100 * t)
+        for _ in range(1200):
+            if pool.snapshot()["queue_depth"] == 8:
+                break
+            threading.Event().wait(0.05)
+        release.set()
+        threads.wait_idle()
+        snap = pool.snapshot()
+        assert (snap["waves"] - w0[0], snap["wave_jobs"] - w0[1]) == (1, 8)
+        assert merge_gc.gc_pack.launches - a0 == 8
+        for card, native in pairs:
+            assert card.compaction_stats.to_dict()["compactions"] == 1
+            assert _db_data(card) == _db_data(native) and _db_data(card)
+        assert shared.pinned_count() == 0
+    finally:
+        release.set()
+        sync_point.disarm("compaction_pool:take_round")
+        for pair in pairs:
+            for db in pair:
+                db.close()
+        threads.shutdown()
+        pool.shutdown()

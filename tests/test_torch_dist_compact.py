@@ -340,8 +340,8 @@ def test_dist_native_unported_arguments_raise(tmp_path):
     """A device cache and input_ids, once refused, are taken: each output
     file's span is gathered from the sharded outputs and installed under
     its id one level above the deepest input, equal to a host re-stage of
-    the file, with the files still those of the native job; cancel still
-    raises, naming its ROADMAP queue A item."""
+    the file, with the files still those of the native job; a cancelled
+    job leaves no file and no entry."""
     from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
     paths, cutoff = _ycsb_tablet(str(tmp_path / "in"), 2000, 7)
     cache = DeviceSlabCache("cpu")
@@ -369,12 +369,30 @@ def test_dist_native_unported_arguments_raise(tmp_path):
         host = merge_gc.stage_slab(SSTReader(base).read_all(), "cpu")
         assert st.n == host.n == props.n_entries
         assert torch.equal(st.cols_dev[:, :st.n], host.cols_dev[:, :st.n])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A: the DB's remaining entry "
-                       "points"):
-        compaction.run_compaction_job_dist_native(
-            [SSTReader(p) for p in paths], str(tmp_path), lambda: 1,
-            cutoff, True, mesh=_mesh(2), cancel=object())
+    # cancel, once refused, is checked: a token tripped at the first
+    # output file aborts the job, its files deleted and entries dropped
+    from yugabyte_tpu_torch.utils import sync_point
+    from yugabyte_tpu_torch.utils.cancellation import (CancellationToken,
+                                                       OperationCancelled)
+    token = CancellationToken()
+    (tmp_path / "cancelled").mkdir()
+    ids = iter(range(1000, 2000))
+    flags.set_flag("compaction_max_output_entries_per_sst", 500)
+    sync_point.arm("compaction:output_written",
+                   lambda: token.cancel("shutdown"))
+    try:
+        with pytest.raises(OperationCancelled, match="shutdown"):
+            compaction.run_compaction_job_dist_native(
+                [SSTReader(p) for p in paths], str(tmp_path / "cancelled"),
+                lambda: next(ids), cutoff, True, mesh=_mesh(2),
+                device_cache=cache, input_ids=list(range(len(paths))),
+                cancel=token)
+    finally:
+        sync_point.disarm("compaction:output_written")
+        flags.reset_flag("compaction_max_output_entries_per_sst")
+    assert os.listdir(tmp_path / "cancelled") == []
+    assert not any(cache.contains(f) for f in range(1000, 2000))
+    assert cache.pinned_count() == 0
 
 
 # ---------------------------------------- kernels M1-M3 against per_shard

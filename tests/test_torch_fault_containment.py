@@ -12,13 +12,18 @@ values moved. A parked bucket's next job launches nothing: still-armed
 faults do not fire. `multi_get` and the pushdown answer the same under a
 fault, and the mesh job completes natively with equal files.
 
+Cancellation is held the same way: a token tripped before the pipeline
+starts, or after its first output file, aborts both packages' jobs with
+no partial output, nothing on either board and no counter moved; DB
+close and cancel_background_work trip each DB's token alike. The pool's
+wave containment: a faulted wave quarantines its bucket and completes
+its job natively in both packages' pools, with equal boards and
+counters.
+
 Jobs are a few hundred rows; the JAX jobs run on its CPU backend. The
-JAX package's containment cases that need `cancel=` (cancellation of the
-pipeline, DB close cancelling the in-flight token) wait for ROADMAP
-queue A item 4 (the DB's remaining entry points); those that need the
-tablet server, the maintenance manager or a mini-cluster (the prewarm
-op, the pool's wave containment) wait for item 7 (the device-free
-rest).
+JAX package's containment cases that need the tablet server, the
+maintenance manager or a mini-cluster (the prewarm op) wait for ROADMAP
+queue A item 7 (the device-free rest).
 """
 
 import os
@@ -499,3 +504,147 @@ def test_containment_is_traced(tmp_path, inputs, monkeypatch):
         run_job("port", inputs, str(tmp_path / "parked"))
     assert "quarantined; completing via the native merge" in t1.dump()
     assert "parked by the health board" in t2.dump()
+
+
+# ------------------------------------------------------------ cancellation
+
+@pytest.mark.parametrize("codec", ["0", "1"], ids=["shell", "codec"])
+@pytest.mark.parametrize("when", ["before", "mid_stage_c"])
+def test_cancellation_matches_reference(tmp_path, inputs, monkeypatch,
+                                        codec, when):
+    """tests/test_device_fault_containment.py's pipeline cancellation in
+    both packages: OperationCancelled, no output left, the same counters
+    moved (no fallback), equal boards with no job recorded; the port's
+    cache pins drained."""
+    from yugabyte_tpu.utils.cancellation import (
+        CancellationToken as RefToken, OperationCancelled as RefCancelled)
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.utils import sync_point
+    from yugabyte_tpu_torch.utils.cancellation import (CancellationToken,
+                                                       OperationCancelled)
+    monkeypatch.setenv("YBTPU_DEVICE_CODEC", codec)
+    key = "compaction_max_output_entries_per_sst"
+    port_flags.set_flag(key, 200)
+    ref_flags.set_flag(key, 200)
+    tokens = {"ref": RefToken("job"), "port": CancellationToken("job")}
+    if when == "before":
+        for t in tokens.values():
+            t.cancel("test shutdown")
+    else:
+        writer = (ref_compaction._DeviceCodecWriter if codec == "1"
+                  else ref_compaction._StreamingNativeWriter)
+        orig = writer._write_span
+
+        def tripping(self, *a, **kw):
+            orig(self, *a, **kw)
+            tokens["ref"].cancel("mid-job")
+        monkeypatch.setattr(writer, "_write_span", tripping)
+        sync_point.arm("compaction:output_written",
+                       lambda: tokens["port"].cancel("mid-job"))
+    cache = DeviceSlabCache("cpu")
+    try:
+        with Twin() as twin:
+            for pkg, exc in (("ref", RefCancelled),
+                             ("port", OperationCancelled)):
+                out = tmp_path / pkg
+                kw = {"cancel": tokens[pkg]}
+                if pkg == "port":
+                    kw.update(device_cache=cache, input_ids=[0, 1, 2])
+                with pytest.raises(exc):
+                    run_job(pkg, inputs, str(out), **kw)
+                assert os.listdir(out) == [], pkg
+    finally:
+        sync_point.disarm("compaction:output_written")
+        port_flags.reset_flag(key)
+        ref_flags.reset_flag(key)
+    assert twin.port == twin.ref
+    assert ("offload_policy", "compaction_device_fallback_total") \
+        not in twin.port
+    assert_boards_equal()
+    # the codec's own launches (decode, encode) before the cancel are
+    # timed under their families; the job is recorded nowhere
+    assert all(k["faults"] == 0 and (
+        k["family"] not in ("run_merge_fused", "dist_compact")
+        or (k["device_obs"], k["native_obs"]) == (0, 0))
+        for k in port_bh.health_board().snapshot()["keys"])
+    assert cache.pinned_count() == 0
+    assert sorted(cache._map) == ([] if when == "before" else [0, 1, 2])
+
+
+def test_db_close_cancels_inflight_token_matches_reference(tmp_path):
+    """DB.close trips the cancellation token, cancel_background_work trips
+    it and retry_background_work re-arms it — in both packages' DBs."""
+    from yugabyte_tpu.storage.db import DB as RefDB, DBOptions as RefOpts
+    from yugabyte_tpu_torch.storage.db import DB, DBOptions
+    seen = {}
+    for pkg, db in (("ref", RefDB(str(tmp_path / "ref"),
+                                  RefOpts(auto_compact=False))),
+                    ("port", DB(str(tmp_path / "port"),
+                                DBOptions(device="native",
+                                          auto_compact=False)))):
+        steps = [db._cancel.cancelled]
+        db.cancel_background_work("tablet failed")
+        steps.append(db._cancel.cancelled)
+        steps.append(db.retry_background_work())
+        steps.append(db._cancel.cancelled)
+        db.close()
+        steps.append(db._cancel.cancelled)
+        steps.append(db.maybe_schedule_compaction())
+        seen[pkg] = steps
+    assert seen["port"] == seen["ref"] == [False, True, True, False, True,
+                                           False]
+
+
+def test_pool_wave_fault_matches_reference(tmp_path):
+    """A device fault at a pool wave's dispatch, in both packages' pools
+    (the port's on 8 CPU shards, the JAX one on 8 virtual CPU devices):
+    the bucket is quarantined, the job completes natively with the
+    native job's files, and the boards and the fault counters (the
+    pool's own among them) move alike."""
+    from tests.test_torch_dist_compact import _ycsb_tablet
+    from yugabyte_tpu.parallel.mesh import make_mesh as ref_mesh
+    from yugabyte_tpu.tserver import compaction_pool as ref_pool
+    from yugabyte_tpu_torch.parallel.mesh import make_mesh
+    from yugabyte_tpu_torch.tserver import compaction_pool
+    paths, cutoff = _ycsb_tablet(str(tmp_path / "in"), 4000, 13)
+    files = {}
+    pool_moved = {}
+    with Twin() as twin:
+        for pkg, mod, mesh, reader, reg in (
+                ("ref", ref_pool, lambda: ref_mesh(8), RefSSTReader,
+                 REF_REGISTRY),
+                ("port", compaction_pool,
+                 lambda: make_mesh(8, devices=["cpu"] * 8), SSTReader,
+                 PORT_REGISTRY)):
+            ent = reg.entity("server", "compaction_pool")
+            before = {k: m.value() for k, m in
+                      ent.metrics_snapshot().items() if "_total" in k}
+            (ref_df if pkg == "ref" else port_df).arm(
+                "runtime", site="dispatch", count=1)
+            pool = mod.CompactionPool(mesh())
+            try:
+                out = tmp_path / pkg
+                out.mkdir()
+                ids = iter(range(100, 1000))
+                res = pool.submit("t0", mod.PoolRequest(
+                    inputs=[reader(p) for p in paths], out_dir=str(out),
+                    new_file_id=lambda: next(ids), history_cutoff_ht=cutoff,
+                    is_major=True)).result(timeout=300)
+            finally:
+                pool.shutdown()
+            files[pkg] = _files(res.outputs)
+            pool_moved[pkg] = {k: m.value() - before.get(k, 0) for k, m in
+                               ent.metrics_snapshot().items()
+                               if "_total" in k}
+    (tmp_path / "native").mkdir()
+    nat = port_compaction._run_native_job(
+        [SSTReader(p) for p in paths], str(tmp_path / "native"),
+        iter(range(100, 1000)).__next__, cutoff, True, False, None)
+    assert files["port"] == files["ref"] == _files(nat.outputs)
+    assert twin.port == twin.ref
+    assert pool_moved["port"] == pool_moved["ref"]
+    assert pool_moved["port"]["compaction_pool_wave_faults_total"] == 1
+    assert pool_moved["port"]["compaction_pool_native_completions_total"] \
+        == 1
+    assert_boards_equal()
+    assert port_bh.health_board().snapshot()["states"]["quarantined"] == 1

@@ -32,6 +32,9 @@ MODULES = [
     "yugabyte_tpu_torch.utils.ybsan",
     "yugabyte_tpu_torch.utils.cancellation",
     "yugabyte_tpu_torch.utils.rate_limiter",
+    "yugabyte_tpu_torch.utils.lock_rank",
+    "yugabyte_tpu_torch.utils.sync_point",
+    "yugabyte_tpu_torch.utils.threadpool",
     "yugabyte_tpu_torch.ops.device_faults",
     "yugabyte_tpu_torch.storage.offload_policy",
     "yugabyte_tpu_torch.storage.bucket_health",
@@ -68,6 +71,8 @@ MODULES = [
     "yugabyte_tpu_torch.parallel",
     "yugabyte_tpu_torch.parallel.mesh",
     "yugabyte_tpu_torch.parallel.dist_compact",
+    "yugabyte_tpu_torch.tserver",
+    "yugabyte_tpu_torch.tserver.compaction_pool",
     "chip_smoke",
     "kernel_ab",
 ]
@@ -252,6 +257,16 @@ import tempfile
 from yugabyte_tpu_torch.storage.db import DB, DBOptions
 DB(tempfile.mkdtemp(), DBOptions(auto_compact=False))
 """,
+    "DB_default_options": """
+import tempfile
+from yugabyte_tpu_torch.storage.db import DB
+DB(tempfile.mkdtemp())
+""",
+    "CompactionPool": """
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
+from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
+CompactionPool(make_mesh())
+""",
 }
 
 
@@ -348,6 +363,33 @@ assert [g and (g[0].ht.value, g[1]) for g in got] == [(5 << 12, b"\x01"),
 assert point_read.point_read_metrics()["batches"].value() == 1
 db.close()
 shutil.rmtree(d)
+""",
+    "DB_compaction_and_scans": """
+import shutil, sys, tempfile
+from yugabyte_tpu_torch.common.hybrid_time import DocHybridTime, HybridTime
+from yugabyte_tpu_torch.parallel.mesh import make_mesh
+from yugabyte_tpu_torch.storage.db import DB, DBOptions
+from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
+d = tempfile.mkdtemp()
+pool = CompactionPool(make_mesh(2, devices=["cpu"] * 2))
+db = DB(d, DBOptions(device="cpu", mesh_pool=pool,
+                     device_cache=DeviceSlabCache("cpu"),
+                     retention_policy=lambda: HybridTime.kMax.value))
+for f in range(4):
+    db.write_batch([(b"k%d" % i, DocHybridTime(HybridTime((9 + f) << 12), 0),
+                     b"v%d" % f) for i in range(3)])
+    db.flush()
+assert db.n_live_files == 1, db.n_live_files
+assert pool.snapshot()["wave_jobs"] == 1
+got = list(db.scan_visible(HybridTime.kMax.value - 1))
+assert [(k, v) for k, v, _h in got] == [(b"k%d" % i, b"v3") for i in range(3)]
+db.close()
+pool.shutdown()
+shutil.rmtree(d)
+assert not any(m in ("jax", "yugabyte_tpu")
+               or m.startswith(("jax.", "yugabyte_tpu."))
+               for m in sys.modules), "the DB imported jax"
 """,
 }
 

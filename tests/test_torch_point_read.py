@@ -875,26 +875,38 @@ def test_cache_evicts_shallow_levels_first_and_never_pinned():
 
 
 def test_db_without_cuda_and_unported_parts_raise(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A: the DB's remaining entry "
-                       "points"):
-        DB(str(tmp_path / "a"))
+    """The default DBOptions (auto_compact=True, device None = the card)
+    now open where CUDA is: without it DB(path) raises, never quietly
+    running on the CPU. The entry points once refused answer: on an empty
+    DB nothing is due, and a scan over two flushes is the native scan's."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            DB(str(tmp_path / "c"), DBOptions(auto_compact=False))
+        for opts in (None, DBOptions(auto_compact=False)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                DB(str(tmp_path / "c"), opts)
     with pytest.raises(ValueError, match="no device cache"):
         DB(str(tmp_path / "d"), DBOptions(
             device="native", device_cache=DeviceSlabCache("cpu"),
             auto_compact=False))
-    db = DB(str(tmp_path / "b"), DBOptions(device="native",
-                                           auto_compact=False))
-    try:
-        for call in (db.compact_all, db.maybe_schedule_compaction,
-                     lambda: db.scan_visible(1)):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-                call()
-    finally:
-        db.close()
+    for dev in ("native", "cpu"):
+        db = DB(str(tmp_path / dev), DBOptions(device=dev))
+        try:
+            assert db.compact_all() is None
+            assert not db.maybe_schedule_compaction()
+            assert list(db.scan_visible(1)) == []
+            for f in range(2):
+                db.write_batch([(_key(i), DocHybridTime(
+                    HybridTime.from_micros(100 + 10 * i + f), 0),
+                    b"v%d" % f) for i in range(f, 40, 2)])
+                db.flush()
+            got = list(db.scan_visible(HybridTime.kMax.value - 1))
+            assert [(k, v) for k, v, _h in got] == [
+                (_key(i), b"v%d" % (i % 2)) for i in range(40)]
+            assert not db.maybe_schedule_compaction()   # 2 runs: not due
+            db.compact_all()
+            assert db.n_live_files == 1
+            assert list(db.scan_visible(HybridTime.kMax.value - 1)) == got
+        finally:
+            db.close()
 
 
 def test_db_given_a_device_and_no_cache_makes_its_own(tmp_path, metrics):

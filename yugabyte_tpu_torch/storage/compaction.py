@@ -101,10 +101,25 @@ Containment and routing, as in the JAX package:
   - `run_compaction_job_dist_native` gates and contains the mesh job on
     its ("dist_compact", (n_shards, capacity)) bucket.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP
-queue A item: cancellation and the compaction rate limiter (the DB's
-remaining entry points), an encrypted Env (the encrypted Env and
-FaultInjectionEnv).
+Universal compaction picking (`pick_universal`, compaction_picker.cc
+there) is what the DB's scheduler calls (storage/db.py).
+
+Cancellation and pacing, as in the JAX package: every route takes
+`cancel=` (a utils.cancellation.CancellationToken) and checks it at the
+JAX package's stage boundaries — the router's entry, each input of an
+ingest (the native job, the shell's ingest thread, the codec's raw
+reads), each input upload, each decision chunk, each output file. A
+cancelled job raises OperationCancelled after its unwind: the output
+files it wrote are deleted, the resident installer's entries dropped and
+its cache pins released; the board records nothing for it (it is not a
+device fault). The process-wide `compaction_rate_limiter()`
+(compaction_rate_bytes_per_sec) paces every writer between output files,
+never after the last one. Every writer hits the sync point
+`compaction:output_written` after each file (utils/sync_point.py): a test
+arms it to act in the middle of a job.
+
+Not ported yet, raising NotImplementedError naming its ROADMAP queue A
+item: an encrypted Env (the encrypted Env and FaultInjectionEnv).
 """
 
 from __future__ import annotations
@@ -121,14 +136,28 @@ from yugabyte_tpu_torch.ops.merge_gc import GCParams
 from yugabyte_tpu_torch.ops.slabs import KVSlab
 from yugabyte_tpu_torch.storage.sst import (Frontier, SSTProps, SSTReader,
                                             SSTWriter)
-from yugabyte_tpu_torch.utils import flags
+from yugabyte_tpu_torch.storage.version_set import FileMeta
+from yugabyte_tpu_torch.utils import flags, sync_point
+
+flags.define_flag("universal_compaction_max_merge_width", 16,
+                  "cap on runs merged in one universal pick "
+                  "(ref max_merge_width, docdb_rocksdb_util.cc)")
+flags.define_flag("universal_compaction_always_include_size_bytes",
+                  64 << 10,
+                  "runs at or below this size join a pick regardless of "
+                  "the size-ratio rule (ref "
+                  "universal_compaction_always_include_size_threshold)")
+flags.define_flag("universal_compaction_min_merge_width", 4,
+                  "min sorted runs to trigger a compaction")
+flags.define_flag("universal_compaction_size_ratio_pct", 20,
+                  "merge run into candidate set while its size <= "
+                  "(1+ratio) * accumulated")
 
 flags.define_flag("compaction_max_output_entries_per_sst", 2_000_000,
                   "split compaction output files at this row count")
 flags.define_flag("compaction_rate_bytes_per_sec", 0,
                   "token-bucket cap on compaction output bytes/sec; "
-                  "0 = unlimited (the limiter is ROADMAP queue A: the "
-                  "DB's remaining entry points)")
+                  "0 = unlimited (ref rocksdb/util/rate_limiter.cc)")
 flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "jobs at or above this many input rows fan their "
                   "subcompactions across the device mesh when one is "
@@ -136,22 +165,50 @@ flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "compaction_job.cc:330 GenSubcompactionBoundaries)")
 
 
-_TITLE_DB = "ROADMAP queue A: the DB's remaining entry points"
 _TITLE_ENV = "ROADMAP queue A: the encrypted Env and FaultInjectionEnv"
 
+_rate_limiter = None       # guarded-by: _rate_limiter_lock
+_rate_limiter_rate = 0     # guarded-by: _rate_limiter_lock
+_rate_limiter_lock = threading.Lock()
 
-def _check_ported(cancel=None) -> None:
-    """Raise NotImplementedError, naming the ROADMAP queue A item, for
-    every argument and setting of the JAX package's job that the port
-    does not have yet."""
-    from yugabyte_tpu_torch.utils.env import get_env
+
+def compaction_rate_limiter():
+    """Process-wide limiter paced by compaction_rate_bytes_per_sec
+    (rebuilt when the flag changes); one shared bucket across every
+    compaction thread. None when the flag is 0."""
+    global _rate_limiter, _rate_limiter_rate
+    rate = flags.get_flag("compaction_rate_bytes_per_sec")
+    if rate <= 0:
+        return None
+    with _rate_limiter_lock:
+        if _rate_limiter is None or _rate_limiter_rate != rate:
+            from yugabyte_tpu_torch.utils.rate_limiter import RateLimiter
+            _rate_limiter = RateLimiter(rate)
+            _rate_limiter_rate = rate
+        return _rate_limiter
+
+
+def _check(cancel) -> None:
+    """A stage boundary: raise OperationCancelled if the job's token
+    tripped."""
     if cancel is not None:
-        raise NotImplementedError(
-            f"cancel: compaction cancellation is {_TITLE_DB}")
-    if flags.get_flag("compaction_rate_bytes_per_sec") > 0:
-        raise NotImplementedError(
-            f"compaction_rate_bytes_per_sec: the compaction rate limiter is "
-            f"{_TITLE_DB}")
+        cancel.check()
+
+
+def _after_output_file(props: SSTProps, more_coming: bool) -> None:
+    """The close of one output file, on every writer: the sync point,
+    then the limiter's pacing between files (never after the last)."""
+    sync_point.hit("compaction:output_written")
+    limiter = compaction_rate_limiter()
+    if limiter is not None and more_coming:
+        limiter.acquire(props.data_size + props.base_size)
+
+
+def _check_ported() -> None:
+    """Raise NotImplementedError, naming the ROADMAP queue A item, for
+    the setting of the JAX package's job that the port does not have
+    yet."""
+    from yugabyte_tpu_torch.utils.env import get_env
     if get_env().encrypted:
         raise NotImplementedError(
             f"compaction under an encrypted Env: {_TITLE_ENV} (the JAX "
@@ -247,6 +304,45 @@ def filter_expired_inputs(inputs: Sequence[SSTReader],
 
 
 @dataclass
+class CompactionPick:
+    inputs: List[FileMeta]
+    is_major: bool
+
+
+def pick_universal(files: List[FileMeta]) -> Optional[CompactionPick]:
+    """The universal picker (ref: compaction_picker.cc
+    UniversalCompactionPicker; YB's DocDB default, docdb_rocksdb_util.cc:
+    637-658). files must be newest-first. Accumulates runs newest-first
+    while each stays within the size ratio of the accumulated ones (runs
+    under the always-include size join regardless) and stops at the first
+    run that dwarfs them; a pick of every live run is major. Returns None
+    below the minimum merge width."""
+    min_width = flags.get_flag("universal_compaction_min_merge_width")
+    max_width = flags.get_flag("universal_compaction_max_merge_width")
+    ratio = flags.get_flag("universal_compaction_size_ratio_pct")
+    always_sz = flags.get_flag(
+        "universal_compaction_always_include_size_bytes")
+    candidates = [f for f in files if not f.being_compacted]
+    if len(candidates) < min_width:
+        return None
+    acc = candidates[0].total_size
+    picked = [candidates[0]]
+    for f in candidates[1:]:
+        if len(picked) >= max_width:
+            break
+        if (f.total_size <= always_sz
+                or f.total_size * 100 <= (100 + ratio) * acc):
+            picked.append(f)
+            acc += f.total_size
+        else:
+            break
+    if len(picked) < min_width:
+        return None
+    is_major = len(picked) == len(files)  # all live runs -> bottommost
+    return CompactionPick(picked, is_major)
+
+
+@dataclass
 class CompactionResult:
     outputs: List[Tuple[int, str, SSTProps]]  # (file_id, base_path, props)
     rows_in: int
@@ -264,12 +360,15 @@ class _StreamingNativeWriter:
     [start, start+max_rows) span is already covered while strictly more
     survivors are known to exist; finish() writes the tail. File splits and
     base assembly are those of the JAX package's writer, so outputs are
-    byte-identical over identical ranges."""
+    byte-identical over identical ranges. Each file is a cancellation
+    boundary, and the rate limiter paces between files (never after the
+    last one: that would only delay the install)."""
 
     def __init__(self, job, out_dir: str, new_file_id, fr,
                  block_entries: Optional[int], has_deep: bool = False,
-                 on_span=None, lindex_for_span=None):
+                 cancel=None, on_span=None, lindex_for_span=None):
         self._job = job
+        self._cancel = cancel
         # (fid, base_path, start, end) after each span's SST exists on
         # disk: the write-through installer hooks here
         self._on_span = on_span
@@ -290,9 +389,10 @@ class _StreamingNativeWriter:
         self.outputs: List[Tuple[int, str, SSTProps]] = []
         self.ranges: List[Tuple[int, int]] = []
 
-    def _write_span(self, start: int, end: int) -> None:
+    def _write_span(self, start: int, end: int, more_coming: bool) -> None:
         from yugabyte_tpu_torch.storage.sst import (
             data_file_name, sst_compression_enabled, write_base_file)
+        _check(self._cancel)   # file-split boundary
         fid = self._new_file_id()
         base_path = os.path.join(self._out_dir, f"{fid:06d}.sst")
         size, index, hashes, fk, lk = self._job.write_output(
@@ -308,12 +408,14 @@ class _StreamingNativeWriter:
         self.ranges.append((start, end))
         if self._on_span is not None:
             self._on_span(fid, base_path, start, end)
+        _after_output_file(props, more_coming)
 
     def feed(self, n_available: int) -> None:
         # strictly >: an exactly-full final span must come from finish()
         while n_available - self._next_start > self._max_rows:
             self._write_span(self._next_start,
-                             self._next_start + self._max_rows)
+                             self._next_start + self._max_rows,
+                             more_coming=True)
             self._next_start += self._max_rows
 
     def finish(self, rows_out: int
@@ -322,7 +424,7 @@ class _StreamingNativeWriter:
         start = self._next_start
         while start < rows_out:
             end = min(start + self._max_rows, rows_out)
-            self._write_span(start, end)
+            self._write_span(start, end, more_coming=end < rows_out)
             start = end
         self._next_start = start
         return self.outputs, self.ranges
@@ -330,22 +432,28 @@ class _StreamingNativeWriter:
 
 def _write_native_outputs(job, out_dir: str, new_file_id, fr,
                           block_entries: Optional[int],
-                          has_deep: bool = False
+                          has_deep: bool = False, cancel=None
                           ) -> Tuple[List[Tuple[int, str, SSTProps]],
                                      List[Tuple[int, int]]]:
     """Write the native job's survivors as (possibly split) output SSTs:
     the everything-already-available form of _StreamingNativeWriter.
-    Returns (outputs, ranges)."""
+    Returns (outputs, ranges); on failure or cancellation the files
+    written so far are deleted."""
     writer = _StreamingNativeWriter(job, out_dir, new_file_id, fr,
-                                    block_entries, has_deep=has_deep)
-    return writer.finish(job.n_survivors)
+                                    block_entries, has_deep=has_deep,
+                                    cancel=cancel)
+    try:
+        return writer.finish(job.n_survivors)
+    except BaseException:
+        _remove_outputs(writer)
+        raise
 
 
 def _run_native_job(inputs: Sequence[SSTReader], out_dir: str, new_file_id,
                     history_cutoff_ht: int, is_major: bool,
                     retain_deletes: bool, block_entries: Optional[int],
-                    frontier_inputs: Optional[Sequence[SSTReader]] = None
-                    ) -> CompactionResult:
+                    frontier_inputs: Optional[Sequence[SSTReader]] = None,
+                    cancel=None) -> CompactionResult:
     """Full-native compaction, the stock CompactionJob: the byte path
     (decode/merge/encode) runs in C++ (native/compaction_engine.cc);
     Python assembles base files and frontiers."""
@@ -353,6 +461,7 @@ def _run_native_job(inputs: Sequence[SSTReader], out_dir: str, new_file_id,
 
     with native_engine.NativeCompactionJob() as job:
         for r in inputs:
+            _check(cancel)   # input boundary
             with open(r.data_path, "rb") as f:
                 job.add_input(f.read(), r.block_handles)
         rows_in = job.prepare()
@@ -362,7 +471,7 @@ def _run_native_job(inputs: Sequence[SSTReader], out_dir: str, new_file_id,
             history_cutoff_ht)
         outputs, _ranges = _write_native_outputs(
             job, out_dir, new_file_id, fr, block_entries,
-            has_deep=any(r.props.has_deep for r in inputs))
+            has_deep=any(r.props.has_deep for r in inputs), cancel=cancel)
     return CompactionResult(outputs, rows_in, rows_out)
 
 
@@ -390,10 +499,12 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     explicit device, a single-device job routes by `use_device("run_merge_fused", (k_pad,
     m), probe=False)`, and a native routing is timed into the board's
     native EWMA (mesh-sized jobs gate on their own bucket in
-    run_compaction_job_dist_native). cancel raises NotImplementedError
-    (see _check_ported)."""
+    run_compaction_job_dist_native). cancel: a CancellationToken checked
+    at every stage boundary of the route taken (OperationCancelled; the
+    files written are deleted, nothing is installed)."""
     import time
-    _check_ported(cancel)
+    _check_ported()
+    _check(cancel)
     all_inputs = list(inputs)
     orig_input_ids = list(input_ids) if input_ids is not None else None
     board_key = None  # (board, family, qkey) when the board routed native
@@ -435,12 +546,13 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
                     all_inputs, out_dir, new_file_id, history_cutoff_ht,
                     is_major, retain_deletes, device=device,
                     block_entries=block_entries, device_cache=device_cache,
-                    input_ids=orig_input_ids, mesh=mesh)
+                    input_ids=orig_input_ids, mesh=mesh, cancel=cancel)
             return run_compaction_job_device_native(
                 all_inputs, out_dir, new_file_id, history_cutoff_ht,
                 is_major, retain_deletes, device=device,
                 block_entries=block_entries, device_cache=device_cache,
-                input_ids=orig_input_ids, run_cache=run_cache)
+                input_ids=orig_input_ids, run_cache=run_cache,
+                cancel=cancel)
     inputs, dropped = filter_expired_inputs(
         all_inputs, history_cutoff_ht, is_major, retain_deletes)
     dropped_rows = sum(r.props.n_entries for r in dropped)
@@ -454,7 +566,8 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
             result = _run_native_job(inputs, out_dir, new_file_id,
                                      history_cutoff_ht, is_major,
                                      retain_deletes, block_entries,
-                                     frontier_inputs=all_inputs)
+                                     frontier_inputs=all_inputs,
+                                     cancel=cancel)
             result.rows_in += dropped_rows
             if board_key is not None:
                 # live native measurement, what the device rate must beat
@@ -530,20 +643,31 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     out_level = (_out_level(device_cache, input_ids)
                  if device_cache is not None else 0)
     outputs: List[Tuple[int, str, SSTProps]] = []
-    for start in range(0, rows_out, max_rows):
-        end = min(start + max_rows, rows_out)
-        out_slab = _gather_slab(merged, surv[start:end],
-                                tomb_flags[start:end], tombstone_value)
-        fid = new_file_id()
-        base_path = os.path.join(out_dir, f"{fid:06d}.sst")
-        # fit_lindex=False: byte-identical to the native writer's outputs
-        props = SSTWriter(base_path, block_entries=block_entries,
-                          fit_lindex=False).write(out_slab, fr)
-        outputs.append((fid, base_path, props))
+    try:
+        for start in range(0, rows_out, max_rows):
+            _check(cancel)   # file-split boundary
+            end = min(start + max_rows, rows_out)
+            out_slab = _gather_slab(merged, surv[start:end],
+                                    tomb_flags[start:end], tombstone_value)
+            fid = new_file_id()
+            base_path = os.path.join(out_dir, f"{fid:06d}.sst")
+            # fit_lindex=False: byte-identical to the native writer's
+            props = SSTWriter(base_path, block_entries=block_entries,
+                              fit_lindex=False).write(out_slab, fr)
+            outputs.append((fid, base_path, props))
+            if device_cache is not None:
+                # write-through for the next pick, one level above the
+                # deepest input
+                device_cache.stage(fid, out_slab, level=out_level)
+            _after_output_file(props, end < rows_out)
+    except BaseException:
+        # the unwind: no partial output or its cache entry outlives a
+        # failed or cancelled job
+        _remove_files(outputs)
         if device_cache is not None:
-            # write-through for the next pick, one level above the
-            # deepest input
-            device_cache.stage(fid, out_slab, level=out_level)
+            for fid, _p, _props in outputs:
+                device_cache.drop(fid)
+        raise
     return CompactionResult(outputs, merged.n + dropped_rows, rows_out,
                             tombstones_written=int(
                                 np.count_nonzero(tomb_flags)))
@@ -574,7 +698,7 @@ def run_compaction_job_device_native(
         retain_deletes: bool = False, device=None,
         block_entries: Optional[int] = None, device_cache=None,
         input_ids: Optional[Sequence[int]] = None,
-        run_cache=None) -> CompactionResult:
+        run_cache=None, cancel=None) -> CompactionResult:
     """The production hot path: CUDA decisions, with the device block
     codec (the default) or the native byte shell (YBTPU_DEVICE_CODEC=0,
     a job the codec cannot take, or a job whose every input the run cache
@@ -591,7 +715,9 @@ def run_compaction_job_device_native(
     completion is timed into it (without the sampled shadow verifier's
     wait: integrity.shadow_wait_s), and a device fault or shadow mismatch
     is contained: the job completes natively, byte-identical (see the
-    module docstring)."""
+    module docstring). cancel: checked at every stage boundary; a
+    cancelled attempt unwinds and raises, and the board records nothing
+    for it."""
     from yugabyte_tpu_torch.ops import block_codec, run_merge
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
@@ -619,7 +745,7 @@ def run_compaction_job_device_native(
                                   block_entries=block_entries,
                                   device_cache=device_cache,
                                   input_ids=orig_input_ids,
-                                  _no_combined=True)
+                                  _no_combined=True, cancel=cancel)
     import time
     from yugabyte_tpu_torch.storage import integrity, offload_policy
     from yugabyte_tpu_torch.storage.bucket_health import health_board
@@ -649,7 +775,7 @@ def run_compaction_job_device_native(
                                     retain_deletes, device="native",
                                     block_entries=block_entries,
                                     input_ids=orig_input_ids,
-                                    _no_combined=True)
+                                    _no_combined=True, cancel=cancel)
         # the parked completion is live native measurement too: what a
         # probe's device rate has to beat to re-promote
         board.record_native("run_merge_fused", qkey, result.rows_in,
@@ -674,7 +800,8 @@ def run_compaction_job_device_native(
                 result = _device_codec_attempt(
                     inputs, all_inputs, input_ids, dropped_rows, out_dir,
                     new_file_id, history_cutoff_ht, is_major,
-                    retain_deletes, dev, block_entries, device_cache)
+                    retain_deletes, dev, block_entries, device_cache,
+                    cancel)
                 board.record_device("run_merge_fused", qkey,
                                     result.rows_in, device_s())
                 return result
@@ -688,7 +815,7 @@ def run_compaction_job_device_native(
         result = _device_native_attempt(
             inputs, all_inputs, input_ids, dropped_rows, out_dir,
             new_file_id, history_cutoff_ht, is_major, retain_deletes, dev,
-            block_entries, device_cache, run_cache)
+            block_entries, device_cache, run_cache, cancel)
         board.record_device("run_merge_fused", qkey, result.rows_in,
                             device_s())
         return result
@@ -704,7 +831,7 @@ def run_compaction_job_device_native(
         result = _run_native_job(inputs, out_dir, new_file_id,
                                  history_cutoff_ht, is_major,
                                  retain_deletes, block_entries,
-                                 frontier_inputs=all_inputs)
+                                 frontier_inputs=all_inputs, cancel=cancel)
         result.rows_in += dropped_rows
         board.record_native("run_merge_fused", qkey, result.rows_in,
                             time.monotonic() - t1)
@@ -866,11 +993,11 @@ def _device_native_attempt(
         inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries, device_cache=None,
-        run_cache=None) -> CompactionResult:
+        run_cache=None, cancel=None) -> CompactionResult:
     """One attempt of the pipelined device+native job. UNWINDS CLEANLY on
-    any failure: every output file it wrote is deleted and every cache
-    entry it installed dropped before the exception propagates, and the
-    inputs it pinned are unpinned on every exit."""
+    any failure or cancellation: every output file it wrote is deleted
+    and every cache entry it installed dropped before the exception
+    propagates, and the inputs it pinned are unpinned on every exit."""
     # cached-run ids, in INPUT ORDER (the device survivor indexes are
     # run-major over exactly this order), all or nothing: a partial hit
     # pays the file path for every input. contains() first, so a partial
@@ -888,7 +1015,7 @@ def _device_native_attempt(
             inputs, all_inputs, input_ids, dropped_rows, out_dir,
             new_file_id, history_cutoff_ht, is_major, retain_deletes,
             device, block_entries, device_cache, run_cache, cached_ids,
-            state)
+            state, cancel)
     except BaseException:
         _unwind_attempt(state)
         raise
@@ -931,7 +1058,7 @@ def _device_native_body(
         inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries, device_cache,
-        run_cache, cached_ids, state: dict) -> CompactionResult:
+        run_cache, cached_ids, state: dict, cancel=None) -> CompactionResult:
     from yugabyte_tpu_torch.ops import device_faults, run_merge
     from yugabyte_tpu_torch.ops.merge_gc import stage_slab
     from yugabyte_tpu_torch.storage import integrity, native_engine
@@ -968,6 +1095,8 @@ def _device_native_body(
                     ingest["rows_in"] = job.prepare_cached()
                 else:
                     for r in inputs:
+                        # input boundary: a cancelled job reads no more
+                        _check(cancel)
                         with open(r.data_path, "rb") as f:
                             job.add_input(f.read(), r.block_handles)
                         _count_ingest_decode()
@@ -1007,10 +1136,12 @@ def _device_native_body(
                 return (device_cache.stage(fid, slab) if fid is not None
                         else stage_slab(slab, device))
 
-            staged_list = [
-                _stage_input(fid, device_cache, state,
-                             lambda f, i=i: _stage_miss(i, f))
-                for i, fid in enumerate(input_ids or [None] * len(inputs))]
+            staged_list = []
+            for i, fid in enumerate(input_ids or [None] * len(inputs)):
+                _check(cancel)   # before each input's upload
+                staged_list.append(_stage_input(
+                    fid, device_cache, state,
+                    lambda f, i=i: _stage_miss(i, f)))
             staged_runs = run_merge.stage_runs_from_staged(staged_list)
             params = GCParams(history_cutoff_ht, is_major, retain_deletes)
             handle = run_merge.launch_merge_gc(staged_runs, params)
@@ -1035,13 +1166,14 @@ def _device_native_body(
             state["installer"] = installer
         writer = _StreamingNativeWriter(
             job, out_dir, new_file_id, fr, block_entries,
-            has_deep=any(r.props.has_deep for r in inputs),
+            has_deep=any(r.props.has_deep for r in inputs), cancel=cancel,
             on_span=installer.on_span if installer is not None else None,
             lindex_for_span=(installer.lindex_for_span
                              if installer is not None else None))
         state["writer"] = writer
         tombstones_written = 0
         for perm_c, keep_c, mk_c in handle.result_iter():
+            _check(cancel)   # chunk boundary
             surv = perm_c[keep_c]
             mk_surv = mk_c[keep_c]
             # silent-corruption injection point (tests): a flipped
@@ -1086,8 +1218,9 @@ class _DeviceCodecWriter:
 
     def __init__(self, handle, values, w_out: int, out_dir: str,
                  new_file_id, fr, block_entries: Optional[int],
-                 has_deep: bool = False, installer=None):
+                 has_deep: bool = False, cancel=None, installer=None):
         self._handle = handle
+        self._cancel = cancel
         self._values = values          # every input's value rows, in order
         self._w_out = w_out
         self._out_dir = out_dir
@@ -1119,11 +1252,12 @@ class _DeviceCodecWriter:
             self._handle, self._pos_all, start, end), None
 
     def _write_span(self, surv: np.ndarray, mk: np.ndarray,
-                    start: int, end: int) -> None:
+                    start: int, end: int, more_coming: bool) -> None:
         from yugabyte_tpu_torch.ops import block_codec
         from yugabyte_tpu_torch.storage.sst import (
             data_file_name, sst_compression_enabled, write_base_file)
         from yugabyte_tpu_torch.utils.env import get_env
+        _check(self._cancel)   # file-split boundary
         st, lindex = self._gather_span(start, end)
         vals = self._values.gather(surv[start:end],
                                    replace_mask=mk[start:end],
@@ -1152,13 +1286,15 @@ class _DeviceCodecWriter:
         self.ranges.append((start, end))
         if self._installer is not None:
             self._installer.on_span(fid, base_path, start, end)
+        _after_output_file(props, more_coming)
 
     def write_all(self, surv: np.ndarray, mk: np.ndarray, rows_out: int
                   ) -> List[Tuple[int, str, SSTProps]]:
         start = 0
         while start < rows_out:
             end = min(start + self._max_rows, rows_out)
-            self._write_span(surv, mk, start, end)
+            self._write_span(surv, mk, start, end,
+                             more_coming=end < rows_out)
             start = end
         return self.outputs
 
@@ -1167,7 +1303,7 @@ def _device_codec_attempt(
         inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries,
-        device_cache=None) -> CompactionResult:
+        device_cache=None, cancel=None) -> CompactionResult:
     """One attempt of the shell-free device-codec job (decode, merge and
     encode on the card; the host CRC-checks raw bytes, splices values and
     writes files). Unwinds like _device_native_attempt: partial outputs
@@ -1178,7 +1314,7 @@ def _device_codec_attempt(
         return _device_codec_body(
             inputs, all_inputs, input_ids, dropped_rows, out_dir,
             new_file_id, history_cutoff_ht, is_major, retain_deletes,
-            device, block_entries, device_cache, state)
+            device, block_entries, device_cache, state, cancel)
     except BaseException:
         _unwind_attempt(state)
         raise
@@ -1190,7 +1326,7 @@ def _device_codec_body(
         inputs, all_inputs, input_ids, dropped_rows: int, out_dir: str,
         new_file_id, history_cutoff_ht: int, is_major: bool,
         retain_deletes: bool, device, block_entries, device_cache,
-        state: dict) -> CompactionResult:
+        state: dict, cancel=None) -> CompactionResult:
     from yugabyte_tpu_torch.ops import block_codec, device_faults, run_merge
     from yugabyte_tpu_torch.ops.slabs import ValueArray
     from yugabyte_tpu_torch.storage import integrity
@@ -1207,6 +1343,7 @@ def _device_codec_body(
     rows_in = 0
     w_out = 1
     for r, fid in zip(inputs, input_ids or [None] * len(inputs)):
+        _check(cancel)   # input boundary, like the shell's ingest
         rfb = block_codec.parse_raw_file(r.read_raw(), r.block_handles)
         values_parts.extend(rfb.value_parts)
         rows_in += rfb.n
@@ -1232,6 +1369,7 @@ def _device_codec_body(
     # drive the host value gather
     surv_parts, mk_parts = [], []
     for perm_c, keep_c, mk_c in handle.result_iter():
+        _check(cancel)   # chunk boundary
         surv_c = perm_c[keep_c]
         mk_surv = mk_c[keep_c]
         device_faults.maybe_flip_survivors(surv_c, mk_surv)
@@ -1261,7 +1399,8 @@ def _device_codec_body(
         state["installer"] = installer
     writer = _DeviceCodecWriter(
         handle, values, w_out, out_dir, new_file_id, fr, block_entries,
-        has_deep=any(r.props.has_deep for r in inputs), installer=installer)
+        has_deep=any(r.props.has_deep for r in inputs), cancel=cancel,
+        installer=installer)
     state["writer"] = writer
     outputs = writer.write_all(surv, mk, rows_out)
     if installer is not None:
@@ -1319,7 +1458,9 @@ def run_compaction_job_dist_native(
     (_DistResidentInstaller) at one level above the deepest input. The
     shards run on the mesh's devices; a `device` given must be of their
     type ("cuda" for a mesh of cards, "cpu" for a CPU mesh), or the job
-    raises. cancel raises NotImplementedError (see _check_ported).
+    raises. cancel: checked at each input of the ingest, before the
+    survivors go to the shell and at each output file; a cancelled job
+    unwinds (files deleted, entries dropped) and raises.
 
     The (n_shards, capacity) bucket is gated on the health board
     ("dist_compact"), and a device fault or shadow mismatch is contained
@@ -1337,7 +1478,8 @@ def run_compaction_job_dist_native(
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
     from yugabyte_tpu_torch.utils.trace import TRACE
 
-    _check_ported(cancel=cancel)
+    _check_ported()
+    _check(cancel)
     if device is not None:
         kind = resolve_device(device).type
         if any(d.type != kind for d in mesh.devices.flat):
@@ -1366,7 +1508,7 @@ def run_compaction_job_dist_native(
         result = _run_native_job(inputs, out_dir, new_file_id,
                                  history_cutoff_ht, is_major,
                                  retain_deletes, block_entries,
-                                 frontier_inputs=all_inputs)
+                                 frontier_inputs=all_inputs, cancel=cancel)
         result.rows_in += dropped_rows
         board.record_native("dist_compact", bucket, result.rows_in,
                             time.monotonic() - t0)
@@ -1384,6 +1526,7 @@ def run_compaction_job_dist_native(
             def _ingest_inputs():
                 try:
                     for r in inputs:
+                        _check(cancel)   # input boundary
                         with open(r.data_path, "rb") as f:
                             job.add_input(f.read(), r.block_handles)
                         _count_ingest_decode()
@@ -1431,9 +1574,11 @@ def run_compaction_job_dist_native(
                 del outputs_dev
             writer = _StreamingNativeWriter(
                 job, out_dir, new_file_id, fr, block_entries, has_deep=False,
+                cancel=cancel,
                 on_span=installer.on_span if installer is not None
                 else None)
             state["writer"] = writer
+            _check(cancel)
             job.set_survivors(surv, mk_surv)
             outputs, _ranges = writer.finish(job.n_survivors)
     except BaseException as e:
@@ -1445,7 +1590,7 @@ def run_compaction_job_dist_native(
         result = _run_native_job(inputs, out_dir, new_file_id,
                                  history_cutoff_ht, is_major,
                                  retain_deletes, block_entries,
-                                 frontier_inputs=all_inputs)
+                                 frontier_inputs=all_inputs, cancel=cancel)
         result.rows_in += dropped_rows
         board.record_native("dist_compact", bucket, result.rows_in,
                             time.monotonic() - t1)
@@ -1474,11 +1619,12 @@ def run_compaction_job_with_decisions(
     slabs: their read_all() slabs (the Python writer's input); surv indexes
     the concatenation of the live slabs in input order, in merged order.
     on_span(fid, base_path, start, end) runs after each output file.
-    cancel raises NotImplementedError (see _check_ported)."""
+    cancel: checked at each input and each output file; the files written
+    are deleted when it trips. The rate limiter paces between files."""
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
     from yugabyte_tpu_torch.storage import native_engine
 
-    _check_ported(cancel=cancel)
+    _check_ported()
     fr = _merge_frontiers(
         [r.props.frontier for r in (frontier_inputs or inputs)],
         history_cutoff_ht)
@@ -1488,6 +1634,7 @@ def run_compaction_job_with_decisions(
     if native_engine.available() and not has_deep:
         with native_engine.NativeCompactionJob() as job:
             for r in inputs:
+                _check(cancel)
                 with open(r.data_path, "rb") as f:
                     job.add_input(f.read(), r.block_handles)
                 _count_ingest_decode()
@@ -1495,7 +1642,7 @@ def run_compaction_job_with_decisions(
             job.set_survivors(surv, mk_surv)
             writer = _StreamingNativeWriter(
                 job, out_dir, new_file_id, fr, block_entries,
-                has_deep=has_deep, on_span=on_span)
+                has_deep=has_deep, cancel=cancel, on_span=on_span)
             try:
                 outputs, _ranges = writer.finish(job.n_survivors)
             except BaseException:
@@ -1511,6 +1658,7 @@ def run_compaction_job_with_decisions(
     outputs: List[Tuple[int, str, SSTProps]] = []
     try:
         for start in range(0, rows_out, max_rows):
+            _check(cancel)
             end = min(start + max_rows, rows_out)
             out_slab = _gather_slab(merged, surv[start:end],
                                     mk_surv[start:end], tombstone_value)
@@ -1521,6 +1669,7 @@ def run_compaction_job_with_decisions(
             outputs.append((fid, base_path, props))
             if on_span is not None:
                 on_span(fid, base_path, start, end)
+            _after_output_file(props, end < rows_out)
     except BaseException:
         _remove_files(outputs)
         raise

@@ -1,15 +1,18 @@
-"""DB: the LSM storage engine facade, its read half.
+"""DB: the LSM storage engine facade.
 
 Counterpart of yugabyte_tpu/storage/db.py (ref: src/yb/rocksdb/db/
 db_impl.cc): WAL-less writes into the memtable, flush to L0 SSTs, bulk
-ingest of packed runs, manifest recovery, and the reads: `get` (native
-per-key engine, or the Python merged iterator), `iter_from`, and the
-batched `multi_get`. On a DB with a device (and its `DeviceSlabCache`),
-`multi_get` resolves the SST half of each 1024-key chunk on the card
-(ops/point_read.py: kernels P1 hash, P2 bloom probe and P3 locate +
-gather over the resident staged cols; the learned per-SST index seeds P3
-when the file carries one) while the memtable probes and the winners'
-value fetch stay on the host. Its answers are byte-identical to
+ingest of packed runs, manifest recovery, universal compaction that the
+DB schedules itself, checkpoints, and the reads: `get` (native per-key
+engine, or the Python merged iterator), `iter_from`, the batched
+`multi_get`, the native streaming scan `scan_native` and the device
+scans `scan_visible`, `scan_filtered` and `scan_aggregate`. On a DB
+with a device (and its `DeviceSlabCache`), `multi_get` resolves the SST
+half of each 1024-key chunk on the card (ops/point_read.py: kernels P1
+hash, P2 bloom probe and P3 locate + gather over the resident staged
+cols; the learned per-SST index seeds P3 when the file carries one)
+while the memtable probes and the winners' value fetch stay on the
+host. Its answers are byte-identical to
 `[db.get(k, read_ht) for k in keys]`.
 
 `DBOptions.device` is `cuda` by default (`torch_setup.resolve_device`:
@@ -25,6 +28,36 @@ A DB with a device cache also keeps a run cache (storage/run_cache.py):
 flush exports each new L0 file's decoded run into it, so the first
 compaction over the file starts zero-decode; the obsolete-file purge and
 `close` drop both caches' entries.
+
+Compaction, as the JAX DB schedules it (db.py:1322-1485 there): with
+`auto_compact` (the default) every flush, ingest and successful retry
+calls `maybe_schedule_compaction`, which asks `compaction.pick_universal`
+for a pick and runs it inline, or on `DBOptions.compaction_pool` (a
+utils.threadpool.PriorityThreadPool). `_dispatch_compaction` sends a
+picked job to `DBOptions.mesh_pool` (tserver/compaction_pool.
+CompactionPool: one slot of a pooled wave, kernels A + B) where the board
+(`offload_policy`) would send it to the device anyway, else runs
+`compaction.run_compaction_job` on the DB's device (the device-native
+job: kernels A-F, H and the resident chain's D/E and P4 through the
+device cache; M1-M3 through `DBOptions.mesh` at mesh size). The install
+swaps the inputs for the outputs in the version set, drops the inputs'
+cache entries, and defers the close and delete of an input a scan still
+pins. `compact_all` runs a major compaction of every live file.
+`close()` and `cancel_background_work` trip the DB's cancellation token
+first: an in-flight job aborts at its next stage boundary, unwinds, and
+the DB sweeps any orphan output (never a file a writer still owns) and
+stays healthy. `checkpoint` hard-links the live files and copies the
+MANIFEST.
+
+The scans pin their input files for the generator's life:
+`scan_visible` resolves MVCC visibility over the memtables and every SST
+on the device (ops/scan.py: kernels G, H, I.1, B, and I.2 for a bounded
+scan), an SST the device cache holds as a ResidentSource (no decode to
+stage it), a miss staged into the cache; `scan_filtered` /
+`scan_aggregate` run the query pushdown (kernels J and K beside them).
+A "native" DB resolves `scan_visible` on the host (the native merge in
+snapshot shape) and refuses the pushdown (PushdownUnsupported("native"):
+the caller serves the query on its host path).
 
 Containment, as in the JAX package:
 
@@ -45,15 +78,16 @@ Containment, as in the JAX package:
     SST bytes parks the DB with a sticky Corruption and re-raises
     ServiceUnavailable (retry on a healthy replica).
   - `scrub`: every live SST deep-verified (storage/integrity.verify_sst)
-    at a throttled rate, a corrupt one quarantined (`*.corrupt`) and the
-    DB parked with a sticky Corruption.
+    at a throttled rate and checked against `cancel` between files, a
+    corrupt one quarantined (`*.corrupt`) and the DB parked with a sticky
+    Corruption.
+  - A failed compaction (OSError / StatusError) sweeps its orphan
+    outputs and parks the DB like a failed flush (a Corruption sticky); a
+    cancelled one (OperationCancelled) sweeps and does not park.
+  - Read-corruption routing covers the scans: a corrupt block met while
+    staging or streaming parks the DB and re-raises ServiceUnavailable.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-queue A item: compaction scheduling (`auto_compact=True`, `compact_all`,
-`maybe_schedule_compaction`), the scans (`scan_visible`,
-`scan_filtered`, `scan_aggregate`, `scan_native`), cancellation
-(`scrub(cancel=)`) and `checkpoint`: the DB's remaining entry points.
-`pre_flush_hook` comes with the device-free rest.
+`pre_flush_hook` comes with the device-free rest (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -73,9 +107,13 @@ from yugabyte_tpu_torch.storage.memtable import (MemTable, make_internal_key,
                                                  new_memtable)
 from yugabyte_tpu_torch.storage.sst import (
     BlockCache, Frontier, SSTReader, SSTWriter, data_file_name)
+from yugabyte_tpu_torch.storage import compaction as compaction_mod
 from yugabyte_tpu_torch.storage.version_set import VersionSet
-from yugabyte_tpu_torch.utils import flags, torch_setup
+from yugabyte_tpu_torch.utils import flags, lock_rank, sync_point, torch_setup
+from yugabyte_tpu_torch.utils.cancellation import (CancellationToken,
+                                                   OperationCancelled)
 from yugabyte_tpu_torch.utils.status import Code, Status, StatusError
+from yugabyte_tpu_torch.utils.threadpool import PriorityThreadPool
 from yugabyte_tpu_torch.utils.trace import TRACE
 
 flags.define_flag("memstore_size_bytes", 128 * 1024 * 1024,
@@ -97,25 +135,97 @@ flags.define_flag("point_read_learned_index", True,
 
 _CHUNK = 1024   # keys per device chunk (the larger batch bucket)
 
+_OVERLAY_TOO_BIG = object()  # sentinel: memtable too large to repack
 
-_ENTRY_POINTS = "the DB's remaining entry points"
 
+class CompactionStats:
+    """Per-DB compaction and flush accounting (ref: rocksdb/db/
+    internal_stats.cc). Running write amplification is (flush bytes +
+    compaction bytes written) / flush bytes."""
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"DB.{what} is not ported yet (ROADMAP queue A: {item})")
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.flushes = 0
+        self.flush_bytes_written = 0
+        self.flush_rows = 0
+        self.compactions = 0
+        self.compaction_bytes_read = 0
+        self.compaction_bytes_written = 0
+        self.compaction_files_in = 0
+        self.compaction_files_out = 0
+        self.compaction_rows_in = 0
+        self.compaction_rows_out = 0
+        self.versions_gcd = 0          # input entries dropped by MVCC GC
+        self.tombstones_written = 0    # TTL expiries rewritten as tombstones
+
+    def record_flush(self, nbytes: int, rows: int) -> None:
+        with self._lock:
+            self.flushes += 1
+            self.flush_bytes_written += nbytes
+            self.flush_rows += rows
+
+    def record_compaction(self, bytes_read: int, bytes_written: int,
+                          files_in: int, files_out: int,
+                          rows_in: int, rows_out: int,
+                          tombstones_written: int = 0) -> None:
+        with self._lock:
+            self.compactions += 1
+            self.compaction_bytes_read += bytes_read
+            self.compaction_bytes_written += bytes_written
+            self.compaction_files_in += files_in
+            self.compaction_files_out += files_out
+            self.compaction_rows_in += rows_in
+            self.compaction_rows_out += rows_out
+            self.versions_gcd += max(0, rows_in - rows_out)
+            self.tombstones_written += tombstones_written
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            ingested = self.flush_bytes_written
+            write_amp = ((ingested + self.compaction_bytes_written)
+                         / ingested if ingested else 0.0)
+            return {
+                "flushes": self.flushes,
+                "flush_bytes_written": self.flush_bytes_written,
+                "flush_rows": self.flush_rows,
+                "compactions": self.compactions,
+                "compaction_bytes_read": self.compaction_bytes_read,
+                "compaction_bytes_written": self.compaction_bytes_written,
+                "compaction_files_in": self.compaction_files_in,
+                "compaction_files_out": self.compaction_files_out,
+                "compaction_rows_in": self.compaction_rows_in,
+                "compaction_rows_out": self.compaction_rows_out,
+                "versions_gcd": self.versions_gcd,
+                "tombstones_written": self.tombstones_written,
+                "write_amplification": round(write_amp, 3),
+            }
 
 
 @dataclass
 class DBOptions:
     block_entries: Optional[int] = None
     block_cache: Optional[BlockCache] = None
-    # device for the batched point-read kernels: None = "cuda", "cpu"
-    # only when asked, "native" = no device path (and no device cache)
+    # runs the DB's scheduled compactions (None: inline on the caller)
+    compaction_pool: Optional[PriorityThreadPool] = None
+    # device of the DB's kernels: None = "cuda", "cpu" only when asked,
+    # "native" = no device path (and no device cache)
     device: object = None
+    # parallel.mesh.Mesh of more than one shard: mesh-sized compactions
+    # fan their subcompactions across it (parallel/dist_compact.py)
+    mesh: object = None
+    # tserver/compaction_pool.CompactionPool: device-routed compactions
+    # ride its pooled waves (or whole-mesh jobs) instead of running
+    # inline on this DB's compaction thread
+    mesh_pool: object = None
+    # the bucket-health board (storage/bucket_health.health_board()):
+    # routes each job device or native by the measured rates
+    offload_policy: object = None
     # device-resident slab cache (storage/device_cache.py); shared across
     # DBs like the reference's server-wide block cache
     device_cache: object = None
+    # returns the current history cutoff HT value (ref:
+    # tablet_retention_policy.h:29)
+    retention_policy: Callable[[], int] = lambda: 0
     memstore_size_bytes: Optional[int] = None
     auto_compact: bool = True
 
@@ -124,11 +234,6 @@ class DB:
     def __init__(self, db_dir: str, options: Optional[DBOptions] = None):
         self.db_dir = db_dir
         self.opts = options or DBOptions()
-        if self.opts.auto_compact:
-            raise NotImplementedError(
-                "DBOptions(auto_compact=True): compaction scheduling is not "
-                f"ported yet (ROADMAP queue A: {_ENTRY_POINTS}); pass "
-                "auto_compact=False")
         self._device = self._device_cache = None
         # (staged_by, FileTable) of the last batched read (_file_table)
         self._point_table = None
@@ -165,12 +270,20 @@ class DB:
                 self._run_cache = NamespacedRunCache(
                     shared, os.path.abspath(db_dir))
         os.makedirs(db_dir, exist_ok=True)
+        self.compaction_stats = CompactionStats()
         self.versions = VersionSet(db_dir)
         self.versions.recover()
         self.mem = new_memtable()
         self._imm: Optional[MemTable] = None   # guarded-by: _lock
         self._readers: dict = {}
-        self._lock = threading.RLock()
+        self._lock = lock_rank.tracked(threading.RLock(), "db._lock")
+        self._compacting = False  # guarded-by: _lock
+        self._closed = False      # guarded-by: _lock
+        self._writing: set = set()  # SST paths mid-write (orphan-sweep guard)
+        # the cancellation seam of in-flight background work: close() and
+        # cancel_background_work trip it, and the compaction job checks it
+        # at every stage boundary (it unwinds; nothing is installed)
+        self._cancel = CancellationToken(f"compaction@{db_dir}")
         self._pins: dict = {}       # file_id -> active read count
         self._obsolete: dict = {}   # file_id -> reader awaiting unpin+delete
         self._last_op_id: Tuple[int, int] = (0, 0)
@@ -187,6 +300,8 @@ class DB:
         self._rset = None
         self._rset_gen = 0  # bumped on every invalidation: a ReaderSet
         #                     built against gen G installs only if still G
+        # (memtable versions, packed overlay) of the last native scan
+        self._mem_run_cache: Optional[Tuple[tuple, object]] = None
         for fm in self.versions.live_files():
             self._readers[fm.file_id] = SSTReader(fm.path,
                                                   self.opts.block_cache)
@@ -260,17 +375,26 @@ class DB:
         with self._lock:
             fid = self.versions.new_file_id()
             self._last_op_id = max(self._last_op_id, op_id)
-        path = os.path.join(self.db_dir, f"{fid:06d}.sst")
+            path = os.path.join(self.db_dir, f"{fid:06d}.sst")
+            # a failed compaction's orphan sweep must spare this file
+            # until the version set lists it
+            self._writing.add(path)
         frontier = Frontier(op_id_min=op_id, op_id_max=op_id,
                             history_cutoff=0)
-        props = write_sst_from_packed(
-            path, keys_blob, key_offs, ht, wid, vals_blob, val_offs,
-            frontier=frontier, block_entries=self.opts.block_entries)
-        with self._lock:
-            self.versions.add_file(fid, path, props)
-            self._readers[fid] = SSTReader(path, self.opts.block_cache)
-            self._rset = None
-            self._rset_gen += 1
+        try:
+            props = write_sst_from_packed(
+                path, keys_blob, key_offs, ht, wid, vals_blob, val_offs,
+                frontier=frontier, block_entries=self.opts.block_entries)
+            with self._lock:
+                self.versions.add_file(fid, path, props)
+                self._readers[fid] = SSTReader(path, self.opts.block_cache)
+                self._rset = None
+                self._rset_gen += 1
+        finally:
+            with self._lock:
+                self._writing.discard(path)
+        if self.opts.auto_compact:
+            self.maybe_schedule_compaction()
         return fid
 
     def flush(self) -> Optional[int]:
@@ -299,6 +423,8 @@ class DB:
         try:
             fid = self.versions.new_file_id()
             path = os.path.join(self.db_dir, f"{fid:06d}.sst")
+            with self._lock:
+                self._writing.add(path)
             slab = None
             from yugabyte_tpu_torch.storage import native_engine
             from yugabyte_tpu_torch.utils.env import get_env
@@ -315,6 +441,7 @@ class DB:
                     path, *packed, frontier=frontier,
                     block_entries=self.opts.block_entries,
                     run_cache=self._run_cache, file_id=fid)
+                n_flushed = len(packed[1]) - 1
                 if self._device_cache is not None:
                     slab = imm.to_slab()
             else:
@@ -326,6 +453,8 @@ class DB:
                                     history_cutoff=0)
                 props = SSTWriter(path, block_entries=self.opts.block_entries
                                   ).write(slab, frontier)
+                n_flushed = slab.n
+            sync_point.hit("db.flush:before_manifest")
             if self._device_cache is not None and slab is not None:
                 self._device_cache.stage(fid, slab)  # write-through
             with self._lock:
@@ -335,6 +464,10 @@ class DB:
                 self._imm = None
                 self._rset = None  # native snapshot is stale
                 self._rset_gen += 1
+                self._mem_run_cache = None
+            self.compaction_stats.record_flush(
+                props.data_size + props.base_size, n_flushed)
+            TRACE("flushed %d entries to %s", n_flushed, path)
         except BaseException as e:
             with self._lock:
                 # restore un-flushed entries into the live memtable
@@ -353,6 +486,12 @@ class DB:
                 self._set_background_error("flush", e)
                 return None
             raise
+        finally:
+            if path is not None:
+                with self._lock:
+                    self._writing.discard(path)
+        if self.opts.auto_compact:
+            self.maybe_schedule_compaction()
         return fid
 
     # ------------------------------------------------------- background error
@@ -389,16 +528,28 @@ class DB:
         if cb is not None:
             cb(st)
 
+    def cancel_background_work(self, reason: str = "shutdown") -> None:
+        """Abort in-flight background compactions at their next stage
+        boundary (tablet-FAILED transition, shutdown). One-way until
+        retry_background_work re-arms a fresh token."""
+        self._cancel.cancel(reason)
+
     def retry_background_work(self) -> bool:
         """Clear the parked error and retry the failed work (ref
         DBImpl::Resume). Returns True when the DB is healthy again; a
         failing retry re-parks it. A CORRUPTION error is STICKY: lost
         bytes cannot be retried back into existence — the replica must
-        be rebuilt from a healthy peer."""
+        be rebuilt from a healthy peer. A tripped cancellation token is
+        replaced by a fresh one (unless the DB is closed)."""
         with self._lock:
             if self._bg_error is not None \
                     and self._bg_error.code == Code.CORRUPTION:
                 return False
+            if self._cancel.cancelled and not self._closed:
+                # the old token is tripped for good: the retried work
+                # gets a fresh one
+                self._cancel = CancellationToken(
+                    f"compaction@{self.db_dir}")
             if self._bg_error is None:
                 return True
             self._bg_error = None
@@ -406,7 +557,35 @@ class DB:
             self.flush()
         except (OSError, StatusError):
             return False  # flush's failure path re-set the background error
+        if self.opts.auto_compact:
+            self.maybe_schedule_compaction()
         return self._bg_error is None
+
+    def _sweep_orphan_outputs_unlocked(self) -> None:
+        """Remove SST files on disk that no version references and no
+        in-flight writer owns — the partial outputs of a failed or
+        cancelled flush/compaction (ref: PurgeObsoleteFiles)."""
+        try:
+            names = os.listdir(self.db_dir)
+        except OSError as e:
+            TRACE("db %s: orphan sweep cannot list dir: %s",
+                  self.db_dir, e)
+            return
+        live = set(self.versions.files)
+        writing = {os.path.basename(p) for p in self._writing}
+        for name in names:
+            stem = name.split(".", 1)[0]
+            if not (name.endswith(".sst") or name.endswith(".sblock.0")) \
+                    or not stem.isdigit():
+                continue
+            if int(stem) in live or stem + ".sst" in writing:
+                continue
+            try:
+                os.remove(os.path.join(self.db_dir, name))
+            except OSError as e:
+                # a later sweep tries again; say so
+                TRACE("db %s: orphan sweep cannot remove %s: %s",
+                      self.db_dir, name, e)
 
     def _route_read_corruption(self, e: StatusError) -> None:
         """A read that hit corrupt SST bytes (block CRC / footer
@@ -843,24 +1022,412 @@ class DB:
                     skipping = False
                 yield ikey, vals[voffs[i]: voffs[i + 1]].tobytes()
 
-    # ------------------------------------------------------- not ported yet
-    def scan_visible(self, *args, **kwargs):
-        raise _not_ported("scan_visible", _ENTRY_POINTS)
+    # ------------------------------------------------------- native scan
+    def _memtable_run(self):
+        """Packed memtable(+imm) overlay for native scans, cached per
+        memtable version (repacking per scan would re-pay the per-entry
+        packing on every read of a write-hot tablet)."""
+        from yugabyte_tpu_torch.docdb.value import decode_control_fields
+        from yugabyte_tpu_torch.storage.native_read import PackedRun
+        with self._lock:
+            mem, imm = self.mem, self._imm
+        key = (id(mem), mem.version, id(imm),
+               imm.version if imm is not None else -1)
+        cached = self._mem_run_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        if mem.empty and (imm is None or imm.empty):
+            run = None
+        elif (mem.n_entries
+              + (imm.n_entries if imm is not None else 0)) > 200_000:
+            # write-hot tablet near its flush threshold: repacking the
+            # whole memtable per scan costs more than the Python merge
+            return _OVERLAY_TOO_BIG
+        else:
+            sources = [mem.iter_from(b"")]
+            if imm is not None:
+                sources.append(imm.iter_from(b""))
+            entries = []
+            for ikey, value in heapq.merge(*sources):
+                prefix, dht = split_key_and_ht(ikey)
+                fl = ttl = 0
+                try:
+                    _, ttl_ms, off = decode_control_fields(value)
+                    tag = value[off] if off < len(value) else 0
+                    if tag == ValueType.kTombstone:
+                        fl |= 1
+                    elif tag == ValueType.kObject:
+                        fl |= 2
+                    if ttl_ms is not None:
+                        fl |= 4
+                        ttl = ttl_ms
+                except (IndexError, ValueError):
+                    pass
+                entries.append((prefix, dht.ht.value, dht.write_id, fl, ttl,
+                                value))
+            run = PackedRun(entries)
+        self._mem_run_cache = (key, run)
+        return run
 
-    def scan_filtered(self, *args, **kwargs):
-        raise _not_ported("scan_filtered", _ENTRY_POINTS)
+    def scan_native(self, lower: bytes = b"", upper: Optional[bytes] = None,
+                    read_ht_value: Optional[int] = None,
+                    visible: bool = False, batch_rows: int = 65536,
+                    internal_keys: bool = False):
+        """Native streaming scan (storage/native_read.NativeScan) over the
+        SSTs and the memtable overlay, or None when the native engine is
+        unavailable (or the memtable is too large to repack).
+        visible=True resolves MVCC visibility in C++; internal_keys=True
+        emits full internal keys."""
+        from yugabyte_tpu_torch.storage.native_read import NativeScan
+        # overlay snapshot BEFORE the reader set (see _get_inner: double
+        # coverage is safe, a hidden row is not)
+        overlay = self._memtable_run()
+        if overlay is _OVERLAY_TOO_BIG:
+            return None
+        rset = self._native_rset()
+        if rset is None:
+            return None
+        mode = 1 if visible else (2 if internal_keys else 0)
+        return NativeScan(
+            rset, lower, upper,
+            read_ht_value if read_ht_value is not None else (2**64 - 1),
+            overlay=overlay, batch_rows=batch_rows, mode=mode)
 
-    def scan_aggregate(self, *args, **kwargs):
-        raise _not_ported("scan_aggregate", _ENTRY_POINTS)
+    # -------------------------------------------------------- device scans
+    def _pin_sources(self):
+        """Snapshot the memtable slabs and the live readers, pinning every
+        reader's file against a concurrent install's delete."""
+        with self._lock:
+            slabs = [self.mem.to_slab()]
+            if self._imm is not None:
+                slabs.append(self._imm.to_slab())
+            readers = list(self._readers.items())
+            for fid, _ in readers:
+                self._pins[fid] = self._pins.get(fid, 0) + 1
+        return slabs, readers
 
-    def scan_native(self, *args, **kwargs):
-        raise _not_ported("scan_native", _ENTRY_POINTS)
+    def scan_visible(self, read_ht_value: int,
+                     lower_key: Optional[bytes] = None,
+                     upper_key: Optional[bytes] = None):
+        """Yield (key_prefix, value_bytes, ht_value) of every entry
+        visible at read_ht in [lower_key, upper_key), in key order.
 
+        One device pass resolves merge + MVCC visibility + the range for
+        every input (ops/scan.py): an SST the device cache holds enters as
+        a ResidentSource (no block decode to stage it; only the blocks
+        holding survivors are decoded), a miss is staged into the cache
+        (write-through), the memtables as slabs. A "native" DB resolves
+        the same answer on the host. The input files stay PINNED for the
+        generator's life, so a concurrent compaction defers their delete
+        (the reference's Version refcounting, ref: db/version_set.cc)."""
+        from yugabyte_tpu_torch.ops.scan import (
+            ResidentSource, SlabSource, _visible_entries_host,
+            visible_entries_sources)
+        slabs, readers = self._pin_sources()
+        try:
+            if self._device is None:
+                yield from _visible_entries_host(
+                    slabs + [self._read_all_contained(r)
+                             for _fid, r in readers],
+                    read_ht_value, lower_key, upper_key)
+                return
+            sources = [SlabSource(sl) for sl in slabs]
+            for fid, r in readers:
+                st = self._device_cache.get(fid)
+                if st is not None and st.n != r.props.n_entries:
+                    self._device_cache.drop(fid)   # stale entry: restage
+                    st = None
+                if st is not None and not r.props.has_deep:
+                    sources.append(ResidentSource(r, st))
+                    continue
+                sl = self._read_all_contained(r)
+                if not r.props.has_deep:
+                    st = self._device_cache.stage(fid, sl, for_read=True)
+                    sources.append(SlabSource(sl, st))
+                else:
+                    sources.append(SlabSource(sl))
+            try:
+                yield from visible_entries_sources(
+                    sources, read_ht_value, lower_key, upper_key,
+                    device=self._device)
+            except StatusError as e:
+                # a resident source decodes survivor blocks lazily: a
+                # corrupt block mid-stream takes the same containment
+                self._route_read_corruption(e)
+                raise
+        finally:
+            self._release_scan_pins(readers)
+
+    # ----------------------------------------------------- query pushdown
+    def _pushdown_sources(self, spec):
+        """The pushdown's source list, with pins held and value words
+        staged. Returns (sources, readers); the caller releases the pins
+        (_release_scan_pins). Raises PushdownUnsupported("deep") on a
+        deep-document file and ("native") on a DB without a device path,
+        so the caller serves the query on its host path."""
+        from yugabyte_tpu_torch.docdb.scan_spec import PushdownUnsupported
+        from yugabyte_tpu_torch.ops.merge_gc import u32_to_device
+        from yugabyte_tpu_torch.ops.scan import (ResidentSource, SlabSource,
+                                                 pack_vals, pushdown_metrics)
+        if self._device is None:
+            raise PushdownUnsupported("native")
+        slabs, readers = self._pin_sources()
+        try:
+            sources = [SlabSource(sl) for sl in slabs]
+            for fid, r in readers:
+                if r.props.has_deep:
+                    raise PushdownUnsupported("deep")
+                st = self._device_cache.get(fid)
+                if st is not None and st.n != r.props.n_entries:
+                    self._device_cache.drop(fid)   # stale entry: restage
+                    st = None
+                if st is None:
+                    sl = self._read_all_contained(r)
+                    st = self._device_cache.stage(
+                        fid, sl, for_read=True,
+                        include_vals=spec.needs_vals)
+                    sources.append(ResidentSource(r, st))
+                    continue
+                if spec.needs_vals and st.vals_dev is None:
+                    # resident cols without value words: decode once and
+                    # attach; every later pushdown scan is resident
+                    sl = self._read_all_contained(r)
+                    self._device_cache.attach_vals(fid, u32_to_device(
+                        pack_vals(sl, st.n_pad), self._device_cache.device))
+                    pushdown_metrics()["vals_staged"].increment()
+                sources.append(ResidentSource(r, st))
+            return sources, readers
+        except BaseException:
+            self._release_scan_pins(readers)
+            raise
+
+    def _read_all_contained(self, r):
+        try:
+            return r.read_all()
+        except StatusError as e:
+            self._route_read_corruption(e)
+            raise
+
+    def _release_scan_pins(self, readers) -> None:
+        with self._lock:
+            for fid, _ in readers:
+                self._pins[fid] -= 1
+                if not self._pins[fid]:
+                    del self._pins[fid]
+            self._purge_obsolete_unlocked()
+
+    def scan_filtered(self, read_ht_value: int, spec,
+                      lower_key: Optional[bytes] = None,
+                      upper_key: Optional[bytes] = None):
+        """Filtered scan: the visible entries of exactly the rows that
+        satisfy spec.predicates, resolved in one device pass over the
+        resident matrices (ops/scan.filtered_entries_sources). The device
+        work runs EAGERLY: a parked bucket or a device fault surfaces here
+        as PushdownUnsupported with no row emitted and no pin held, so the
+        caller can serve the same query on its host path."""
+        from yugabyte_tpu_torch.ops.scan import (ResidentSource,
+                                                 filtered_entries_sources,
+                                                 pushdown_metrics)
+        sources, readers = self._pushdown_sources(spec)
+        try:
+            it = filtered_entries_sources(
+                sources, read_ht_value, spec, lower_key, upper_key,
+                device=self._device)
+        except BaseException:
+            self._release_scan_pins(readers)
+            raise
+
+        def entries():
+            try:
+                yield from it
+            except StatusError as e:
+                # a corrupt winner block mid-stream: the plain scan's
+                # containment
+                self._route_read_corruption(e)
+                raise
+            finally:
+                blocks = sum(s.decoded_blocks for s in sources
+                             if isinstance(s, ResidentSource))
+                pushdown_metrics()["blocks"].increment(max(blocks, 0))
+                self._release_scan_pins(readers)
+
+        return entries()
+
+    def scan_aggregate(self, read_ht_value: int, spec,
+                       lower_key: Optional[bytes] = None,
+                       upper_key: Optional[bytes] = None) -> dict:
+        """Aggregating scan: one device pass returns the aggregate partial
+        of this DB's whole source set ({"rows", "cols"}), with exact MVCC
+        visibility across the memtables and the SSTs."""
+        from yugabyte_tpu_torch.ops.scan import aggregate_sources
+        sources, readers = self._pushdown_sources(spec)
+        try:
+            return aggregate_sources(sources, read_ht_value, spec,
+                                     lower_key, upper_key,
+                                     device=self._device)
+        finally:
+            self._release_scan_pins(readers)
+
+    # ------------------------------------------------------------ compaction
     def maybe_schedule_compaction(self) -> bool:
-        raise _not_ported("maybe_schedule_compaction", _ENTRY_POINTS)
+        """Pick and run (or queue on `compaction_pool`) one universal
+        compaction; False when one is running, the DB is closed or
+        parked, or nothing is due (ref: DBImpl::
+        MaybeScheduleFlushOrCompaction db_impl.cc:2127)."""
+        with self._lock:
+            if self._compacting or self._closed or \
+                    self._bg_error is not None:
+                return False
+            pick = compaction_mod.pick_universal(self.versions.live_files())
+            if pick is None:
+                return False
+            self._compacting = True
+            for fm in pick.inputs:
+                fm.being_compacted = True
+        if self.opts.compaction_pool is not None:
+            self.opts.compaction_pool.submit(
+                lambda: self._run_compaction(pick), priority=0)
+        else:
+            self._run_compaction(pick)
+        return True
+
+    def _run_compaction(self, pick) -> None:
+        try:
+            self._run_compaction_inner(pick)
+        except BaseException as e:
+            if isinstance(e, OperationCancelled):
+                # a clean abort (shutdown / tablet failed): nothing was
+                # installed and the job unwound its partials; sweep any
+                # straggler, and do not park the DB — no storage fault
+                with self._lock:
+                    self._sweep_orphan_outputs_unlocked()
+                TRACE("db %s: compaction aborted: %s", self.db_dir, e)
+                return
+            if not isinstance(e, (OSError, StatusError)):
+                raise
+            # contained like a failed flush: the version set still points
+            # at the inputs, partial outputs are swept, and the DB parks
+            # for the retry; a Corruption (a corrupt input block) parks
+            # sticky
+            with self._lock:
+                self._sweep_orphan_outputs_unlocked()
+            self._set_background_error(
+                "compaction", e,
+                corruption=isinstance(e, StatusError)
+                and e.status.code == Code.CORRUPTION)
+
+    def _run_compaction_inner(self, pick) -> None:
+        try:
+            inputs = [self._readers[fm.file_id] for fm in pick.inputs]
+            cutoff = self.opts.retention_policy()
+            # the job's own token: a retry_background_work that swaps in
+            # a fresh one must not un-cancel this job
+            token = self._cancel
+            result = self._dispatch_compaction(pick, inputs, cutoff, token)
+            sync_point.hit("db.compaction:before_install")
+            if token.cancelled:
+                # closed or cancelled as the job ended: install nothing
+                # (the caller sweeps the files; their entries go here)
+                for fid, _p, _props in result.outputs:
+                    self._drop_cached(fid)
+                token.check()
+            with self._lock:
+                removed = [fm.file_id for fm in pick.inputs]
+                self.versions.install_compaction(
+                    removed, [(fid, p, props)
+                              for fid, p, props in result.outputs])
+                self._rset = None  # native snapshot is stale
+                self._rset_gen += 1
+                for fid, path, props in result.outputs:
+                    self._readers[fid] = SSTReader(path,
+                                                   self.opts.block_cache)
+                for fid in removed:
+                    self._native_readers.pop(fid, None)
+                    r = self._readers.pop(fid, None)
+                    if r is not None:
+                        if self._pins.get(fid):
+                            # a scan still reads this SST: defer the
+                            # close + delete until its pin drops
+                            self._obsolete[fid] = r
+                        else:
+                            r.close()
+                            _delete_sst_files(r.base_path)
+                    # a resident scan holds its entry's tensors itself
+                    self._drop_cached(fid)
+            self.compaction_stats.record_compaction(
+                bytes_read=sum(fm.total_size for fm in pick.inputs),
+                bytes_written=sum(p.data_size + p.base_size
+                                  for _fid, _path, p in result.outputs),
+                files_in=len(pick.inputs), files_out=len(result.outputs),
+                rows_in=result.rows_in, rows_out=result.rows_out,
+                tombstones_written=result.tombstones_written)
+            TRACE("compaction: %d files -> %d rows (%d in)",
+                  len(pick.inputs), result.rows_out, result.rows_in)
+        finally:
+            with self._lock:
+                self._compacting = False
+                # on failure the inputs stay live: pickable again
+                for fm in pick.inputs:
+                    fm.being_compacted = False
+                # reap deferred readers whose scans finished meanwhile
+                self._purge_obsolete_unlocked()
+        # cascade while still over the trigger
+        if self.opts.auto_compact:
+            self.maybe_schedule_compaction()
+
+    def _dispatch_compaction(self, pick, inputs, cutoff, cancel):
+        """Route one picked job: through the mesh pool when the DB has one
+        AND the job would take the device path anyway (the board's
+        decision, asked with probe=False: the pool thread that launches
+        claims any probe slot itself; the pool is a scheduling choice,
+        never a routing override), else `run_compaction_job` inline on the
+        DB's device ("native" without one)."""
+        pool = self.opts.mesh_pool
+        ids = [fm.file_id for fm in pick.inputs]
+        if pool is not None and self._device is not None:
+            est = sum(r.props.n_entries for r in inputs)
+            board = self.opts.offload_policy
+            use = True
+            if board is not None:
+                from yugabyte_tpu_torch.ops.run_merge import packed_run_ns
+                from yugabyte_tpu_torch.storage.offload_policy import (
+                    bucket_key)
+                cached = all(self._device_cache.contains(fid) for fid in ids)
+                qkey = bucket_key(packed_run_ns(
+                    [r.props.n_entries for r in inputs
+                     if r.props.n_entries]))
+                use = board.use_device("run_merge_fused", qkey,
+                                       est_rows=est, cached=cached,
+                                       probe=False)
+            if use and not any(r.props.has_deep for r in inputs):
+                return pool.submit_compaction(
+                    self.db_dir, inputs=inputs, out_dir=self.db_dir,
+                    new_file_id=self.versions.new_file_id,
+                    history_cutoff_ht=cutoff, is_major=pick.is_major,
+                    block_entries=self.opts.block_entries, input_ids=ids,
+                    device_cache=self._device_cache, est_rows=est,
+                    cancel=cancel).result()
+        return compaction_mod.run_compaction_job(
+            inputs, self.db_dir, self.versions.new_file_id, cutoff,
+            pick.is_major,
+            device=self._device if self._device is not None else "native",
+            block_entries=self.opts.block_entries,
+            device_cache=self._device_cache, input_ids=ids,
+            mesh=self.opts.mesh, offload_policy=self.opts.offload_policy,
+            run_cache=self._run_cache, cancel=cancel)
 
     def compact_all(self) -> None:
-        raise _not_ported("compact_all", _ENTRY_POINTS)
+        """Force a full (major) compaction of every live file."""
+        with self._lock:
+            files = [f for f in self.versions.live_files()
+                     if not f.being_compacted]
+            if len(files) < 2:
+                return
+            for fm in files:
+                fm.being_compacted = True
+            pick = compaction_mod.CompactionPick(files, is_major=True)
+            self._compacting = True
+        self._run_compaction(pick)
 
     # ------------------------------------------------------------------ scrub
     def scrub(self, limiter=None, cancel=None) -> dict:
@@ -871,12 +1438,10 @@ class DB:
         one). Files are PINNED while verified. A corrupt file is
         quarantined (renamed ``*.corrupt``) and the DB parks with a
         STICKY Corruption background error; in-place retry is refused.
-        cancel raises NotImplementedError (compaction and scrub
-        cancellation are ROADMAP queue A: the DB's remaining entry
-        points)."""
+        cancel (a CancellationToken) is checked before each file and
+        inside verify_sst: a tripped token raises OperationCancelled,
+        pins released."""
         from yugabyte_tpu_torch.storage import integrity
-        if cancel is not None:
-            raise _not_ported("scrub(cancel=)", _ENTRY_POINTS)
         with self._lock:
             targets = [(fid, r.base_path)
                        for fid, r in self._readers.items()]
@@ -886,7 +1451,10 @@ class DB:
                   "corrupt": []}
         try:
             for fid, base_path in targets:
-                rep = integrity.verify_sst(base_path, limiter=limiter)
+                if cancel is not None:
+                    cancel.check()
+                rep = integrity.verify_sst(base_path, limiter=limiter,
+                                           cancel=cancel)
                 report["files"] += 1
                 report["blocks"] += rep.n_blocks
                 report["entries"] += rep.n_entries
@@ -912,8 +1480,20 @@ class DB:
                                report["bytes"], len(report["corrupt"]))
         return report
 
+    # ------------------------------------------------------------ checkpoint
     def checkpoint(self, out_dir: str) -> None:
-        raise _not_ported("checkpoint", _ENTRY_POINTS)
+        """Hard-link snapshot of the live files and a copy of the
+        MANIFEST (ref: utilities/checkpoint/checkpoint.cc:56): a DB
+        opened over out_dir answers as this one did."""
+        import shutil
+        os.makedirs(out_dir, exist_ok=True)
+        with self._lock:
+            for fm in self.versions.live_files():
+                for p in (fm.path, data_file_name(fm.path)):
+                    os.link(p, os.path.join(out_dir, os.path.basename(p)))
+            if os.path.exists(self.versions.manifest_path):
+                shutil.copy(self.versions.manifest_path,
+                            os.path.join(out_dir, "MANIFEST"))
 
     # ------------------------------------------------------------ lifecycle
     def _drop_cached(self, fid: int) -> None:
@@ -932,12 +1512,18 @@ class DB:
             self._drop_cached(fid)
 
     def close(self) -> None:
+        # trip the cancellation seam FIRST: an in-flight compaction aborts
+        # at its next stage boundary instead of writing into a directory
+        # whose readers are about to close
+        self._cancel.cancel("db closed")
         with self._lock:
+            self._closed = True
             # native handles free via refcount (in-flight reads may still
             # hold the snapshot)
             self._native_readers = {}
             self._rset = None
             self._rset_gen += 1
+            self._mem_run_cache = None
             self._purge_obsolete_unlocked()
             for r in self._obsolete.values():
                 r.close()  # still pinned: close the handle, leave the files
