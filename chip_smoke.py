@@ -176,12 +176,33 @@ Phases (any failure exits non-zero):
      CompactionPool (DBOptions.mesh_pool, 8 virtual shards) compact in
      one wave, files == native. Launches per part in the kernels line
      (`launches_db_*`); no containment counter moves;
- 11. a `kernels` JSON line, the card line, and last
+ 11. the tablet (`tablet_phase`): a Tablet on the card
+     (TabletOptions(device, DeviceSlabCache)) beside a default-options
+     Tablet (device-free: its DBs run "native") that takes the same
+     operations in the same call, both on one deterministic clock. Config
+     2 at full width bulk-loaded (ingest_packed; the device-free tablet
+     opens a checkpoint of it) and read as rows of YCSB's usertable
+     (ycsb_key, field0); YCSB-A: --tablet-ops reads through
+     Tablet.multi_read and as many updates through Tablet.write in calls
+     of 1024 (ScrambledZipfian); Tablet.flush and Tablet.compact
+     (the codec route); the first page of a full-table Tablet.scan and a
+     range scan on the card; a FaultInjectionEnv ENOSPC during a flush
+     (the DB parks, writes are refused with ServiceUnavailable, reads go
+     on on the card, the tablet recovers after clear_faults); 1,024
+     transactional writes read while their intents are pending, after
+     the commit and after the apply (the read_row route: no P1-P3);
+     scan_aggregate q6 on the lineitem SSTs as a tablet == step 8's
+     answer. Every answer == the device-free tablet's, files == its
+     files (data byte for byte; the MANIFEST line for line), launches
+     exact per part (`launches_tablet_*`), no containment counter moves,
+     no pin left. No encrypted job runs here: its routes are held on the
+     CPU (tests/test_torch_env.py); a line says so;
+ 12. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
        [--chunk-rows C] [--skew-rows L] [--wave-rows W] [--sf-orders M]
-       [--point-reads K] [--fault-rows F]
+       [--point-reads K] [--fault-rows F] [--tablet-ops T]
 """
 
 from __future__ import annotations
@@ -3150,9 +3171,16 @@ def lineitem_point_db(lineitem_dir, workdir, device="cuda",
     under file ids 1-4 and a manifest): SSTWriter fitted a learned index
     into each, so P3 runs its model mode here."""
     from yugabyte_tpu_torch.storage.db import DB
+    d = os.path.join(workdir, name)
+    link_lineitem(lineitem_dir, d)
+    return DB(d, point_options(device))
+
+
+def link_lineitem(lineitem_dir, d):
+    """The pushdown phase's 4 lineitem SSTs as a DB directory `d`: hard
+    links under file ids 1-4 and a manifest."""
     from yugabyte_tpu_torch.storage.sst import SSTReader, data_file_name
     from yugabyte_tpu_torch.storage.version_set import VersionSet
-    d = os.path.join(workdir, name)
     os.makedirs(d)
     vs = VersionSet(d)
     for src in sorted(f for f in os.listdir(lineitem_dir)
@@ -3165,7 +3193,6 @@ def lineitem_point_db(lineitem_dir, workdir, device="cuda",
         r = SSTReader(path)
         vs.add_file(fid, path, r.props)
         r.close()
-    return DB(d, point_options(device))
 
 
 def lineitem_point_keys(db, n: int, seed: int) -> list:
@@ -4519,7 +4546,7 @@ def faults_phase(args, readers, workdir, card, comp, device="cuda"):
         before install, contained (files == native), the bucket sticky
         past its window's decay, until clear_mismatch re-opens it on
         probation; one job's seconds with the verifier at 1.0 beside one
-        at 0; then, on the 1M-row tablet, 40 jobs at the default sample
+        at 0; then, on the 1M-row tablet, 16 jobs at the default sample
         and 3 at 1.0 beside 3 at 0 (default_sample_step);
       - the mesh job (8 virtual shards of the card): a fault at the
         routing attempt's download (after M1-M3) completes natively;
@@ -4833,7 +4860,7 @@ def faults_phase(args, readers, workdir, card, comp, device="cuda"):
 
 
 def default_sample_step(args, small, small_native, skey, job, board,
-                        card, n_default=40, n_pair=3):
+                        card, n_default=16, n_pair=3):
     """The sampled shadow verifier at its default sample on the 1M-row
     tablet: after one uncounted job, n_default device jobs with
     shadow_verify_sample at its default (random seeded from --seed),
@@ -5675,6 +5702,452 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     return out, launches
 
 
+# ------------------------------------------------------------------ tablet
+def _row(r):
+    """A tablet row as a comparable tuple (None: the row is absent)."""
+    return None if r is None else (r.doc_key.encode(),
+                                   sorted(r.columns.items()),
+                                   r.write_ht.value)
+
+
+def same_dir_bytes(a, b, what) -> int:
+    """Every SST file and the MANIFEST of two DB directories byte for
+    byte. Returns the number of files."""
+    def names(d):
+        return sorted(f for f in os.listdir(d)
+                      if ".sst" in f or f == "MANIFEST")
+    if names(a) != names(b) or not names(a):
+        raise AssertionError(f"{what}: files {names(a)} != {names(b)}")
+    for f in names(a):
+        if _file_sha(os.path.join(a, f)) != _file_sha(os.path.join(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    return len(names(a))
+
+
+def same_manifest(dev, nat, what) -> int:
+    """Two DBs' MANIFESTs edit for edit: equal but for the props of a file
+    the card's job fitted a learned index into (its `lindex` and
+    `base_size`; the native job fits none). Returns the edits."""
+    def edits(db):
+        with open(db.versions.manifest_path, "rb") as f:
+            return [json.loads(x) for x in f.read().splitlines() if x.strip()]
+    a, b = edits(dev), edits(nat)
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} MANIFEST edits != "
+                             f"{len(b)}")
+    for ea, eb in zip(a, b):
+        pa, pb = ea.get("props"), eb.get("props")
+        if pa is not None and pb is not None and "lindex" in pa \
+                and "lindex" not in pb:
+            ea = {**ea, "props": {k: v for k, v in pa.items()
+                                  if k not in ("lindex", "base_size")}}
+            eb = {**eb, "props": {k: v for k, v in pb.items()
+                                  if k != "base_size"}}
+        if ea != eb:
+            raise AssertionError(f"{what}: MANIFEST edit {ea} != {eb}")
+    return len(a)
+
+
+def exact_launches(counts, want, what):
+    """Exact launches: `want` for the kernels it names, 0 for every
+    other."""
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError(
+            f"tablet {what}: launches "
+            f"{ {k: v for k, v in counts.items() if v} }, not "
+            f"{ {k: v for k, v in full.items() if v} }")
+
+
+def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
+    """The tablet layer on the card (tablet/tablet.py): a Tablet with
+    TabletOptions(device, DeviceSlabCache) beside a default-options Tablet
+    (device-free: the JAX meaning of device=None, its DBs "native") taking
+    the same operations in the same call. Both draw hybrid times from
+    one fixed physical time (HybridClock's logical ticks), so their writes
+    carry the same hybrid times and their files must be equal:
+
+      - config 2 at full width: rows in 4 runs (key space rows/2, 5% row
+        tombstones, 19-byte column keys, 64-byte values) bulk-loaded into
+        the card tablet's regular DB with ingest_packed; the device-free
+        tablet opens its checkpoint (hard links); read as rows of YCSB's
+        usertable (ycsb_key, field0: the generator's column key is
+        field0's);
+      - YCSB workload A (read 0.5, update 0.5, ScrambledZipfian 0.99):
+        --tablet-ops reads through Tablet.multi_read and as many updates
+        through Tablet.write, in calls of 1024 (P1 + P2 and P3 + the fold
+        once per 1024-key chunk: 3 keys a row);
+      - Tablet.flush (byte for byte) and Tablet.compact (the codec route:
+        A a level, B, D, H once, C a cache miss, E, F and P4 an output);
+        data files byte for byte, MANIFESTs edit for edit (the card's job
+        fits a learned index into its base files);
+      - the first page (131,072 rows) of a full-table Tablet.scan (G, H,
+        I.1, B over the whole tablet on the card) and a range scan over
+        a fiftieth of the keys forced onto the card (+ I.2 once), each
+        == the device-free tablet's host iterator;
+      - a FaultInjectionEnv ENOSPC on SST appends during a flush: both
+        regular DBs park, Tablet.write is refused (ServiceUnavailable),
+        multi_read goes on on the card, and after clear_faults
+        retry_background_work flushes and writes flow again;
+      - 1,024 transactional writes read while their intents are
+        pending, once committed and once applied: the read_row route
+        (the intents DB is not empty: no point-read launch), then a
+        flush of both DBs of each tablet (the intents' byte for byte);
+      - scan_aggregate q6 on the lineitem SSTs as a tablet on the card
+        == step 8's answer (first call and resident call: G, H, I.1, B,
+        J.1, J.2, K); the device-free tablet refuses the pushdown (None).
+
+    Every launch counter is set to 0 just before each part and read just
+    after. Returns (summary, {part: launches})."""
+    import importlib.util
+    import torch
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock, HybridTime
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.docdb.intents import TransactionMetadata
+    from yugabyte_tpu_torch.ops import run_merge
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import BlockCache
+    from yugabyte_tpu_torch.tablet.tablet import Tablet, TabletOptions
+    from yugabyte_tpu_torch.utils import env as env_mod
+    from yugabyte_tpu_torch.utils.status import Code, StatusError
+
+    wrappers = {**_mesh_wrappers(), **_pushdown_wrappers(),
+                **_point_wrappers()}
+    launches, out = {}, {"card": card}
+    t_phase = time.time()
+    n = args.rows
+    key_space = max(1, n // 2)
+    span = max(1_000_000, n // 4)
+    d = os.path.join(workdir, "tablet_phase")
+    schema = Schema([ColumnSchema("ycsb_key", DataType.STRING),
+                     ColumnSchema("field0", DataType.STRING)],
+                    num_range_key_columns=1)
+    # the clocks' physical time: 900 s (the retention interval) above
+    # every bulk-loaded write, so the compaction's history cutoff
+    # collects the loaded versions a newer one shadows
+    now_us = span * 10 + 1_000_000_000
+
+    def tablet(tag, sub, **kw):
+        return Tablet(f"{sub}-{tag}", os.path.join(d, f"{sub}_{tag}"),
+                      kw.pop("schema", schema),
+                      clock=HybridClock(kw.pop("time_us", lambda: now_us)),
+                      options=TabletOptions(
+                          auto_compact=False, memstore_size_bytes=1 << 40,
+                          block_cache=BlockCache(4 << 30), **kw))
+
+    def on_card():
+        return dict(device=device, device_cache=DeviceSlabCache(
+            device, capacity_bytes=16 << 30))
+
+    dev = tablet("card", "ycsb", **on_card())
+    cache = dev.regular_db._device_cache
+
+    def both(what, fn):
+        """fn(tablet) on each tablet: (answers, {tag: seconds}); the
+        answers must be equal."""
+        got, secs = {}, {}
+        for tag, t in pair:
+            t0 = time.time()
+            got[tag] = fn(t)
+            sync()
+            secs[tag] = time.time() - t0
+        if got["device"] != got["free"]:
+            raise AssertionError(f"tablet {what}: the card's answer differs "
+                                 f"from the device-free tablet's")
+        return got["device"], secs
+
+    def keys_of(ids):
+        return [DocKey(range_components=("user%08d" % i,)) for i in ids]
+
+    def multi_read(ids):
+        return lambda t: [_row(r) for r in t.multi_read(keys_of(ids))]
+
+    def updates(ids, rng):
+        letters = rng.integers(ord("a"), ord("z") + 1, size=(len(ids), 61),
+                               dtype=np.uint8)
+        return [QLWriteOp(WriteOpKind.UPDATE, k,
+                          {"field0": letters[j].tobytes().decode()})
+                for j, k in enumerate(keys_of(ids))]
+
+    def point_launches(what, calls, rows_a_call):
+        counts = _launches_of(wrappers)
+        chunks = calls * -(-3 * rows_a_call // 1024)
+        exact_launches(counts, {"hash_probe_files": chunks, "locate_fold": chunks},
+             what)
+        return counts
+
+    # -- config 2 bulk-loaded into the card tablet's regular DB; the
+    # device-free tablet opens a checkpoint of it (the DB phase holds a
+    # device DB's and a native DB's loads of the same runs byte for byte)
+    t0 = time.time()
+    runs = _db_ycsb_runs(4, n // 4, key_space, span, args.seed + 100)
+    out["generate_s"] = time.time() - t0
+    t0 = time.time()
+    for g, run in enumerate(runs):
+        dev.regular_db.ingest_packed(*run, op_id=(1, g + 1))
+    out["load_s"] = time.time() - t0
+    del runs
+    dev.regular_db.checkpoint(os.path.join(d, "ycsb_free", "regular"))
+    nat = tablet("free", "ycsb")
+    pair = (("device", dev), ("free", nat))
+
+    # -- YCSB workload A: reads and updates in calls of 1024
+    rng = np.random.default_rng(args.seed + 101)
+    calls = max(1, args.tablet_ops // 1024)
+    read_s = {"device": [], "free": []}
+    write_s = {"device": [], "free": []}
+    found = 0
+    _zero(wrappers)
+    for c in range(calls):
+        rows, secs = both("multi_read", multi_read(
+            scrambled_zipfian(1024, key_space, rng)))
+        found += sum(r is not None for r in rows)
+        for k in secs:
+            read_s[k].append(secs[k])
+        ops = updates(scrambled_zipfian(1024, key_space, rng), rng)
+        _, secs = both("write", lambda t: t.write(ops).value)
+        for k in secs:
+            write_s[k].append(secs[k])
+    launches["tablet_reads"] = point_launches("YCSB-A reads", calls, 1024)
+    rates = {k: {"reads": 1024 * (calls - 1) / sum(v[1:]) if calls > 1
+                 else None, "cold_first_call_s": v[0]}
+             for k, v in read_s.items()}
+    for k, v in write_s.items():
+        rates[k]["updates"] = 1024 * calls / sum(v)
+        rates[k]["read_p50_ms"] = 1e3 * float(np.median(read_s[k][1:] or
+                                                        read_s[k]))
+    out["ycsb_a"] = {"calls": calls, "rows_found": found, **rates}
+    log(f"tablet YCSB-A: {calls} multi_read calls of 1024 rows ({found} "
+        f"found) == the device-free tablet's, and {calls} writes of 1024 "
+        f"updates; reads {rates['device']['reads'] or 0:,.0f} rows/s on "
+        f"the card (p50 {rates['device']['read_p50_ms']:.1f} ms a call, "
+        f"the cold first {rates['device']['cold_first_call_s']:.2f} s) vs "
+        f"{rates['free']['reads'] or 0:,.0f} device-free; updates "
+        f"{rates['device']['updates']:,.0f} vs "
+        f"{rates['free']['updates']:,.0f} a second; launches "
+        f"{ {k: v for k, v in launches['tablet_reads'].items() if v} } "
+        f"[{card}]")
+
+    # -- flush and compact
+    _, out["flush_s"] = both("flush", lambda t: t.flush())
+    same_dir_bytes(dev.regular_db.db_dir, nat.regular_db.db_dir, "flush")
+    live = dev.regular_db.versions.live_files()
+    ns = [fm.props.n_entries for fm in live]
+    misses = sum(not cache.contains(fm.file_id) for fm in live)
+    _zero(wrappers)
+    t0 = time.time()
+    dev.compact()
+    sync()
+    comp_s = {"device": time.time() - t0}
+    launches["tablet_compact"] = _launches_of(wrappers)
+    t0 = time.time()
+    nat.compact()
+    comp_s["free"] = time.time() - t0
+    outs = dev.regular_db.n_live_files
+    k_pad, _m = run_merge._layout(ns)
+    exact_launches(launches["tablet_compact"], {
+        "merge_path_level": k_pad.bit_length() - 1, "gc_pack": 1,
+        "block_decode": misses, "survivor_scan": 1, "staged_concat": 1,
+        "span_gather": outs, "block_encode": outs, "index_fit": outs},
+        "compact")
+    out["compact"] = {
+        "rows_in": sum(ns), "inputs": len(ns), "cache_misses": misses,
+        **same_db_files(dev.regular_db, nat.regular_db, "tablet compact"),
+        "manifest_edits": same_manifest(dev.regular_db, nat.regular_db,
+                                        "tablet compact"),
+        "seconds": comp_s,
+        "rows_per_s": {k: sum(ns) / v for k, v in comp_s.items()}}
+    log(f"tablet flush + compact: {sum(ns)} rows in {len(ns)} files "
+        f"({misses} cache misses) -> {outs} files, "
+        f"{sum(ns) / comp_s['device']:,.0f} rows/s on the card vs "
+        f"{sum(ns) / comp_s['free']:,.0f} device-free; data files == the "
+        f"device-free tablet's, MANIFEST edit for edit; launches "
+        f"{ {k: v for k, v in launches['tablet_compact'].items() if v} } "
+        f"[{card}]")
+
+    # -- scans: the first page of the full table, and a range
+    page = 131_072
+    lower = DocKey(range_components=("user%08d" % (key_space // 5),)
+                   ).encode()
+    upper = DocKey(range_components=(
+        "user%08d" % (key_space // 5 + key_space // 50),)).encode()
+    out["scans"] = {}
+    for part, kw, limit in (("scan", {}, page),
+                            ("range_scan", dict(lower_doc_key=lower,
+                                                upper_doc_key=upper), None)):
+        def scan(t, kw=kw, limit=limit):
+            it = t.scan(**kw, use_device=(t is dev) or None)
+            rows = [_row(r) for r in it.rows(limit=limit)]
+            if t is dev:
+                it._entries.close()   # the page ends the stream: unpin
+            return rows
+        _zero(wrappers)
+        rows, secs = both(part, scan)
+        launches[f"tablet_{part}"] = _launches_of(wrappers)
+        sources = dev.regular_db.n_live_files
+        exact_launches(launches[f"tablet_{part}"], {
+            "radix_sort": 1, "sorted_payload": 1, "gc_pack": 1,
+            "staged_concat": int(sources > 1),
+            "bound_pack": int(part == "range_scan")}, part)
+        if not rows or dev.regular_db._pins:
+            raise AssertionError(f"tablet {part}: {len(rows)} rows, pins "
+                                 f"{dev.regular_db._pins}")
+        out["scans"][part] = {"rows": len(rows), "seconds": secs,
+                              "rows_per_s": {k: len(rows) / v
+                                             for k, v in secs.items()}}
+        log(f"tablet {part}: {len(rows)} rows == the device-free tablet's "
+            f"host iterator; {len(rows) / secs['device']:,.0f} rows/s on "
+            f"the card vs {len(rows) / secs['free']:,.0f}; launches "
+            f"{ {k: v for k, v in launches[f'tablet_{part}'].items() if v} }"
+            f" [{card}]")
+
+    # -- a disk fault during a flush: park, refuse, serve, recover
+    fi = env_mod.enable_fault_injection()
+    try:
+        frng = np.random.default_rng(args.seed + 102)
+        ops = updates(scrambled_zipfian(1024, key_space, frng), frng)
+        both("writes before the fault", lambda t: t.write(ops).value)
+        fi.set_fault("enospc", path_filter=".sst")
+        parked, _ = both("faulted flush", lambda t: (
+            t.flush(), t.regular_db.background_error is not None)[1])
+        ops2 = updates(scrambled_zipfian(1024, key_space, frng), frng)
+
+        def refused(t):
+            try:
+                t.write(ops2)
+                return None
+            except StatusError as e:
+                return e.status.code
+        code, _ = both("write while parked", refused)
+        ids = scrambled_zipfian(1024, key_space, frng)
+        _zero(wrappers)
+        both("multi_read while parked", multi_read(ids))
+        launches["tablet_parked_reads"] = point_launches(
+            "reads while parked", 1, 1024)
+        fi.clear_faults()
+        healed, _ = both("recovery", lambda t: (
+            t.regular_db.retry_background_work(),
+            t.regular_db.background_error))
+        both("write after recovery", lambda t: t.write(ops2).value)
+        if not parked or code != Code.SERVICE_UNAVAILABLE \
+                or healed != (True, None) or fi.faults_injected < 2:
+            raise AssertionError(f"tablet fault: parked {parked}, write "
+                                 f"{code}, recovery {healed}, faults "
+                                 f"{fi.faults_injected}")
+    finally:
+        env_mod.disable_fault_injection()
+    out["fault"] = {"faults_injected": fi.faults_injected,
+                    "write_refused": str(code)}
+    log(f"tablet disk fault: ENOSPC on the flush's SST appends "
+        f"({fi.faults_injected} injected) parked both regular DBs; writes "
+        f"refused ({code.name}); 1024 reads on the card == device-free "
+        f"(launches "
+        f"{ {k: v for k, v in launches['tablet_parked_reads'].items() if v} }"
+        f"); after clear_faults retry_background_work flushed and writes "
+        f"flowed")
+
+    # -- transactional writes: pending, committed, applied
+    trng = np.random.default_rng(args.seed + 103)
+    tids = trng.choice(key_space, size=1024, replace=False)
+    meta = TransactionMetadata(b"\x5a" * 16, "status-tablet")
+    statuses = {}
+    tops = updates(tids, trng)
+    for _tag, t in pair:
+        t.status_resolver = lambda _st, txn, read_ht=None: statuses.get(
+            txn, {"status": "pending", "commit_ht": None})
+    both("transactional write", lambda t: t.write_transactional(tops,
+                                                                meta).value)
+    want = [o.values["field0"] for o in tops]
+    out["transaction"] = {}
+    for stage in ("pending", "committed", "applied"):
+        if stage == "committed":
+            commit_ht, _ = both("commit time", lambda t: t.clock.now().value)
+            statuses[meta.txn_id] = {"status": "committed",
+                                     "commit_ht": commit_ht}
+        if stage == "applied":
+            both("apply", lambda t: t.apply_txn_update(
+                "apply", meta.txn_id, commit_ht, t.clock.now().value,
+                (2, 1)))
+        _zero(wrappers)
+        rows, secs = both(f"multi_read, intents {stage}", multi_read(tids))
+        launches[f"tablet_txn_{stage}"] = _launches_of(wrappers)
+        exact_launches(launches[f"tablet_txn_{stage}"], {}, f"txn {stage}")
+        vals = [dict(r[1]).get(0) if r else None for r in rows]
+        if (stage == "pending") == (vals == want):
+            raise AssertionError(f"tablet transaction {stage}: the rows "
+                                 f"read {'show' if stage == 'pending' else 'miss'}"
+                                 f" the transaction's values")
+        out["transaction"][stage] = {"seconds": secs}
+    _, out["transaction"]["flush_s"] = both("flush after the transaction",
+                                            lambda t: t.flush())
+    out["transaction"]["intents_files"] = same_dir_bytes(
+        dev.intents_db.db_dir, nat.intents_db.db_dir, "intents")
+    same_db_files(dev.regular_db, nat.regular_db, "tablet at the end")
+    same_manifest(dev.regular_db, nat.regular_db, "tablet at the end")
+    log(f"tablet transaction: 1024 transactional writes read while "
+        f"pending, committed and applied == the device-free tablet's, "
+        f"through read_row (the intents DB is not empty: no point-read "
+        f"launch); intents files byte for byte "
+        f"({out['transaction']['intents_files']}) [{card}]")
+    if cache.pinned_count() or dev.regular_db._pins:
+        raise AssertionError("tablet: pins left")
+    dev.close()
+    nat.close()
+    del dev, nat, cache
+    torch.cuda.empty_cache()
+
+    # -- q6_agg on the lineitem SSTs as a tablet
+    queries = pushdown_queries(lineitem_schema())
+    mode, spec = queries["q6_agg"]
+    li = {}
+    for tag, kw in (("card", on_card()), ("free", {})):
+        link_lineitem(os.path.join(workdir, "lineitem"),
+                      os.path.join(d, f"lineitem_{tag}", "regular"))
+        li[tag] = tablet(tag, "lineitem", schema=lineitem_schema(),
+                         time_us=lambda: (top_ht >> 12) + 1, **kw)
+    ref = push_out["q6_agg"]["answer"]
+    rec = {}
+    for call in ("first", "resident"):
+        _zero(wrappers)
+        t0 = time.time()
+        got = li["card"].scan_aggregate(HybridTime(top_ht), spec=spec)
+        sync()
+        rec[f"{call}_s"] = time.time() - t0
+        launches[f"tablet_q6_agg_{call}"] = _launches_of(wrappers)
+        check_pushdown_launches(launches[f"tablet_q6_agg_{call}"], mode,
+                                False, "tablet q6_agg")
+        if got is None or {"rows": got["rows"], "cols": {
+                str(c): v for c, v in got["cols"].items()}} != ref:
+            raise AssertionError(f"tablet q6_agg ({call} call): {got} != "
+                                 f"the pushdown phase's {ref}")
+    if li["free"].scan_aggregate(HybridTime(top_ht), spec=spec) is not None:
+        raise AssertionError("the device-free lineitem tablet ran the "
+                             "pushdown")
+    if li["card"].regular_db._pins:
+        raise AssertionError("tablet q6_agg: pins left")
+    for t in li.values():
+        t.close()
+    out["q6_agg"] = rec
+    log(f"tablet q6_agg on the lineitem tablet == step 8's answer: first "
+        f"call {rec['first_s']:.3f} s (stages the value words), resident "
+        f"{rec['resident_s']:.4f} s; the device-free tablet refuses the "
+        f"pushdown (None) [{card}]")
+    crypto = importlib.util.find_spec("cryptography") is not None
+    out["encrypted_route"] = "held on the CPU (tests/test_torch_env.py)"
+    log(f"tablet: the encrypted Env is not run here (the cryptography "
+        f"package is {'present' if crypto else 'absent'} on this machine); "
+        f"its routes are held against the JAX package on the CPU by "
+        f"tests/test_torch_env.py")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"tablet phase: {out['seconds']:.1f}s [{card}]")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -5695,6 +6168,9 @@ def main() -> int:
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
                     "each")
+    ap.add_argument("--tablet-ops", type=int, default=32_768,
+                    help="YCSB-A reads and as many updates through the "
+                    "tablet phase's Tablet.multi_read / Tablet.write")
     ap.add_argument("--fault-rows", type=int, default=1_000_000,
                     help="rows of the faults phase's decay and rate-race "
                     "tablet (the YCSB-A generator, cut in rows only)")
@@ -5851,6 +6327,9 @@ def main() -> int:
         reset_fault_base()
         db_out, db_launches = db_phase(args, workdir, card, push_out, top_ht)
         no_fallbacks("db")
+        tablet_out, tablet_launches = tablet_phase(args, workdir, card,
+                                                   push_out, top_ht)
+        no_fallbacks("tablet")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
@@ -5883,8 +6362,9 @@ def main() -> int:
         for tag, counts in chain_launches.items():
             if entry["name"] in counts:
                 entry[f"launches_chain_{tag}"] = counts[entry["name"]]
-        # launches per part of the DB phase (its entry points)
-        for tag, counts in db_launches.items():
+        # launches per part of the DB and the tablet phases (their entry
+        # points)
+        for tag, counts in {**db_launches, **tablet_launches}.items():
             if entry["name"] in counts:
                 entry[f"launches_{tag}"] = counts[entry["name"]]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
@@ -5892,6 +6372,7 @@ def main() -> int:
                "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
                "pushdown": push_out,
                "point_read": point_out, "faults": faults_out, "db": db_out,
+               "tablet": tablet_out,
                "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_run_merge import _make_run
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.ops import block_codec as ref_codec
 from yugabyte_tpu.ops import run_merge as ref_run_merge
 from yugabyte_tpu.ops.merge_gc import GCParams as RefGCParams
@@ -48,6 +49,14 @@ from yugabyte_tpu_torch.utils.status import Code, StatusError
 torch.set_num_threads(1)
 
 CUTOFF = (10_000_000 << 12)
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tests.test_run_merge import _make_run
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.ops.slabs import ValueArray
 from yugabyte_tpu.storage import compaction as ref_compaction
 from yugabyte_tpu.storage.sst import Frontier, SSTReader, SSTWriter
@@ -32,7 +33,6 @@ from yugabyte_tpu_torch.storage.run_cache import (NamespacedRunCache,
                                                   NativeRunCache)
 from yugabyte_tpu_torch.storage.sst import SSTReader as PortSSTReader
 from yugabyte_tpu_torch.utils import flags as port_flags
-from yugabyte_tpu_torch.utils import env as port_env
 from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
 
 # The tier-1 run shares the host's cores among its workers: one intra-op
@@ -41,6 +41,14 @@ from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
 torch.set_num_threads(1)
 
 CUTOFF = (1 << 21) << 12
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True, params=["0", "1"], ids=["shell", "codec"])
@@ -167,7 +175,9 @@ def test_outside_the_slice_raises(tmp_path):
     """A skewed pick, once refused, now re-enters the router's radix
     route; a device cache with input_ids, once refused, now stages the
     miss and writes the outputs through at level 1 with no pin left; an
-    encrypted Env still raises, naming its ROADMAP queue A item."""
+    encrypted Env, once refused, re-enters the router's Python path
+    through the Env, its outputs' plaintext equal to the JAX package's
+    and the native job's."""
     rng = np.random.default_rng(29)
     skewed = [_mk_run(rng, n, key_space=3000) for n in (3000, 40, 40, 40, 40)]
     paths = _write_inputs(str(tmp_path), skewed)
@@ -187,20 +197,11 @@ def test_outside_the_slice_raises(tmp_path):
     assert [cache.level_of(fid) for fid, _p, _pr in res.outputs] == \
         [1] * len(res.outputs)
 
-    class _Encrypted(port_env.Env):
-        encrypted = True
-
-    old = port_env.get_env()
-    port_env.set_env(_Encrypted())
-    try:
-        with pytest.raises(NotImplementedError, match="encrypted Env: "
-                           "ROADMAP queue A: the encrypted Env"):
-            port_compaction.run_compaction_job_device_native(
-                readers[:1], str(tmp_path), lambda: next(ids), CUTOFF, True,
-                device="cpu")
-
-    finally:
-        port_env.set_env(old)
+    from tests.test_torch_env import encrypted_both, encrypted_route_twin
+    with encrypted_both():
+        res = encrypted_route_twin(tmp_path, paths[:1], "device_native",
+                                   cache=True)
+    assert res.rows_in == 3000 and res.outputs
 
 
 # ------------------------------------------------- the router, route by route
@@ -491,14 +492,9 @@ def test_router_unported_arguments_raise(tmp_path):
         port_flags.reset_flag("compaction_max_output_entries_per_sst")
     assert port_compaction.compaction_rate_limiter() is None
 
-    class _Encrypted(port_env.Env):
-        encrypted = True
-
-    old = port_env.get_env()
-    port_env.set_env(_Encrypted())
-    try:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A: the encrypted Env"):
-            job()
-    finally:
-        port_env.set_env(old)
+    # an encrypted Env, once refused: the router's Python path through
+    # the Env, plaintext equal to the JAX package's and the native job's
+    from tests.test_torch_env import encrypted_both, encrypted_route_twin
+    with encrypted_both():
+        res = encrypted_route_twin(tmp_path, paths, "device")
+    assert res.rows_in == 300 and res.outputs

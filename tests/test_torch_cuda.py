@@ -2806,3 +2806,111 @@ def test_db_mesh_pool_wave_on_the_card(cuda, tmp_path):
                 db.close()
         threads.shutdown()
         pool.shutdown()
+
+
+# -------------------------------------------------------------- the tablet
+
+
+def _tablet_pair(tmp_path, n=6000, seed=20):
+    """A Tablet on the card (its regular DB with a DeviceSlabCache) and a
+    default-options (device-free) Tablet on one deterministic clock, each
+    written the same rows of (k STRING range key, v STRING) in 3 flushes."""
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.tablet.tablet import Tablet, TabletOptions
+    schema = Schema([ColumnSchema("k", DataType.STRING),
+                     ColumnSchema("v", DataType.STRING)],
+                    num_range_key_columns=1)
+    tablets = []
+    for kw in (dict(device="cuda", device_cache=DeviceSlabCache("cuda")),
+               {}):
+        t = Tablet("t", str(tmp_path / str(len(tablets))), schema,
+                   clock=HybridClock(lambda: 10**12),
+                   options=TabletOptions(auto_compact=False, **kw))
+        rng = np.random.default_rng(seed)
+        for f in range(3):
+            ids = rng.integers(0, n, size=n // 2)
+            t.write([QLWriteOp(
+                WriteOpKind.DELETE_ROW if i % 13 == 0 and f else
+                WriteOpKind.INSERT, DocKey(range_components=("k%06d" % i,)),
+                {} if i % 13 == 0 and f else {"v": "v%d-%d" % (f, i)})
+                for i in ids])
+            t.flush()
+        tablets.append(t)
+    return tablets, [DocKey(range_components=("k%06d" % i,))
+                     for i in range(0, n + 50, 3)]
+
+
+def _rows(rows):
+    return [None if r is None else (r.doc_key.encode(),
+                                    sorted(r.columns.items()),
+                                    r.write_ht.value) for r in rows]
+
+
+def test_tablet_on_the_card_equals_device_free(cuda, tmp_path):
+    """A small Tablet on the card: multi_read (P1 + P2 and P3 + the fold
+    once per 1024-key chunk: liveness, v and the bare key a row), a full
+    scan (G, H, I.1, B), a range scan forced onto the card (+ I.2) and
+    compact (its inputs run-cached by their flushes: the shell route, A,
+    B, D, E, H, P4) equal the device-free Tablet's answers and data
+    files."""
+    from yugabyte_tpu_torch.ops import point_read, radix, scan
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    (dev, free), keys = _tablet_pair(tmp_path)
+    kernels = {"p12": point_read.hash_probe_files,
+               "p3": point_read.locate_fold, "p1": point_read.fnv64,
+               "G": radix.radix_sort, "I1": radix.sorted_payload,
+               "B": merge_gc.gc_pack, "H": run_merge.staged_concat,
+               "I2": scan.bound_pack, "A": merge_path.merge_level,
+               "D": run_merge.survivor_scan, "E": run_merge.span_gather,
+               "F": block_codec.block_encode,
+               "P4": point_read.index_fit}
+
+    def counted(fn):
+        before = {k: w.launches for k, w in kernels.items()}
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: w.launches - before[k] for k, w in kernels.items()
+                     if w.launches - before[k]}
+
+    try:
+        for step in ("before", "after"):
+            got, n = counted(lambda: _rows(dev.multi_read(keys)))
+            chunks = -(-3 * len(keys) // 1024)
+            assert n == {"p12": chunks, "p3": chunks}, n
+            assert got == _rows(free.multi_read(keys))
+            it = dev.scan()
+            got, n = counted(lambda: _rows(it))
+            # H concatenates the sources: none when one file is live
+            h = {"H": 1} if dev.regular_db.n_live_files > 1 else {}
+            assert n == {"G": 1, "I1": 1, "B": 1, **h}, n
+            assert got == _rows(free.scan()) and got
+            lo, hi = keys[100].encode(), keys[400].encode()
+            got, n = counted(lambda: _rows(dev.scan(
+                lower_doc_key=lo, upper_doc_key=hi, use_device=True)))
+            assert n == {"G": 1, "I1": 1, "B": 1, "I2": 1, **h}, n
+            assert got == _rows(free.scan(lower_doc_key=lo,
+                                          upper_doc_key=hi))
+            if step == "before":
+                _, n = counted(dev.compact)
+                outs = dev.regular_db.n_live_files
+                # every input was exported to the run cache by its
+                # flush: the shell route (no F), its outputs written
+                # through (D, E) with a learned index (P4)
+                assert n == {"A": 2, "B": 1, "D": 1, "H": 1, "E": outs,
+                             "P4": outs}, n
+                free.compact()
+                for a, b in zip(dev.regular_db.versions.live_files(),
+                                free.regular_db.versions.live_files()):
+                    with open(data_file_name(a.path), "rb") as fa, \
+                            open(data_file_name(b.path), "rb") as fb:
+                        assert fa.read() == fb.read()
+        assert dev.regular_db._device_cache.pinned_count() == 0
+    finally:
+        dev.close()
+        free.close()

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.common import hybrid_time as ref_ht
 from yugabyte_tpu.storage import compaction as ref_compaction
 from yugabyte_tpu.storage import db as ref_db
@@ -51,6 +52,14 @@ pytestmark = pytest.mark.skipif(not native_engine.available(),
 
 # The tier-1 run shares the host's cores among its workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ import torch
 
 import chip_smoke
 from tests.test_merge_gc_kernel import CUTOFF, ht, mk_key, slab_from_model
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.docdb.compaction_model import ModelEntry
 from yugabyte_tpu.ops import merge_gc as ref_mg
 from yugabyte_tpu.parallel import dist_compact as ref_dc
@@ -42,6 +43,13 @@ from yugabyte_tpu_torch.storage import compaction
 from yugabyte_tpu_torch.storage.sst import SSTReader
 from yugabyte_tpu_torch.utils import flags
 
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True, scope="module")

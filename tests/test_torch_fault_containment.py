@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from tests.test_torch_compaction import _mk_run, _write_inputs, _files
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.ops import device_faults as ref_df
 from yugabyte_tpu.storage import bucket_health as ref_bh
 from yugabyte_tpu.storage import compaction as ref_compaction
@@ -56,6 +57,14 @@ BUCKET = (4, 512)        # three 300-row runs: k_pad 4, m 512
 
 _ENTITIES = ("offload_policy", "bucket_health", "integrity", "point_read",
              "scan_pushdown")
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True)

@@ -73,6 +73,24 @@ MODULES = [
     "yugabyte_tpu_torch.parallel.dist_compact",
     "yugabyte_tpu_torch.tserver",
     "yugabyte_tpu_torch.tserver.compaction_pool",
+    "yugabyte_tpu_torch.utils.latency",
+    "yugabyte_tpu_torch.rpc",
+    "yugabyte_tpu_torch.rpc.messenger",
+    "yugabyte_tpu_torch.consensus",
+    "yugabyte_tpu_torch.consensus.raft",
+    "yugabyte_tpu_torch.consensus.log",
+    "yugabyte_tpu_torch.docdb.lock_manager",
+    "yugabyte_tpu_torch.docdb.intents",
+    "yugabyte_tpu_torch.docdb.conflict_resolution",
+    "yugabyte_tpu_torch.docdb.intent_aware_iterator",
+    "yugabyte_tpu_torch.docdb.doc_rowwise_iterator",
+    "yugabyte_tpu_torch.docdb.subdocument",
+    "yugabyte_tpu_torch.docdb.compaction_model",
+    "yugabyte_tpu_torch.tablet",
+    "yugabyte_tpu_torch.tablet.mvcc",
+    "yugabyte_tpu_torch.tablet.retryable_requests",
+    "yugabyte_tpu_torch.tablet.admission",
+    "yugabyte_tpu_torch.tablet.tablet",
     "chip_smoke",
     "kernel_ab",
 ]
@@ -179,6 +197,31 @@ MESH = Mesh([torch.device("cuda", 0)] * 2)
 SLAB = pack_kvs([(b"k", 1 << 32, b"\\x01")])
 """
 
+# a tablet (k INT64 hash key, v INT64) driven through write, flush,
+# compact, multi_read and scan
+_TABLET = """
+import sys, tempfile
+from yugabyte_tpu_torch.common.schema import ColumnSchema, DataType, Schema
+from yugabyte_tpu_torch.docdb.doc_key import DocKey
+from yugabyte_tpu_torch.docdb.doc_operations import QLWriteOp, WriteOpKind
+from yugabyte_tpu_torch.tablet.tablet import Tablet, TabletOptions
+SCHEMA = Schema([ColumnSchema("k", DataType.INT64),
+                 ColumnSchema("v", DataType.INT64)], num_hash_key_columns=1)
+
+def drive(t):
+    for i in range(40):
+        t.write([QLWriteOp(WriteOpKind.INSERT, DocKey((i,)), {"v": i})])
+        if i % 10 == 9:
+            t.flush()
+    t.compact()
+    got = [r.to_dict(SCHEMA)["v"] for r in t.multi_read(
+        [DocKey((i,)) for i in range(40)])]
+    assert sorted(got) == sorted(r.to_dict(SCHEMA)["v"]
+                                 for r in t.scan()), got
+    t.close()
+    return got
+"""
+
 ENTRY_POINTS = {
     "make_mesh": """
 from yugabyte_tpu_torch.parallel.mesh import make_mesh
@@ -261,6 +304,14 @@ DB(tempfile.mkdtemp(), DBOptions(auto_compact=False))
 import tempfile
 from yugabyte_tpu_torch.storage.db import DB
 DB(tempfile.mkdtemp())
+""",
+    "Tablet_on_the_card": """
+import tempfile
+from yugabyte_tpu_torch.common.schema import ColumnSchema, DataType, Schema
+from yugabyte_tpu_torch.tablet.tablet import Tablet, TabletOptions
+Tablet("t", tempfile.mkdtemp(), Schema([ColumnSchema("k", DataType.INT64)],
+                                      num_hash_key_columns=1),
+       options=TabletOptions(device="cuda"))
 """,
     "CompactionPool": """
 from yugabyte_tpu_torch.parallel.mesh import make_mesh
@@ -390,6 +441,20 @@ shutil.rmtree(d)
 assert not any(m in ("jax", "yugabyte_tpu")
                or m.startswith(("jax.", "yugabyte_tpu."))
                for m in sys.modules), "the DB imported jax"
+""",
+    "Tablet_default_is_device_free": _TABLET + """
+t = Tablet("t", tempfile.mkdtemp(), SCHEMA)
+rows = drive(t)
+assert t.regular_db.opts.device == "native" and rows == list(range(40))
+assert not any(m in ("jax", "yugabyte_tpu")
+               or m.startswith(("jax.", "yugabyte_tpu."))
+               for m in sys.modules), "the tablet imported jax"
+""",
+    "Tablet_cpu": _TABLET + """
+from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+t = Tablet("t", tempfile.mkdtemp(), SCHEMA, options=TabletOptions(
+    device="cpu", device_cache=DeviceSlabCache("cpu")))
+assert drive(t) == list(range(40))
 """,
 }
 

@@ -18,6 +18,7 @@ import torch
 from tests.test_torch_compaction import _files, _mk_run, _write_inputs
 from tests.test_torch_fault_containment import (Twin, assert_boards_equal,
                                                 board_view)
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.storage import bucket_health as ref_bh
 from yugabyte_tpu.storage import compaction as ref_compaction
 from yugabyte_tpu.storage import offload_policy as ref_pol
@@ -34,6 +35,14 @@ from yugabyte_tpu_torch.utils import flags as port_flags
 torch.set_num_threads(1)
 
 CUTOFF = (1 << 21) << 12
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 @pytest.fixture(autouse=True)

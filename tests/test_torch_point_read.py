@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_cuda import INDEX_FIT_CASES, index_fit_case
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.common import hybrid_time as ref_ht
 from yugabyte_tpu.ops import merge_gc as ref_mg
 from yugabyte_tpu.ops import point_read as ref_pr
@@ -46,6 +47,14 @@ from yugabyte_tpu_torch.utils import flags
 
 # The tier-1 run shares the host's cores among its workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 def _key(i: int, col: bool = False) -> bytes:

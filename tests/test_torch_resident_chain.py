@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_env import require_reference_native
 from yugabyte_tpu.ops.slabs import FLAG_HAS_TTL, FLAG_TOMBSTONE, KVSlab
 from yugabyte_tpu.ops.slabs import ValueArray
 from yugabyte_tpu.ops import scan as ref_scan
@@ -54,6 +55,14 @@ torch.set_num_threads(1)
 
 CUTOFF = (10_000_000 << 12)
 ROUTES = ["codec", "shell", "run_cached"]
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native engine loads and its process Env is
+    plaintext (tests/test_torch_env.require_reference_native): the twins
+    here drive its ingest_packed or native jobs."""
+    require_reference_native()
 
 
 def mk_runs(seed, k, n, key_space, ttl_frac=0.0, tomb_frac=0.1,

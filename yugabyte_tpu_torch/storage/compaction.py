@@ -118,8 +118,14 @@ never after the last one. Every writer hits the sync point
 `compaction:output_written` after each file (utils/sync_point.py): a test
 arms it to act in the middle of a job.
 
-Not ported yet, raising NotImplementedError naming its ROADMAP queue A
-item: an encrypted Env (the encrypted Env and FaultInjectionEnv).
+Under an encrypted Env (utils/env.py), as in the JAX package: the C++
+shell reads and writes raw files, so it is skipped wherever it would run
+(the router's combined gate, the "native" job, the decisions writer), and
+`run_compaction_job_device_native` re-enters the router's Python path
+with `_no_combined=True`: `read_all` through the Env, kernels A + B (or
+G, I.1, B for a skewed pick, the native merge for deep documents) on the
+device, and `SSTWriter` through the Env. The outputs carry a random nonce
+per file; their plaintext equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -165,8 +171,6 @@ flags.define_flag("distributed_compaction_min_rows", 1 << 20,
                   "compaction_job.cc:330 GenSubcompactionBoundaries)")
 
 
-_TITLE_ENV = "ROADMAP queue A: the encrypted Env and FaultInjectionEnv"
-
 _rate_limiter = None       # guarded-by: _rate_limiter_lock
 _rate_limiter_rate = 0     # guarded-by: _rate_limiter_lock
 _rate_limiter_lock = threading.Lock()
@@ -204,15 +208,12 @@ def _after_output_file(props: SSTProps, more_coming: bool) -> None:
         limiter.acquire(props.data_size + props.base_size)
 
 
-def _check_ported() -> None:
-    """Raise NotImplementedError, naming the ROADMAP queue A item, for
-    the setting of the JAX package's job that the port does not have
-    yet."""
+def _shell_can_run() -> bool:
+    """The native byte shell can run this job's bytes: it builds, and the
+    process Env is plaintext (the shell reads and writes raw files)."""
+    from yugabyte_tpu_torch.storage import native_engine
     from yugabyte_tpu_torch.utils.env import get_env
-    if get_env().encrypted:
-        raise NotImplementedError(
-            f"compaction under an encrypted Env: {_TITLE_ENV} (the JAX "
-            f"package's encrypted Env needs the cryptography package)")
+    return native_engine.available() and not get_env().encrypted
 
 
 def _ingest_decode_counter():
@@ -503,7 +504,6 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     at every stage boundary of the route taken (OperationCancelled; the
     files written are deleted, nothing is installed)."""
     import time
-    _check_ported()
     _check(cancel)
     all_inputs = list(inputs)
     orig_input_ids = list(input_ids) if input_ids is not None else None
@@ -532,11 +532,11 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
                 board_key = (offload_policy, "run_merge_fused", qkey)
     if device is not None and device != "native" and not _no_combined:
         # the production path: device decisions + the codec or the C++
-        # byte shell, for depth-2 inputs without the radix override; the
-        # device-native job re-enters below for skewed picks
+        # byte shell, for depth-2 inputs without the radix override, where
+        # the shell can run the bytes (unencrypted); the device-native
+        # job re-enters below for skewed picks
         from yugabyte_tpu_torch.ops import run_merge
-        from yugabyte_tpu_torch.storage import native_engine
-        if (native_engine.available() and not run_merge.force_radix()
+        if (_shell_can_run() and not run_merge.force_radix()
                 and not any(r.props.has_deep for r in all_inputs)):
             if _wants_distributed(
                     mesh, sum(r.props.n_entries for r in all_inputs)):
@@ -559,22 +559,21 @@ def run_compaction_job(inputs: Sequence[SSTReader], out_dir: str,
     input_ids = _realign_ids(all_inputs, input_ids, inputs)
     if not inputs:
         return CompactionResult([], dropped_rows, 0)
-    if device == "native":
-        from yugabyte_tpu_torch.storage import native_engine
-        if native_engine.available():
-            t0 = time.monotonic()
-            result = _run_native_job(inputs, out_dir, new_file_id,
-                                     history_cutoff_ht, is_major,
-                                     retain_deletes, block_entries,
-                                     frontier_inputs=all_inputs,
-                                     cancel=cancel)
-            result.rows_in += dropped_rows
-            if board_key is not None:
-                # live native measurement, what the device rate must beat
-                board, family, qkey = board_key
-                board.record_native(family, qkey, result.rows_in,
-                                    time.monotonic() - t0)
-            return result
+    if device == "native" and _shell_can_run():
+        # under encryption at rest the Python path (through the Env) runs
+        t0 = time.monotonic()
+        result = _run_native_job(inputs, out_dir, new_file_id,
+                                 history_cutoff_ht, is_major,
+                                 retain_deletes, block_entries,
+                                 frontier_inputs=all_inputs,
+                                 cancel=cancel)
+        result.rows_in += dropped_rows
+        if board_key is not None:
+            # live native measurement, what the device rate must beat
+            board, family, qkey = board_key
+            board.record_native(family, qkey, result.rows_in,
+                                time.monotonic() - t0)
+        return result
     from yugabyte_tpu_torch.ops.slabs import FLAG_DEEP, concat_slabs
     slabs = [r.read_all() for r in inputs]
     keep_idx = [i for i, s in enumerate(slabs) if s.n]
@@ -719,10 +718,20 @@ def run_compaction_job_device_native(
     cancelled attempt unwinds and raises, and the board records nothing
     for it."""
     from yugabyte_tpu_torch.ops import block_codec, run_merge
+    from yugabyte_tpu_torch.utils.env import get_env
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
 
     dev = resolve_device(device)
-    _check_ported()
+    if get_env().encrypted:
+        # the C++ shell bypasses the Env: under encryption the Env-aware
+        # Python path runs instead (the JAX package's route)
+        return run_compaction_job(inputs, out_dir, new_file_id,
+                                  history_cutoff_ht, is_major,
+                                  retain_deletes, device=device,
+                                  block_entries=block_entries,
+                                  device_cache=device_cache,
+                                  input_ids=input_ids,
+                                  _no_combined=True, cancel=cancel)
     all_inputs = list(inputs)
     orig_input_ids = list(input_ids) if input_ids is not None else None
     inputs, dropped = filter_expired_inputs(
@@ -1478,7 +1487,6 @@ def run_compaction_job_dist_native(
     from yugabyte_tpu_torch.utils.torch_setup import resolve_device
     from yugabyte_tpu_torch.utils.trace import TRACE
 
-    _check_ported()
     _check(cancel)
     if device is not None:
         kind = resolve_device(device).type
@@ -1622,16 +1630,15 @@ def run_compaction_job_with_decisions(
     cancel: checked at each input and each output file; the files written
     are deleted when it trips. The rate limiter paces between files."""
     from yugabyte_tpu_torch.ops.slabs import concat_slabs
-    from yugabyte_tpu_torch.storage import native_engine
 
-    _check_ported()
     fr = _merge_frontiers(
         [r.props.frontier for r in (frontier_inputs or inputs)],
         history_cutoff_ht)
     has_deep = any(r.props.has_deep for r in inputs)
     rows_out = int(surv.shape[0])
     tombstones = int(np.count_nonzero(mk_surv))
-    if native_engine.available() and not has_deep:
+    if _shell_can_run() and not has_deep:
+        from yugabyte_tpu_torch.storage import native_engine
         with native_engine.NativeCompactionJob() as job:
             for r in inputs:
                 _check(cancel)

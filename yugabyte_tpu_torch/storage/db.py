@@ -87,7 +87,19 @@ Containment, as in the JAX package:
   - Read-corruption routing covers the scans: a corrupt block met while
     staging or streaming parks the DB and re-raises ServiceUnavailable.
 
-`pre_flush_hook` comes with the device-free rest (ROADMAP queue A).
+The tablet's entry points (tablet/tablet.py, as the JAX DB's
+db.py:229-300 and :1238-1239 there): `pre_flush_hook` runs after the
+memtable swap and before the new SST is written (the tablet points the
+intents DB's hook at the regular DB's flush, so the intents' flushed
+frontier never persists ahead of the regular DB's); `memstore_bytes`,
+`oldest_memstore_write_s`, `approx_entry_count` (the intent overlay's
+emptiness probe), `approx_row_entries` (the pushdown's size gate),
+`has_deep_files` and `mem_entries_range` (the batched row read's gates).
+
+`DBOptions(device=..., device_cache=None, own_cache=False)` is the JAX
+DB's device without a cache (the tablet's intents DB): compactions run
+on the device (the device-native job without residency), while
+`multi_get` reads natively and the scans stage nothing.
 """
 
 from __future__ import annotations
@@ -228,6 +240,10 @@ class DBOptions:
     retention_policy: Callable[[], int] = lambda: 0
     memstore_size_bytes: Optional[int] = None
     auto_compact: bool = True
+    # a DB with a device and no device_cache makes its own cache; False
+    # keeps it without one, as the JAX DB given a device and no cache:
+    # compactions on the device, point reads native, scans unstaged
+    own_cache: bool = True
 
 
 class DB:
@@ -246,9 +262,9 @@ class DB:
                 DeviceSlabCache, NamespacedSlabCache)
             self._device = torch_setup.resolve_device(self.opts.device)
             cache = self.opts.device_cache
-            if cache is None:
+            if cache is None and self.opts.own_cache:
                 cache = DeviceSlabCache(self._device)
-            if cache.device.type != self._device.type:
+            if cache is not None and cache.device.type != self._device.type:
                 raise ValueError(
                     f"DBOptions.device {self._device} differs from the "
                     f"device cache's {cache.device}")
@@ -256,6 +272,12 @@ class DB:
             self._device_cache = (
                 NamespacedSlabCache(cache, os.path.abspath(db_dir))
                 if isinstance(cache, DeviceSlabCache) else cache)
+        # runs after the memtable swap, before this DB's SST is written:
+        # the tablet points the intents DB's hook at the regular DB's
+        # flush, so the intents' flushed frontier never persists ahead of
+        # the regular DB's for ops spanning both (bootstrap replays from
+        # the min frontier)
+        self.pre_flush_hook: Optional[Callable[[], None]] = None
         # the host packed-run cache: flush outputs retained decoded so the
         # device-native compaction over them skips read + decode. Only
         # that job reads it, so a DB without a device path pays nothing
@@ -305,6 +327,61 @@ class DB:
         for fm in self.versions.live_files():
             self._readers[fm.file_id] = SSTReader(fm.path,
                                                   self.opts.block_cache)
+
+    # ------------------------------------------------- the tablet's probes
+    def memstore_bytes(self) -> int:
+        """Mutable + flushing memtable bytes (global-memstore arbitration)."""
+        with self._lock:
+            total = self.mem.approximate_bytes
+            if self._imm is not None:
+                total += self._imm.approximate_bytes
+            return total
+
+    def oldest_memstore_write_s(self) -> Optional[float]:
+        with self._lock:
+            times = [self.mem.oldest_write_s]
+            if self._imm is not None:
+                times.append(self._imm.oldest_write_s)
+        times = [t for t in times if t is not None]
+        return min(times) if times else None
+
+    def approx_entry_count(self) -> int:
+        """Cheap emptiness probe (the tablet skips the intent overlay on
+        an empty intents DB). Zero means definitely empty."""
+        with self._lock:
+            if self.mem.approximate_bytes or self._imm is not None:
+                return 1
+            return len(self._readers)
+
+    def approx_row_entries(self) -> int:
+        """Rough live-entry count (SST props + ~32 bytes an entry of the
+        memtables): the pushdown's size gate."""
+        with self._lock:
+            n = sum(r.props.n_entries for r in self._readers.values())
+            n += self.mem.approximate_bytes // 32
+            if self._imm is not None:
+                n += self._imm.approximate_bytes // 32
+            return n
+
+    def has_deep_files(self) -> bool:
+        """Any live SST holding documents deeper than row + column: the
+        tablet's gate of the batched row read (deep rows cannot be
+        rebuilt from probes of the enumerated schema columns)."""
+        with self._lock:
+            return any(r.props.has_deep for r in self._readers.values())
+
+    def mem_entries_range(self, lower: bytes, upper: bytes
+                          ) -> List[Tuple[bytes, bytes]]:
+        """Memtable (+ the flushing one) entries with lower <= internal
+        key < upper: the batched row read's host probe for recent writes
+        off the enumerated key set."""
+        with self._lock:
+            mems = [self.mem] + ([self._imm] if self._imm is not None
+                                 else [])
+        out: List[Tuple[bytes, bytes]] = []
+        for m in mems:
+            out.extend(m.entries_range(lower, upper))
+        return out
 
     # ------------------------------------------------------------------ write
     def _post_write_locked(self, op_id: Tuple[int, int]) -> bool:
@@ -421,6 +498,8 @@ class DB:
             last_op = self._last_op_id
         fid = path = None
         try:
+            if self.pre_flush_hook is not None:
+                self.pre_flush_hook()
             fid = self.versions.new_file_id()
             path = os.path.join(self.db_dir, f"{fid:06d}.sst")
             with self._lock:
@@ -717,7 +796,7 @@ class DB:
         if not keys:
             return []
         try:
-            if self._device is not None \
+            if self._device_cache is not None \
                     and flags.get_flag("point_read_batched"):
                 out = self._multi_get_device(keys, read_ht, doc_key_lens)
                 if out is not None:
@@ -1132,16 +1211,17 @@ class DB:
                     read_ht_value, lower_key, upper_key)
                 return
             sources = [SlabSource(sl) for sl in slabs]
+            cache = self._device_cache
             for fid, r in readers:
-                st = self._device_cache.get(fid)
+                st = cache.get(fid) if cache is not None else None
                 if st is not None and st.n != r.props.n_entries:
-                    self._device_cache.drop(fid)   # stale entry: restage
+                    cache.drop(fid)   # stale entry: restage
                     st = None
                 if st is not None and not r.props.has_deep:
                     sources.append(ResidentSource(r, st))
                     continue
                 sl = self._read_all_contained(r)
-                if not r.props.has_deep:
+                if cache is not None and not r.props.has_deep:
                     st = self._device_cache.stage(fid, sl, for_read=True)
                     sources.append(SlabSource(sl, st))
                 else:
@@ -1177,6 +1257,10 @@ class DB:
             for fid, r in readers:
                 if r.props.has_deep:
                     raise PushdownUnsupported("deep")
+                if self._device_cache is None:
+                    sources.append(SlabSource(self._read_all_contained(r),
+                                              sorted_source=True))
+                    continue
                 st = self._device_cache.get(fid)
                 if st is not None and st.n != r.props.n_entries:
                     self._device_cache.drop(fid)   # stale entry: restage
@@ -1392,7 +1476,8 @@ class DB:
                 from yugabyte_tpu_torch.ops.run_merge import packed_run_ns
                 from yugabyte_tpu_torch.storage.offload_policy import (
                     bucket_key)
-                cached = all(self._device_cache.contains(fid) for fid in ids)
+                cached = bool(self._device_cache is not None and all(
+                    self._device_cache.contains(fid) for fid in ids))
                 qkey = bucket_key(packed_run_ns(
                     [r.props.n_entries for r in inputs
                      if r.props.n_entries]))

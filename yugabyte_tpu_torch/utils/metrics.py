@@ -162,6 +162,13 @@ def kernel_metrics() -> MetricEntity:
     return ROOT_REGISTRY.entity("server", "kernels")
 
 
+def serve_path_metrics() -> MetricEntity:
+    """The process-wide entity of the batched serve path: group-commit
+    writes (tablet/tablet.py) and the per-stage latency budget
+    (utils/latency.py)."""
+    return ROOT_REGISTRY.entity("server", "serve_path")
+
+
 def record_pipeline_stage(stage: str, ms: float) -> None:
     """One slice of compaction-pipeline wall time: `stage` is where the
     time went — 'host' (raw-byte ingest + column packing + decision

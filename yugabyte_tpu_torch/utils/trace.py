@@ -8,9 +8,11 @@ outside any trace. The containment paths (storage/compaction.py, the
 codec, the pushdown, the point reads, the board) TRACE every fault they
 contain. Every Trace is a span (trace_id, span_id, parent_span_id,
 sampled); a Trace opened inside another parents itself under it; a
-finished span with content lands in the /tracez ring (`tracez()`). The
-grouped /tracez page, /threadz and LongOperationTracker come with the
-server pages (ROADMAP queue A: the device-free rest).
+finished span with content lands in the /tracez ring (`tracez()`).
+LongOperationTracker (the WAL's slow-fsync dump) TRACEs an overrun and
+drops the trace so far into the ring as a `slow-op:<name>` span. The
+grouped /tracez page and /threadz come with the server pages (ROADMAP
+queue A: the device-free rest).
 """
 
 from __future__ import annotations
@@ -153,3 +155,46 @@ def _record_tracez(t: Trace) -> None:
 def tracez() -> List[dict]:
     with _tracez_lock:
         return list(reversed(_TRACEZ))
+
+
+class LongOperationTracker:
+    """Warns (collects) when an operation exceeds a threshold (ref:
+    util/long_operation_tracker.h). On exceed it TRACEs into the current
+    request trace AND dumps the stitched trace-so-far into the /tracez
+    ring as a `slow-op:<name>` span, so a slow WAL fsync is explainable
+    after the fact even if the enclosing request ultimately succeeds."""
+
+    def __init__(self, name: str, threshold_ms: float = 1000.0):
+        self.name = name
+        self.threshold_ms = threshold_ms
+
+    def __enter__(self):
+        self._start = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        elapsed_ms = (time.monotonic() - self._start) * 1e3
+        if elapsed_ms > self.threshold_ms:
+            TRACE("LongOperation %s took %.1fms (threshold %.1fms)",
+                  self.name, elapsed_ms, self.threshold_ms)
+            self._dump_slow_op(elapsed_ms)
+
+    def _dump_slow_op(self, elapsed_ms: float) -> None:
+        from yugabyte_tpu_torch.utils.metrics import ROOT_REGISTRY
+        ROOT_REGISTRY.entity("server", "slow_ops").counter(
+            "long_operation_exceeded_total",
+            "operations that overran their LongOperationTracker "
+            "threshold").increment()
+        t = _current_trace.get()
+        entry = {"name": f"slow-op:{self.name}",
+                 "wall_ts": time.time(),
+                 "duration_ms": round(elapsed_ms, 3),
+                 # a child span of the still-open enclosing request span
+                 "trace_id": t.trace_id if t is not None else _new_id(64),
+                 "span_id": _new_id(32),
+                 "parent_span_id": t.span_id if t is not None else None,
+                 "dump": t.dump() if t is not None else ""}
+        with _tracez_lock:
+            _TRACEZ.append(entry)
+            if len(_TRACEZ) > _TRACEZ_CAP:
+                del _TRACEZ[: len(_TRACEZ) - _TRACEZ_CAP]
