@@ -6,11 +6,12 @@ compaction through `storage.compaction.run_compaction_job_device_native`
 on its default device-codec path and on its native-shell path
 (YBTPU_DEVICE_CODEC=0), chunked and skewed picks through the router
 `storage.compaction.run_compaction_job`, and the snapshot scan `ops.scan.
-visible_entries_sources`, and the DB's own entry points (scheduled
-compactions, scans, checkpoint, cancellation, the compaction pool) —
-and holds every CUDA kernel of those paths
-against its plain PyTorch version, the compaction decisions against the
-native C++ heap-merge oracle and the scan against the native host scan.
+visible_entries_sources`, the DB's own entry points (scheduled
+compactions, scans, checkpoint, cancellation, the compaction pool), the
+tablet and the tablet replicated three ways by Raft — and holds every
+CUDA kernel of those paths against its plain PyTorch version, the
+compaction decisions against the native C++ heap-merge oracle and the
+scan against the native host scan.
 Imports nothing of JAX.
 
 Phases (any failure exits non-zero):
@@ -103,7 +104,7 @@ Phases (any failure exits non-zero):
      device job after the cap; decay to PROBATION and HEALTHY on a
      --fault-rows (1M) tablet; the shadow verifier (bitflip caught,
      sticky past its window, clear_mismatch, one job at sample 1.0
-     beside one at 0; 40 1M-row jobs at the default sample, 3 at 1.0
+     beside one at 0; 8 1M-row jobs at the default sample, 3 at 1.0
      beside 3 at 0); a fault after the mesh job's M1-M3 (files ==
      native); the reference's rate race (the board's route, state and
      EWMAs per job, COLD first and prewarmed first). After the pushdown
@@ -119,7 +120,7 @@ Phases (any failure exits non-zero):
      SlabSource(read_all()), read time above every write, no bounds)
      drained and timed (rows, key + value bytes, MB/s), beside the native
      host reference `_visible_entries_host`; both walked in lockstep,
-     entry for entry; a range scan at a read time inside the runs' span
+     entry for entry, over their first 2^20 entries; a range scan at a read time inside the runs' span
      with a lower and a truncated upper bound, equal to the host
      reference. The seq-scans must launch kernels G, H, I.1 and B and no
      I.2 (an unbounded scan's keep is plane 0 of B's packed buffer); the
@@ -162,26 +163,29 @@ Phases (any failure exits non-zero):
      (DeviceSlabCache, auto_compact) bulk-loads 4 L0 runs of rows/4 and
      the universal pick on the 4th runs the codec route; 4 flushes of
      rows/100 and compact_all take the resident chain (no block decode);
-     files == native; scan_visible unbounded and over a range == the
-     native DB's scan_native(visible=True); the checkpoint reopened on
-     the card answers alike; q6_agg and filter_rows through
-     scan_aggregate / scan_filtered on the lineitem SSTs as a DB == step
-     8's answers; close() during the scheduled 10M-row compaction (held
-     at its first output file by a sync point) installs nothing and
-     leaves no file or pin; cancel_background_work leaves a --fault-rows
-     DB readable, and its compaction under compaction_rate_bytes_per_sec
-     takes at least the paced bytes' time; a DB with DBOptions.mesh (8
+     files == native; scan_visible unbounded (its first 2^20 entries)
+     and over a range == the native DB's scan_native(visible=True); the
+     checkpoint reopened on the card answers alike; q6_agg and
+     filter_rows through scan_aggregate / scan_filtered on the lineitem
+     SSTs as a DB == step 8's answers; close() during the scheduled
+     compaction of a --fault-rows DB (held at its first output file by a
+     sync point) installs nothing and leaves no file or pin;
+     cancel_background_work leaves another such DB readable, and its
+     compaction under compaction_rate_bytes_per_sec takes at least the
+     paced bytes' time; a DB with DBOptions.mesh (8
      virtual shards) runs its mesh-sized scheduled compaction on the
      dist-native job (M1-M3), == native; 8 tablet DBs behind one
      CompactionPool (DBOptions.mesh_pool, 8 virtual shards) compact in
      one wave, files == native. Launches per part in the kernels line
      (`launches_db_*`); no containment counter moves;
  11. the tablet (`tablet_phase`): a Tablet on the card
-     (TabletOptions(device, DeviceSlabCache)) beside a default-options
-     Tablet (device-free: its DBs run "native") that takes the same
-     operations in the same call, both on one deterministic clock. Config
-     2 at full width bulk-loaded (ingest_packed; the device-free tablet
-     opens a checkpoint of it) and read as rows of YCSB's usertable
+     (TabletOptions(device, DeviceSlabCache)) beside a device-free Tablet
+     (TabletOptions(device="native"): its DBs run "native"; the port's
+     default tablet is the card) that takes the same operations in the
+     same call, both on one deterministic clock. Config 2 at full width
+     bulk-loaded (ingest_packed at op id (0, 0); the device-free tablet
+     opens a checkpoint of it, a second checkpoint seeds step 12) and
+     read as rows of YCSB's usertable
      (ycsb_key, field0); YCSB-A: --tablet-ops reads through
      Tablet.multi_read and as many updates through Tablet.write in calls
      of 1024 (ScrambledZipfian); Tablet.flush and Tablet.compact
@@ -197,23 +201,53 @@ Phases (any failure exits non-zero):
      exact per part (`launches_tablet_*`), no containment counter moves,
      no pin left. No encrypted job runs here: its routes are held on the
      CPU (tests/test_torch_env.py); a line says so;
- 12. a `kernels` JSON line, the card line, and last
+ 12. the replicated tablet (`consensus_phase`): two Raft groups of three
+     TabletPeers (ts0-ts2) on localhost Messengers over RpcTransport,
+     one on the card (a DeviceSlabCache a replica), one device-free
+     (device="native"), every clock of a group over one physical time
+     the driver moves on at each write (`StepTime`), so both leaders
+     assign equal hybrid times. Every replica opens step 11's seed (hard
+     links), bootstraps and starts; ts0 is elected; YCSB-A through the
+     leader (--consensus-ops reads through TabletPeer.multi_read and as
+     many updates through TabletPeer.write, in calls of 1024), each
+     write applied on all three; flush on every replica (the six
+     replicas' files byte for byte); compact on every replica (the card
+     replicas' device-native job against the native one: data files byte
+     for byte, MANIFEST edit for edit); failover (ts0 down, ts1 elected,
+     a call through ts1) and ts0's restart (its bootstrap replays its
+     WAL above the flushed frontier into a card tablet, then it catches
+     up); every replica's reads == the device-free group's. Launches
+     exact per part (`launches_consensus_*`), no containment counter
+     moves, no pin left;
+ 13. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
+
+Every --rows the script accepts runs: below 4 x 2M rows every job of
+the run splits its outputs at rows/4 (compaction_max_output_entries_
+per_sst, so the resident chain's L1->L2 step gets two L0->L1 outputs);
+--chunk-rows is at most an eighth of the largest power of two in --rows
+(the chunked jobs still cut several chunks); and below 2^20 rows the
+mesh threshold (distributed_compaction_min_rows) comes down to the
+smaller of --rows and 4 x --skew-rows, so every mesh job still routes to
+the mesh. At the default 10M rows none of these moves.
 
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
        [--chunk-rows C] [--skew-rows L] [--wave-rows W] [--sf-orders M]
        [--point-reads K] [--fault-rows F] [--tablet-ops T]
+       [--consensus-ops O]
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2037,9 +2071,10 @@ def scan_phase(readers, n_rows, device="cuda"):
        drained; seconds from the first read_all to the drained iterator;
        every launch counter set to 0 just before and read just after;
     2. the same for the native host reference `_visible_entries_host`;
-    3. both walked in lockstep (entry for entry), with the counters set to
-       0 before that seq-scan too and G, H, I.1 and B required to launch,
-       I.2 not (the unbounded keep is plane 0 of B's packed buffer);
+    3. both walked in lockstep (entry for entry) over their first 2^20
+       entries, with the counters set to 0 before that seq-scan too and
+       G, H, I.1 and B required to launch, I.2 not (the unbounded keep is
+       plane 0 of B's packed buffer);
     4. a range scan at a read time inside the runs' span, with a lower and
        a truncated upper bound, in lockstep with the host reference, its
        counters likewise set to 0 before and checked after: I.2's bounded
@@ -2088,12 +2123,23 @@ def scan_phase(readers, n_rows, device="cuda"):
                              "or bytes")
     srcs = sources()
     slabs = [s.slab for s in srcs]
+    # the first page in lockstep (the device resolves the whole tablet
+    # before its first entry; the host drain is what a page cuts)
+    page = 1 << 20
+    for w in wrappers.values():
+        w.launches = 0
+    stream = scan.visible_entries_sources(srcs, read_ht, device=device)
     n = entries_lockstep(
-        counted(lambda: scan.visible_entries_sources(srcs, read_ht,
-                                                     device=device),
-                wrappers, "seq-scan (lockstep)", "scan"),
-        scan._visible_entries_host(slabs, read_ht, None, None), "seq-scan")
-    log(f"seq-scan == host reference, entry for entry ({n} entries)")
+        itertools.islice(stream, page),
+        itertools.islice(scan._visible_entries_host(slabs, read_ht, None,
+                                                    None), page),
+        "seq-scan")
+    stream.close()
+    lock_launches = {k: w.launches for k, w in wrappers.items()}
+    check_scan_launches(lock_launches, "scan", "seq-scan (lockstep)")
+    log(f"seq-scan (lockstep): launches {lock_launches}")
+    log(f"seq-scan == host reference, entry for entry (the first {n} "
+        f"entries; all {rows} agree in rows and bytes)")
     r_ht, lower, upper = scan_bounds(n_rows)
     t0 = time.time()
     range_launches = {}
@@ -4179,6 +4225,11 @@ def resident_chain_phase(args, runs, readers, workdir, card, device="cuda"):
     if not all(rc.contains(f) for f, _p, _pr in res["l0_l1_shell"].outputs):
         raise AssertionError("the shell route did not export its outputs")
 
+    if len(res["l0_l1_shell"].outputs) < 2:
+        raise AssertionError(f"the L0->L1 job wrote "
+                             f"{len(res['l0_l1_shell'].outputs)} file(s); "
+                             f"L1->L2 takes two (main lowers "
+                             f"compaction_max_output_entries_per_sst)")
     l1 = res["l0_l1_shell"].outputs[:2]
     l1_readers = [SSTReader(p) for _f, p, _pr in l1]
     l1_ids = [f for f, _p, _pr in l1]
@@ -4276,7 +4327,8 @@ def resident_chain_phase(args, runs, readers, workdir, card, device="cuda"):
 def resident_skewed_phase(args, state, skew_paths, workdir, card,
                           device="cuda"):
     """The skewed pick with the cache: the codec chain's first L1 file
-    (resident at level 1, the same bytes as the skewed phase's base file)
+    (resident at level 1, the same data bytes as the skewed phase's base
+    file, and its base file's but for a learned index)
     plus the skewed phase's 4 L0 flushes of --skew-rows updates, staged
     at level 0 as flush does, through the router's Python path with the
     cache (kernels H, G, I.1, B over the concatenated resident cols):
@@ -4288,12 +4340,25 @@ def resident_skewed_phase(args, state, skew_paths, workdir, card,
     from yugabyte_tpu_torch.storage.sst import SSTReader
     cache = state["cache"]
     base_fid, base_path = state["l1_first"]
-    for suffix in ("", ".sblock.0"):
-        with open(base_path + suffix, "rb") as f1, \
-                open(skew_paths[0] + suffix, "rb") as f2:
-            if f1.read() != f2.read():
-                raise AssertionError("the chain's L1 file differs from the "
-                                     "skewed pick's base file")
+    # the same data file byte for byte; the base files too, but for the
+    # learned index the chain's job may fit into its own (P4; the
+    # router's job fits none)
+    with open(base_path + ".sblock.0", "rb") as f1, \
+            open(skew_paths[0] + ".sblock.0", "rb") as f2:
+        same = f1.read() == f2.read()
+    with open(base_path, "rb") as f1, open(skew_paths[0], "rb") as f2:
+        if same and f1.read() != f2.read():
+            ra, rb = SSTReader(base_path), SSTReader(skew_paths[0])
+            pa, pb = ra.props, rb.props
+            ra.close()
+            rb.close()
+            same = pa.lindex is not None and pb.lindex is None and (
+                pa.n_entries, pa.first_key, pa.last_key, pa.data_size,
+                pa.frontier) == (pb.n_entries, pb.first_key, pb.last_key,
+                                 pb.data_size, pb.frontier)
+    if not same:
+        raise AssertionError("the chain's L1 file differs from the "
+                             "skewed pick's base file")
     readers = [SSTReader(base_path)] + [SSTReader(p) for p in skew_paths[1:]]
     ids = [base_fid] + [9000 + i for i in range(len(skew_paths) - 1)]
     for fid, r in zip(ids[1:], readers[1:]):
@@ -4546,7 +4611,7 @@ def faults_phase(args, readers, workdir, card, comp, device="cuda"):
         before install, contained (files == native), the bucket sticky
         past its window's decay, until clear_mismatch re-opens it on
         probation; one job's seconds with the verifier at 1.0 beside one
-        at 0; then, on the 1M-row tablet, 16 jobs at the default sample
+        at 0; then, on the 1M-row tablet, 8 jobs at the default sample
         and 3 at 1.0 beside 3 at 0 (default_sample_step);
       - the mesh job (8 virtual shards of the card): a fault at the
         routing attempt's download (after M1-M3) completes natively;
@@ -4860,7 +4925,7 @@ def faults_phase(args, readers, workdir, card, comp, device="cuda"):
 
 
 def default_sample_step(args, small, small_native, skey, job, board,
-                        card, n_default=16, n_pair=3):
+                        card, n_default=8, n_pair=3):
     """The sampled shadow verifier at its default sample on the 1M-row
     tablet: after one uncounted job, n_default device jobs with
     shadow_verify_sample at its default (random seeded from --seed),
@@ -5218,12 +5283,15 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
         deepest input), == native;
       - scans: scan_visible unbounded and over a range (G, H, I.1, B; I.2
         once on the range) == the native DB's scan_native(visible=True),
-        entry for entry (one sha256 over each ordered stream); q6_agg and
+        entry for entry (one sha256 over each ordered stream; the
+        unbounded stream's first 2^20 entries: the device resolves the
+        whole DB, the host drain is what a page cuts); q6_agg and
         filter_rows through scan_aggregate / scan_filtered on the lineitem
         SSTs opened as a DB == the pushdown phase's answers, first call
         (staging the value words) and resident call;
       - cancellation and pacing: close() while the DB's scheduled
-        10M-row compaction is parked at its first output file (the
+        compaction of --fault-rows rows is parked at its first output
+        file (the
         compaction:output_written sync point) on its compaction thread:
         nothing installed, no partial file, zero pins, no L1 entry;
         cancel_background_work on a --fault-rows DB the same way leaves
@@ -5358,16 +5426,20 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
         f"{ {k: v for k, v in launches['db_chain'].items() if v} } [{card}]")
     del small
 
-    # -- scans: unbounded and a range (a tenth of the keys), each == the
-    # native scan
+    # -- scans: unbounded (its first page) and a range (a tenth of the
+    # keys), each == the native scan
     lower = b"Suser%08d" % (key_space // 5)
     upper = b"Suser%08d" % (3 * key_space // 10)
+    page = 1 << 20
     out["scans"] = {}
     for tag, lo, hi, path in (("scan", None, None, "scan"),
                               ("range_scan", lower, upper, "range_scan")):
+        limit = page if path == "scan" else None
         _zero(wrappers)
         t0 = time.time()
-        got = _scan_digest(dev.scan_visible(cutoff, lo, hi))
+        stream = dev.scan_visible(cutoff, lo, hi)
+        got = _scan_digest(itertools.islice(stream, limit))
+        stream.close()      # a page ends the stream: unpin
         secs = time.time() - t0
         launches[f"db_{tag}"] = _launches_of(wrappers)
         # G, I.1, B; H concatenates the files (one file: no H); I.2 once
@@ -5380,10 +5452,13 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
             raise AssertionError(f"db {tag}: launches "
                                  f"{launches[f'db_{tag}']}")
         t0 = time.time()
-        want = _scan_digest(_native_visible(nat, cutoff, lo or b"", hi))
+        want = _scan_digest(itertools.islice(
+            _native_visible(nat, cutoff, lo or b"", hi), limit))
         nsecs = time.time() - t0
         if got != want or not got[0]:
             raise AssertionError(f"db {tag}: {got} != native {want}")
+        if dev._pins:
+            raise AssertionError(f"db {tag}: pins left {dev._pins}")
         out["scans"][tag] = {"entries": got[0], "bytes": got[1],
                              "seconds": secs, "native_seconds": nsecs,
                              "rows_per_s": got[0] / secs,
@@ -5464,7 +5539,12 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     ldb.close()
     torch.cuda.empty_cache()
 
-    # -- close() during the scheduled 10M-row compaction (part 1's runs)
+    # -- close() during a scheduled compaction of --fault-rows rows (the
+    # same runs serve cancel_background_work and the paced job below)
+    del runs
+    m = args.fault_rows
+    runs = _db_ycsb_runs(4, max(1, m // 4), max(1, m // 2),
+                         max(1_000_000, m // 4), args.seed + 83)
     threads = PriorityThreadPool(1, name="db-phase-compactions")
     try:
         cache = DeviceSlabCache(device, capacity_bytes=16 << 30)
@@ -5486,7 +5566,6 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
         go.set()
         threads.wait_idle()
         abort_s = time.time() - t0
-        del runs
         names = sorted(f for f in os.listdir(cdb.db_dir)
                        if f.endswith(".sst") or f.endswith(".sblock.0"))
         want_names = sorted([f"{f:06d}.sst" for f in in_ids]
@@ -5500,17 +5579,14 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
                 f"db close mid-compaction: files {names}, live {live}, "
                 f"pins {cache.pinned_count()}, entries "
                 f"{cache.snapshot()['entries']}")
-        out["close_cancel"] = {"rows": n, "abort_s": abort_s,
+        out["close_cancel"] = {"rows": m, "abort_s": abort_s,
                                "inputs": len(in_ids)}
-        log(f"db close() during the scheduled {n}-row compaction (parked "
+        log(f"db close() during the scheduled {m}-row compaction (parked "
             f"at its first output file): aborted {abort_s:.3f}s after the "
             f"close; nothing installed, no partial file, zero pins")
         torch.cuda.empty_cache()
 
         # -- cancel_background_work, then the paced compaction
-        m = args.fault_rows
-        runs = _db_ycsb_runs(4, max(1, m // 4), max(1, m // 2),
-                             max(1_000_000, m // 4), args.seed + 83)
         cache = DeviceSlabCache(device, capacity_bytes=16 << 30)
         bdb = DB(os.path.join(d, "cancel"), opts(
             device, device_cache=cache, compaction_pool=threads))
@@ -5542,6 +5618,7 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
         in_bytes = sum(fm.total_size for fm in bdb.versions.live_files())
         rate = max(1, int(in_bytes / 2.0))
         flags.set_flag("compaction_rate_bytes_per_sec", rate)
+        max_out = flags.get_flag("compaction_max_output_entries_per_sst")
         flags.set_flag("compaction_max_output_entries_per_sst",
                        max(1, m // 10))
         try:
@@ -5555,7 +5632,7 @@ def db_phase(args, workdir, card, push_out, top_ht, device="cuda"):
             paced = lim.total_through - through
         finally:
             flags.reset_flag("compaction_rate_bytes_per_sec")
-            flags.reset_flag("compaction_max_output_entries_per_sst")
+            flags.set_flag("compaction_max_output_entries_per_sst", max_out)
         # the major compaction keeps every visible entry
         if _scan_digest(bdb.scan_visible(cutoff)) != visible:
             raise AssertionError("db paced job: the visible entries "
@@ -5712,14 +5789,16 @@ def _row(r):
 
 def same_dir_bytes(a, b, what) -> int:
     """Every SST file and the MANIFEST of two DB directories byte for
-    byte. Returns the number of files."""
+    byte (two hard links of one file are one file: not read). Returns the
+    number of files."""
     def names(d):
         return sorted(f for f in os.listdir(d)
                       if ".sst" in f or f == "MANIFEST")
     if names(a) != names(b) or not names(a):
         raise AssertionError(f"{what}: files {names(a)} != {names(b)}")
     for f in names(a):
-        if _file_sha(os.path.join(a, f)) != _file_sha(os.path.join(b, f)):
+        fa, fb = os.path.join(a, f), os.path.join(b, f)
+        if not os.path.samefile(fa, fb) and _file_sha(fa) != _file_sha(fb):
             raise AssertionError(f"{what}: {f} differs")
     return len(names(a))
 
@@ -5761,17 +5840,19 @@ def exact_launches(counts, want, what):
 
 def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     """The tablet layer on the card (tablet/tablet.py): a Tablet with
-    TabletOptions(device, DeviceSlabCache) beside a default-options Tablet
-    (device-free: the JAX meaning of device=None, its DBs "native") taking
-    the same operations in the same call. Both draw hybrid times from
-    one fixed physical time (HybridClock's logical ticks), so their writes
-    carry the same hybrid times and their files must be equal:
+    TabletOptions(device, DeviceSlabCache) beside a device-free Tablet
+    (TabletOptions(device="native"): its DBs "native"; the port's default
+    is the card) taking the same operations in the same call. Both draw
+    hybrid times from one fixed physical time (HybridClock's logical
+    ticks), so their writes carry the same hybrid times and their files
+    must be equal:
 
       - config 2 at full width: rows in 4 runs (key space rows/2, 5% row
         tombstones, 19-byte column keys, 64-byte values) bulk-loaded into
-        the card tablet's regular DB with ingest_packed; the device-free
-        tablet opens its checkpoint (hard links); read as rows of YCSB's
-        usertable (ycsb_key, field0: the generator's column key is
+        the card tablet's regular DB with ingest_packed at op id (0, 0);
+        the device-free tablet opens its checkpoint (hard links), and a
+        second checkpoint is the consensus phase's seed; read as rows of
+        YCSB's usertable (ycsb_key, field0: the generator's column key is
         field0's);
       - YCSB workload A (read 0.5, update 0.5, ScrambledZipfian 0.99):
         --tablet-ops reads through Tablet.multi_read and as many updates
@@ -5798,7 +5879,8 @@ def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
         J.1, J.2, K); the device-free tablet refuses the pushdown (None).
 
     Every launch counter is set to 0 just before each part and read just
-    after. Returns (summary, {part: launches})."""
+    after. Returns (summary, {part: launches}, (the consensus seed's
+    directory, the clocks' physical time))."""
     import importlib.util
     import torch
     from yugabyte_tpu_torch.common.hybrid_time import HybridClock, HybridTime
@@ -5887,12 +5969,16 @@ def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     runs = _db_ycsb_runs(4, n // 4, key_space, span, args.seed + 100)
     out["generate_s"] = time.time() - t0
     t0 = time.time()
-    for g, run in enumerate(runs):
-        dev.regular_db.ingest_packed(*run, op_id=(1, g + 1))
+    for run in runs:
+        # op id (0, 0): the load precedes any consensus op (the consensus
+        # phase's replicas open it under an empty Raft log)
+        dev.regular_db.ingest_packed(*run)
     out["load_s"] = time.time() - t0
     del runs
     dev.regular_db.checkpoint(os.path.join(d, "ycsb_free", "regular"))
-    nat = tablet("free", "ycsb")
+    seed = os.path.join(d, "consensus_seed")
+    dev.regular_db.checkpoint(seed)
+    nat = tablet("free", "ycsb", device="native")
     pair = (("device", dev), ("free", nat))
 
     # -- YCSB workload A: reads and updates in calls of 1024
@@ -6104,7 +6190,7 @@ def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     queries = pushdown_queries(lineitem_schema())
     mode, spec = queries["q6_agg"]
     li = {}
-    for tag, kw in (("card", on_card()), ("free", {})):
+    for tag, kw in (("card", on_card()), ("free", {"device": "native"})):
         link_lineitem(os.path.join(workdir, "lineitem"),
                       os.path.join(d, f"lineitem_{tag}", "regular"))
         li[tag] = tablet(tag, "lineitem", schema=lineitem_schema(),
@@ -6145,6 +6231,407 @@ def tablet_phase(args, workdir, card, push_out, top_ht, device="cuda"):
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t_phase
     log(f"tablet phase: {out['seconds']:.1f}s [{card}]")
+    return out, launches, (seed, now_us)
+
+
+# --------------------------------------------------------------- consensus
+class StepTime:
+    """The physical time (microseconds) of one replica group's clocks:
+    fixed, and moved on by `step` at the first reading the driving thread
+    takes after `arm()`. The driver arms it just before each write, so the
+    write's hybrid time is (the new physical time, logical 0) however
+    many readings the group's raft threads took in between (each of those
+    only bumps the logical part): two groups driven alike assign equal
+    hybrid times."""
+
+    def __init__(self, us: int, step: int):
+        self.us, self.step = us, step
+        self._owner = threading.get_ident()
+        self._armed = False
+
+    def arm(self) -> None:
+        self._armed = True
+
+    def __call__(self) -> int:
+        if self._armed and threading.get_ident() == self._owner:
+            self._armed = False
+            self.us += self.step
+        return self.us
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _wait(pred, what: str, timeout: float = 120.0) -> float:
+    """Seconds until pred() holds; raises after `timeout`."""
+    t0 = time.time()
+    while not pred():
+        if time.time() - t0 > timeout:
+            raise AssertionError(f"consensus: timed out waiting for {what}")
+        time.sleep(0.002)
+    return time.time() - t0
+
+
+def consensus_phase(args, workdir, card, seed, now_us, device="cuda"):
+    """The replicated tablet (tablet/tablet_peer.py over consensus/raft.py
+    and rpc/): two Raft groups of three TabletPeers, ts0-ts2, each peer
+    on a localhost Messenger of its own and talking over RpcTransport.
+    The card group's replicas hold TabletOptions(device, DeviceSlabCache)
+    with a cache each; the device-free group's TabletOptions(device=
+    "native"). Every clock of a group reads one StepTime (a fixed physical
+    time the driver moves on at each write), so both leaders assign equal
+    hybrid times:
+
+      1. every replica opens the tablet phase's bulk-loaded config-2
+         checkpoint (`seed`, hard links, op id (0, 0): before the Raft
+         log's first entry), then bootstrap() and start();
+      2. ts0 is elected (start_election(ignore_lease=True));
+      3. YCSB core workload A (read 0.5, update 0.5, ScrambledZipfian
+         0.99): --consensus-ops reads through the leader's
+         TabletPeer.multi_read (P1 + P2 and P3 + the fold a 1024-key
+         chunk) and as many updates through TabletPeer.write, in calls of
+         1024; each write is replicated, then applied on all three;
+      4. flush on every replica: the six replicas' files byte for byte;
+      5. compact on every replica: the card replicas run the device-native
+         job (A a level, B, D, H once, C a cache miss, E, F, P4 an
+         output), the device-free ones the native job; data files byte
+         for byte, MANIFESTs edit for edit, the card replicas' byte for
+         byte;
+      6. failover and bootstrap: one call of updates through ts0, ts0
+         shuts down, ts1 is elected, one call through ts1; ts0 restarts
+         (its bootstrap replays the first call from its WAL into a card
+         tablet) and catches up; every replica's multi_read over the last
+         call's keys (followers: vouched, at the last write's hybrid time)
+         == the device-free group's.
+
+    Every launch counter is set to 0 just before each part and read just
+    after. Returns (summary, {part: launches})."""
+    import torch
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock, HybridTime
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.ops import run_merge
+    from yugabyte_tpu_torch.rpc.consensus_service import RpcTransport
+    from yugabyte_tpu_torch.rpc.messenger import Messenger
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import BlockCache
+    from yugabyte_tpu_torch.tablet.tablet import TabletOptions
+    from yugabyte_tpu_torch.tablet.tablet_peer import TabletPeer, peer_address
+
+    wrappers = {**_mesh_wrappers(), **_pushdown_wrappers(),
+                **_point_wrappers()}
+    launches, out = {}, {"card": card}
+    t_phase = time.time()
+    n = args.rows
+    key_space = max(1, n // 2)
+    d = os.path.join(workdir, "consensus_phase")
+    tid = "usertable"
+    servers = ("ts0", "ts1", "ts2")
+    schema = Schema([ColumnSchema("ycsb_key", DataType.STRING),
+                     ColumnSchema("field0", DataType.STRING)],
+                    num_range_key_columns=1)
+
+    def options(tag):
+        kw = dict(auto_compact=False, memstore_size_bytes=1 << 40,
+                  block_cache=BlockCache(1 << 30))
+        if tag == "card":
+            return TabletOptions(device=device, device_cache=DeviceSlabCache(
+                device, capacity_bytes=8 << 30), **kw)
+        return TabletOptions(device="native", **kw)
+
+    groups = {}
+    for tag in ("card", "free"):
+        ms = {s: Messenger(f"{tag}-{s}") for s in servers}
+        addr = {peer_address(s, tid): ms[s].address for s in servers}
+        groups[tag] = {"time": StepTime(now_us, 1000), "messengers": ms,
+                       "transports": {s: RpcTransport(ms[s], addr.get)
+                                      for s in servers},
+                       "peers": {}}
+
+    replays = {}
+
+    def open_peer(tag, s):
+        """A replica over its copy of the seed (made on its first open):
+        bootstrap() (its count of replayed entries kept) and start()."""
+        g = groups[tag]
+        data = os.path.join(d, tag, s)
+        if not os.path.exists(data):
+            shutil.copytree(seed, os.path.join(data, "regular"),
+                            copy_function=os.link)
+            os.remove(os.path.join(data, "regular", "MANIFEST"))
+            shutil.copy(os.path.join(seed, "MANIFEST"),
+                        os.path.join(data, "regular", "MANIFEST"))
+        p = TabletPeer(tid, data, schema, s, servers, g["transports"][s],
+                       clock=HybridClock(g["time"]), options=options(tag))
+
+        def bootstrap():
+            replays[(tag, s)] = TabletPeer.bootstrap(p)
+            return replays[(tag, s)]
+        p.bootstrap = bootstrap
+        p.start(election_timer=False)
+        g["peers"][s] = p
+        return p
+
+    def elect(tag, s):
+        p = groups[tag]["peers"][s]
+        p.raft.start_election(ignore_lease=True)
+        return _wait(lambda: p.raft.is_leader() and p.raft.leader_ready()
+                     and p.raft.has_leader_lease(), f"{tag} {s} to lead")
+
+    def all_applied(tag, leader):
+        ps = groups[tag]["peers"]
+        target = ps[leader].raft.commit_index
+        return _wait(lambda: all(p.raft.last_applied >= target
+                                 for p in ps.values()),
+                     f"{tag}: every replica to apply index {target}")
+
+    def keys_of(ids):
+        return [DocKey(range_components=("user%08d" % i,)) for i in ids]
+
+    def updates(ids, rng):
+        letters = rng.integers(ord("a"), ord("z") + 1, size=(len(ids), 61),
+                               dtype=np.uint8)
+        return [QLWriteOp(WriteOpKind.UPDATE, k,
+                          {"field0": letters[j].tobytes().decode()})
+                for j, k in enumerate(keys_of(ids))]
+
+    def write(tag, leader, ops):
+        g = groups[tag]
+        g["time"].arm()
+        t0 = time.time()
+        ht = g["peers"][leader].write(ops)
+        return ht.value, time.time() - t0
+
+    def both(what, fn):
+        """fn(tag) for each group: (answer, {tag: seconds}); the answers
+        must be equal."""
+        got, secs = {}, {}
+        for tag in ("card", "free"):
+            t0 = time.time()
+            got[tag] = fn(tag)
+            sync()
+            secs[tag] = time.time() - t0
+        if got["card"] != got["free"]:
+            raise AssertionError(f"consensus {what}: the card group's answer "
+                                 f"differs from the device-free group's")
+        return got["card"], secs
+
+    def card_pins():
+        return [s for s, p in groups["card"]["peers"].items()
+                if p.tablet.regular_db._pins
+                or p.tablet.regular_db._device_cache.pinned_count()]
+
+    try:
+        # -- 1, 2: open every replica over the seed, bootstrap, start; elect
+        _, out["open_s"] = both("open", lambda tag: [
+            open_peer(tag, s).raft.last_applied for s in servers])
+        _, out["elect_s"] = both("election",
+                                 lambda tag: elect(tag, "ts0") < 0)
+
+        # -- 3: YCSB-A through the leader
+        rng = np.random.default_rng(args.seed + 110)
+        calls = max(1, args.consensus_ops // 1024)
+        read_s = {"card": [], "free": []}
+        write_s = {"card": [], "free": []}
+        found = 0
+        _zero(wrappers)
+        for _c in range(calls):
+            keys = keys_of(scrambled_zipfian(1024, key_space, rng))
+            rows, secs = both("multi_read", lambda tag: [
+                _row(r) for r in groups[tag]["peers"]["ts0"].multi_read(
+                    keys)])
+            found += sum(r is not None for r in rows)
+            for k in secs:
+                read_s[k].append(secs[k])
+            ops = updates(scrambled_zipfian(1024, key_space, rng), rng)
+            hts = {}
+            for tag in ("card", "free"):
+                hts[tag], s = write(tag, "ts0", ops)
+                write_s[tag].append(s)
+            if hts["card"] != hts["free"]:
+                raise AssertionError(f"consensus write: hybrid times "
+                                     f"{hts} differ")
+        launches["consensus_reads"] = _launches_of(wrappers)
+        chunks = calls * -(-3 * 1024 // 1024)
+        exact_launches(launches["consensus_reads"], {
+            "hash_probe_files": chunks, "locate_fold": chunks},
+            "consensus YCSB-A reads")
+        _, apply_s = both("apply on every replica",
+                          lambda tag: all_applied(tag, "ts0") < 0)
+        rates = {k: {"reads": 1024 * (calls - 1) / sum(v[1:]) if calls > 1
+                     else None, "cold_first_call_s": v[0],
+                     "read_p50_ms": 1e3 * float(np.median(v[1:] or v))}
+                 for k, v in read_s.items()}
+        for k, v in write_s.items():
+            rates[k]["updates"] = 1024 * calls / sum(v)
+            rates[k]["write_p50_ms"] = 1e3 * float(np.median(v))
+        out["ycsb_a"] = {"calls": calls, "rows_found": found,
+                         "followers_applied_s": apply_s, **rates}
+        log(f"consensus YCSB-A: {calls} multi_read calls of 1024 rows "
+            f"through the leader ({found} found) == the device-free "
+            f"group's; {calls} writes of 1024 updates replicated to 3 "
+            f"replicas over RpcTransport: "
+            f"{rates['card']['updates']:,.0f} updates/s in the card group "
+            f"vs {rates['free']['updates']:,.0f} device-free; leader reads "
+            f"{rates['card']['reads'] or 0:,.0f} rows/s vs "
+            f"{rates['free']['reads'] or 0:,.0f} (the cold first call "
+            f"{rates['card']['cold_first_call_s']:.2f} s); launches "
+            f"{_nonzero(launches['consensus_reads'])} [{card}]")
+
+        # -- 4: flush on every replica; the six replicas' files are equal
+        flush_s = {}
+        _zero(wrappers)
+        for tag in ("card", "free"):
+            for s in servers:
+                t0 = time.time()
+                groups[tag]["peers"][s].tablet.flush()
+                sync()
+                flush_s[f"{tag}_{s}"] = time.time() - t0
+        launches["consensus_flush"] = _launches_of(wrappers)
+        exact_launches(launches["consensus_flush"], {}, "consensus flush")
+        ref = groups["card"]["peers"]["ts0"].tablet.regular_db.db_dir
+        files = 0
+        for tag in ("card", "free"):
+            for s in servers:
+                if (tag, s) != ("card", "ts0"):
+                    files = same_dir_bytes(
+                        ref, groups[tag]["peers"][s].tablet.regular_db.db_dir,
+                        f"consensus flush, {tag} {s}")
+        out["flush"] = {"seconds": flush_s, "files": files}
+        log(f"consensus flush: the six replicas' files byte for byte "
+            f"({files} files, the MANIFEST among them, each) [{card}]")
+
+        # -- 5: compact on every replica
+        out["compact"] = {}
+        for s in servers:
+            dev = groups["card"]["peers"][s].tablet
+            nat = groups["free"]["peers"][s].tablet
+            cache = dev.regular_db._device_cache
+            live = dev.regular_db.versions.live_files()
+            ns = [fm.props.n_entries for fm in live]
+            misses = sum(not cache.contains(fm.file_id) for fm in live)
+            _zero(wrappers)
+            t0 = time.time()
+            dev.compact()
+            sync()
+            secs = {"card": time.time() - t0}
+            launches[f"consensus_compact_{s}"] = _launches_of(wrappers)
+            t0 = time.time()
+            nat.compact()
+            secs["free"] = time.time() - t0
+            outs = dev.regular_db.n_live_files
+            k_pad, _m = run_merge._layout(ns)
+            exact_launches(launches[f"consensus_compact_{s}"], {
+                "merge_path_level": k_pad.bit_length() - 1, "gc_pack": 1,
+                "block_decode": misses, "survivor_scan": 1,
+                "staged_concat": 1, "span_gather": outs,
+                "block_encode": outs, "index_fit": outs},
+                f"consensus compact {s}")
+            rec = {"rows_in": sum(ns), "inputs": len(ns),
+                   "cache_misses": misses,
+                   **same_db_files(dev.regular_db, nat.regular_db,
+                                   f"consensus compact {s}"),
+                   "manifest_edits": same_manifest(
+                       dev.regular_db, nat.regular_db,
+                       f"consensus compact {s}"),
+                   "seconds": secs,
+                   "rows_per_s": {k: sum(ns) / v for k, v in secs.items()}}
+            if s != "ts0":
+                same_dir_bytes(
+                    groups["card"]["peers"]["ts0"].tablet.regular_db.db_dir,
+                    dev.regular_db.db_dir, f"consensus compact, card {s}")
+            out["compact"][s] = rec
+            log(f"consensus compact {s}: {sum(ns)} rows in {len(ns)} files "
+                f"({misses} cache misses) -> {outs} files, "
+                f"{rec['rows_per_s']['card']:,.0f} rows/s on the card vs "
+                f"{rec['rows_per_s']['free']:,.0f} native; data files == "
+                f"the device-free replica's, MANIFEST edit for edit, "
+                f"== the card's ts0 byte for byte; launches "
+                f"{_nonzero(launches[f'consensus_compact_{s}'])} [{card}]")
+
+        # -- 6: failover and bootstrap
+        frng = np.random.default_rng(args.seed + 111)
+        pre = updates(scrambled_zipfian(1024, key_space, frng), frng)
+        both("write before the failover",
+             lambda tag: write(tag, "ts0", pre)[0])
+        both("apply before the failover",
+             lambda tag: all_applied(tag, "ts0") < 0)
+        flushed = {tag: groups[tag]["peers"]["ts0"].tablet.regular_db
+                   .versions.flushed_frontier.op_id_max[1]
+                   for tag in groups}
+
+        def failover(tag):
+            g = groups[tag]
+            t0 = time.time()
+            g["peers"].pop("ts0").shutdown()
+            g["transports"]["ts0"].unregister(peer_address("ts0", tid))
+            elect(tag, "ts1")
+            return time.time() - t0
+        _, failover_s = both("failover", lambda tag: failover(tag) < 0)
+        ids = scrambled_zipfian(1024, key_space, frng)
+        post = updates(ids, frng)
+        last_ht, _ = both("write through ts1",
+                          lambda tag: write(tag, "ts1", post)[0])
+
+        def restart(tag):
+            t0 = time.time()
+            open_peer(tag, "ts0")
+            boot[tag] = time.time() - t0
+            all_applied(tag, "ts1")
+            return replays[(tag, "ts0")]
+        boot = {}
+        replayed, secs = both("restart ts0", restart)
+        if replayed < 1:
+            raise AssertionError(f"consensus: ts0's bootstrap replayed "
+                                 f"{replayed} entries")
+        out["failover"] = {"failover_s": failover_s, "bootstrap_s": boot,
+                           "bootstrap_and_catch_up_s": secs,
+                           "replayed": replayed,
+                           "flushed_index": flushed["card"]}
+        keys = keys_of(ids)
+        read_ht = HybridTime(last_ht)
+        _zero(wrappers)
+        answers = {}
+        for tag in ("card", "free"):
+            for s, p in sorted(groups[tag]["peers"].items()):
+                if not p.raft.is_leader():
+                    p.grant_vouch(0)
+                answers[(tag, s)] = [_row(r) for r in p.multi_read(
+                    keys, read_ht=read_ht, allow_follower=True)]
+        launches["consensus_failover_reads"] = _launches_of(wrappers)
+        exact_launches(launches["consensus_failover_reads"], {
+            "hash_probe_files": 3 * 3, "locate_fold": 3 * 3},
+            "consensus reads after the failover")
+        want = answers[("free", "ts1")]
+        if any(a != want for a in answers.values()) or \
+                sum(r is not None for r in want) != len(want):
+            raise AssertionError("consensus: the replicas' reads after the "
+                                 "failover differ")
+        if card_pins():
+            raise AssertionError(f"consensus: pins left on {card_pins()}")
+        log(f"consensus failover: ts0 down, ts1 elected in "
+            f"{failover_s['card']:.3f} s (device-free "
+            f"{failover_s['free']:.3f}); one call of 1024 updates through "
+            f"ts1; ts0 restarted: its bootstrap replayed {replayed} WAL "
+            f"entry(ies) above index {flushed['card']} into a card tablet "
+            f"in {boot['card']:.3f} s, caught up {secs['card']:.3f} s after "
+            f"the restart (device-free {secs['free']:.3f}); every replica's "
+            f"1024 reads == the device-free group's; launches "
+            f"{_nonzero(launches['consensus_failover_reads'])} [{card}]")
+    finally:
+        for g in groups.values():
+            for p in g["peers"].values():
+                p.shutdown()
+            for m in g["messengers"].values():
+                m.shutdown()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"consensus phase: {out['seconds']:.1f}s [{card}]")
     return out, launches
 
 
@@ -6161,16 +6648,21 @@ def main() -> int:
                     help="YBTPU_MERGE_CHUNK_ROWS of the chunked jobs")
     ap.add_argument("--skew-rows", type=int, default=65_536,
                     help="rows of each L0 run of the skewed pick")
-    ap.add_argument("--wave-rows", type=int, default=262_144,
+    ap.add_argument("--wave-rows", type=int, default=131_072,
                     help="rows of each of the 4 L0 runs of each of the "
-                    "pool wave's 8 tablets")
-    ap.add_argument("--point-reads", type=int, default=262_144,
+                    "pool wave's 8 tablets (and of each of the db "
+                    "phase's 8 pool DBs)")
+    ap.add_argument("--point-reads", type=int, default=131_072,
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
                     "each")
     ap.add_argument("--tablet-ops", type=int, default=32_768,
                     help="YCSB-A reads and as many updates through the "
                     "tablet phase's Tablet.multi_read / Tablet.write")
+    ap.add_argument("--consensus-ops", type=int, default=32_768,
+                    help="YCSB-A reads and as many updates through the "
+                    "consensus phase's leader (TabletPeer.multi_read / "
+                    "TabletPeer.write)")
     ap.add_argument("--fault-rows", type=int, default=1_000_000,
                     help="rows of the faults phase's decay and rate-race "
                     "tablet (the YCSB-A generator, cut in rows only)")
@@ -6198,6 +6690,38 @@ def main() -> int:
     from yugabyte_tpu_torch.utils import flags
     flags.set_flag("shadow_verify_sample", 0.0)
     log("shadow_verify_sample pinned to 0 for the timed phases")
+    # the mesh paths take a job of distributed_compaction_min_rows (2^20)
+    # or more: below that --rows the threshold comes down to the smaller
+    # of --rows and the skewed pick's L0 rows, so every mesh job still
+    # routes to the mesh (at the default 10M rows it stands)
+    from yugabyte_tpu_torch.storage import compaction  # noqa: F401 (flags)
+    # the resident chain's L1->L2 step takes two L0->L1 outputs: every job
+    # splits its files at a quarter of --rows where that is below the
+    # default (2M), so a 4-run major compaction over a key space of
+    # rows/2 (about 0.41 rows out) writes at least two (one setting for
+    # the whole run: the skewed pick's base file is the chain's L1 file)
+    max_out = flags.get_flag("compaction_max_output_entries_per_sst")
+    if args.rows // 4 < max_out:
+        flags.set_flag("compaction_max_output_entries_per_sst",
+                       max(1, args.rows // 4))
+        log(f"--rows {args.rows}: compaction_max_output_entries_per_sst "
+            f"{max_out} lowered to {max(1, args.rows // 4)}")
+    # the chunked jobs cut the staged tablet (about 2^bit_length lanes)
+    # into chunks of --chunk-rows: at most an eighth of it, so a small
+    # --rows still gives several chunks (at 10M rows 2^20 stands)
+    chunk_rows = min(args.chunk_rows,
+                     max(1024, (1 << (args.rows.bit_length() - 1)) // 8))
+    if chunk_rows != args.chunk_rows:
+        log(f"--rows {args.rows}: --chunk-rows {args.chunk_rows} lowered "
+            f"to {chunk_rows}")
+        args.chunk_rows = chunk_rows
+    min_rows = flags.get_flag("distributed_compaction_min_rows")
+    if args.rows < min_rows:
+        flags.set_flag("distributed_compaction_min_rows",
+                       min(args.rows, 4 * args.skew_rows))
+        log(f"--rows {args.rows} < distributed_compaction_min_rows "
+            f"{min_rows}: lowered to "
+            f"{flags.get_flag('distributed_compaction_min_rows')}")
     no_fallbacks("start")
     name = torch.cuda.get_device_name(0)
     bandwidth = next(bw for key, bw in _BANDWIDTH if key in name) \
@@ -6327,9 +6851,12 @@ def main() -> int:
         reset_fault_base()
         db_out, db_launches = db_phase(args, workdir, card, push_out, top_ht)
         no_fallbacks("db")
-        tablet_out, tablet_launches = tablet_phase(args, workdir, card,
-                                                   push_out, top_ht)
+        tablet_out, tablet_launches, (seed, now_us) = tablet_phase(
+            args, workdir, card, push_out, top_ht)
         no_fallbacks("tablet")
+        consensus_out, consensus_launches = consensus_phase(
+            args, workdir, card, seed, now_us)
+        no_fallbacks("consensus")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
@@ -6362,9 +6889,10 @@ def main() -> int:
         for tag, counts in chain_launches.items():
             if entry["name"] in counts:
                 entry[f"launches_chain_{tag}"] = counts[entry["name"]]
-        # launches per part of the DB and the tablet phases (their entry
-        # points)
-        for tag, counts in {**db_launches, **tablet_launches}.items():
+        # launches per part of the DB, the tablet and the consensus phases
+        # (their entry points)
+        for tag, counts in {**db_launches, **tablet_launches,
+                            **consensus_launches}.items():
             if entry["name"] in counts:
                 entry[f"launches_{tag}"] = counts[entry["name"]]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
@@ -6372,7 +6900,7 @@ def main() -> int:
                "chunked": chunk_out, "mesh": mesh_out, "scan": scan_out,
                "pushdown": push_out,
                "point_read": point_out, "faults": faults_out, "db": db_out,
-               "tablet": tablet_out,
+               "tablet": tablet_out, "consensus": consensus_out,
                "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows

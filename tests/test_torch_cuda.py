@@ -2813,7 +2813,7 @@ def test_db_mesh_pool_wave_on_the_card(cuda, tmp_path):
 
 def _tablet_pair(tmp_path, n=6000, seed=20):
     """A Tablet on the card (its regular DB with a DeviceSlabCache) and a
-    default-options (device-free) Tablet on one deterministic clock, each
+    device-free (device="native") Tablet on one deterministic clock, each
     written the same rows of (k STRING range key, v STRING) in 3 flushes."""
     from yugabyte_tpu_torch.common.hybrid_time import HybridClock
     from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
@@ -2828,7 +2828,7 @@ def _tablet_pair(tmp_path, n=6000, seed=20):
                     num_range_key_columns=1)
     tablets = []
     for kw in (dict(device="cuda", device_cache=DeviceSlabCache("cuda")),
-               {}):
+               dict(device="native")):
         t = Tablet("t", str(tmp_path / str(len(tablets))), schema,
                    clock=HybridClock(lambda: 10**12),
                    options=TabletOptions(auto_compact=False, **kw))
@@ -2914,3 +2914,149 @@ def test_tablet_on_the_card_equals_device_free(cuda, tmp_path):
     finally:
         dev.close()
         free.close()
+
+
+# ---------------------------------------------------- the replicated tablet
+
+
+def test_replicated_tablet_on_the_card_equals_device_free(cuda, tmp_path):
+    """Two Raft groups of three TabletPeers over a LocalTransport, one on
+    the card (a DeviceSlabCache a replica), one device-free
+    (device="native"), taking the same writes through a forced leader:
+    the leader's multi_read (P1 + P2 and P3 + the fold a chunk) and every
+    replica's flushed files equal the device-free group's, each card
+    replica's compaction (A-F, H, P4) writes the native one's data files,
+    and after ts0 fails over to ts1 and restarts (its bootstrap replays
+    its WAL into a card tablet) every replica reads alike."""
+    import time
+    from chip_smoke import StepTime
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock, HybridTime
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.consensus.transport import LocalTransport
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.ops import point_read
+    from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    from yugabyte_tpu_torch.tablet.tablet import TabletOptions
+    from yugabyte_tpu_torch.tablet.tablet_peer import TabletPeer
+
+    schema = Schema([ColumnSchema("k", DataType.STRING),
+                     ColumnSchema("v", DataType.STRING)],
+                    num_range_key_columns=1)
+    servers = ("ts0", "ts1", "ts2")
+
+    def wait(pred, what, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            assert time.monotonic() < deadline, f"timed out: {what}"
+            time.sleep(0.005)
+
+    groups = {}
+    for tag in ("card", "free"):
+        groups[tag] = {"time": StepTime(10**15, 1000), "net": LocalTransport(),
+                       "peers": {}}
+
+    def open_peer(tag, s):
+        g = groups[tag]
+        opts = (TabletOptions(device="cuda", auto_compact=False,
+                              device_cache=DeviceSlabCache("cuda"))
+                if tag == "card" else
+                TabletOptions(device="native", auto_compact=False))
+        g["peers"][s] = TabletPeer(
+            "t", str(tmp_path / tag / s), schema, s, servers, g["net"],
+            clock=HybridClock(g["time"]), options=opts).start(
+                election_timer=False)
+
+    def elect(tag, s):
+        p = groups[tag]["peers"][s]
+        p.raft.start_election(ignore_lease=True)
+        wait(lambda: p.raft.is_leader() and p.raft.leader_ready(),
+             f"{tag} {s} to lead")
+
+    def quiesce(tag, leader):
+        ps = groups[tag]["peers"]
+        target = ps[leader].raft.commit_index
+        wait(lambda: all(p.raft.last_applied >= target for p in ps.values()),
+             f"{tag} to apply {target}")
+
+    def write(tag, leader, ops):
+        groups[tag]["time"].arm()
+        return groups[tag]["peers"][leader].write(ops).value
+
+    def ops_of(rng, n=600, key_space=2000):
+        return [QLWriteOp(WriteOpKind.INSERT,
+                          DocKey(range_components=("k%05d" % i,)),
+                          {"v": "v%d" % rng.integers(1 << 30)})
+                for i in rng.choice(key_space, size=n, replace=False)]
+
+    keys = [DocKey(range_components=("k%05d" % i,))
+            for i in range(0, 2050, 2)]
+    try:
+        for tag in groups:
+            for s in servers:
+                open_peer(tag, s)
+            elect(tag, "ts0")
+        rng = np.random.default_rng(21)
+        for f in range(2):
+            for _c in range(3):
+                ops = ops_of(rng)
+                hts = {tag: write(tag, "ts0", ops) for tag in groups}
+                assert hts["card"] == hts["free"]
+            for tag in groups:
+                quiesce(tag, "ts0")
+                for p in groups[tag]["peers"].values():
+                    p.tablet.flush()
+        ref = tmp_path / "free" / "ts0" / "regular"
+        names = sorted(x.name for x in ref.iterdir()
+                       if ".sst" in x.name or x.name == "MANIFEST")
+        for tag in groups:
+            for s in servers:
+                d = tmp_path / tag / s / "regular"
+                for name in names:
+                    assert (d / name).read_bytes() == (ref / name).read_bytes()
+        before = (point_read.hash_probe_files.launches,
+                  point_read.locate_fold.launches)
+        got = _rows(groups["card"]["peers"]["ts0"].multi_read(keys))
+        torch.cuda.synchronize()
+        chunks = -(-3 * len(keys) // 1024)
+        assert (point_read.hash_probe_files.launches - before[0],
+                point_read.locate_fold.launches - before[1]) == \
+            (chunks, chunks)
+        assert got == _rows(groups["free"]["peers"]["ts0"].multi_read(keys))
+        for s in servers:
+            dev = groups["card"]["peers"][s].tablet
+            nat = groups["free"]["peers"][s].tablet
+            dev.compact()
+            nat.compact()
+            for a, b in zip(dev.regular_db.versions.live_files(),
+                            nat.regular_db.versions.live_files()):
+                assert open(data_file_name(a.path), "rb").read() == \
+                    open(data_file_name(b.path), "rb").read()
+        last = {}
+        for tag, g in groups.items():
+            g["peers"].pop("ts0").shutdown()
+            g["net"].unregister("ts0/t")
+            elect(tag, "ts1")
+        ops = ops_of(rng)
+        for tag in groups:
+            last[tag] = write(tag, "ts1", ops)
+            open_peer(tag, "ts0")
+            quiesce(tag, "ts1")
+        answers = {}
+        for tag, g in groups.items():
+            for s, p in sorted(g["peers"].items()):
+                if not p.raft.is_leader():
+                    p.grant_vouch(0)
+                answers[(tag, s)] = _rows(p.multi_read(
+                    keys, read_ht=HybridTime(last[tag]),
+                    allow_follower=True))
+        assert len(set(map(str, answers.values()))) == 1
+        for p in groups["card"]["peers"].values():
+            assert p.tablet.regular_db._device_cache.pinned_count() == 0
+    finally:
+        for g in groups.values():
+            for p in g["peers"].values():
+                p.shutdown()

@@ -75,9 +75,14 @@ MODULES = [
     "yugabyte_tpu_torch.tserver.compaction_pool",
     "yugabyte_tpu_torch.utils.latency",
     "yugabyte_tpu_torch.rpc",
+    "yugabyte_tpu_torch.rpc.nemesis",
+    "yugabyte_tpu_torch.rpc.codec",
     "yugabyte_tpu_torch.rpc.messenger",
+    "yugabyte_tpu_torch.rpc.consensus_service",
     "yugabyte_tpu_torch.consensus",
+    "yugabyte_tpu_torch.consensus.transport",
     "yugabyte_tpu_torch.consensus.raft",
+    "yugabyte_tpu_torch.consensus.multi_raft_batcher",
     "yugabyte_tpu_torch.consensus.log",
     "yugabyte_tpu_torch.docdb.lock_manager",
     "yugabyte_tpu_torch.docdb.intents",
@@ -91,9 +96,44 @@ MODULES = [
     "yugabyte_tpu_torch.tablet.retryable_requests",
     "yugabyte_tpu_torch.tablet.admission",
     "yugabyte_tpu_torch.tablet.tablet",
+    "yugabyte_tpu_torch.tablet.tablet_peer",
     "chip_smoke",
     "kernel_ab",
 ]
+
+# The replicated tablet's modules, each imported first of all, under a
+# finder that refuses jax and the JAX package (`_BLOCKER`): one case each.
+BLOCKED_IMPORTS = [
+    "yugabyte_tpu_torch.rpc.nemesis",
+    "yugabyte_tpu_torch.consensus.transport",
+    "yugabyte_tpu_torch.consensus.raft",
+    "yugabyte_tpu_torch.consensus.multi_raft_batcher",
+    "yugabyte_tpu_torch.tablet.tablet_peer",
+    "yugabyte_tpu_torch.rpc.codec",
+    "yugabyte_tpu_torch.rpc.messenger",
+    "yugabyte_tpu_torch.rpc.consensus_service",
+]
+
+_BLOCKER = """
+import importlib, importlib.abc, sys, traceback
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "yugabyte_tpu"):
+            raise ImportError("blocked import of " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+blocked = {{}}
+for m in {mods!r}:
+    try:
+        importlib.import_module(m)
+        blocked[m] = [True, ""]
+    except BaseException:
+        blocked[m] = [False, traceback.format_exc()]
+"""
 
 _CHECK = """
 import sys
@@ -123,9 +163,11 @@ _RUNNER = """
 import json, traceback
 import torch
 torch.set_num_threads(1)
+{blocker}
 {check}
 torch.cuda.is_available = lambda: False
 out = {{"imports": [True, repr(bad)]}}
+out.update({{"blocked:" + m: v for m, v in blocked.items()}})
 for case, body in {cases!r}:
     try:
         exec(compile(body, "<" + case + ">", "exec"), {{"__name__": case}})
@@ -139,7 +181,8 @@ print("RESULTS " + json.dumps(out))
 def _run_all() -> dict:
     cases = ([("raises:" + k, ENTRY_POINTS[k]) for k in sorted(ENTRY_POINTS)]
              + [("cpu:" + k, CPU_CALLS[k]) for k in sorted(CPU_CALLS)])
-    r = _run(_RUNNER.format(check=_CHECK.format(mods=MODULES), cases=cases))
+    r = _run(_RUNNER.format(blocker=_BLOCKER.format(mods=BLOCKED_IMPORTS),
+                            check=_CHECK.format(mods=MODULES), cases=cases))
     line = [x for x in r.stdout.splitlines() if x.startswith("RESULTS ")]
     assert r.returncode == 0 and line, r.stderr
     return json.loads(line[-1][len("RESULTS "):])
@@ -167,6 +210,12 @@ def outcomes(tmp_path_factory):
 def test_port_imports_no_jax_and_no_reference(outcomes):
     ok, bad = outcomes["imports"]
     assert ok and bad == "[]", bad
+
+
+@pytest.mark.parametrize("module", BLOCKED_IMPORTS)
+def test_module_imports_with_jax_blocked(module, outcomes):
+    ok, err = outcomes["blocked:" + module]
+    assert ok, err
 
 # one row (liveness + v = 5) of a table (h INT64 hash key, v INT64)
 _PUSHDOWN = """
@@ -313,6 +362,15 @@ Tablet("t", tempfile.mkdtemp(), Schema([ColumnSchema("k", DataType.INT64)],
                                       num_hash_key_columns=1),
        options=TabletOptions(device="cuda"))
 """,
+    "Tablet_default_options": _TABLET + """
+Tablet("t", tempfile.mkdtemp(), SCHEMA)
+""",
+    "TabletPeer_default_options": _TABLET + """
+from yugabyte_tpu_torch.consensus.transport import LocalTransport
+from yugabyte_tpu_torch.tablet.tablet_peer import TabletPeer
+TabletPeer("t", tempfile.mkdtemp(), SCHEMA, "ts0", ("ts0",),
+           LocalTransport())
+""",
     "CompactionPool": """
 from yugabyte_tpu_torch.parallel.mesh import make_mesh
 from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
@@ -442,13 +500,32 @@ assert not any(m in ("jax", "yugabyte_tpu")
                or m.startswith(("jax.", "yugabyte_tpu."))
                for m in sys.modules), "the DB imported jax"
 """,
-    "Tablet_default_is_device_free": _TABLET + """
-t = Tablet("t", tempfile.mkdtemp(), SCHEMA)
+    "Tablet_native_is_device_free": _TABLET + """
+t = Tablet("t", tempfile.mkdtemp(), SCHEMA,
+           options=TabletOptions(device="native"))
 rows = drive(t)
 assert t.regular_db.opts.device == "native" and rows == list(range(40))
 assert not any(m in ("jax", "yugabyte_tpu")
                or m.startswith(("jax.", "yugabyte_tpu."))
                for m in sys.modules), "the tablet imported jax"
+""",
+    "TabletPeer_native_replicates": _TABLET + """
+import time
+from yugabyte_tpu_torch.consensus.transport import LocalTransport
+from yugabyte_tpu_torch.tablet.tablet_peer import TabletPeer
+p = TabletPeer("t", tempfile.mkdtemp(), SCHEMA, "ts0", ("ts0",),
+               LocalTransport(), options=TabletOptions(device="native"))
+p.start(election_timer=False)
+p.raft.start_election(ignore_lease=True)
+deadline = time.monotonic() + 30
+while not (p.raft.is_leader() and p.raft.leader_ready()):
+    assert time.monotonic() < deadline, "no leader"
+    time.sleep(0.01)
+p.write([QLWriteOp(WriteOpKind.INSERT, DocKey((i,)), {"v": i})
+         for i in range(10)])
+assert [r.to_dict(SCHEMA)["v"] for r in p.multi_read(
+    [DocKey((i,)) for i in range(10)])] == list(range(10))
+p.shutdown()
 """,
     "Tablet_cpu": _TABLET + """
 from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache

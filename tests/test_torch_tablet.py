@@ -3,19 +3,21 @@
 Twins of tests/test_tablet.py (27 cases), tests/test_backpressure.py (6),
 tests/test_subdocument.py (10) and tests/test_deep_documents.py (9). Each
 tablet case runs the same operations on a JAX Tablet and a port Tablet,
-in two variants: device-free (TabletOptions() in both packages: the JAX
-DBs take no device, the port's run "native") and on each package's CPU
+in two variants: device-free (TabletOptions() in the JAX package, whose
+DBs take no device, and TabletOptions(device="native") in the port,
+whose default is the card) and on each package's CPU
 device with a device cache (the port's kernels in their plain PyTorch
 versions). Both tablets draw hybrid times from one deterministic clock
 (a fixed physical time each test advances by hand), so a case's answers
 must be equal and, after it, the regular and intents DBs' SST files and
 MANIFESTs byte-identical. test_subdocument.py's replicated case is
-twinned on the tablet's local consensus seam: its raft replication to a
-follower waits for tablet_peer (the consensus part of ROADMAP queue A
-item 7). Tolerance: exact (decisions and bytes).
+twinned here on the tablet's local consensus seam, and its raft half
+(replication to a follower through TabletPeer) in
+tests/test_torch_consensus.py. Tolerance: exact (decisions and bytes).
 
-Also the C.1 case: a default-options port Tablet opens and serves on a
-machine where the port's device default (the card) would raise.
+Also the C.1 cases: a port Tablet with device="native" opens and serves
+on a machine where the port's device default (the card) would raise,
+and a default-options port Tablet refuses to be built there.
 """
 
 import importlib
@@ -73,10 +75,13 @@ def schema(P):
 
 
 def tablet_options(P, variant, **kw):
-    """"free": TabletOptions() (device-free in both packages); "cpu":
-    each package's CPU device and device cache."""
+    """"free": the device-free tablet (TabletOptions() in the JAX
+    package, device="native" in the port); "cpu": each package's CPU
+    device and device cache."""
     kw.setdefault("auto_compact", False)
     if variant == "free":
+        if P is PORT:
+            kw.setdefault("device", "native")
         return P.t.tablet.TabletOptions(**kw)
     if P is REF:
         d = jax.devices("cpu")[0]
@@ -1112,12 +1117,12 @@ def test_compaction_job_routes_deep_to_native(tmp_path, variant):
 
 
 # ------------------------------------------------------------------- C.1
-def test_default_tablet_serves_without_cuda(tmp_path, monkeypatch):
-    """TabletOptions() is device-free (the JAX meaning of device=None):
-    its DBs run "native", build no device cache, and it opens, writes,
-    reads, scans, flushes and compacts while the port's device default
-    (the card) would raise. DBOptions.device=None keeps meaning the
-    card."""
+def test_native_tablet_serves_without_cuda(tmp_path, monkeypatch):
+    """TabletOptions(device="native") is the device-free tablet (what the
+    JAX package's device=None means): its DBs run "native", build no
+    device cache, and it opens, writes, reads, scans, flushes and
+    compacts while the port's device default (the card) would raise.
+    DBOptions.device=None keeps meaning the card."""
     from yugabyte_tpu_torch.storage import db as port_db
     from yugabyte_tpu_torch.utils import torch_setup
 
@@ -1140,6 +1145,19 @@ def test_default_tablet_serves_without_cuda(tmp_path, monkeypatch):
     c.close()
     with pytest.raises(AssertionError, match="resolve_device"):
         port_db.DB(str(tmp_path / "card"), port_db.DBOptions())
+
+
+def test_default_tablet_refuses_without_cuda(tmp_path, monkeypatch):
+    """TabletOptions() is the card, as DBOptions() is (the port's chosen
+    divergence from the JAX package's device-free None): without CUDA
+    the Tablet raises torch_setup's error when it is built, and builds
+    no DB, native or other, on the way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = tmp_path / "t"
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        PORT.t.tablet.Tablet("t", str(d), schema(PORT),
+                             options=PORT.t.tablet.TabletOptions())
+    assert not (d / "regular").exists() and not (d / "intents").exists()
 
 
 def test_intents_db_takes_the_device_without_a_cache(tmp_path):

@@ -9,17 +9,19 @@ The write pipeline here is WriteQuery (ref: tablet/write_query.cc): acquire
 doc-path locks -> (txn conflict resolution) -> pick hybrid time and
 register with MVCC -> submit through the consensus seam -> apply -> release.
 The consensus seam is LocalConsensusContext (applies immediately,
-monotonically numbering ops); RaftConsensus (the consensus part of ROADMAP
-queue A item 7) replaces it behind the same `submit()` interface.
+monotonically numbering ops); a TabletPeer (tablet/tablet_peer.py)
+replaces it with RaftWriteContext behind the same `submit()` interface.
 
-`TabletOptions.device` keeps the JAX package's meaning: None is a
-device-free tablet (its DBs are "native": C++ flush, compaction and reads,
-no device cache, and it needs no CUDA), "native" the same, and a device
-("cuda", or "cpu" for the kernels' plain versions) puts the regular DB on
-it with `device_cache`. The port's DBOptions.device=None means the card,
-so the tablet maps None to "native" at its DBOptions sites. The intents
-DB takes the device without a cache (`own_cache=False`), as the JAX one:
-its compactions run on the device, its reads on the host.
+`TabletOptions.device=None` means the card, as `DBOptions.device=None`
+does: a default tablet puts its regular DB on CUDA with a device cache
+of its own, and raises `utils/torch_setup`'s error when it is built
+without CUDA. This is a divergence the port chose: the JAX package's
+None is a device-free tablet. The device-free tablet is asked for with
+`device="native"` (both DBs "native": C++ flush, compaction and reads,
+no device cache, no CUDA needed); "cpu" runs the kernels' plain
+versions. The intents DB takes the device without a cache
+(`own_cache=False`), as the JAX one: its compactions run on the device,
+its reads on the host.
 
 The kernels each entry point reaches on a device tablet: `multi_read`
 sends every flat row through one `DB.multi_get` (P1 + P2, P3 + fold a
@@ -148,8 +150,9 @@ class LocalConsensusContext:
 @dataclass
 class TabletOptions:
     block_entries: Optional[int] = None  # None = sst_block_entries flag
-    # None = device-free (the JAX meaning; the DBs run "native"), or a
-    # device: "cuda", "cpu" (the kernels' plain versions) or "native"
+    # None = the card (as DBOptions.device=None; the JAX package's None
+    # is device-free), "cuda", "cpu" (the kernels' plain versions) or
+    # "native" (the device-free tablet)
     device: object = None
     mesh: object = None      # >1-device mesh for distributed compaction
     offload_policy: object = None   # measured device-vs-native router
@@ -181,10 +184,10 @@ class Tablet:  # yblint: disable=ybsan-coverage (composition root: the .submit g
         self.retention_policy = TabletRetentionPolicy(self.clock)
         from yugabyte_tpu_torch.tablet.retryable_requests import RetryableRequests
         self.retryable = RetryableRequests()
-        # device=None is a device-free tablet (the JAX meaning); the
-        # port's DBOptions.device=None would be the card
-        db_device = "native" if self.opts.device is None \
-            else self.opts.device
+        # device=None is the card, as DBOptions' (the JAX package's None
+        # is device-free): without CUDA the regular DB raises before it
+        # makes its directory
+        db_device = self.opts.device
         db_opts = DBOptions(
             block_entries=self.opts.block_entries,
             device=db_device,
@@ -759,8 +762,7 @@ class Tablet:  # yblint: disable=ybsan-coverage (composition root: the .submit g
         stream = self._entry_stream(ht, lower_doc_key, upper_doc_key,
                                     txn_id)
         if use_device is None:
-            use_device = (self.opts.device is not None
-                          and self.opts.device != "native"
+            use_device = (self.opts.device != "native"
                           and not lower_doc_key and upper_doc_key is None
                           and stream is None)
         if use_device and stream is None:
@@ -783,7 +785,7 @@ class Tablet:  # yblint: disable=ybsan-coverage (composition root: the .submit g
         need the intent-aware host merge)."""
         if not flags.get_flag("scan_pushdown"):
             return "disabled"
-        if self.opts.device is None or self.opts.device == "native":
+        if self.opts.device == "native":
             return "device"
         if self.regular_db.approx_row_entries() \
                 < flags.get_flag("scan_pushdown_min_rows"):
