@@ -219,7 +219,22 @@ Phases (any failure exits non-zero):
      up); every replica's reads == the device-free group's. Launches
      exact per part (`launches_consensus_*`), no containment counter
      moves, no pin left;
- 13. a `kernels` JSON line, the card line, and last
+ 13. the tablet server (`tserver_phase`): a TabletServer with default
+     options (its ServerExecutionContext on the card) beside one with a
+     device-free tablet factory, each hosting step 11's seed as
+     usertable and the lineitem SSTs as a tablet, driven by a client
+     Messenger through the `tserver` service over the wire: YCSB-A
+     (--tserver-ops reads and as many updates, in calls of 1024), Q6
+     over the whole lineitem tablet (== the host oracle) and Q6 and a
+     filtered row scan over a 64th of its hash space, flush_tablet and
+     the compaction the maintenance manager picks, a bounded
+     PrewarmKernelsOp, the compacted tablet remote-bootstrapped into a
+     third card server that joins the Raft group and leads, and the card
+     server's /healthz, /compactionz and /servez. Answers == the
+     device-free server's, files byte for byte (MANIFEST edit for edit),
+     launches exact per part (`launches_tserver_*`), no containment
+     counter moves, no pin left;
+ 14. a `kernels` JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 
 Every --rows the script accepts runs: below 4 x 2M rows every job of
@@ -234,7 +249,7 @@ the mesh. At the default 10M rows none of these moves.
 Usage: python3 chip_smoke.py [--rows N] [--seed S] [--reps R]
        [--chunk-rows C] [--skew-rows L] [--wave-rows W] [--sf-orders M]
        [--point-reads K] [--fault-rows F] [--tablet-ops T]
-       [--consensus-ops O]
+       [--consensus-ops O] [--tserver-ops V]
 """
 
 from __future__ import annotations
@@ -5803,6 +5818,24 @@ def same_dir_bytes(a, b, what) -> int:
     return len(names(a))
 
 
+def same_live_bytes(a, b, what) -> int:
+    """Two DBs' live files: the same ids, each data file and base file
+    byte for byte. Returns the number of files."""
+    from yugabyte_tpu_torch.storage.sst import data_file_name
+    fa = sorted(a.versions.live_files(), key=lambda f: f.file_id)
+    fb = sorted(b.versions.live_files(), key=lambda f: f.file_id)
+    if [f.file_id for f in fa] != [f.file_id for f in fb] or not fa:
+        raise AssertionError(f"{what}: live files {[f.file_id for f in fa]}"
+                             f" != {[f.file_id for f in fb]}")
+    for x, y in zip(fa, fb):
+        for pa, pb in ((x.path, y.path),
+                       (data_file_name(x.path), data_file_name(y.path))):
+            if _file_sha(pa) != _file_sha(pb):
+                raise AssertionError(f"{what}: {os.path.basename(pa)} "
+                                     f"differs")
+    return len(fa)
+
+
 def same_manifest(dev, nat, what) -> int:
     """Two DBs' MANIFESTs edit for edit: equal but for the props of a file
     the card's job fitted a learned index into (its `lindex` and
@@ -6242,18 +6275,26 @@ class StepTime:
     write's hybrid time is (the new physical time, logical 0) however
     many readings the group's raft threads took in between (each of those
     only bumps the logical part): two groups driven alike assign equal
-    hybrid times."""
+    hybrid times. With `threads`, the driving thread is any thread whose
+    name starts so (a tablet server's RPC workers, `rpc-worker-ts-<id>`:
+    a write sent over the wire is picked there)."""
 
-    def __init__(self, us: int, step: int):
+    def __init__(self, us: int, step: int, threads: str = ""):
         self.us, self.step = us, step
         self._owner = threading.get_ident()
+        self._threads = threads
         self._armed = False
 
     def arm(self) -> None:
         self._armed = True
 
+    def _driving(self) -> bool:
+        if self._threads:
+            return threading.current_thread().name.startswith(self._threads)
+        return threading.get_ident() == self._owner
+
     def __call__(self) -> int:
-        if self._armed and threading.get_ident() == self._owner:
+        if self._armed and self._driving():
             self._armed = False
             self.us += self.step
         return self.us
@@ -6635,6 +6676,497 @@ def consensus_phase(args, workdir, card, seed, now_us, device="cuda"):
     return out, launches
 
 
+def tserver_phase(args, workdir, card, seed, now_us, push_out, top_ht):
+    """The tablet server (tserver/): two TabletServers on localhost
+    Messengers, "card" with default options (its ServerExecutionContext
+    takes the card: one DeviceSlabCache, block cache, compaction pool and
+    health board for its tablets) and "free" with a device-free tablet
+    factory (TabletOptions(device="native")). Each hosts, before it
+    starts (open_existing at start()), the tablet phase's bulk-loaded
+    config-2 tablet as YCSB's usertable (hard links of `seed`, op id
+    (0, 0)) and the pushdown phase's lineitem SSTs as a tablet; both are
+    elected. The servers' clocks read a StepTime each, moved on at the
+    first reading an RPC worker of that server takes after the driver
+    arms it, so a write sent over the wire draws equal hybrid times on
+    both. A client Messenger drives, through the `tserver` service:
+
+      1. YCSB core workload A (read 0.5, update 0.5, ScrambledZipfian
+         0.99): --tserver-ops reads (multi_read) and as many updates
+         (write), in calls of 1024 (P1 + P2 and P3 + the fold a 1024-key
+         chunk: 3 keys a row);
+      2. on the lineitem tablet, Q6's filters and aggregates at the
+         pushdown phase's read time over the whole tablet on the card
+         (G, H, I.1, B, J.1, J.2, K) == the pushdown phase's host oracle
+         (LineitemOracle); Q6 over a 64th of the hash space on both
+         servers (the device-free one answers in rows, aggregated here as
+         a client does) and the filtered row scan over that range: the
+         card's answers == the device-free server's;
+      3. flush_tablet on both (files byte for byte), then the compaction
+         the card server's MaintenanceManager.run_once() picks (and the
+         device-free server's): A a level, B, D, H once, C a cache
+         miss, E, F and P4 an output on the card; data files byte for
+         byte, MANIFESTs edit for edit;
+      4. a PrewarmKernelsOp at one bounded bucket (k_pad 2, m 2^16)
+         registered on the card server and picked by run_once(): A and B
+         once each per is_major variant and the point-read family; the
+         bucket prewarmed on the board;
+      5. the compacted usertable remote-bootstrapped from the card server
+         into a third server "card2" (default options), added to the
+         Raft config and elected; its multi_read over the last call's
+         keys == the device-free server's;
+      6. /healthz, /compactionz and /servez of the card server over HTTP:
+         JSON that names the board's kernel families, the point-read and
+         pushdown counters and the device cache.
+
+    The phase pins device_offload_mode to "device" (the card server's
+    compaction dispatch is a policy site of the board, which the faults
+    phase exercises) and lets the universal picker take every run. Every
+    launch counter is set to 0 just before each part and read just after.
+    Returns (summary, {part: launches})."""
+    import dataclasses
+    import urllib.request
+    import torch
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock
+    from yugabyte_tpu_torch.common.partition import Partition, doc_key_bounds
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.common.wire import (doc_key_to_wire,
+                                                schema_to_wire,
+                                                write_op_to_wire)
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.ops import run_merge
+    from yugabyte_tpu_torch.rpc.messenger import Messenger
+    from yugabyte_tpu_torch.storage import compaction
+    from yugabyte_tpu_torch.storage.bucket_health import health_board
+    from yugabyte_tpu_torch.storage.sst import BlockCache
+    from yugabyte_tpu_torch.tablet.tablet import TabletOptions
+    from yugabyte_tpu_torch.tserver import TabletServer, TabletServerOptions
+    from yugabyte_tpu_torch.tserver import server_context  # noqa: F401 (flags)
+    from yugabyte_tpu_torch.tserver.maintenance_manager import (
+        PrewarmKernelsOp)
+    from yugabyte_tpu_torch.utils import flags, jsonutil
+
+    wrappers = {**_mesh_wrappers(), **_pushdown_wrappers(),
+                **_point_wrappers()}
+    launches, out = {}, {"card": card}
+    t_phase = time.time()
+    key_space = max(1, args.rows // 2)
+    d = os.path.join(workdir, "tserver_phase")
+    ycsb = Schema([ColumnSchema("ycsb_key", DataType.STRING),
+                   ColumnSchema("field0", DataType.STRING)],
+                  num_range_key_columns=1)
+    li_schema = lineitem_schema()
+    # one physical time above the tablet phase's (900 s past every loaded
+    # write) and the lineitem tablet's newest write
+    t0_us = max(now_us, (top_ht >> 12) + 1)
+    # the phase's settings: the servers' maintenance loops held (the
+    # driver calls run_once), no mesh pool, the card server's compaction
+    # dispatch on the card (a policy site of the board, which the faults
+    # phase exercises), a size ratio that lets the universal picker take
+    # every run (a major compaction, as the earlier phases' compact()),
+    # the caches of the earlier phases' tablets
+    pinned = {"tserver_mesh_compaction_pool": 0,
+              "maintenance_manager_polling_interval_s": 3600,
+              "device_offload_mode": "device",
+              "universal_compaction_size_ratio_pct": 1 << 30,
+              "device_cache_capacity_bytes": 16 << 30,
+              "block_cache_bytes": 1 << 30}
+    for name, value in pinned.items():
+        flags.set_flag(name, value)
+
+    def held(opts):
+        # the phase's tablets compact when the driver (or the maintenance
+        # manager) says so, and never flush on their own
+        return dataclasses.replace(opts, auto_compact=False,
+                                   memstore_size_bytes=1 << 40)
+
+    def seed_tablet(root, tid, schema, regular, hash_partitioning):
+        tdir = os.path.join(root, "tablets", tid)
+        regular(os.path.join(tdir, "regular"))
+        jsonutil.write_atomic(os.path.join(tdir, "meta.json"), {
+            "tablet_id": tid, "table_id": tid,
+            "schema": schema_to_wire(schema),
+            "peer_server_ids": [os.path.basename(root)], "partition": None,
+            "hash_partitioning": hash_partitioning})
+
+    def ycsb_regular(dst):
+        shutil.copytree(seed, dst, copy_function=os.link)
+        os.remove(os.path.join(dst, "MANIFEST"))
+        shutil.copy(os.path.join(seed, "MANIFEST"),
+                    os.path.join(dst, "MANIFEST"))
+
+    servers, times = {}, {}
+
+    def new_server(sid, with_tablets=True):
+        root = os.path.join(d, sid)
+        if with_tablets:
+            seed_tablet(root, "usertable", ycsb, ycsb_regular, False)
+            seed_tablet(root, "lineitem", li_schema, lambda dst: link_lineitem(
+                os.path.join(workdir, "lineitem"), dst), True)
+        if sid == "free":
+            opts = TabletServerOptions(sid, root, webserver_port=None,
+                                       tablet_options_factory=lambda: held(
+                                           TabletOptions(
+                                               device="native",
+                                               block_cache=BlockCache(
+                                                   1 << 30))))
+        else:
+            opts = TabletServerOptions(sid, root)
+        ts = TabletServer(opts)
+        servers[sid] = ts
+        if ts.exec_context is not None:
+            ctx = ts.exec_context
+            ts.tablet_manager._tablet_options_factory = \
+                lambda: held(ctx.tablet_options())
+        times[sid] = StepTime(t0_us, 1000, threads=f"rpc-worker-ts-{sid}-")
+        ts.clock = ts.tablet_manager.clock = HybridClock(times[sid])
+        t0 = time.time()
+        ts.start()
+        for tid in ts.tablet_manager.tablet_ids():
+            p = ts.tablet_manager.get_tablet(tid)
+            p.raft.start_election(ignore_lease=True)
+            _wait(lambda: p.raft.is_leader() and p.raft.leader_ready()
+                  and p.raft.has_leader_lease(), f"{sid} {tid} to lead")
+        return time.time() - t0
+
+    client = Messenger("tserver-client")
+
+    def call(sid, method, **kw):
+        return client.call(servers[sid].address, "tserver", method,
+                           timeout_s=600.0, **kw)
+
+    def both(what, fn):
+        """fn(server id) for "card" and "free": (answer, {sid: seconds});
+        the answers must be equal."""
+        got, secs = {}, {}
+        for sid in ("card", "free"):
+            t0 = time.time()
+            got[sid] = fn(sid)
+            sync()
+            secs[sid] = time.time() - t0
+        if got["card"] != got["free"]:
+            raise AssertionError(f"tserver {what}: the card server's answer "
+                                 f"differs from the device-free server's")
+        return got["card"], secs
+
+    def keys_of(ids):
+        return [doc_key_to_wire(DocKey(range_components=("user%08d" % i,)))
+                for i in ids]
+
+    def updates(ids, rng):
+        letters = rng.integers(ord("a"), ord("z") + 1, size=(len(ids), 61),
+                               dtype=np.uint8)
+        return [write_op_to_wire(QLWriteOp(
+            WriteOpKind.UPDATE, DocKey(range_components=("user%08d" % i,)),
+            {"field0": letters[j].tobytes().decode()}))
+            for j, i in enumerate(ids)]
+
+    def write(sid, ops):
+        times[sid].arm()
+        return call(sid, "write", tablet_id="usertable",
+                    ops=ops)["propagated_ht"]
+
+    def scan(sid, **kw):
+        ans = call(sid, "scan", tablet_id="lineitem", read_ht=top_ht,
+                   limit=1 << 30, **kw)
+        return {k: v for k, v in ans.items() if k != "read_ht"}
+
+    def db_of(sid, tid="usertable"):
+        return servers[sid].tablet_manager.get_tablet(tid).tablet.regular_db
+
+    try:
+        _, out["start_s"] = both("start", lambda sid: new_server(sid) < 0)
+        ctx = servers["card"].exec_context
+        if ctx.device.type != "cuda" or ctx.device_cache is None:
+            raise AssertionError(f"tserver: the default server's context is "
+                                 f"on {ctx.device}, not the card")
+
+        # -- 1: YCSB-A over the wire
+        rng = np.random.default_rng(args.seed + 120)
+        calls = max(1, args.tserver_ops // 1024)
+        read_s = {"card": [], "free": []}
+        write_s = {"card": [], "free": []}
+        found = 0
+        _zero(wrappers)
+        for _c in range(calls):
+            keys = keys_of(scrambled_zipfian(1024, key_space, rng))
+            rows, secs = both("multi_read", lambda sid: call(
+                sid, "multi_read", tablet_id="usertable",
+                doc_keys=keys)["rows"])
+            found += sum(r is not None for r in rows)
+            for k in secs:
+                read_s[k].append(secs[k])
+            ids = scrambled_zipfian(1024, key_space, rng)
+            ops = updates(ids, rng)
+            _, secs = both("write", lambda sid: write(sid, ops))
+            for k in secs:
+                write_s[k].append(secs[k])
+        launches["tserver_reads"] = _launches_of(wrappers)
+        chunks = calls * -(-3 * 1024 // 1024)
+        exact_launches(launches["tserver_reads"], {
+            "hash_probe_files": chunks, "locate_fold": chunks},
+            "tserver YCSB-A reads")
+        rates = {k: {"reads": 1024 * (calls - 1) / sum(v[1:]) if calls > 1
+                     else None, "cold_first_call_s": v[0],
+                     "read_p50_ms": 1e3 * float(np.median(v[1:] or v))}
+                 for k, v in read_s.items()}
+        for k, v in write_s.items():
+            rates[k]["updates"] = 1024 * calls / sum(v)
+            rates[k]["write_p50_ms"] = 1e3 * float(np.median(v))
+        out["ycsb_a"] = {"calls": calls, "rows_found": found, **rates}
+        last_keys = keys_of(ids)
+        log(f"tserver YCSB-A over the wire: {calls} multi_read calls of 1024 "
+            f"rows ({found} found) == the device-free server's, "
+            f"{rates['card']['reads'] or 0:,.0f} rows/s on the card vs "
+            f"{rates['free']['reads'] or 0:,.0f} (the cold first call "
+            f"{rates['card']['cold_first_call_s']:.2f} s); {calls} writes of "
+            f"1024 updates, {rates['card']['updates']:,.0f} updates/s vs "
+            f"{rates['free']['updates']:,.0f}, equal hybrid times; launches "
+            f"{_nonzero(launches['tserver_reads'])} [{card}]")
+
+        # -- 2: the pushdown and a filtered row scan on the lineitem tablet
+        q6 = [["l_shipdate", ">=", D_1994_01_01],
+              ["l_shipdate", "<", D_1995_01_01],
+              ["l_discount", ">=", 5], ["l_discount", "<=", 7]]
+        q6_aggs = [["count", None], ["sum", "l_extendedprice"]]
+        _zero(wrappers)
+        t0 = time.time()
+        full = scan("card", filters=q6, aggregates=q6_aggs)
+        sync()
+        out["q6_full_s"] = time.time() - t0
+        launches["tserver_q6_full"] = _launches_of(wrappers)
+        # the multi-source route over the tablet's 4 SSTs: G once, H and
+        # I.1 on the key and the value columns, B, J.1, J.2, then K (or
+        # J.3 for rows)
+        multi = {"radix_sort": 1, "staged_concat": 2, "sorted_payload": 2,
+                 "gc_pack": 1, "row_flags": 1, "segment_or": 1}
+        exact_launches(launches["tserver_q6_full"],
+                       {**multi, "agg_reduce": 1},
+                       "tserver q6 over the whole tablet")
+        ref = push_out["q6_agg"]["answer"]
+        if "agg" not in full or {"rows": full["agg"]["rows"], "cols": {
+                str(c): v for c, v in full["agg"]["cols"].items()}} != ref:
+            raise AssertionError(f"tserver q6: {full} != the pushdown "
+                                 f"phase's {ref}")
+        lo, hi = doc_key_bounds(Partition(b"\x20\x00", b"\x24\x00"), True)
+        price = li_schema.column_id("l_extendedprice")
+
+        def q6_range(sid):
+            ans = scan(sid, filters=q6, aggregates=q6_aggs,
+                       lower_doc_key=lo, upper_doc_key=hi)
+            if "agg" in ans:
+                a = ans["agg"]
+                return a["rows"], a["cols"][price]["sum"]
+            vals = [r["columns"].get(price) for r in ans["rows"]]
+            return len(ans["rows"]), sum(v for v in vals if v is not None)
+        _zero(wrappers)
+        (q6_rows, q6_sum), q6_s = both("q6 over a 64th of the hash space",
+                                       q6_range)
+        launches["tserver_q6_range"] = _launches_of(wrappers)
+        rows_filter = [["l_quantity", "<", 24], ["l_discount", "!=", 6],
+                       ["l_shipdate", ">=", D_1998_08_01]]
+        _zero(wrappers)
+        routed = {}
+
+        def filtered(sid):
+            ans = scan(sid, filters=rows_filter, lower_doc_key=lo,
+                       upper_doc_key=hi)
+            routed[sid] = ans.pop("pushdown")
+            return ans
+        frows, filter_s = both("filtered row scan over a 64th", filtered)
+        launches["tserver_filter_rows"] = _launches_of(wrappers)
+        if not routed["card"] or routed["free"]:
+            raise AssertionError(f"tserver filtered scan routes {routed}")
+        exact_launches(launches["tserver_q6_range"],
+                       {**multi, "agg_reduce": 1}, "tserver q6 over a 64th")
+        exact_launches(launches["tserver_filter_rows"],
+                       {**multi, "row_pass_pack": 1},
+                       "tserver filtered row scan")
+        out["scan"] = {"q6_full": full["agg"], "q6_range": [q6_rows, q6_sum],
+                       "q6_range_s": q6_s, "filter_rows": len(frows["rows"]),
+                       "filter_s": filter_s}
+        log(f"tserver scans: q6 over the whole lineitem tablet on the card "
+            f"{out['q6_full_s']:.3f} s == the pushdown phase's oracle; q6 "
+            f"over a 64th ({q6_rows} rows, sum {q6_sum}) and the filtered "
+            f"row scan ({len(frows['rows'])} rows) == the device-free "
+            f"server's ({q6_s['card']:.3f} s vs {q6_s['free']:.3f}, "
+            f"{filter_s['card']:.3f} vs {filter_s['free']:.3f}); launches "
+            f"{_nonzero(launches['tserver_q6_full'])}, "
+            f"{_nonzero(launches['tserver_q6_range'])}, "
+            f"{_nonzero(launches['tserver_filter_rows'])} [{card}]")
+
+        # -- 3: flush, then the maintenance manager's compaction
+        _zero(wrappers)
+        _, flush_s = both("flush_tablet", lambda sid: call(
+            sid, "flush_tablet", tablet_id="usertable"))
+        launches["tserver_flush"] = _launches_of(wrappers)
+        exact_launches(launches["tserver_flush"], {}, "tserver flush")
+        files = same_dir_bytes(db_of("card").db_dir, db_of("free").db_dir,
+                               "tserver flush")
+        dev, nat = db_of("card"), db_of("free")
+        pick = compaction.pick_universal(dev.versions.live_files())
+        ns = [fm.props.n_entries for fm in pick.inputs]
+        misses = sum(not dev._device_cache.contains(fm.file_id)
+                     for fm in pick.inputs)
+        before = dev.n_live_files
+        _zero(wrappers)
+        secs = {}
+        picked = {}
+        for sid in ("card", "free"):
+            t0 = time.time()
+            picked[sid] = servers[sid].maintenance_manager.run_once()
+            if servers[sid].exec_context is not None:
+                servers[sid].exec_context.pool.wait_idle()
+            sync()
+            secs[sid] = time.time() - t0
+            if sid == "card":
+                launches["tserver_compact"] = _launches_of(wrappers)
+        if picked != {"card": "compact:usertable",
+                      "free": "compact:usertable"}:
+            raise AssertionError(f"tserver maintenance picked {picked}")
+        outs = dev.n_live_files - (before - len(ns))
+        k_pad, _m = run_merge._layout(ns)
+        exact_launches(launches["tserver_compact"], {
+            "merge_path_level": k_pad.bit_length() - 1, "gc_pack": 1,
+            "block_decode": misses, "survivor_scan": 1, "staged_concat": 1,
+            "span_gather": outs, "block_encode": outs, "index_fit": outs},
+            "tserver compact")
+        out["compact"] = {
+            "rows_in": sum(ns), "inputs": len(ns), "outputs": outs,
+            "cache_misses": misses, "flush_files": files,
+            "flush_s": flush_s, "seconds": secs,
+            "rows_per_s": {k: sum(ns) / v for k, v in secs.items()},
+            **same_db_files(dev, nat, "tserver compact"),
+            "manifest_edits": same_manifest(dev, nat, "tserver compact")}
+        log(f"tserver flush ({files} files byte for byte) and the "
+            f"maintenance manager's compact:usertable: {sum(ns)} rows in "
+            f"{len(ns)} files ({misses} cache misses) -> {outs}, "
+            f"{out['compact']['rows_per_s']['card']:,.0f} rows/s on the card "
+            f"vs {out['compact']['rows_per_s']['free']:,.0f} native; data "
+            f"files byte for byte, MANIFEST edit for edit; launches "
+            f"{_nonzero(launches['tserver_compact'])} [{card}]")
+
+        # -- 4: a bounded PrewarmKernelsOp on the card server
+        board = health_board()
+        shape = (2, 1 << 16, 4, 8)
+        op = PrewarmKernelsOp(shapes=[shape], enabled_fn=lambda: True,
+                              device=ctx.device)
+        mm = servers["card"].maintenance_manager
+        mm.register_op(op)
+        _zero(wrappers)
+        t0 = time.time()
+        try:
+            name = mm.run_once()
+        finally:
+            mm.unregister_op(op)
+        sync()
+        out["prewarm_s"] = time.time() - t0
+        launches["tserver_prewarm"] = _launches_of(wrappers)
+        rec = [k for k in board.snapshot()["keys"]
+               if k["family"] == "run_merge_fused"
+               and tuple(k["bucket"]) == shape[:2]]
+        if name != "prewarm_kernels" or not op.done or not rec \
+                or not rec[0]["prewarmed"]:
+            raise AssertionError(f"tserver prewarm: picked {name}, board "
+                                 f"{rec}")
+        # A and B once per is_major variant at the one bucket; the
+        # point-read family over its declared buckets (ops/point_read.
+        # prewarm_point_read: P1 + P2, P3 + the fold with the model off
+        # and on, P4)
+        exact_launches(launches["tserver_prewarm"], {
+            "merge_path_level": 2, "gc_pack": 2, "hash_probe_files": 8,
+            "locate_fold": 16, "index_fit": 4}, "tserver prewarm")
+        log(f"tserver prewarm: run_once picked prewarm_kernels, "
+            f"{out['prewarm_s']:.3f} s; bucket {shape[:2]} "
+            f"{rec[0]['state']}, prewarmed; launches "
+            f"{_nonzero(launches['tserver_prewarm'])} [{card}]")
+
+        # -- 5: remote bootstrap into a third server; it joins and leads
+        t0 = time.time()
+        new_server("card2", with_tablets=False)
+        src, dst = servers["card"], servers["card2"]
+        src.update_addr_map({"card2": dst.address})
+        dst.update_addr_map({"card": src.address})
+        t1 = time.time()
+        client.call(dst.address, "tserver", "start_remote_bootstrap",
+                    timeout_s=600.0, tablet_id="usertable",
+                    source_addr=src.address)
+        boot_s = time.time() - t1
+        call("card", "change_config", tablet_id="usertable", add=["card2"])
+        lead = src.tablet_manager.get_tablet("usertable")
+        rep = dst.tablet_manager.get_tablet("usertable")
+        _wait(lambda: len(rep.raft.config.peer_ids) == 2
+              and rep.raft.last_applied >= lead.raft.commit_index,
+              "card2 to join and catch up")
+        rep.raft.start_election(ignore_lease=True)
+        _wait(lambda: rep.raft.is_leader() and rep.raft.leader_ready()
+              and rep.raft.has_leader_lease(), "card2 to lead")
+        join_s = time.time() - t1
+        files2 = same_live_bytes(db_of("card"), rep.tablet.regular_db,
+                                 "tserver remote bootstrap")
+        _zero(wrappers)
+        got2 = client.call(dst.address, "tserver", "multi_read",
+                           tablet_id="usertable", doc_keys=last_keys)["rows"]
+        sync()
+        launches["tserver_bootstrap_reads"] = _launches_of(wrappers)
+        exact_launches(launches["tserver_bootstrap_reads"], {
+            "hash_probe_files": 3, "locate_fold": 3},
+            "tserver reads on the bootstrapped replica")
+        want = call("free", "multi_read", tablet_id="usertable",
+                    doc_keys=last_keys)["rows"]
+        if got2 != want or None in want:
+            raise AssertionError("tserver: the bootstrapped replica's reads "
+                                 "differ from the device-free server's")
+        out["bootstrap"] = {"files": files2, "download_and_open_s": boot_s,
+                            "join_and_lead_s": join_s,
+                            "with_server_start_s": time.time() - t0}
+        log(f"tserver remote bootstrap: the compacted usertable ({files2} "
+            f"files, byte for byte) into card2 in {boot_s:.3f} s, joined "
+            f"and elected {join_s:.3f} s after the start; its 1024 reads "
+            f"== the device-free server's; launches "
+            f"{_nonzero(launches['tserver_bootstrap_reads'])} [{card}]")
+
+        # -- 6: the card server's pages over HTTP
+        pages = {}
+        for page in ("/healthz", "/compactionz", "/servez"):
+            with urllib.request.urlopen(
+                    f"http://{src.webserver.address}{page}",
+                    timeout=60) as r:
+                pages[page] = json.loads(r.read())
+        fams = {k["family"] for k in pages["/healthz"]["bucket_health"]
+                ["keys"]}
+        cz, sz = pages["/compactionz"], pages["/servez"]
+        if pages["/healthz"]["status"] != "ok" or "run_merge_fused" not in \
+                fams or not cz["point_reads"]["batches"] or "scans" not in \
+                cz or "device_cache" not in cz or "pipeline" not in cz or \
+                not sz["point_reads"]["batches"]:
+            raise AssertionError(f"tserver pages: {sorted(fams)}, "
+                                 f"{sorted(cz)}, {sorted(sz)}")
+        out["pages"] = {"healthz_families": sorted(fams),
+                        "compactionz_keys": sorted(cz),
+                        "point_read_batches": cz["point_reads"]["batches"],
+                        "device_cache_entries": cz["device_cache"]["entries"]}
+        log(f"tserver pages: /healthz names {sorted(fams)}; /compactionz "
+            f"{cz['point_reads']['batches']} point-read batches, "
+            f"{cz['device_cache']['entries']} resident entries; /servez "
+            f"the serve path [{card}]")
+        if ctx.device_cache.pinned_count():
+            raise AssertionError("tserver: pins left")
+    finally:
+        client.shutdown()
+        for ts in servers.values():
+            ts.shutdown()
+        for name in pinned:
+            flags.reset_flag(name)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"tserver phase: {out['seconds']:.1f}s [{card}]")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_000_000,
@@ -6656,13 +7188,17 @@ def main() -> int:
                     help="YCSB-C reads above every write; the mid-time, "
                     "exact-mode and lineitem read sets take a quarter "
                     "each")
-    ap.add_argument("--tablet-ops", type=int, default=32_768,
+    ap.add_argument("--tablet-ops", type=int, default=16_384,
                     help="YCSB-A reads and as many updates through the "
                     "tablet phase's Tablet.multi_read / Tablet.write")
-    ap.add_argument("--consensus-ops", type=int, default=32_768,
+    ap.add_argument("--consensus-ops", type=int, default=16_384,
                     help="YCSB-A reads and as many updates through the "
                     "consensus phase's leader (TabletPeer.multi_read / "
                     "TabletPeer.write)")
+    ap.add_argument("--tserver-ops", type=int, default=16_384,
+                    help="YCSB-A reads and as many updates through the "
+                    "tserver phase's `tserver` service over the wire "
+                    "(multi_read / write)")
     ap.add_argument("--fault-rows", type=int, default=1_000_000,
                     help="rows of the faults phase's decay and rate-race "
                     "tablet (the YCSB-A generator, cut in rows only)")
@@ -6857,6 +7393,9 @@ def main() -> int:
         consensus_out, consensus_launches = consensus_phase(
             args, workdir, card, seed, now_us)
         no_fallbacks("consensus")
+        tserver_out, tserver_launches = tserver_phase(
+            args, workdir, card, seed, now_us, push_out, top_ht)
+        no_fallbacks("tserver")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for entry in (a, b):
@@ -6889,10 +7428,11 @@ def main() -> int:
         for tag, counts in chain_launches.items():
             if entry["name"] in counts:
                 entry[f"launches_chain_{tag}"] = counts[entry["name"]]
-        # launches per part of the DB, the tablet and the consensus phases
-        # (their entry points)
+        # launches per part of the DB, the tablet, the consensus and the
+        # tserver phases (their entry points)
         for tag, counts in {**db_launches, **tablet_launches,
-                            **consensus_launches}.items():
+                            **consensus_launches,
+                            **tserver_launches}.items():
             if entry["name"] in counts:
                 entry[f"launches_{tag}"] = counts[entry["name"]]
     summary = {"card": card, "kernel_rows": args.rows, "compaction": comp,
@@ -6901,6 +7441,7 @@ def main() -> int:
                "pushdown": push_out,
                "point_read": point_out, "faults": faults_out, "db": db_out,
                "tablet": tablet_out, "consensus": consensus_out,
+               "tserver": tserver_out,
                "seconds": time.time() - t_start}
     print("summary: " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": [a, b] + codec_rows + chunk_rows

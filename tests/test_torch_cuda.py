@@ -3060,3 +3060,124 @@ def test_replicated_tablet_on_the_card_equals_device_free(cuda, tmp_path):
         for g in groups.values():
             for p in g["peers"].values():
                 p.shutdown()
+
+
+# ------------------------------------------------------- the tablet server
+
+
+def test_tablet_server_on_the_card_equals_device_free(cuda, tmp_path):
+    """A default TabletServer (its execution context on the card: one
+    DeviceSlabCache, block cache, compaction pool and health board for
+    its tablets) beside a device-free one (device="native"), each
+    hosting one tablet and taking the same writes through its `tserver`
+    service on the test thread (StepTime clocks: equal hybrid times):
+    four flushes schedule a compaction on each server's pool (A-F, H,
+    P4 on the card) that writes the native job's data files (MANIFEST
+    edit for edit); multi_read (P1 + P2 and P3 + the fold a chunk), the
+    pushdown scan and a filtered scan answer alike; the maintenance
+    manager's pick is the same; a flush and compact_tablet again."""
+    import time
+    from chip_smoke import StepTime, same_db_files, same_manifest
+    from yugabyte_tpu_torch.common.hybrid_time import HybridClock
+    from yugabyte_tpu_torch.common.schema import (ColumnSchema, DataType,
+                                                  Schema)
+    from yugabyte_tpu_torch.common.wire import (doc_key_to_wire,
+                                                schema_to_wire,
+                                                write_op_to_wire)
+    from yugabyte_tpu_torch.docdb.doc_key import DocKey
+    from yugabyte_tpu_torch.docdb.doc_operations import (QLWriteOp,
+                                                         WriteOpKind)
+    from yugabyte_tpu_torch.ops import point_read
+    from yugabyte_tpu_torch.tserver import TabletServer, TabletServerOptions
+    from yugabyte_tpu_torch.tserver import maintenance_manager  # noqa: F401
+    from yugabyte_tpu_torch.utils import flags
+
+    schema = Schema([ColumnSchema("k", DataType.STRING),
+                     ColumnSchema("v", DataType.INT64)],
+                    num_range_key_columns=1)
+    flags.set_flag("scan_pushdown_min_rows", 1)
+    flags.set_flag("maintenance_manager_polling_interval_s", 3600)
+    servers, clocks = {}, {}
+    try:
+        for tag, dev in (("card", None), ("free", "native")):
+            ts = TabletServer(TabletServerOptions(
+                f"{tag}0", str(tmp_path / tag), device=dev,
+                webserver_port=None))
+            clocks[tag] = StepTime(10**15, 1000)
+            ts.clock = ts.tablet_manager.clock = HybridClock(clocks[tag])
+            servers[tag] = ts.start()
+            ts.tablet_manager.create_tablet(
+                "t", "tbl", schema_to_wire(schema), [f"{tag}0"])
+            p = ts.tablet_manager.get_tablet("t")
+            p.raft.start_election(ignore_lease=True)
+            deadline = time.monotonic() + 60
+            while not (p.raft.is_leader() and p.raft.leader_ready()):
+                assert time.monotonic() < deadline, f"{tag}: no leader"
+                time.sleep(0.005)
+        card = servers["card"].exec_context
+        assert card.device.type == "cuda" and card.device_cache is not None
+        rng = np.random.default_rng(23)
+        for _f in range(4):
+            ids = rng.choice(4000, size=900, replace=False)
+            vals = rng.integers(-1000, 1000, size=900)
+            ops = [write_op_to_wire(QLWriteOp(
+                WriteOpKind.INSERT, DocKey(range_components=("k%05d" % i,)),
+                {"v": int(v)})) for i, v in zip(ids, vals)]
+            hts = {}
+            for tag, ts in servers.items():
+                clocks[tag].arm()
+                hts[tag] = ts.service.write("t", ops)["propagated_ht"]
+                ts.service.flush_tablet("t")
+            assert hts["card"] == hts["free"]
+        peers = {tag: ts.tablet_manager.get_tablet("t")
+                 for tag, ts in servers.items()}
+        dbs = {tag: p.tablet.regular_db for tag, p in peers.items()}
+        # the fourth flush scheduled a universal compaction on each
+        # server's pool (auto_compact, the default)
+        for ts in servers.values():
+            ts.exec_context.pool.wait_idle()
+        assert dbs["card"].n_live_files == dbs["free"].n_live_files == 1
+        same_db_files(dbs["card"], dbs["free"], "tserver auto compaction")
+        same_manifest(dbs["card"], dbs["free"], "tserver auto compaction")
+        keys = [doc_key_to_wire(DocKey(range_components=("k%05d" % i,)))
+                for i in range(0, 4100, 3)]
+        before = (point_read.hash_probe_files.launches,
+                  point_read.locate_fold.launches)
+        got = {tag: ts.service.multi_read("t", keys)
+               for tag, ts in servers.items()}
+        torch.cuda.synchronize()
+        chunks = -(-3 * len(keys) // 1024)
+        assert (point_read.hash_probe_files.launches - before[0],
+                point_read.locate_fold.launches - before[1]) == \
+            (chunks, chunks)
+        assert got["card"] == got["free"]
+        # the pushdown on the card (J, K); the device-free tablet answers
+        # in rows and the caller aggregates, as the client does
+        agg = servers["card"].service.scan(
+            "t", filters=[["v", ">", 0]],
+            aggregates=[["count", None], ["sum", "v"]])["agg"]
+        rows = servers["free"].service.scan("t", filters=[["v", ">", 0]])
+        vals = [r["columns"][0] for r in rows["rows"]]
+        assert (agg["rows"], agg["cols"][0]["sum"]) == (len(vals), sum(vals))
+        filtered = {tag: ts.service.scan("t", filters=[["v", "<", -900]])
+                    for tag, ts in servers.items()}
+        assert filtered["card"]["pushdown"]
+        assert filtered["card"]["rows"] == filtered["free"]["rows"]
+        picks = {tag: ts.maintenance_manager.run_once()
+                 for tag, ts in servers.items()}
+        assert picks["card"] == picks["free"]
+        for ts in servers.values():
+            ts.service.flush_tablet("t")
+            ts.service.compact_tablet("t")
+            ts.exec_context.pool.wait_idle()
+        same_db_files(dbs["card"], dbs["free"], "tserver compact")
+        same_manifest(dbs["card"], dbs["free"], "tserver compact")
+        assert card.device_cache.pinned_count() == 0
+        got = {tag: ts.service.multi_read("t", keys)
+               for tag, ts in servers.items()}
+        assert got["card"] == got["free"]
+    finally:
+        for ts in servers.values():
+            ts.shutdown()
+        flags.reset_flag("scan_pushdown_min_rows")
+        flags.reset_flag("maintenance_manager_polling_interval_s")

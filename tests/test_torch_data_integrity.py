@@ -13,11 +13,11 @@
     probation; a clean verified job counts its rows; without the verifier
     the flipped decision lands silently, alike in both.
 
-The JAX package's cases that need the tablet server, the maintenance
-manager or a mini-cluster (ScrubTabletsOp's interval gating, the
-cross-replica digest exchange and the rebuild loop) and its tools
-(`sst_dump --verify`, `ldb verify`) wait for ROADMAP queue A item 7 (the
-device-free rest).
+The twin of ScrubTabletsOp's interval gating is in
+tests/test_torch_maintenance_manager.py. The JAX package's cases that
+need a mini-cluster (the cross-replica digest exchange and the rebuild
+loop) and its tools (`sst_dump --verify`, `ldb verify`) wait for ROADMAP
+queue A item 7g.
 """
 
 import os

@@ -21,9 +21,9 @@ its job natively in both packages' pools, with equal boards and
 counters.
 
 Jobs are a few hundred rows; the JAX jobs run on its CPU backend. The
-JAX package's containment cases that need the tablet server, the
-maintenance manager or a mini-cluster (the prewarm op) wait for ROADMAP
-queue A item 7 (the device-free rest).
+prewarm op's case is in tests/test_torch_maintenance_manager.py; the
+JAX package's containment cases that need a mini-cluster wait for
+ROADMAP queue A item 7g.
 """
 
 import os

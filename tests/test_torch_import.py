@@ -97,12 +97,30 @@ MODULES = [
     "yugabyte_tpu_torch.tablet.admission",
     "yugabyte_tpu_torch.tablet.tablet",
     "yugabyte_tpu_torch.tablet.tablet_peer",
+    "yugabyte_tpu_torch.common.jsonb",
+    "yugabyte_tpu_torch.common.wire",
+    "yugabyte_tpu_torch.utils.jsonutil",
+    "yugabyte_tpu_torch.utils.backoff",
+    "yugabyte_tpu_torch.utils.mem_tracker",
+    "yugabyte_tpu_torch.utils.timeseries",
+    "yugabyte_tpu_torch.server",
+    "yugabyte_tpu_torch.server.webserver",
+    "yugabyte_tpu_torch.tserver.remote_bootstrap",
+    "yugabyte_tpu_torch.tserver.heartbeater",
+    "yugabyte_tpu_torch.tserver.tablet_memory_manager",
+    "yugabyte_tpu_torch.tserver.maintenance_manager",
+    "yugabyte_tpu_torch.tserver.server_context",
+    "yugabyte_tpu_torch.tserver.transaction_coordinator",
+    "yugabyte_tpu_torch.tserver.ts_tablet_manager",
+    "yugabyte_tpu_torch.tserver.tablet_service",
+    "yugabyte_tpu_torch.tserver.tablet_server",
     "chip_smoke",
     "kernel_ab",
 ]
 
-# The replicated tablet's modules, each imported first of all, under a
-# finder that refuses jax and the JAX package (`_BLOCKER`): one case each.
+# The replicated tablet's and the tablet server's modules, each imported
+# first of all, under a finder that refuses jax and the JAX package
+# (`_BLOCKER`): one case each.
 BLOCKED_IMPORTS = [
     "yugabyte_tpu_torch.rpc.nemesis",
     "yugabyte_tpu_torch.consensus.transport",
@@ -112,6 +130,24 @@ BLOCKED_IMPORTS = [
     "yugabyte_tpu_torch.rpc.codec",
     "yugabyte_tpu_torch.rpc.messenger",
     "yugabyte_tpu_torch.rpc.consensus_service",
+    "yugabyte_tpu_torch.common.jsonb",
+    "yugabyte_tpu_torch.common.wire",
+    "yugabyte_tpu_torch.utils.jsonutil",
+    "yugabyte_tpu_torch.utils.backoff",
+    "yugabyte_tpu_torch.utils.mem_tracker",
+    "yugabyte_tpu_torch.utils.timeseries",
+    "yugabyte_tpu_torch.server",
+    "yugabyte_tpu_torch.server.webserver",
+    "yugabyte_tpu_torch.tserver.remote_bootstrap",
+    "yugabyte_tpu_torch.tserver.heartbeater",
+    "yugabyte_tpu_torch.tserver.tablet_memory_manager",
+    "yugabyte_tpu_torch.tserver.maintenance_manager",
+    "yugabyte_tpu_torch.tserver.server_context",
+    "yugabyte_tpu_torch.tserver.transaction_coordinator",
+    "yugabyte_tpu_torch.tserver.ts_tablet_manager",
+    "yugabyte_tpu_torch.tserver.tablet_service",
+    "yugabyte_tpu_torch.tserver.tablet_server",
+    "yugabyte_tpu_torch.tserver",
 ]
 
 _BLOCKER = """
@@ -376,7 +412,59 @@ from yugabyte_tpu_torch.parallel.mesh import make_mesh
 from yugabyte_tpu_torch.tserver.compaction_pool import CompactionPool
 CompactionPool(make_mesh())
 """,
+    "TabletServer_default_options": """
+import tempfile
+from yugabyte_tpu_torch.tserver import TabletServer, TabletServerOptions
+TabletServer(TabletServerOptions("ts0", tempfile.mkdtemp()))
+""",
+    "ServerExecutionContext_default": """
+from yugabyte_tpu_torch.tserver.server_context import ServerExecutionContext
+ServerExecutionContext()
+""",
+    "TSTabletManager_default_factory": _TABLET + """
+from yugabyte_tpu_torch.common.wire import schema_to_wire
+from yugabyte_tpu_torch.consensus.transport import LocalTransport
+from yugabyte_tpu_torch.tserver.ts_tablet_manager import TSTabletManager
+m = TSTabletManager("ts0", tempfile.mkdtemp(), LocalTransport())
+try:
+    m.create_tablet("t", "tbl", schema_to_wire(SCHEMA), ["ts0"])
+finally:
+    m.shutdown()
+""",
 }
+
+# a TabletServer's tablet (k INT64 hash key, v INT64) written, flushed,
+# compacted and read through the `tserver` service, the server shut down
+_TSERVER = _TABLET + """
+import time
+from yugabyte_tpu_torch.common.wire import (doc_key_to_wire, schema_to_wire,
+                                            write_op_to_wire)
+from yugabyte_tpu_torch.tserver import TabletServer, TabletServerOptions
+
+def serve(ts):
+    try:
+        ts.tablet_manager.create_tablet("t", "tbl", schema_to_wire(SCHEMA),
+                                        ["ts0"])
+        p = ts.tablet_manager.get_tablet("t")
+        p.raft.start_election(ignore_lease=True)
+        deadline = time.monotonic() + 30
+        while not (p.raft.is_leader() and p.raft.leader_ready()):
+            assert time.monotonic() < deadline, "no leader"
+            time.sleep(0.01)
+        svc = ts.service
+        for f in range(3):
+            svc.write("t", [write_op_to_wire(QLWriteOp(
+                WriteOpKind.INSERT, DocKey((i,)), {"v": i + f}))
+                for i in range(20)])
+            svc.flush_tablet("t")
+        svc.compact_tablet("t")
+        rows = svc.multi_read("t", [doc_key_to_wire(DocKey((i,)))
+                                    for i in range(20)])["rows"]
+        assert [r["columns"][0] for r in rows] == [i + 2 for i in range(20)]
+        return p.tablet.regular_db
+    finally:
+        ts.shutdown()
+"""
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -526,6 +614,25 @@ p.write([QLWriteOp(WriteOpKind.INSERT, DocKey((i,)), {"v": i})
 assert [r.to_dict(SCHEMA)["v"] for r in p.multi_read(
     [DocKey((i,)) for i in range(10)])] == list(range(10))
 p.shutdown()
+""",
+    "TabletServer_cpu": _TSERVER + """
+db = serve(TabletServer(TabletServerOptions("ts0", tempfile.mkdtemp(),
+                                            device="cpu")).start())
+assert db._device_cache is not None and db.n_live_files == 1
+assert not any(m in ("jax", "yugabyte_tpu")
+               or m.startswith(("jax.", "yugabyte_tpu."))
+               for m in sys.modules), "the tablet server imported jax"
+""",
+    "TabletServer_tserver_device_none": _TSERVER + """
+from yugabyte_tpu_torch.utils import flags
+flags.set_flag("tserver_device", "none")
+try:
+    ts = TabletServer(TabletServerOptions("ts0", tempfile.mkdtemp(),
+                                          webserver_port=None))
+finally:
+    flags.reset_flag("tserver_device")
+assert ts.exec_context.device == "native"
+assert serve(ts.start()).opts.device == "native"
 """,
     "Tablet_cpu": _TABLET + """
 from yugabyte_tpu_torch.storage.device_cache import DeviceSlabCache

@@ -17,9 +17,9 @@
   three apply in the same order.
 
 What waits: tests/test_rpc.py::TestTLS::test_tls_cluster_end_to_end
-needs the port's MiniCluster (ROADMAP queue A item 7g), and
-TestSidecars::test_remote_bootstrap_chunks_use_segment_path its
-tserver/remote_bootstrap (7c). Every wait has its own deadline.
+needs the port's MiniCluster (ROADMAP queue A item 7g). The twin of
+TestSidecars::test_remote_bootstrap_chunks_use_segment_path is in
+tests/test_torch_tablet_server.py. Every wait has its own deadline.
 Tolerance: exact.
 """
 

@@ -1250,7 +1250,8 @@ def prewarm_buckets(shapes: Optional[Sequence[Tuple[int, int, int, int]]]
     columns, and marks each (k_pad, m) prewarmed on the health board
     (COLD -> WARMING), so the policy gate stops routing it native for an
     unpaid first launch. In the JAX package PrewarmKernelsOp makes that
-    board call; the port has no maintenance manager yet. Returns the
+    board call; the port's op (tserver/maintenance_manager.py) leaves it
+    here, so only a bucket that warmed is marked. Returns the
     launches made (a bucket that fails to warm is reported on stderr and
     left COLD: a prewarm never blocks)."""
     from yugabyte_tpu_torch.storage.bucket_health import health_board

@@ -72,9 +72,9 @@ class DeviceSlabCache:
         self._map: "OrderedDict[CacheKey, _Resident]" = \
             OrderedDict()                  # guarded-by: _lock
         self._used = 0                     # guarded-by: _lock
-        # per-instance ints (tests diff fresh caches); the JAX package's
-        # server-wide registry counters of the cache feed its operator
-        # pages, which come with ROADMAP queue A: the device-free rest
+        # per-instance ints (tests diff fresh caches); the tablet
+        # server's /compactionz reads them through snapshot(). The JAX
+        # package's process-wide registry mirrors are not copied
         self.hits = 0                      # guarded-by: _lock
         self.misses = 0                    # guarded-by: _lock
         self.evictions = 0                 # guarded-by: _lock

@@ -27,10 +27,11 @@ side; disk bit rot at rest):
     at a throttled byte rate; ``DB.scrub`` walks a DB's live files with
     it. A corrupt SST is quarantined (renamed ``*.corrupt``) and the DB
     parks with a STICKY Corruption background error (in-place retry
-    cannot restore lost bytes). The JAX package's ScrubTabletsOp, its
-    scrub interval and its cross-replica digest exchange (with their
-    flags and the replica-mismatch counter) need the tablet server
-    (ROADMAP queue A: the device-free rest) and come with it.
+    cannot restore lost bytes). The tablet server's maintenance manager
+    runs it on ``--scrub_interval_s`` (tserver/maintenance_manager.
+    ScrubTabletsOp), and on a leader the cross-replica digest exchange
+    follows (tserver/tablet_server._scrub_digest_check, counted by
+    ``replica_mismatch_counter``; ``--scrub_replica_fail_after``).
 
 Every counter lives in the metrics registry under the JAX package's
 names (entity server:integrity).
@@ -54,9 +55,16 @@ flags.define_flag("shadow_verify_sample", 0.02,
                   "survivor decisions are re-derived through the native "
                   "merge oracle and compared before install (0 disables; "
                   "1.0 verifies every job)")
+flags.define_flag("scrub_interval_s", 600.0,
+                  "target seconds between at-rest integrity scrubs of "
+                  "each tablet's SSTs (0 disables the scrubber)")
 flags.define_flag("scrub_bytes_per_sec", 32 << 20,
                   "token-bucket cap on scrub read bandwidth so the "
                   "scrubber cannot starve foreground I/O")
+flags.define_flag("scrub_replica_fail_after", 2,
+                  "consecutive cross-replica digest mismatches before "
+                  "the diverged follower is marked FAILED for rebuild "
+                  "(>1 absorbs transient replication-lag noise)")
 
 
 def integrity_metrics():
@@ -543,3 +551,9 @@ def scrub_snapshot() -> dict:
             "sst_scrub_corruption_total", "").value(),
         "quarantined": len(quarantined_files()),
     }
+
+
+def replica_mismatch_counter():
+    return _counter("scrub_replica_mismatch_total",
+                    "cross-replica digest mismatches observed by the "
+                    "leader-driven scrub digest exchange")

@@ -11,9 +11,9 @@ chain the disk file is for durability only.
 
 Memory lives in C++ (one registry per process); this class is the LRU
 accountant over it, namespaced per DB exactly like DeviceSlabCache. Hits
-and misses are plain per-instance ints; the JAX package's server-wide
-registry counters of the cache feed its operator pages, which come with
-ROADMAP queue A: the device-free rest.
+and misses are plain per-instance ints. The JAX package's process-wide
+registry mirrors of them are not copied: no page of the port's tablet
+server (tserver/tablet_server.py) reads the run cache.
 """
 
 from __future__ import annotations

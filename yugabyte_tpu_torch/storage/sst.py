@@ -477,3 +477,13 @@ class BlockCache:
         _, (_, sz) = self._map.popitem(last=False)
         self.used -= sz
         return sz
+
+    def evict(self, required: int) -> int:
+        """LRU-evict at least ``required`` bytes; the MemTracker GC hook
+        (ref: tserver/tablet_memory_manager.cc InitBlockCache registers a
+        GarbageCollector on the block-based-table tracker). Returns freed."""
+        freed = 0
+        with self._lock:
+            while freed < required and self._map:
+                freed += self._pop_lru_locked()
+        return freed

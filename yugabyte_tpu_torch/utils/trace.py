@@ -11,8 +11,9 @@ sampled); a Trace opened inside another parents itself under it; a
 finished span with content lands in the /tracez ring (`tracez()`).
 LongOperationTracker (the WAL's slow-fsync dump) TRACEs an overrun and
 drops the trace so far into the ring as a `slow-op:<name>` span. The
-grouped /tracez page and /threadz come with the server pages (ROADMAP
-queue A: the device-free rest).
+tablet server's /tracez page (`tracez_page`: the ring and the spans
+grouped by trace_id) and /threadz (`threadz`: every live thread's
+stack) read it.
 """
 
 from __future__ import annotations
@@ -155,6 +156,60 @@ def _record_tracez(t: Trace) -> None:
 def tracez() -> List[dict]:
     with _tracez_lock:
         return list(reversed(_TRACEZ))
+
+
+def tracez_grouped() -> List[dict]:
+    """Spans grouped by trace_id with per-hop timings — the multi-hop view
+    of /tracez: one entry per distributed trace, its spans (hops) oldest
+    first, so a slow client -> tserver -> raft-peer write reads as one
+    tree instead of fragments on every server."""
+    groups: Dict[str, List[dict]] = {}
+    order: List[str] = []
+    for span in reversed(tracez()):        # oldest first within a trace
+        tid = span.get("trace_id") or "untraced"
+        if tid not in groups:
+            groups[tid] = []
+            order.append(tid)
+        groups[tid].append(span)
+    out = []
+    for tid in order:
+        spans = groups[tid]
+        out.append({
+            "trace_id": tid,
+            "n_spans": len(spans),
+            "wall_ts": spans[0]["wall_ts"],
+            "total_duration_ms": round(
+                sum(s["duration_ms"] for s in spans), 3),
+            "spans": [{k: s[k] for k in
+                       ("name", "wall_ts", "duration_ms", "span_id",
+                        "parent_span_id", "dump")} for s in spans],
+        })
+    out.reverse()                          # newest trace first
+    return out
+
+
+def tracez_page() -> dict:
+    """The /tracez payload: flat span ring + the grouped-by-trace view."""
+    return {"spans": tracez(), "traces": tracez_grouped()}
+
+
+def threadz() -> List[dict]:
+    """Live thread stack dump (the reference exposes /pprof + /threadz
+    from the stack-trace collector, util/debug-util.cc)."""
+    import sys
+    import threading as _t
+    import traceback
+    frames = sys._current_frames()
+    out = []
+    for th in _t.enumerate():
+        fr = frames.get(th.ident)
+        out.append({
+            "name": th.name,
+            "ident": th.ident,
+            "daemon": th.daemon,
+            "stack": traceback.format_stack(fr) if fr is not None else [],
+        })
+    return out
 
 
 class LongOperationTracker:
